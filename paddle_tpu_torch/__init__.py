@@ -11,12 +11,16 @@ Entry points run on `cuda` unless the caller asks for the CPU
 request they raise. Every Pallas kernel on a ported path is a hand-written
 Hopper kernel under `kernels/`.
 """
-from . import inference, jit, models, nn, serving, utils  # noqa: F401
+from . import (amp, inference, jit, models, nn, optimizer,  # noqa: F401
+               serving, utils)
+from .core.flags import set_flags  # noqa: F401
 from .core.place import (CPUPlace, CUDAPlace, get_device,  # noqa: F401
                          set_device)
-from .core.random import seed  # noqa: F401
+from .core.random import get_rng_state, seed, set_rng_state  # noqa: F401
+from .framework.io import load, save  # noqa: F401
 from .jit import InputSpec  # noqa: F401
 
-__all__ = ["set_device", "get_device", "seed", "CPUPlace", "CUDAPlace",
-           "InputSpec", "inference", "jit", "models", "nn", "serving",
-           "utils"]
+__all__ = ["set_device", "get_device", "seed", "get_rng_state",
+           "set_rng_state", "set_flags", "save", "load",
+           "CPUPlace", "CUDAPlace", "InputSpec", "amp", "inference", "jit",
+           "models", "nn", "optimizer", "serving", "utils"]

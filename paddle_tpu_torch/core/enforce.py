@@ -1,10 +1,14 @@
-"""Typed errors raised on the port's serving path.
+"""Typed errors raised on the port's serving and training paths.
 
 Counterpart of `paddle_tpu/core/enforce.py`: each typed error subclasses
 the matching builtin, so callers that catch builtins keep working while
 `type(e).__name__` carries the classification.
 """
 from __future__ import annotations
+
+
+class InvalidArgumentError(ValueError):
+    pass
 
 
 class UnimplementedError(NotImplementedError):
@@ -15,4 +19,4 @@ class UnavailableError(RuntimeError):
     pass
 
 
-__all__ = ["UnimplementedError", "UnavailableError"]
+__all__ = ["InvalidArgumentError", "UnimplementedError", "UnavailableError"]

@@ -1,8 +1,9 @@
-"""Exported-flags registry, reduced to the serving engine's knobs.
+"""Exported-flags registry, reduced to the flags the ported paths read.
 
-Counterpart of `paddle_tpu/core/flags.py`: only the `FLAGS_serving_*`
-entries that `EngineConfig.from_flags` reads. Flags may be seeded from
-environment variables named FLAGS_<name>.
+Counterpart of `paddle_tpu/core/flags.py`: `check_nan_inf` (read by
+`jit.TrainStep`) and the `FLAGS_serving_*` entries that
+`EngineConfig.from_flags` reads. Flags may be seeded from environment
+variables named FLAGS_<name>.
 """
 from __future__ import annotations
 
@@ -43,6 +44,9 @@ def flag(name: str) -> Any:
     return _REGISTRY[name]
 
 
+define_flag("check_nan_inf", False,
+            "scan op outputs for NaN/Inf (operator.cc:1171); TrainStep "
+            "checks the loss and every gradient")
 define_flag("serving_max_batch_size", 8,
             "dynamic batcher: max rows coalesced into one Predictor call")
 define_flag("serving_batch_timeout_ms", 2.0,

@@ -1,18 +1,35 @@
-"""Flash-attention forward: a hand-written CUDA kernel for Hopper.
+"""Flash attention, forward and backward: hand-written CUDA kernels for Hopper.
 
-Counterpart of `paddle_tpu/kernels/flash_attention.py`. The kernel,
-`csrc/flash_fwd.cu`, replaces `_fa_kernel` (:58, reached through
-`_flash_fwd_bhsd` :180) and computes the same function: out in the input
-dtype and lse in f32 natural-log units, both from an online softmax in
-base 2, causal keys past the diagonal masked to -1e30. Its bound on the
-H100 and what its design does about it are noted in the source.
+Counterpart of `paddle_tpu/kernels/flash_attention.py`. Two sources:
 
-It is built with nvcc at first use and called through ctypes. On a CUDA
-tensor the wrapper launches the kernel or raises; only a tensor on the
-CPU takes the plain PyTorch version, `flash_attention_fwd_plain`, which
-the CPU tests hold against the Pallas kernel in interpret mode. Ragged
-lengths are masked inside the kernel, so a CUDA tensor never reaches the
-plain version.
+- `csrc/flash_fwd.cu` replaces `_fa_kernel` (:58, reached through
+  `_flash_fwd_bhsd` :180): out in the input dtype and lse in f32
+  natural-log units, both from an online softmax in base 2, causal keys
+  past the diagonal masked to -1e30.
+- `csrc/flash_bwd.cu` replaces the three backward kernels, which share one
+  tile function (`_bwd_tile_pds` :216): `_fa_bwd_fused_kernel` (:732, via
+  `_flash_bwd_fused_bhsd` :799) as `flash_attention_bwd_fused`, and
+  `_fa_bwd_dq_kernel` (:239) with `_fa_bwd_dkv_kernel` (:280), the
+  two-pass form of `_flash_bwd_bhsd` (:336), as `flash_attention_bwd_dq`
+  and `flash_attention_bwd_dkv`.
+
+`_FlashCore` is the counterpart of the `custom_vjp` `_flash_core`
+(:406-439): its forward saves (q, k, v, out, lse) as `_flash_core_fwd`
+does, and its backward picks a form as `_flash_core_bwd` does, with this
+card's reason in place of the TPU's VMEM cap: on Hopper the fused form
+sums dq across parallel CTAs with f32 atomics, so its dq is not bitwise
+reproducible from run to run. The fused form is the default; under
+`torch.use_deterministic_algorithms(True)` the deterministic two-pass
+form runs instead. `delta = rowsum(dO * O)` stays a PyTorch reduction: the
+reference computes it in XLA for both forms (`_delta` :209).
+
+Kernels are built with nvcc at first use and called through ctypes; their
+bounds on the H100 and their designs are noted in the sources. On a CUDA
+tensor a wrapper launches its kernel or raises; only a tensor on the CPU
+takes the plain PyTorch version, which the CPU tests hold against the
+Pallas kernels in interpret mode. Ragged lengths are masked inside the
+kernels, so a CUDA tensor never reaches a plain version. Each wrapper
+counts its launches in `<wrapper>.launches`.
 """
 from __future__ import annotations
 
@@ -24,65 +41,125 @@ import torch
 
 from . import _build
 
-_NAME = "flash_fwd"
+_FWD, _BWD = "flash_fwd", "flash_bwd"
 _HEAD_DIMS = (64, 128, 256)
 _count_lock = threading.Lock()
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signatures: pointers, then (bh, S, D, is_bf16, causal), then the stream
+_SIGNATURES = {"flash_fwd": 5, "flash_bwd_fused": 9, "flash_bwd_dkv": 8,
+               "flash_bwd_dq": 7}
 
 
 def build() -> str:
-    """Compile the kernel's library if it is not built yet; its path."""
-    return _build.build(_NAME)
+    """Compile the forward kernel's library if it is not built yet."""
+    return _build.build(_FWD)
 
 
-def _entry():
-    """The library's C entry point, typed (built and loaded on first use).
+def build_bwd() -> str:
+    """Compile the backward kernels' library if it is not built yet."""
+    return _build.build(_BWD)
+
+
+def _entry(lib: str, fn_name: str):
+    """A library's C entry point, typed (built and loaded on first use).
     Two threads may both type it: they set the same signature."""
-    fn = _build.load(_NAME).flash_fwd
+    fn = getattr(_build.load(lib), fn_name)
     if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + \
-            [ctypes.c_void_p]
+        fn.restype = _I
+        fn.argtypes = [_P] * _SIGNATURES[fn_name] + [_I] * 5 + [_P]
     return fn
 
 
+def _count(wrapper) -> None:
+    with _count_lock:
+        wrapper.launches += 1
+
+
+def _launch(lib, fn_name, tensors, q, causal):
+    bh, s, d = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _entry(lib, fn_name)(*(x.data_ptr() for x in tensors), bh, s, d,
+                                  int(q.dtype == torch.bfloat16),
+                                  int(bool(causal)), stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} launch failed: cudaError_t {rc} "
+                           f"(BH={bh}, S={s}, D={d}, dtype={q.dtype})")
+
+
 def flash_attention_fwd_plain(q, k, v, causal=False):
-    """Plain PyTorch version of the kernel. q/k/v: [BH, S, D] ->
+    """Plain PyTorch version of the forward kernel. q/k/v: [BH, S, D] ->
     (out [BH, S, D] in q's dtype, lse [BH, 1, S] f32): f32
     softmax(q k^T / sqrt(D)) with the -1e30 causal mask, lse =
     logsumexp of the scaled scores."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if causal:
-        keep = torch.ones(s.shape[-2:], dtype=torch.bool,
-                          device=s.device).tril()
-        s = s.masked_fill(~keep, -1e30)
+    s = _scores(q, k, causal)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     out = torch.matmul(p, v.float()).to(q.dtype)
     return out, lse[:, None, :]
 
 
-def _check(q, k, v):
-    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"flash_fwd: q/k/v must share one [BH, S, D] shape, "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+def _scores(q, k, causal):
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool,
+                          device=s.device).tril()
+        s = s.masked_fill(~keep, -1e30)
+    return s
+
+
+def _delta(do, o):
+    """rowsum(dO * O) as [BH, S] f32: the softmax-grad correction term."""
+    return (do.float() * o.float()).sum(-1)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False):
+    """Plain PyTorch version of the backward kernels, not autograd of the
+    plain forward: it recomputes p = exp(s - lse) from the saved lse and
+    takes delta = rowsum(dO * O), as the kernels do, all in f32.
+    Returns (dq, dk, dv) in the input dtypes."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.exp(_scores(q, k, causal) - lse.float().reshape(
+        q.shape[0], q.shape[1], 1))
+    dof = do.float()
+    dp = torch.matmul(dof, v.float().transpose(-1, -2))
+    ds = p * (dp - _delta(do, o)[..., None])
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check(name, *tensors):
+    q = tensors[0]
+    if q.dim() != 3 or any(x.shape != q.shape for x in tensors[1:]):
+        raise ValueError(f"{name}: q/k/v must share one [BH, S, D] shape, "
+                         f"got {[tuple(x.shape) for x in tensors]}")
     if q.dtype not in (torch.bfloat16, torch.float32) or \
-            k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_fwd: bf16 or fp32 q/k/v of one dtype, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+            any(x.dtype != q.dtype for x in tensors[1:]):
+        raise TypeError(f"{name}: bf16 or fp32 q/k/v of one dtype, got "
+                        f"{[x.dtype for x in tensors]}")
     if q.shape[-1] not in _HEAD_DIMS:
-        raise ValueError(f"flash_fwd: head_dim {q.shape[-1]} not in "
+        raise ValueError(f"{name}: head_dim {q.shape[-1]} not in "
                          f"{_HEAD_DIMS}")
     if not 1 <= q.shape[0] <= 65535:
-        raise ValueError(f"flash_fwd: BH={q.shape[0]} outside [1, 65535]")
-    for name, x in (("q", q), ("k", k), ("v", v)):
+        raise ValueError(f"{name}: BH={q.shape[0]} outside [1, 65535]")
+    for x in tensors:
         if x.device != q.device:
-            raise ValueError(f"flash_fwd: {name} on {x.device}, q on "
-                             f"{q.device}")
+            raise ValueError(f"{name}: inputs on {x.device} and {q.device}")
         if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"flash_fwd: {name} must be contiguous and "
-                             "16-byte aligned")
+            raise ValueError(f"{name}: inputs must be contiguous and 16-byte "
+                             "aligned")
+
+
+def _on_cuda(name, q) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if q.device.type == "cuda":
+        return True
+    if q.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: unsupported device {q.device}")
 
 
 def flash_attention_fwd(q, k, v, causal=False):
@@ -90,33 +167,108 @@ def flash_attention_fwd(q, k, v, causal=False):
 
     CUDA tensors launch the kernel on the current stream (counted in
     `flash_attention_fwd.launches`); CPU tensors take the plain version."""
-    if q.device.type == "cpu":
+    if not _on_cuda("flash_fwd", q):
         return flash_attention_fwd_plain(q, k, v, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_fwd: unsupported device {q.device}")
-    _check(q, k, v)
-    bh, s, d = q.shape
-    launch = _entry()
+    _check("flash_fwd", q, k, v)
+    bh, s, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((bh, 1, s), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    lse.data_ptr(), bh, s, d, int(q.dtype == torch.bfloat16),
-                    int(bool(causal)), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_fwd launch failed: cudaError_t {rc} "
-                           f"(BH={bh}, S={s}, D={d}, dtype={q.dtype})")
-    with _count_lock:
-        flash_attention_fwd.launches += 1
+    _launch(_FWD, "flash_fwd", (q, k, v, out, lse), q, causal)
+    _count(flash_attention_fwd)
     return out, lse
 
 
-flash_attention_fwd.launches = 0
+def _bwd_inputs(name, q, k, v, o, lse, do):
+    _check(name, q, k, v, o, do)
+    if lse.shape != (q.shape[0], 1, q.shape[1]) or \
+            lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"{name}: lse must be a contiguous f32 "
+                         f"[BH, 1, S], got {tuple(lse.shape)} {lse.dtype}")
+    return _delta(do, o)
+
+
+def flash_attention_bwd_fused(q, k, v, o, lse, do, causal=False):
+    """One pass over the (q, k) tiles for dq, dk, dv. dq is summed across
+    the key-block CTAs with f32 atomics into a zeroed workspace, so it is
+    not bitwise reproducible; the workspace is scaled and cast here."""
+    if not _on_cuda("flash_bwd_fused", q):
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    delta = _bwd_inputs("flash_bwd_fused", q, k, v, o, lse, do)
+    dq_ws = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch(_BWD, "flash_bwd_fused", (q, k, v, do, lse, delta, dq_ws, dk, dv),
+            q, causal)
+    _count(flash_attention_bwd_fused)
+    dq = (dq_ws * (1.0 / math.sqrt(q.shape[-1]))).to(q.dtype)
+    return dq, dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, o, lse, do, causal=False):
+    """dq of the two-pass form: one CTA per q block, no atomics."""
+    if not _on_cuda("flash_bwd_dq", q):
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal)[0]
+    delta = _bwd_inputs("flash_bwd_dq", q, k, v, o, lse, do)
+    dq = torch.empty_like(q)
+    _launch(_BWD, "flash_bwd_dq", (q, k, v, do, lse, delta, dq), q, causal)
+    _count(flash_attention_bwd_dq)
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, o, lse, do, causal=False):
+    """(dk, dv) of the two-pass form: one CTA per key block."""
+    if not _on_cuda("flash_bwd_dkv", q):
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal)[1:]
+    delta = _bwd_inputs("flash_bwd_dkv", q, k, v, o, lse, do)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch(_BWD, "flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv), q,
+            causal)
+    _count(flash_attention_bwd_dkv)
+    return dk, dv
+
+
+def flash_attention_bwd_two_pass(q, k, v, o, lse, do, causal=False):
+    """The deterministic form: the dq kernel, then the dk/dv kernel."""
+    if not _on_cuda("flash_bwd_two_pass", q):
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    dq = flash_attention_bwd_dq(q, k, v, o, lse, do, causal)
+    return (dq, *flash_attention_bwd_dkv(q, k, v, o, lse, do, causal))
+
+
+for _wrapper in (flash_attention_fwd, flash_attention_bwd_fused,
+                 flash_attention_bwd_dq, flash_attention_bwd_dkv):
+    _wrapper.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal=False):
+    """`_flash_core_bwd`: the fused form, or the two-pass form when
+    `torch.are_deterministic_algorithms_enabled()`."""
+    if torch.are_deterministic_algorithms_enabled():
+        return flash_attention_bwd_two_pass(q, k, v, o, lse, do, causal)
+    return flash_attention_bwd_fused(q, k, v, o, lse, do, causal)
+
+
+class _FlashCore(torch.autograd.Function):
+    """[BH, S, D] attention with the kernels on both passes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_attention_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                         ctx.causal)
+        return dq, dk, dv, None
 
 
 def flash_attention_arrays(q, k, v, causal=False):
-    """q/k/v: [B, S, H, D] (paddle layout). Returns [B, S, H, D]."""
+    """q/k/v: [B, S, H, D] (paddle layout). Returns [B, S, H, D];
+    differentiable through `_FlashCore` on every device."""
     b, s, h, d = q.shape
     if k.shape[1] != s or v.shape[1] != s:
         raise ValueError(
@@ -131,13 +283,16 @@ def flash_attention_arrays(q, k, v, causal=False):
     def to_bhsd(x):
         return x.transpose(1, 2).reshape(b * h, s, d).contiguous()
 
-    out, _ = flash_attention_fwd(to_bhsd(q), to_bhsd(k), to_bhsd(v), causal)
+    out = _FlashCore.apply(to_bhsd(q), to_bhsd(k), to_bhsd(v), bool(causal))
     return out.reshape(b, h, s, d).transpose(1, 2)
 
 
-# torch tensors record no tape node in this slice: the tensor-level entry
-# that nn attention calls is the array function itself
+# torch tensors carry their own tape: the tensor-level entry that nn
+# attention calls is the array function itself
 flash_attention = flash_attention_arrays
 
-__all__ = ["build", "flash_attention", "flash_attention_arrays",
-           "flash_attention_fwd", "flash_attention_fwd_plain"]
+__all__ = ["build", "build_bwd", "flash_attention", "flash_attention_arrays",
+           "flash_attention_fwd", "flash_attention_fwd_plain",
+           "flash_attention_bwd", "flash_attention_bwd_plain",
+           "flash_attention_bwd_fused", "flash_attention_bwd_two_pass",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv"]

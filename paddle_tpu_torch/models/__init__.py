@@ -1,3 +1,3 @@
 from .ernie import ErnieLayer, ErnieMLP, ErnieSelfAttention  # noqa: F401
 from .gpt import (GPTEmbeddings, GPTForCausalLM, GPTModel,  # noqa: F401
-                  gpt2_medium, gpt2_small)
+                  GPTPretrainingCriterion, gpt2_medium, gpt2_small)

@@ -1,15 +1,17 @@
 """GPT-style decoder LM.
 
 Counterpart of `paddle_tpu/models/gpt.py`: `GPTEmbeddings`, `GPTModel`,
-`GPTForCausalLM` with the head tied to the word embeddings (:96-100), and
-the `gpt2_small`/`gpt2_medium` configs. Tensor, sequence and pipeline
-parallelism come with the distributed slice.
+`GPTForCausalLM` with the head tied to the word embeddings (:96-100), the
+shifted-LM `GPTPretrainingCriterion` (:113-132) and the
+`gpt2_small`/`gpt2_medium` configs. Tensor, sequence and pipeline
+parallelism (and the vocab-parallel loss) come with the distributed slice.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import nn
+from ..amp.state import maybe_cast
 from .ernie import ErnieLayer
 
 
@@ -55,8 +57,28 @@ class GPTForCausalLM(nn.Layer):
 
     def forward(self, input_ids):
         h = self.gpt(input_ids)
-        w = self.gpt.embeddings.word_embeddings.weight
+        # the tied head is an AMP white-list matmul (ops/math.py:139-140)
+        h, w = maybe_cast(h, self.gpt.embeddings.word_embeddings.weight)
         return torch.matmul(h, w.t())
+
+
+class GPTPretrainingCriterion(nn.Layer):
+    """Shifted-LM loss: logits at position i against the token at i + 1,
+    mean cross entropy over the batch."""
+
+    def __init__(self, use_parallel_ce=False):
+        super().__init__()
+        if use_parallel_ce:
+            raise NotImplementedError(
+                "GPTPretrainingCriterion(use_parallel_ce=True): the "
+                "vocab-parallel loss comes with the distributed slice")
+        self.ce = nn.CrossEntropyLoss()
+
+    def forward(self, logits, labels):
+        shifted = logits[:, :-1]
+        tgt = labels[:, 1:]
+        b, s, v = shifted.shape
+        return self.ce(shifted.reshape(b * s, v), tgt.reshape(b * s))
 
 
 # configs
@@ -68,5 +90,5 @@ def gpt2_medium(**kw):
     return GPTModel(hidden_size=1024, num_layers=24, num_heads=16, **kw)
 
 
-__all__ = ["GPTEmbeddings", "GPTModel", "GPTForCausalLM", "gpt2_small",
-           "gpt2_medium"]
+__all__ = ["GPTEmbeddings", "GPTModel", "GPTForCausalLM",
+           "GPTPretrainingCriterion", "gpt2_small", "gpt2_medium"]

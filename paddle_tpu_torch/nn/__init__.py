@@ -1,5 +1,7 @@
-"""paddle.nn counterpart: the layers of the serving path."""
+"""paddle.nn counterpart: the layers of the serving and training paths."""
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
-from .layer import (GELU, Dropout, Embedding, Layer, LayerList,  # noqa: F401
-                    LayerNorm, Linear)
+from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
+                   ClipGradByValue)
+from .layer import (GELU, CrossEntropyLoss, Dropout, Embedding,  # noqa: F401
+                    Layer, LayerList, LayerNorm, Linear)

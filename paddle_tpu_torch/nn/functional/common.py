@@ -2,14 +2,22 @@
 
 Counterpart of `paddle_tpu/nn/functional/common.py`. These are large plain
 products and lookups, left to PyTorch as the JAX package left them to XLA.
+`linear` is an AMP white-list op (`:17-34`).
 """
 from __future__ import annotations
 
 import torch.nn.functional as TF
 
+from ...amp.state import maybe_cast
+
 
 def linear(x, weight, bias=None, name=None):
-    """y = x @ W + b with W shaped [in, out] (paddle convention)."""
+    """y = x @ W + b with W shaped [in, out] (paddle convention). Under
+    `amp.auto_cast` the operands are cast to the autocast dtype first."""
+    if bias is None:
+        x, weight = maybe_cast(x, weight)
+    else:
+        x, weight, bias = maybe_cast(x, weight, bias)
     return TF.linear(x, weight.t(), bias)
 
 

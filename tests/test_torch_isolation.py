@@ -78,6 +78,36 @@ def test_small_gpt_runs_with_jax_and_the_jax_package_blocked():
     assert res.stdout.strip() == "ok"
 
 
+def test_small_gpt_trains_with_jax_and_the_jax_package_blocked(tmp_path):
+    res = _run(f"""
+        import sys
+        for name in ("jax", "jaxlib", "paddle_tpu"):
+            sys.modules[name] = None          # any import of them fails
+        import numpy as np
+        import paddle_tpu_torch as pt
+        pt.set_device("cpu")
+        pt.seed(0)
+        model = pt.models.GPTForCausalLM(pt.models.GPTModel(
+            vocab_size=256, hidden_size=64, num_layers=2, num_heads=2,
+            max_seq_len=32, dropout=0.0))
+        opt = pt.optimizer.AdamW(learning_rate=1e-3,
+                                 parameters=model.parameters())
+        step = pt.jit.TrainStep(model, pt.models.GPTPretrainingCriterion(),
+                                opt, amp_dtype="bfloat16")
+        ids = np.arange(64, dtype=np.int32).reshape(2, 32) % 256
+        losses = [float(step(ids, ids)) for _ in range(3)]
+        assert losses[-1] < losses[0], losses
+        pt.save(step.state_dict(), {str(tmp_path / "s.pdparams")!r})
+        step.set_state_dict(pt.load({str(tmp_path / "s.pdparams")!r}))
+        loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                        and m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+        assert not loaded, loaded
+        print("ok")
+    """)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == "ok"
+
+
 def test_entry_points_raise_without_cuda_or_a_cpu_request():
     res = _run("""
         import torch
