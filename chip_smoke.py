@@ -8,16 +8,25 @@ Phases, each of which must pass (any failure exits non-zero before the
 last line is printed):
 
   1. device  - the card's name and power limit from nvidia-smi;
-  2. build   - every kernel of the training and serving paths built from
-               the sources in the checkout (one nvcc per source, all
-               started together);
+  2. build   - every kernel of the training, serving and sequence-parallel
+               paths built from the sources in the checkout (one nvcc per
+               source, all started together);
   3. kernels - each kernel held against its plain PyTorch version on the
                card, at the shapes the main paths give it and at the other
                shapes it accepts, with its time, its plain version's, the
                PyTorch library call's and the least time the card could
                take; the fused and the two-pass backward held against each
-               other;
-  4. train   - GPTForCausalLM(gpt2_small(dropout=0.0)) at full width and
+               other. The three ring-attention block kernels: at the sp
+               train's hop (BH 96, 128 x 128, non-causal), causal hops on
+               the diagonal, in the past and in the future (exact zeros
+               and -1e30), an offset off the tile grid, Sq != Sk, D 128
+               and 256, and fp32;
+  4. ring    - sequence_parallel_attention(impl="ring", causal=True) over
+               a mesh of four slots at B=1, S=4096, H=12, D=64 in bf16,
+               forward and backward, against the single-device flash
+               attention on the same q/k/v, with 16 launches of each ring
+               kernel;
+  5. train   - GPTForCausalLM(gpt2_small(dropout=0.0)) at full width and
                depth, fp32 master weights drawn from a seed, trained in
                bf16 AMP on 8 x 1024 tokens through jit.TrainStep + AdamW:
                the step-1 gradients against the same weights in fp32 and
@@ -26,11 +35,21 @@ last line is printed):
                one step under torch.use_deterministic_algorithms. Every
                attention forward and backward must go through the kernels
                (launch counts) and the loss must fall;
-  5. serve   - the same model at full width in bf16, served through
+  6. serve   - the same model at full width in bf16, served through
                Predictor -> ServingEngine: 8 requests of 1024 tokens from
                4 threads. Every attention call must go through the kernel
                (launch counts), and one request's logits must match the
-               same model run in float32.
+               same model run in float32;
+  7. sp train - ErnieForPretraining(ernie_base(use_sp=True)) at full width
+               and depth, trained in bf16 AMP on 8 x 512 tokens through
+               jit.TrainStep + AdamW with the MLM + NSP loss, under
+               HybridCommunicateGroup(sp_degree=4) over four slots of one
+               card (or four cards when there are four): the step-1 loss
+               and gradients against the same weights in fp32 without sp,
+               then one warm-up step, 5 __call__ steps and a run() span of
+               15. Every attention call must go through the ring kernels
+               (12 x 16 launches of each per step, none of the flash
+               kernels) and the loss must fall.
 
 The last two lines are a JSON summary of the kernels and
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -55,20 +74,30 @@ PEAK_BF16 = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_FP32 = 67e12       # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 TRAIN_B, TRAIN_S = 8, 1024
+SP_B, SP_S, SP_DEGREE = 8, 512, 4
+# the sp train's run() span: from this seed AdamW(1e-4) lifts the loss at
+# step 2 and it falls steadily only from about step 12, so the span runs
+# the path past that point before "the loss fell" is read
+SP_RUN = 15
+RING_SRC = "paddle_tpu_torch/kernels/csrc/ring_attention.cu"
 SOURCES = {"flash_fwd": "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
            "flash_bwd_fused": "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
            "flash_bwd_dq": "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
-           "flash_bwd_dkv": "paddle_tpu_torch/kernels/csrc/flash_bwd.cu"}
+           "flash_bwd_dkv": "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
+           "ring_fwd": RING_SRC, "ring_dq": RING_SRC, "ring_dkv": RING_SRC}
 REPLACES = {"flash_fwd": "paddle_tpu/kernels/flash_attention.py:58",
             "flash_bwd_fused": "paddle_tpu/kernels/flash_attention.py:732",
             "flash_bwd_dq": "paddle_tpu/kernels/flash_attention.py:239",
-            "flash_bwd_dkv": "paddle_tpu/kernels/flash_attention.py:280"}
+            "flash_bwd_dkv": "paddle_tpu/kernels/flash_attention.py:280",
+            "ring_fwd": "paddle_tpu/kernels/flash_attention.py:506",
+            "ring_dq": "paddle_tpu/kernels/flash_attention.py:551",
+            "ring_dkv": "paddle_tpu/kernels/flash_attention.py:592"}
 # products per visible (q, k) pair, in units of D multiply-adds x 2:
 # forward q k^T and p v; fused backward the five of _bwd_tile_pds and its
 # users; the dq pass recomputes s and dp and forms ds k; the dk/dv pass
-# recomputes s and dp and forms p^T dO and ds^T q
+# recomputes s and dp and forms p^T dO and ds^T q (the ring kernels alike)
 PRODUCTS = {"flash_fwd": 2, "flash_bwd_fused": 5, "flash_bwd_dq": 3,
-            "flash_bwd_dkv": 4}
+            "flash_bwd_dkv": 4, "ring_fwd": 2, "ring_dq": 3, "ring_dkv": 4}
 # [BH, S, D] tensors read and written, [BH, S] f32 rows read and written
 TRAFFIC = {"flash_fwd": (4, 1), "flash_bwd_fused": (7, 2),
            "flash_bwd_dq": (5, 2), "flash_bwd_dkv": (6, 2)}
@@ -219,6 +248,154 @@ def bwd_case(fa, torch, b, s, h, d, dtype, causal):
                        "bound_by": bound_by}
     rows["fused_vs_two_pass_dq_err"] = err_fq
     return rows
+
+
+def ring_pairs(sq, sk, offs, causal):
+    """Visible (q, k) pairs of one hop: key j is visible to row i when
+    k_off + j <= q_off + i."""
+    if not causal:
+        return sq * sk
+    q_off, k_off = offs
+    return sum(min(max(q_off + i - k_off + 1, 0), sk) for i in range(sq))
+
+
+def ring_bound(name, bh, sq, sk, d, itemsize, causal, offs, peak_ops):
+    """Least time (ms) of one hop: the products over the visible pairs at
+    the peak for the input type, against each input read once and each
+    output written once (f32 dq, dk, dv at 4 bytes; a hop that sees no key
+    needs no input)."""
+    pairs = ring_pairs(sq, sk, offs, causal)
+    flops = 2 * PRODUCTS[name] * d * pairs * bh
+    qrows, krows = bh * sq * d, bh * sk * d
+    if name == "ring_fwd":     # q, k, v -> out, lse
+        reads = (qrows + 2 * krows) * itemsize
+        writes = qrows * itemsize + bh * sq * 4
+    elif name == "ring_dq":    # q, dO, k, v, lse, delta -> dq f32
+        reads = (2 * qrows + 2 * krows) * itemsize + 2 * bh * sq * 4
+        writes = qrows * 4
+    else:                      # the same inputs -> dk, dv f32
+        reads = (2 * qrows + 2 * krows) * itemsize + 2 * bh * sq * 4
+        writes = 2 * krows * 4
+    nbytes = writes + (reads if pairs else 0)
+    t_ops, t_bytes = flops / peak_ops, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def ring_case(tra, torch, bh, sq, sk, d, dtype, causal, offs):
+    """The three ring kernels vs their plain versions on one hop; each
+    kernel's numbers. dq and dk/dv take the plain forward's lse and delta,
+    as the ring gives them the merged rows."""
+    import torch.nn.functional as TF
+    from paddle_tpu_torch.utils.cuda_timing import median_ms
+    gen = torch.Generator(device="cuda").manual_seed(
+        SEED + 2 + sq + sk + d + offs[0])
+    q, do = (torch.randn(bh, sq, d, generator=gen, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(bh, sk, d, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    out, lse = tra.ring_block_fwd(q, k, v, offs, causal)
+    ref_out, ref_lse = tra.ring_block_fwd_plain(q, k, v, offs, causal)
+    delta = (do.float() * ref_out.float()).sum(-1)[:, None, :]
+    bargs = (q, k, v, do, ref_lse, delta, offs, causal)
+    dq = tra.ring_block_dq(*bargs)
+    dk, dv = tra.ring_block_dkv(*bargs)
+    torch.cuda.synchronize()
+    ref_dq = tra.ring_block_dq_plain(*bargs)
+    ref_dk, ref_dv = tra.ring_block_dkv_plain(*bargs)
+    bf16 = dtype == torch.bfloat16
+    # bf16: the kernels round p (and ds) to bf16 before the products, as
+    # the Pallas kernels do, and store out in bf16; the plain versions keep
+    # f32. fp32: sums in another order.
+    tol = 2e-2 if bf16 else 1e-4
+    where = f"BH={bh} Sq={sq} Sk={sk} D={d} {dtype} {causal=} {offs=}"
+    errs = {}
+    for kname, pairs in (("ring_fwd", ((out, ref_out), (lse, ref_lse))),
+                         ("ring_dq", ((dq, ref_dq),)),
+                         ("ring_dkv", ((dk, ref_dk), (dv, ref_dv)))):
+        errs[kname] = 0.0
+        for got, want in pairs:
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"{kname}: non-finite output at {where}")
+            err, ok = close_enough(got, want, tol)
+            check(ok, f"{kname} disagrees with its plain version at {where}:"
+                  f" max abs err {err}")
+            errs[kname] = max(errs[kname], err)
+    future = causal and offs[1] >= offs[0] + sq
+    if future:
+        check(all(bool((x == 0).all()) for x in (out, dq, dk, dv)) and
+              bool((lse == -1e30).all()),
+              f"the future hop did not write exact zeros and -1e30 at {where}")
+    # the library yardstick where one SDPA call computes the same out: a
+    # hop that sees every key (non-causal, or wholly in the past) or the
+    # diagonal hop
+    lib_causal = None
+    if not causal or offs[0] >= offs[1] + sk - 1:
+        lib_causal = False
+    elif offs[0] == offs[1] and sq == sk:
+        lib_causal = True
+    lib_fwd = lib_bwd = None
+    if lib_causal is not None:
+        q4, k4, v4, do4 = (x.view(1, bh, x.shape[1], d) for x in (q, k, v, do))
+        lib_fwd = median_ms(lambda: TF.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=lib_causal))
+        lq, lk, lv = (x.detach().requires_grad_() for x in (q4, k4, v4))
+        lout = TF.scaled_dot_product_attention(lq, lk, lv,
+                                               is_causal=lib_causal)
+        lib_bwd = median_ms(lambda: torch.autograd.grad(
+            lout, (lq, lk, lv), do4, retain_graph=True))
+    timed = {
+        "ring_fwd": (lambda: tra.ring_block_fwd(q, k, v, offs, causal),
+                     lambda: tra.ring_block_fwd_plain(q, k, v, offs, causal),
+                     lib_fwd),
+        "ring_dq": (lambda: tra.ring_block_dq(*bargs),
+                    lambda: tra.ring_block_dq_plain(*bargs), lib_bwd),
+        "ring_dkv": (lambda: tra.ring_block_dkv(*bargs),
+                     lambda: tra.ring_block_dkv_plain(*bargs), lib_bwd)}
+    rows = {}
+    for kname, (fn, plain, lib) in timed.items():
+        bound_ms, bound_by = ring_bound(kname, bh, sq, sk, d,
+                                        q.element_size(), causal, offs,
+                                        PEAK_BF16 if bf16 else PEAK_FP32)
+        rows[kname] = {"shape": [bh, sq, sk, d], "offs": list(offs),
+                       "dtype": str(dtype).replace("torch.", ""),
+                       "causal": causal, "max_abs_err": errs[kname],
+                       "tol": tol, "ms": median_ms(fn),
+                       "device_ms": graph_ms(torch, fn),
+                       "plain_ms": median_ms(plain, samples=10),
+                       "library_ms": lib, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "future": future}
+    return rows
+
+
+def graph_ms(torch, fn, calls=20, samples=10):
+    """Device time of one call of `fn` without the host's cost per call:
+    `calls` calls captured in one CUDA graph, the graph replayed and timed
+    with CUDA events (median of `samples` replays). `median_ms` times the
+    wrapper as a caller sees it, host work included; for a kernel of a few
+    microseconds the two differ by the host's launch cost."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        graph.replay()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / calls)
+    del graph
+    return statistics.median(times)
 
 
 def cosine(a, b):
@@ -504,6 +681,236 @@ def serve_phase(pt, fa, torch, np, card):
     return launches
 
 
+def ring_phase(fa, tra, torch, card, devices):
+    """The 4-slot causal flash ring at S=4096 against single-device flash
+    attention on the same q/k/v, forward and backward."""
+    from paddle_tpu_torch.parallel import create_mesh, set_mesh, sp
+    from paddle_tpu_torch.utils.cuda_timing import median_ms
+    b, s, h, d = 1, 4096, 12, 64
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    base = [torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+            for _ in range(3)]
+    w = torch.randn(b, s, h, d, generator=gen, device="cuda")
+    mesh = create_mesh({"sp": SP_DEGREE}, devices=devices)
+    set_mesh(None)
+
+    def ring(q, k, v):
+        return sp.sequence_parallel_attention(q, k, v, impl="ring",
+                                              causal=True, mesh=mesh)
+
+    def flash(q, k, v):
+        return fa.flash_attention(q, k, v, causal=True)
+
+    def fwd_bwd(fn):
+        q, k, v = (x.detach().requires_grad_() for x in base)
+        out = fn(q, k, v)
+        grads = torch.autograd.grad((out.float() * w).sum(), (q, k, v))
+        return out, grads
+
+    wrappers = (tra.ring_block_fwd, tra.ring_block_dq, tra.ring_block_dkv)
+    before = [c.launches for c in wrappers]
+    out, grads = fwd_bwd(ring)
+    torch.cuda.synchronize()
+    launched = [c.launches - n for c, n in zip(wrappers, before)]
+    ref, ref_grads = fwd_bwd(flash)
+    torch.cuda.synchronize()
+    check(launched == [SP_DEGREE ** 2] * 3,
+          f"the 4-slot ring launched {launched} (fwd, dq, dkv), not 16 each")
+    # both in bf16 with f32 accumulation; they tile the sequence and round
+    # p to bf16 at different places
+    err_out, ok = close_enough(out, ref, 2e-2)
+    check(ok, f"ring vs flash attention out: max abs err {err_out}")
+    verdicts = []
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref_grads):
+        err, ok = close_enough(g, r, 2e-2)
+        cos = cosine(g.float(), r.float())
+        check(ok or cos >= 0.999, f"ring vs flash {name}: max abs err {err}"
+              f", cosine {cos}")
+        verdicts.append(f"{name} max abs err {err:.3g} cosine {cos:.6f} "
+                        f"({'elementwise 2e-2(1+|ref|)' if ok else 'cosine >= 0.999'})")
+    ring_ms = median_ms(lambda: fwd_bwd(ring), samples=5, per_sample=2,
+                        warmup=1)
+    flash_ms = median_ms(lambda: fwd_bwd(flash), samples=5, per_sample=2,
+                         warmup=1)
+    print(f"ring: causal sp={SP_DEGREE} ring over {len(set(devices))} "
+          f"device(s) at B={b} S={s} H={h} D={d} bf16 (s_loc "
+          f"{s // SP_DEGREE}) vs single-device flash attention: out max abs"
+          f" err {err_out:.3g} (tol 2e-2(1+|ref|)); {'; '.join(verdicts)}; "
+          f"launches fwd, dq, dkv = {launched}; forward+backward "
+          f"{ring_ms:.3f} ms ring vs {flash_ms:.3f} ms flash (CUDA events) "
+          f"[{card}]", flush=True)
+
+
+def sp_train_phase(pt, fa, tra, torch, np, card, devices):
+    """ERNIE-base pretraining with the sp=4 ring through TrainStep."""
+    from paddle_tpu_torch.jit import amp_functional_call, split_state
+    pt.set_device("gpu")
+    pt.seed(SEED)
+    pt.parallel.HybridCommunicateGroup(
+        hybrid_configs={"sp_degree": SP_DEGREE}, devices=devices)
+    net = pt.models.ErnieForPretraining(
+        pt.models.ernie_base(hidden_dropout_prob=0.0, use_sp=True))
+    layers = net.ernie.layers
+    n_layers = len(layers)
+    vocab = net.ernie.embeddings.word_embeddings.weight.shape[0]
+    ce = pt.nn.CrossEntropyLoss()
+
+    def loss_fn(logits, nsp_logits, ids, nsp):       # bench.py:203-205
+        v = logits.shape[-1]
+        return ce(logits.reshape(-1, v), ids.reshape(-1)) + \
+            ce(nsp_logits, nsp)
+
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, parameters=net.parameters())
+    step = pt.jit.TrainStep(net, loss_fn, opt, amp_dtype="bfloat16",
+                            n_model_inputs=1)
+    rng = np.random.default_rng(SEED)
+    ids = torch.from_numpy(rng.integers(0, vocab, (SP_B, SP_S))).cuda()
+    nsp = torch.from_numpy(rng.integers(0, 2, (SP_B,))).cuda()
+    trainable, frozen = split_state(net)
+    pnames, ps = list(trainable), list(trainable.values())
+    bnames, bufs = list(frozen), list(frozen.values())
+    n_params = sum(p.numel() for p in ps)
+
+    def grads_of(amp_dtype, use_sp):
+        for layer in layers:
+            layer.attention.use_sp = use_sp
+        try:
+            with torch.enable_grad():
+                logits, nsp_logits = amp_functional_call(
+                    net, pnames, ps, bnames, bufs, [ids], amp_dtype)
+                loss = loss_fn(logits, nsp_logits, ids, nsp)
+                grads = torch.autograd.grad(loss, ps)
+            torch.cuda.synchronize()
+        finally:
+            for layer in layers:
+                layer.attention.use_sp = True
+        return float(loss.detach()), [g.float() for g in grads]
+
+    # ---- step-1: bf16 through the ring kernels vs fp32 without sp ----
+    # fp32 at S=512 without sp takes the einsum path: no kernel
+    loss32, g32 = grads_of(None, False)
+    loss_sp, g_sp = grads_of("bfloat16", True)
+    rel = abs(loss_sp - loss32) / abs(loss32)
+    cos = min((cosine(a, b), n) for a, b, n in zip(g_sp, g32, pnames))
+    print(f"sp_train: step-1 loss fp32 without sp {loss32:.6f}, bf16 sp=4 "
+          f"ring {loss_sp:.6f}; rel err {rel:.3g} (tol 2e-2); min "
+          f"per-parameter grad cosine {cos[0]:.6f} ({cos[1]}, tol 0.99) "
+          f"[{card}]", flush=True)
+    # bf16 weights, activations, logits and loss through 12 post-LN layers
+    check(rel <= 2e-2, f"sp bf16 vs fp32 step-1 loss rel err {rel}")
+    check(cos[0] >= 0.99, f"sp bf16 vs fp32 gradient cosine {cos}")
+    del g32, g_sp
+    torch.cuda.empty_cache()
+
+    # ---- the main path: TrainStep through its entry points ----
+    ring = (tra.ring_block_fwd, tra.ring_block_dq, tra.ring_block_dkv)
+    flash = (fa.flash_attention_fwd, fa.flash_attention_bwd_fused,
+             fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in ring + flash:
+        c.launches = 0
+    t_start = time.perf_counter()
+    losses = [step(ids, ids, nsp)]                   # warm-up step
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t_start
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    t_calls = time.perf_counter()
+    events[0].record()
+    for i in range(5):
+        losses.append(step(ids, ids, nsp))
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    calls_s = time.perf_counter() - t_calls
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(5)]
+    sids, snsp = ids.expand(SP_RUN, SP_B, SP_S), \
+        nsp.expand(SP_RUN, SP_B)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    span = step.run(sids, sids, snsp)
+    e1.record()
+    torch.cuda.synchronize()
+    run_ms = e0.elapsed_time(e1) / SP_RUN
+    losses.extend(span.unbind(0))
+    launches = dict(zip(("ring_fwd", "ring_dq", "ring_dkv"),
+                        (c.launches for c in ring)))
+    flash_launches = [c.launches for c in flash]
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_steps = 1 + 5 + SP_RUN
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall over {n_steps} "
+          f"steps on the repeated batch: {losses}")
+    want = n_layers * SP_DEGREE ** 2 * n_steps
+    check(all(n == want for n in launches.values()),
+          f"ring kernels launched {launches} in {n_steps} steps of "
+          f"{n_layers} layers (want {want} each)")
+    check(flash_launches == [0] * 4,
+          f"the flash kernels launched {flash_launches} on the sp path")
+
+    # ---- where one step's device time goes (outside the counted run) ----
+    values = [p.detach().clone() for p in ps]
+    slots = opt.init_state(ps)
+    split = {"forward": [], "backward": [], "optimizer": []}
+    for _ in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        with torch.enable_grad():
+            logits, nsp_logits = amp_functional_call(
+                net, pnames, ps, bnames, bufs, [ids], "bfloat16")
+            loss = loss_fn(logits, nsp_logits, ids, nsp)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, ps)
+        ev[2].record()
+        opt.functional_update(values, grads, slots, opt.get_lr(), 2.0,
+                              params_meta=ps)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for j, key in enumerate(split):
+            split[key].append(ev[j].elapsed_time(ev[j + 1]))
+        del logits, nsp_logits, loss, grads
+    split = {k: statistics.median(v[1:]) for k, v in split.items()}
+    med_ms = statistics.median(step_ms)
+    tokens = SP_B * SP_S
+    # 6 FLOPs per product parameter per token (the word embeddings counted
+    # once, as the tied head; the position and token-type lookups not) plus
+    # the ring's non-causal products: 2 forward, 3 dq, 4 dk/dv per pair
+    emb = net.ernie.embeddings
+    lookups = emb.position_embeddings.weight.numel() + \
+        emb.token_type_embeddings.weight.numel()
+    att = layers[0].attention
+    step_flops = 6 * (n_params - lookups) * tokens + n_layers * 2 * (
+        PRODUCTS["ring_fwd"] + PRODUCTS["ring_dq"] + PRODUCTS["ring_dkv"]) \
+        * att.head_dim * SP_S * SP_S * SP_B * att.num_heads
+    where = "four cards" if len(set(devices)) > 1 else \
+        f"{SP_DEGREE} slots of one card"
+    print(f"sp_train: ernie_base use_sp=True, sp={SP_DEGREE} over {where} "
+          f"({devices}), bf16 AMP, {SP_B}x{SP_S} tokens, {n_params} "
+          f"parameters, AdamW(1e-4), MLM + NSP loss: losses "
+          f"{[round(x, 4) for x in losses]} [{card}]", flush=True)
+    print(f"sp_train: step time median {med_ms:.3f} ms over 5 __call__ "
+          f"steps (CUDA events; {[round(x, 3) for x in step_ms]}), run() "
+          f"{run_ms:.3f} ms per step over {SP_RUN}; tokens/s "
+          f"{tokens / med_ms * 1e3:.1f}; warm-up step {warm_s * 1e3:.1f} ms "
+          f"host; 5 calls {calls_s * 1e3:.1f} ms host; step bound "
+          f"{step_flops / PEAK_BF16 * 1e3:.3f} ms ({step_flops / 1e12:.3f} "
+          f"TFLOP at 989 TFLOP/s), model FLOP utilisation "
+          f"{step_flops / (med_ms * 1e-3) / PEAK_BF16:.3f} [{card}]",
+          flush=True)
+    print(f"sp_train: one step's device time: forward "
+          f"{split['forward']:.3f} ms, backward {split['backward']:.3f} ms, "
+          f"optimizer {split['optimizer']:.3f} ms (CUDA events, median of "
+          f"3); peak max_memory_allocated {peak_gib:.2f} GiB [{card}]",
+          flush=True)
+    print(f"sp_train: launches in {n_steps} steps: {launches} (= "
+          f"{n_layers} layers x {SP_DEGREE ** 2} hops x {n_steps}); flash "
+          f"kernels {flash_launches} [{card}]", flush=True)
+    pt.parallel.set_mesh(None)
+    del step, opt, net, values, slots
+    torch.cuda.empty_cache()
+    return launches
+
+
 def spills(path):
     """`-Xptxas -v` lines of a built library's log that report spills."""
     with open(path + ".log") as f:
@@ -523,6 +930,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import ring_attention as tra
     check("jax" not in sys.modules, "jax was imported")
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -532,7 +940,8 @@ def main() -> int:
     print(f"device: {card}", flush=True)
 
     # ---- build: one nvcc per kernel source, all started together ----
-    builds = {"flash_fwd": fa.build, "flash_bwd": fa.build_bwd}
+    builds = {"flash_fwd": fa.build, "flash_bwd": fa.build_bwd,
+              "ring_attention": tra.build}
     t0 = time.time()
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         paths = dict(zip(builds, pool.map(lambda f: f(), builds.values())))
@@ -582,10 +991,41 @@ def main() -> int:
               f"[{card}]", flush=True)
     serving_row, train_fwd_row = fwd_rows[0], fwd_rows[1]
     train_rows = dict(bwd_rows[0], fwd=train_fwd_row)
+    # (BH, Sq, Sk, D, dtype, causal, (q_off, k_off))
+    bf = torch.bfloat16
+    ring_cases = [(96, 128, 128, 64, bf, False, (128, 256)),  # sp train hop
+                  (12, 1024, 1024, 64, bf, True, (1024, 1024)),  # diagonal
+                  (12, 1024, 1024, 64, bf, True, (2048, 0)),     # past
+                  (12, 1024, 1024, 64, bf, True, (0, 1024)),     # future
+                  (12, 128, 128, 64, bf, True, (96, 0)),    # off the tiles
+                  (12, 128, 256, 64, bf, True, (128, 0)),   # Sq != Sk
+                  (6, 1024, 1024, 128, bf, True, (1024, 1024)),
+                  (3, 1024, 1024, 256, bf, True, (1024, 1024)),
+                  (12, 256, 256, 64, torch.float32, True, (256, 128))]
+    ring_rows = []
+    for case in ring_cases:
+        rows = ring_case(tra, torch, *case)
+        ring_rows.append(rows)
+        for kname, r in rows.items():
+            lib = "n/a" if r["library_ms"] is None else \
+                f"{r['library_ms']:.4f}"
+            print(f"kernels: {kname} BH,Sq,Sk,D={r['shape']} {r['dtype']} "
+                  f"causal={r['causal']} offs={r['offs']}"
+                  f"{' (future hop: exact 0 / -1e30)' if r['future'] else ''}"
+                  f" max_abs_err={r['max_abs_err']:.3g} (tol {r['tol']}) "
+                  f"kernel_ms={r['ms']:.4f} device_ms={r['device_ms']:.4f} "
+                  f"plain_ms={r['plain_ms']:.4f} library_ms={lib} "
+                  f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) [{card}]",
+                  flush=True)
+    ring_devices = [torch.device("cuda", i) for i in range(SP_DEGREE)] \
+        if torch.cuda.device_count() >= SP_DEGREE else \
+        [torch.device("cuda", 0)] * SP_DEGREE
+    ring_phase(fa, tra, torch, card, ring_devices)
 
     # ---- the main paths, each with its counts set to 0 just before ----
     train_launches = train_phase(pt, fa, torch, np, card, train_rows)
     serve_launches = serve_phase(pt, fa, torch, np, card)
+    sp_launches = sp_train_phase(pt, fa, tra, torch, np, card, ring_devices)
 
     summary = {"flash_fwd": dict(serving_row,
                                  launches=train_launches["flash_fwd"]
@@ -593,14 +1033,18 @@ def main() -> int:
     for kname in ("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"):
         summary[kname] = dict(train_rows[kname],
                               launches=train_launches[kname])
+    # the ring kernels at the sp train's hop, launches from the sp train
+    for kname in ("ring_fwd", "ring_dq", "ring_dkv"):
+        summary[kname] = dict(ring_rows[0][kname],
+                              launches=sp_launches[kname])
     for kname, r in summary.items():
+        path = "train + serve" if kname == "flash_fwd" else \
+            "sp train" if kname.startswith("ring") else "train"
         print(f"kernels: {kname} summary at {r['shape']} {r['dtype']}: "
               f"max_abs_err={r['max_abs_err']:.3g} kernel_ms={r['ms']:.4f} "
               f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f}"
               f" bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
-              f"launches={r['launches']} (train"
-              f"{' + serve' if kname == 'flash_fwd' else ''}) [{card}]",
-              flush=True)
+              f"launches={r['launches']} ({path}) [{card}]", flush=True)
     kernels = [{"name": kname, "route": "cuda", "source": SOURCES[kname],
                 "replaces": REPLACES[kname], "launches": r["launches"],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -12,7 +12,7 @@ request they raise. Every Pallas kernel on a ported path is a hand-written
 Hopper kernel under `kernels/`.
 """
 from . import (amp, inference, jit, models, nn, optimizer,  # noqa: F401
-               serving, utils)
+               parallel, serving, utils)
 from .core.flags import set_flags  # noqa: F401
 from .core.place import (CPUPlace, CUDAPlace, get_device,  # noqa: F401
                          set_device)
@@ -23,4 +23,4 @@ from .jit import InputSpec  # noqa: F401
 __all__ = ["set_device", "get_device", "seed", "get_rng_state",
            "set_rng_state", "set_flags", "save", "load",
            "CPUPlace", "CUDAPlace", "InputSpec", "amp", "inference", "jit",
-           "models", "nn", "optimizer", "serving", "utils"]
+           "models", "nn", "optimizer", "parallel", "serving", "utils"]

@@ -2,6 +2,7 @@
 `paddle_tpu/nn/functional/activation.py`."""
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as TF
 
 
@@ -10,4 +11,8 @@ def gelu(x, approximate=False, name=None):
     return TF.gelu(x, approximate="tanh" if approximate else "none")
 
 
-__all__ = ["gelu"]
+def tanh(x, name=None):
+    return torch.tanh(x)
+
+
+__all__ = ["gelu", "tanh"]

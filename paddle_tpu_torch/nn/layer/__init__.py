@@ -1,4 +1,4 @@
-from .activation import GELU  # noqa: F401
+from .activation import GELU, Tanh  # noqa: F401
 from .common import Dropout, Embedding, Linear  # noqa: F401
 from .container import LayerList  # noqa: F401
 from .layers import Layer  # noqa: F401

@@ -1,5 +1,5 @@
 """Activation layers. Counterpart of `paddle_tpu/nn/layer/activation.py`
-(GELU :34, exact erf by default)."""
+(GELU :34, exact erf by default; Tanh :23, the ERNIE pooler's)."""
 from __future__ import annotations
 
 from .. import functional as F
@@ -15,4 +15,12 @@ class GELU(Layer):
         return F.gelu(x, self.approximate)
 
 
-__all__ = ["GELU"]
+class Tanh(Layer):
+    def __init__(self, name=None):
+        super().__init__()
+
+    def forward(self, x):
+        return F.tanh(x)
+
+
+__all__ = ["GELU", "Tanh"]

@@ -108,6 +108,42 @@ def test_small_gpt_trains_with_jax_and_the_jax_package_blocked(tmp_path):
     assert res.stdout.strip() == "ok"
 
 
+def test_small_ernie_trains_over_the_sp_ring_with_jax_blocked():
+    res = _run("""
+        import sys
+        for name in ("jax", "jaxlib", "paddle_tpu"):
+            sys.modules[name] = None          # any import of them fails
+        import numpy as np
+        import paddle_tpu_torch as pt
+        pt.set_device("cpu")
+        pt.seed(0)
+        pt.parallel.HybridCommunicateGroup(
+            hybrid_configs={"sp_degree": 4}, devices=["cpu"] * 4)
+        net = pt.models.ErnieForPretraining(pt.models.ErnieModel(
+            vocab_size=128, hidden_size=64, num_hidden_layers=1,
+            num_attention_heads=1, intermediate_size=128,
+            hidden_dropout_prob=0.0, use_sp=True))
+        ce = pt.nn.CrossEntropyLoss()
+        def loss_fn(logits, nsp_logits, ids, nsp):
+            return ce(logits.reshape(-1, 128), ids.reshape(-1)) + \\
+                ce(nsp_logits, nsp)
+        opt = pt.optimizer.AdamW(learning_rate=1e-3,
+                                 parameters=net.parameters())
+        step = pt.jit.TrainStep(net, loss_fn, opt, amp_dtype="bfloat16",
+                                n_model_inputs=1)
+        ids = np.arange(1024, dtype=np.int64).reshape(2, 512) % 128
+        nsp = np.array([0, 1])
+        losses = [float(step(ids, ids, nsp)) for _ in range(3)]
+        assert losses[-1] < losses[0], losses
+        loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                        and m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+        assert not loaded, loaded
+        print("ok")
+    """)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == "ok"
+
+
 def test_entry_points_raise_without_cuda_or_a_cpu_request():
     res = _run("""
         import torch

@@ -10,6 +10,10 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels import flash_attention as tfa
+from paddle_tpu_torch.kernels import ring_attention as tra
+from paddle_tpu_torch.parallel import sp as tsp
+
+RING_WRAPPERS = (tra.ring_block_fwd, tra.ring_block_dq, tra.ring_block_dkv)
 
 
 @pytest.fixture()
@@ -166,3 +170,145 @@ def test_attention_on_the_card_carries_its_gradient(cuda_device,
         assert x.grad is not None and x.grad.abs().sum() > 0
         torch.testing.assert_close(x.grad.float().cpu(), c.grad,
                                    atol=1.5e-1, rtol=2e-2)
+
+
+# ---- the ring-attention block kernels ---------------------------------------
+# (BH, Sq, Sk, D, dtype, causal, (q_off, k_off)): the ERNIE-base path hop,
+# causal hops on the diagonal, in the past and in the future, an offset off
+# the tile grid, Sq != Sk, D 128 and 256, fp32, and ragged lengths
+RING_CASES = [(96, 128, 128, 64, torch.bfloat16, False, (128, 256)),
+              (12, 1024, 1024, 64, torch.bfloat16, True, (1024, 1024)),
+              (12, 1024, 1024, 64, torch.bfloat16, True, (2048, 0)),
+              (12, 1024, 1024, 64, torch.bfloat16, True, (0, 1024)),
+              (12, 128, 128, 64, torch.bfloat16, True, (96, 0)),
+              (12, 128, 256, 64, torch.bfloat16, True, (128, 0)),
+              (6, 512, 512, 128, torch.bfloat16, True, (512, 512)),
+              (3, 512, 512, 256, torch.bfloat16, True, (512, 512)),
+              (12, 256, 256, 64, torch.float32, True, (256, 128)),
+              (12, 100, 200, 64, torch.bfloat16, True, (150, 0))]
+
+
+def _ring_inputs(bh, sq, sk, d, dtype, causal, offs):
+    gen = torch.Generator(device="cuda").manual_seed(sq + sk + d)
+    q, do = (torch.randn(bh, sq, d, generator=gen, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(bh, sk, d, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    out, lse = tra.ring_block_fwd_plain(q, k, v, offs, causal)
+    delta = (do.float() * out.float()).sum(-1)[:, None, :]
+    return q, k, v, do, lse, delta
+
+
+def _ring_close(got, want, dtype, name):
+    # bf16: p and ds are rounded to bf16 before the products (as the Pallas
+    # kernels do), out is stored in bf16; the plain version keeps f32.
+    # fp32: sums in another order.
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    got, want = got.float(), want.float()
+    assert bool(torch.isfinite(got).all()), name
+    err = (got - want).abs()
+    assert bool((err <= tol + tol * want.abs()).all()), \
+        f"{name}: max abs err {err.max().item()}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RING_CASES, ids=str)
+def test_ring_kernels_match_plain(cuda_device, case):
+    *dims, dtype, causal, offs = case
+    q, k, v, do, lse, delta = _ring_inputs(*dims, dtype, causal, offs)
+    counts = [f.launches for f in RING_WRAPPERS]
+    out, got_lse = tra.ring_block_fwd(q, k, v, offs, causal)
+    dq = tra.ring_block_dq(q, k, v, do, lse, delta, offs, causal)
+    dk, dv = tra.ring_block_dkv(q, k, v, do, lse, delta, offs, causal)
+    torch.cuda.synchronize()
+    assert [f.launches for f in RING_WRAPPERS] == [c + 1 for c in counts]
+    assert out.dtype == dtype and got_lse.dtype == torch.float32
+    assert dq.dtype == dk.dtype == dv.dtype == torch.float32
+    ref_out, ref_lse = tra.ring_block_fwd_plain(q, k, v, offs, causal)
+    ref_dq = tra.ring_block_dq_plain(q, k, v, do, lse, delta, offs, causal)
+    ref_dk, ref_dv = tra.ring_block_dkv_plain(q, k, v, do, lse, delta, offs,
+                                              causal)
+    for name, g, r in (("out", out, ref_out), ("lse", got_lse, ref_lse),
+                       ("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                       ("dv", dv, ref_dv)):
+        _ring_close(g, r, dtype, name)
+
+
+@pytest.mark.cuda
+def test_ring_future_hop_writes_exact_zeros(cuda_device):
+    # a hop wholly in the future runs no iteration and must still write
+    # every output: out = dq = dk = dv = 0 and lse = -1e30 exactly
+    q, k, v, do, lse, delta = _ring_inputs(12, 1024, 1024, 64,
+                                           torch.bfloat16, True, (0, 1024))
+    out, got_lse = tra.ring_block_fwd(q, k, v, (0, 1024), True)
+    dq = tra.ring_block_dq(q, k, v, do, lse, delta, (0, 1024), True)
+    dk, dv = tra.ring_block_dkv(q, k, v, do, lse, delta, (0, 1024), True)
+    torch.cuda.synchronize()
+    for x in (out, dq, dk, dv):
+        assert bool((x == 0).all())
+    assert bool((got_lse == -1e30).all())
+
+
+@pytest.mark.cuda
+def test_ring_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    q = torch.zeros(2, 64, 32, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        tra.ring_block_fwd(q, q, q, (0, 0))
+    q = torch.zeros(2, 64, 64, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        tra.ring_block_fwd(q, q, q, (0, 0))
+    q = torch.zeros(2, 64, 64, device=cuda_device, dtype=torch.bfloat16)
+    lse = torch.zeros(2, 1, 64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="f32"):
+        tra.ring_block_dq(q, q, q, q, lse, lse, (0, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_sequence_parallel_attention_on_the_card(cuda_device, causal):
+    # four ring slots on one card: the flash ring records one autograd node
+    # per slot, launches 16 hops each way, and its output and gradients
+    # match the same ring on the CPU (plain versions)
+    from paddle_tpu_torch.parallel import create_mesh, topology
+    prev = topology.get_mesh()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn(1, 512, 2, 64, generator=gen, device="cuda")
+               .bfloat16().requires_grad_() for _ in range(3))
+    w = torch.randn(1, 512, 2, 64, generator=gen, device="cuda")
+    try:
+        mesh = create_mesh({"sp": 4}, devices=["cuda:0"] * 4)
+        counts = [f.launches for f in RING_WRAPPERS]
+        out = tsp.sequence_parallel_attention(q, k, v, causal=causal)
+        assert out.grad_fn is not None and out.dtype == torch.bfloat16
+        (out.float() * w).sum().backward()
+        torch.cuda.synchronize()
+        assert [f.launches - c for f, c in zip(RING_WRAPPERS, counts)] == \
+            [16, 16, 16]
+        cq, ck, cv = (x.detach().cpu().float().requires_grad_()
+                      for x in (q, k, v))
+        cpu_mesh = create_mesh({"sp": 4}, devices=["cpu"] * 4)
+        ref = tsp.sequence_parallel_attention(cq, ck, cv, causal=causal,
+                                              mesh=cpu_mesh)
+        (ref * w.cpu()).sum().backward()
+    finally:
+        topology.set_mesh(prev)
+    torch.testing.assert_close(out.float().cpu(), ref.detach(), atol=2e-2,
+                               rtol=2e-2)
+    for x, c in ((q, cq), (k, ck), (v, cv)):
+        assert x.grad is not None and x.grad.abs().sum() > 0
+        torch.testing.assert_close(x.grad.float().cpu(), c.grad,
+                                   atol=1.5e-1, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_sequence_parallel_attention_raises_for_a_head_dim_off_the_kernels(
+        cuda_device):
+    from paddle_tpu_torch.parallel import create_mesh, topology
+    prev = topology.get_mesh()
+    q = torch.zeros(1, 512, 2, 32, device=cuda_device, dtype=torch.bfloat16)
+    try:
+        mesh = create_mesh({"sp": 4}, devices=["cuda:0"] * 4)
+        with pytest.raises(ValueError, match="head_dim"):
+            tsp.sequence_parallel_attention(q, q, q, mesh=mesh)
+    finally:
+        topology.set_mesh(prev)

@@ -1,0 +1,192 @@
+"""The port's sequence parallelism and hybrid topology against the JAX
+package's.
+
+`sequence_parallel_attention` (ring with the flash block kernels, the
+dense einsum ring, Ulysses) runs the same numpy q/k/v in both packages:
+the JAX function over `create_mesh({"sp": 4})` on its 8-device CPU mesh
+(the Pallas ring kernels in interpret mode), the port's over a mesh of four
+CPU slots (the kernels' plain versions). Outputs and q/k/v gradients are
+held against each other in fp32.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.parallel import topology as jtopo
+from paddle_tpu.parallel import (HybridCommunicateGroup as JHCG,
+                                 create_mesh as jcreate_mesh,
+                                 sequence_parallel_attention as jspa)
+import paddle_tpu_torch as pt
+from paddle_tpu_torch.core.enforce import UnavailableError
+from paddle_tpu_torch.kernels import ring_attention as tra
+from paddle_tpu_torch.parallel import sp as tsp
+from paddle_tpu_torch.parallel import topology as ttopo
+
+CPU4 = ["cpu"] * 4
+
+
+@pytest.fixture(autouse=True)
+def _fresh_meshes():
+    pt.set_device("cpu")
+    saved = (jtopo._GLOBAL_MESH[0], jtopo._GLOBAL_HCG[0],
+             ttopo._GLOBAL_MESH[0], ttopo._GLOBAL_HCG[0])
+    yield
+    (jtopo._GLOBAL_MESH[0], jtopo._GLOBAL_HCG[0],
+     ttopo._GLOBAL_MESH[0], ttopo._GLOBAL_HCG[0]) = saved
+
+
+def _qkvw(b, s, h, d, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((b, s, h, d)).astype(np.float32) * 0.5
+            for _ in range(4)]
+
+
+def _jax_run(arrs, impl, causal):
+    # the JAX entry traced once under jit (as its TrainStep traces it):
+    # eager dispatch of every ring op would take ~10x longer on the CPU
+    jcreate_mesh({"sp": 4})
+
+    def loss(q, k, v, w):
+        out = jspa(q, k, v, impl=impl, causal=causal)._value
+        return (out * w).sum(), out
+
+    (_, out), grads = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1, 2), has_aux=True))(
+            *(jnp.asarray(x) for x in arrs))
+    return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+def _torch_run(arrs, impl, causal):
+    ttopo.create_mesh({"sp": 4}, devices=CPU4)
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in arrs[:3])
+    out = tsp.sequence_parallel_attention(q, k, v, impl=impl, causal=causal)
+    (out * torch.from_numpy(arrs[3])).sum().backward()
+    return out.detach().numpy(), [x.grad.numpy() for x in (q, k, v)]
+
+
+def _compare(arrs, impl, causal):
+    want_out, want_grads = _jax_run(arrs, impl, causal)
+    got_out, got_grads = _torch_run(arrs, impl, causal)
+    # fp32 in both; per-hop products and the lse merge in another order
+    np.testing.assert_allclose(got_out, want_out, rtol=2e-5, atol=2e-5)
+    for name, g, w in zip("qkv", got_grads, want_grads):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_ring_matches_the_jax_flash_ring(causal):
+    # s_loc = 128: the flash ring with the block kernels in both packages
+    _compare(_qkvw(1, 512, 2, 64, 0), "ring", causal)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("impl", ["ring", "ring_dense", "ulysses"])
+def test_short_shards_match_the_jax_functions(impl, causal):
+    # s_loc = 8: "ring" takes the dense einsum ring, as in the reference
+    _compare(_qkvw(2, 32, 4, 8, 1), impl, causal)
+
+
+@pytest.mark.parametrize("s,hops", [(512, 16), (256, 0), (96, 0)])
+def test_the_flash_ring_dispatch_rule_is_the_references(monkeypatch, s,
+                                                        hops):
+    # flash blocks when s_loc >= 128 and s_loc % min(512, s_loc) == 0
+    calls = []
+    real = tra.ring_block_fwd
+    monkeypatch.setattr(tra, "ring_block_fwd",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    ttopo.create_mesh({"sp": 4}, devices=CPU4)
+    q = torch.from_numpy(_qkvw(1, s, 2, 64, 2)[0])
+    out = tsp.sequence_parallel_attention(q, q, q, impl="ring", causal=True)
+    assert out.shape == q.shape and len(calls) == hops
+
+
+def test_no_mesh_or_one_slot_is_plain_attention():
+    from paddle_tpu_torch.nn.functional.attention import \
+        scaled_dot_product_attention
+    q = torch.from_numpy(_qkvw(1, 64, 2, 16, 3)[0])
+    want = scaled_dot_product_attention(q, q, q, is_causal=True)
+    assert torch.equal(tsp.sequence_parallel_attention(q, q, q, causal=True),
+                       want)
+    mesh = ttopo.create_mesh({"sp": 1}, devices=["cpu"])
+    assert torch.equal(tsp.sequence_parallel_attention(q, q, q, causal=True,
+                                                       mesh=mesh), want)
+
+
+def test_sequence_parallel_attention_layer_picks_as_the_reference():
+    ttopo.create_mesh({"sp": 4}, devices=CPU4)
+    layer = tsp.SequenceParallelAttention(impl="auto", causal=True)
+    arrs = _qkvw(1, 32, 8, 8, 4)
+    q = torch.from_numpy(arrs[0])
+    want = tsp.sequence_parallel_attention(q, q, q, impl="ulysses",
+                                           causal=True)
+    assert torch.equal(layer(q, q, q), want)
+
+
+HYBRID = [{"sp_degree": 4}, {"dp_degree": 2, "sp_degree": 4},
+          {"dp_degree": 2, "mp_degree": 2, "pp_degree": 2},
+          {"sharding_degree": 4, "mp_degree": 2}]
+
+
+@pytest.mark.parametrize("cfg", HYBRID, ids=str)
+def test_hybrid_group_matches_the_reference(cfg):
+    want = JHCG(hybrid_configs=cfg, devices=jax.devices())
+    got = ttopo.HybridCommunicateGroup(hybrid_configs=cfg,
+                                       devices=["cpu"] * 8)
+    assert got.mesh.axis_names == tuple(want.mesh.axis_names)
+    assert got.mesh.shape == dict(want.mesh.shape)
+    assert got.topology.get_hybrid_group_names() == \
+        want.topology.get_hybrid_group_names()
+    assert got.topology.world_size() == want.topology.world_size()
+    for name in want.topology.get_hybrid_group_names():
+        assert got.topology.get_dim(name) == want.topology.get_dim(name)
+    for meth in ("get_parallel_mode", "get_data_parallel_world_size",
+                 "get_model_parallel_world_size",
+                 "get_pipe_parallel_world_size",
+                 "get_sharding_parallel_world_size",
+                 "get_sep_parallel_world_size", "get_model_parallel_group"):
+        assert getattr(got, meth)() == getattr(want, meth)(), meth
+    assert ttopo.get_mesh() is got.mesh
+    assert ttopo.get_hybrid_communicate_group() is got
+
+
+def test_hybrid_group_from_a_strategy():
+    strategy = pt.parallel.DistributedStrategy()
+    strategy.hybrid_configs["sp_degree"] = 2
+    hcg = ttopo.HybridCommunicateGroup(strategy, devices=["cpu"] * 2)
+    assert hcg.mesh.shape == {"dp": 1, "pp": 1, "sharding": 1, "mp": 1,
+                              "sp": 2}
+    assert hcg.get_sep_parallel_world_size() == 2
+
+
+def test_too_few_devices_raise_as_the_reference():
+    cfg = {"dp_degree": 4, "sp_degree": 4}
+    with pytest.raises(ValueError) as want:
+        JHCG(hybrid_configs=cfg, devices=jax.devices())
+    with pytest.raises(ValueError) as got:
+        ttopo.HybridCommunicateGroup(hybrid_configs=cfg, devices=["cpu"] * 8)
+    assert str(got.value) == str(want.value)
+    # the default devices on the CPU place are one CPU: no slot is made up
+    with pytest.raises(ValueError, match="needs 4 devices, have 1"):
+        ttopo.HybridCommunicateGroup(hybrid_configs={"sp_degree": 4})
+
+
+def test_create_mesh_and_use_mesh():
+    mesh = ttopo.create_mesh({"dp": 2, "sp": 4}, devices=["cpu"] * 8)
+    jmesh = jcreate_mesh({"dp": 2, "sp": 4})
+    assert mesh.shape == dict(jmesh.shape)
+    assert mesh.axis_devices("sp") == [torch.device("cpu")] * 4
+    inner = ttopo.create_mesh({"sp": 2}, devices=["cpu"] * 2)
+    ttopo.set_mesh(mesh)
+    with ttopo.use_mesh(inner) as m:
+        assert m is inner and ttopo.get_mesh() is inner
+    assert ttopo.get_mesh() is mesh
+
+
+def test_cuda_slots_without_a_card_raise():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: cuda slots are valid here")
+    with pytest.raises(UnavailableError):
+        ttopo.create_mesh({"sp": 4}, devices=["cuda:0"] * 4)
