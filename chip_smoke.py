@@ -13,10 +13,12 @@ last line is printed):
                source, all started together);
   3. kernels - each kernel held against its plain PyTorch version on the
                card, at the shapes the main paths give it and at the other
-               shapes it accepts, with its time, its plain version's, the
-               PyTorch library call's and the least time the card could
-               take; the fused and the two-pass backward held against each
-               other. The three ring-attention block kernels: at the sp
+               shapes it accepts, with its time through the wrapper and on
+               the device alone (a CUDA graph), its plain version's, the
+               PyTorch library call's (also both ways) and the least time
+               the card could take; the fused and the two-pass backward
+               held against each other, the backward's prep pass (delta,
+               the zeroed dq workspace) against its plain version. The three ring-attention block kernels: at the sp
                train's hop (BH 96, 128 x 128, non-causal), causal hops on
                the diagonal, in the past and in the future (exact zeros
                and -1e30), an offset off the tile grid, Sq != Sk, D 128
@@ -167,19 +169,30 @@ def fwd_case(fa, torch, b, s, h, d, dtype, causal):
     check(ok_lse, f"flash_fwd lse disagrees at {b=} {s=} {h=} {d=} {dtype} "
           f"{causal=}: max abs err {err_lse}")
     q4, k4, v4 = (x.view(b, h, s, d) for x in (q, k, v))
-    kernel_ms = median_ms(lambda: fa.flash_attention_fwd(q, k, v, causal))
+
+    def kernel():
+        return fa.flash_attention_fwd(q, k, v, causal)
+
+    def library():
+        return TF.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+
+    kernel_ms = median_ms(kernel)
     plain_ms = median_ms(
         lambda: fa.flash_attention_fwd_plain(q, k, v, causal))
-    library_ms = median_ms(lambda: TF.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=causal))
+    library_ms = median_ms(library)
+    # the wrapper launches the kernel and allocates: its graph is the
+    # kernel's device time
+    device_ms, library_device_ms = graph_ms(torch, kernel), \
+        graph_ms(torch, library)
     bound_ms, bound_by = attention_bound(
         "flash_fwd", b * h, s, d, q.element_size(), causal,
         PEAK_BF16 if bf16 else PEAK_FP32)
     return {"shape": [b, s, h, d], "dtype": str(dtype).replace("torch.", ""),
             "causal": causal, "max_abs_err": err_out,
             "max_abs_err_lse": err_lse, "tol_out": tol_out,
-            "tol_lse": tol_lse, "ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
+            "tol_lse": tol_lse, "ms": kernel_ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_device_ms": library_device_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
 
 
@@ -230,22 +243,45 @@ def bwd_case(fa, torch, b, s, h, d, dtype, causal):
     lout = TF.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
     library_ms = median_ms(lambda: torch.autograd.grad(
         lout, (lq, lk, lv), do4, retain_graph=True))
+    library_device_ms = sdpa_backward_device_ms(torch, TF, lq, lk, lv, do4,
+                                                causal)
     plain_ms = median_ms(lambda: fa.flash_attention_bwd_plain(*args),
                          samples=10, per_sample=3, warmup=2)
     timed = {"flash_bwd_fused": lambda: fa.flash_attention_bwd_fused(*args),
              "flash_bwd_dq": lambda: fa.flash_attention_bwd_dq(*args),
              "flash_bwd_dkv": lambda: fa.flash_attention_bwd_dkv(*args)}
+    # the passes around the kernels: delta and the fused form's zeroed dq
+    # workspace from the prep kernel against their plain versions (f32
+    # sums of D products in another order)
+    delta, dq_ws = fa._bwd_inputs("flash_bwd_prep", q, k, v, out, lse, do,
+                                  workspace=True)
+    err_d, ok_d = close_enough(delta, fa._delta(do, out), 1e-4)
+    check(ok_d and bool((dq_ws == 0).all()),
+          f"flash_bwd_prep: delta max abs err {err_d} or a non-zero "
+          f"workspace at {where}")
+    # the C entry points alone, on buffers made once: the wrapper adds the
+    # prep pass and, for the fused form, the scale-and-cast of dq
+    dq_b, dk_b, dv_b = (torch.empty_like(x) for x in (q, k, v))
+    bufs = {"flash_bwd_fused": (q, k, v, do, lse, delta, dq_ws, dk_b, dv_b),
+            "flash_bwd_dq": (q, k, v, do, lse, delta, dq_b),
+            "flash_bwd_dkv": (q, k, v, do, lse, delta, dk_b, dv_b)}
     rows = {}
     for kname, fn in timed.items():
+        entry = bufs[kname]
+        device_ms = graph_ms(torch, lambda: fa._launch(
+            fa._BWD, kname, entry, q, causal))
         bound_ms, bound_by = attention_bound(
             kname, b * h, s, d, q.element_size(), causal,
             PEAK_BF16 if bf16 else PEAK_FP32)
         rows[kname] = {"shape": [b, s, h, d],
                        "dtype": str(dtype).replace("torch.", ""),
                        "causal": causal, "max_abs_err": errs[kname],
-                       "tol": tol, "ms": median_ms(fn), "plain_ms": plain_ms,
-                       "library_ms": library_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by}
+                       "tol": tol, "ms": median_ms(fn),
+                       "device_ms": device_ms,
+                       "wrapper_device_ms": graph_ms(torch, fn),
+                       "plain_ms": plain_ms, "library_ms": library_ms,
+                       "library_device_ms": library_device_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by}
     rows["fused_vs_two_pass_dq_err"] = err_fq
     return rows
 
@@ -334,26 +370,34 @@ def ring_case(tra, torch, bh, sq, sk, d, dtype, causal, offs):
         lib_causal = False
     elif offs[0] == offs[1] and sq == sk:
         lib_causal = True
-    lib_fwd = lib_bwd = None
+    lib_fwd = lib_bwd = lib_fwd_dev = lib_bwd_dev = None
     if lib_causal is not None:
         q4, k4, v4, do4 = (x.view(1, bh, x.shape[1], d) for x in (q, k, v, do))
-        lib_fwd = median_ms(lambda: TF.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=lib_causal))
+
+        def library():
+            return TF.scaled_dot_product_attention(q4, k4, v4,
+                                                   is_causal=lib_causal)
+
+        lib_fwd, lib_fwd_dev = median_ms(library), graph_ms(torch, library)
         lq, lk, lv = (x.detach().requires_grad_() for x in (q4, k4, v4))
         lout = TF.scaled_dot_product_attention(lq, lk, lv,
                                                is_causal=lib_causal)
         lib_bwd = median_ms(lambda: torch.autograd.grad(
             lout, (lq, lk, lv), do4, retain_graph=True))
+        lib_bwd_dev = sdpa_backward_device_ms(torch, TF, lq, lk, lv, do4,
+                                              lib_causal)
     timed = {
         "ring_fwd": (lambda: tra.ring_block_fwd(q, k, v, offs, causal),
                      lambda: tra.ring_block_fwd_plain(q, k, v, offs, causal),
-                     lib_fwd),
+                     lib_fwd, lib_fwd_dev),
         "ring_dq": (lambda: tra.ring_block_dq(*bargs),
-                    lambda: tra.ring_block_dq_plain(*bargs), lib_bwd),
+                    lambda: tra.ring_block_dq_plain(*bargs), lib_bwd,
+                    lib_bwd_dev),
         "ring_dkv": (lambda: tra.ring_block_dkv(*bargs),
-                     lambda: tra.ring_block_dkv_plain(*bargs), lib_bwd)}
+                     lambda: tra.ring_block_dkv_plain(*bargs), lib_bwd,
+                     lib_bwd_dev)}
     rows = {}
-    for kname, (fn, plain, lib) in timed.items():
+    for kname, (fn, plain, lib, lib_dev) in timed.items():
         bound_ms, bound_by = ring_bound(kname, bh, sq, sk, d,
                                         q.element_size(), causal, offs,
                                         PEAK_BF16 if bf16 else PEAK_FP32)
@@ -363,25 +407,26 @@ def ring_case(tra, torch, bh, sq, sk, d, dtype, causal, offs):
                        "tol": tol, "ms": median_ms(fn),
                        "device_ms": graph_ms(torch, fn),
                        "plain_ms": median_ms(plain, samples=10),
-                       "library_ms": lib, "bound_ms": bound_ms,
+                       "library_ms": lib, "library_device_ms": lib_dev,
+                       "bound_ms": bound_ms,
                        "bound_by": bound_by, "future": future}
     return rows
 
 
-def graph_ms(torch, fn, calls=20, samples=10):
+def graph_ms(torch, fn, calls=20, samples=10, stream=None):
     """Device time of one call of `fn` without the host's cost per call:
     `calls` calls captured in one CUDA graph, the graph replayed and timed
     with CUDA events (median of `samples` replays). `median_ms` times the
     wrapper as a caller sees it, host work included; for a kernel of a few
     microseconds the two differ by the host's launch cost."""
-    side = torch.cuda.Stream()
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(calls):
             fn()
     graph.replay()
@@ -396,6 +441,36 @@ def graph_ms(torch, fn, calls=20, samples=10):
         times.append(e0.elapsed_time(e1) / calls)
     del graph
     return statistics.median(times)
+
+
+def sdpa_backward_device_ms(torch, TF, q, k, v, do, causal):
+    """Device time of PyTorch's SDPA backward on these inputs: a CUDA
+    graph of forward + backward less a graph of the forward alone. The
+    leaves are made on the capturing stream, so that the backward's
+    gradient nodes run on it too."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        q, k, v = (x.detach().clone().requires_grad_() for x in (q, k, v))
+
+    def fwd():
+        return TF.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd(), (q, k, v), do)
+
+    try:
+        return graph_ms(torch, fwd_bwd, stream=stream) - \
+            graph_ms(torch, fwd, stream=stream)
+    except Exception as e:  # noqa: BLE001 — a yardstick only: not measured
+        print(f"chip_smoke: SDPA backward not captured in a CUDA graph: {e}",
+              file=sys.stderr, flush=True)
+        torch.cuda.synchronize()
+        return None
+
+
+def fmt_ms(x):
+    return "not measured" if x is None else f"{x:.4f}"
 
 
 def cosine(a, b):
@@ -553,7 +628,8 @@ def train_phase(pt, fa, torch, np, card, shape_rows):
         PRODUCTS["flash_fwd"] + PRODUCTS["flash_bwd_fused"]) * d * pairs * bh
     fwd_row = shape_rows["fwd"]
     bwd_row = shape_rows["flash_bwd_fused"]
-    attn_ms = n_layers * (fwd_row["ms"] + bwd_row["ms"])
+    attn_ms = n_layers * (fwd_row["device_ms"] +
+                          bwd_row["wrapper_device_ms"])
     print(f"train: gpt2_small bf16 AMP {TRAIN_B}x{TRAIN_S} tokens, "
           f"{n_params} parameters, AdamW(1e-4): losses "
           f"{[round(x, 4) for x in losses]} then {det_loss:.4f} "
@@ -570,9 +646,10 @@ def train_phase(pt, fa, torch, np, card, shape_rows):
     print(f"train: one step's device time: forward {split['forward']:.3f} ms"
           f", backward {split['backward']:.3f} ms, optimizer "
           f"{split['optimizer']:.3f} ms (CUDA events, median of 3); "
-          f"attention kernels ~{attn_ms:.3f} ms of it (12 x (fwd "
-          f"{fwd_row['ms']:.4f} + fused bwd {bwd_row['ms']:.4f}) ms timed "
-          f"alone at this shape); peak max_memory_allocated "
+          f"attention ~{attn_ms:.3f} ms of it ({n_layers} x (fwd "
+          f"{fwd_row['device_ms']:.4f} + fused bwd wrapper "
+          f"{bwd_row['wrapper_device_ms']:.4f}) ms, CUDA graphs at this "
+          f"shape); peak max_memory_allocated "
           f"{peak_gib:.2f} GiB [{card}]", flush=True)
     print(f"train: attention launches in {n_steps} steps: {launches} "
           f"(deterministic step: fwd, fused, dq, dkv = {det}) [{card}]",
@@ -964,8 +1041,10 @@ def main() -> int:
               f"causal={r['causal']} max_abs_err out={r['max_abs_err']:.3g} "
               f"(tol {r['tol_out']}) lse={r['max_abs_err_lse']:.3g} "
               f"(tol {r['tol_lse']}) kernel_ms={r['ms']:.4f} "
-              f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f}"
-              f" bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) [{card}]",
+              f"device_ms={r['device_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"library_ms={r['library_ms']:.4f} "
+              f"library_device_ms={fmt_ms(r['library_device_ms'])} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) [{card}]",
               flush=True)
     bwd_cases = [(TRAIN_B, TRAIN_S, 12, 64, torch.bfloat16, True),  # train
                  (TRAIN_B, TRAIN_S, 6, 128, torch.bfloat16, True),
@@ -981,8 +1060,11 @@ def main() -> int:
             print(f"kernels: {kname} {r['shape']} {r['dtype']} "
                   f"causal={r['causal']} max_abs_err={r['max_abs_err']:.3g} "
                   f"(tol {r['tol']}) kernel_ms={r['ms']:.4f} "
+                  f"device_ms={r['device_ms']:.4f} (entry alone; wrapper "
+                  f"{r['wrapper_device_ms']:.4f}) "
                   f"plain_ms={r['plain_ms']:.4f} "
                   f"library_ms={r['library_ms']:.4f} "
+                  f"library_device_ms={fmt_ms(r['library_device_ms'])} "
                   f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) [{card}]",
                   flush=True)
         print(f"kernels: fused vs two-pass dq max abs diff "
@@ -1008,7 +1090,8 @@ def main() -> int:
         ring_rows.append(rows)
         for kname, r in rows.items():
             lib = "n/a" if r["library_ms"] is None else \
-                f"{r['library_ms']:.4f}"
+                f"{r['library_ms']:.4f} library_device_ms=" \
+                f"{fmt_ms(r['library_device_ms'])}"
             print(f"kernels: {kname} BH,Sq,Sk,D={r['shape']} {r['dtype']} "
                   f"causal={r['causal']} offs={r['offs']}"
                   f"{' (future hop: exact 0 / -1e30)' if r['future'] else ''}"
@@ -1042,14 +1125,18 @@ def main() -> int:
             "sp train" if kname.startswith("ring") else "train"
         print(f"kernels: {kname} summary at {r['shape']} {r['dtype']}: "
               f"max_abs_err={r['max_abs_err']:.3g} kernel_ms={r['ms']:.4f} "
-              f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f}"
-              f" bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"device_ms={r['device_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"library_ms={r['library_ms']:.4f} "
+              f"library_device_ms={fmt_ms(r['library_device_ms'])} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
               f"launches={r['launches']} ({path}) [{card}]", flush=True)
     kernels = [{"name": kname, "route": "cuda", "source": SOURCES[kname],
                 "replaces": REPLACES[kname], "launches": r["launches"],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+                "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"],
+                "library_device_ms": r["library_device_ms"]}
                for kname, r in summary.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

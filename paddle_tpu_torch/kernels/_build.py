@@ -2,8 +2,11 @@
 
 `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`
 compiles `kernels/csrc/<name>.cu` into `kernels/build/`, a directory that
-git ignores. The library's file name carries a hash of its source, so an
-edited source is rebuilt and never loaded stale. A file lock keeps two
+git ignores, and links it against the CUDA driver (`-lcuda`: the kernels'
+TMA descriptors are encoded on the host by `cuTensorMapEncodeTiled`). The
+library's file name carries a hash of its source, of every shared header
+(`csrc/*.cuh`) and of the flags, so an edited source or header is rebuilt
+and never loaded stale. A file lock keeps two
 threads or processes (the serving worker and the main thread) from
 building the same library twice. Only the sources in this package are
 compiled; a failed build raises.
@@ -22,6 +25,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+LINK_FLAGS = ["-lcuda"]
 
 _LOCK = threading.Lock()
 _LIBS = {}
@@ -41,8 +45,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(ARCH_FLAGS).encode())
+    """The library's path: a hash of `<name>.cu`, of every `csrc/*.cuh`
+    (any source may include any of them) and of the nvcc flags."""
+    digest = hashlib.sha256(" ".join(ARCH_FLAGS + LINK_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -58,7 +67,7 @@ def build(name: str) -> str:
                 tmp = f"{out}.{os.getpid()}.tmp"
                 cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
                        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
-                       os.path.join(CSRC_DIR, name + ".cu")]
+                       os.path.join(CSRC_DIR, name + ".cu"), *LINK_FLAGS]
                 res = subprocess.run(cmd, capture_output=True, text=True)
                 if res.returncode != 0:
                     raise RuntimeError(

@@ -20,8 +20,11 @@ card's reason in place of the TPU's VMEM cap: on Hopper the fused form
 sums dq across parallel CTAs with f32 atomics, so its dq is not bitwise
 reproducible from run to run. The fused form is the default; under
 `torch.use_deterministic_algorithms(True)` the deterministic two-pass
-form runs instead. `delta = rowsum(dO * O)` stays a PyTorch reduction: the
-reference computes it in XLA for both forms (`_delta` :209).
+form runs instead. On the card `delta = rowsum(dO * O)` (which the
+reference computes in XLA, `_delta` :209) comes from a small pass of the
+same source that also zeroes the fused form's dq workspace, and another
+scales and casts that workspace after the kernel; `_delta` is their plain
+version.
 
 Kernels are built with nvcc at first use and called through ctypes; their
 bounds on the H100 and their designs are noted in the sources. On a CUDA
@@ -33,6 +36,7 @@ counts its launches in `<wrapper>.launches`.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 import threading
@@ -45,9 +49,12 @@ _FWD, _BWD = "flash_fwd", "flash_bwd"
 _HEAD_DIMS = (64, 128, 256)
 _count_lock = threading.Lock()
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C signatures: pointers, then (bh, S, D, is_bf16, causal), then the stream
-_SIGNATURES = {"flash_fwd": 5, "flash_bwd_fused": 9, "flash_bwd_dkv": 8,
-               "flash_bwd_dq": 7}
+# C signatures: pointers, then ints ((bh, S, D, is_bf16, causal) for the
+# attention kernels, (bh, S, D, is_bf16) for the passes around the
+# backward), then the stream
+_SIGNATURES = {"flash_fwd": (5, 5), "flash_bwd_fused": (9, 5),
+               "flash_bwd_dkv": (8, 5), "flash_bwd_dq": (7, 5),
+               "flash_bwd_prep": (4, 4), "flash_bwd_dq_cast": (2, 4)}
 
 
 def build() -> str:
@@ -65,8 +72,9 @@ def _entry(lib: str, fn_name: str):
     Two threads may both type it: they set the same signature."""
     fn = getattr(_build.load(lib), fn_name)
     if fn.argtypes is None:
+        n_ptr, n_int = _SIGNATURES[fn_name]
         fn.restype = _I
-        fn.argtypes = [_P] * _SIGNATURES[fn_name] + [_I] * 5 + [_P]
+        fn.argtypes = [_P] * n_ptr + [_I] * n_int + [_P]
     return fn
 
 
@@ -75,13 +83,21 @@ def _count(wrapper) -> None:
         wrapper.launches += 1
 
 
-def _launch(lib, fn_name, tensors, q, causal):
+def _launch(lib, fn_name, tensors, q, causal=None):
+    """Launch a C entry on q's device and current stream: the tensors'
+    pointers (None passes a null pointer), then BH, S, D, is_bf16 and,
+    for the attention kernels, causal."""
     bh, s, d = q.shape
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _entry(lib, fn_name)(*(x.data_ptr() for x in tensors), bh, s, d,
-                                  int(q.dtype == torch.bfloat16),
-                                  int(bool(causal)), stream)
+    ints = [bh, s, d, int(q.dtype == torch.bfloat16)]
+    if causal is not None:
+        ints.append(int(bool(causal)))
+    ptrs = [None if x is None else x.data_ptr() for x in tensors]
+    # switching devices costs more than the launch: only when needed
+    on = contextlib.nullcontext() if q.device.index == \
+        torch.cuda.current_device() else torch.cuda.device(q.device)
+    with on:
+        rc = _entry(lib, fn_name)(*ptrs, *ints,
+                                  torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name} launch failed: cudaError_t {rc} "
                            f"(BH={bh}, S={s}, D={d}, dtype={q.dtype})")
@@ -178,28 +194,36 @@ def flash_attention_fwd(q, k, v, causal=False):
     return out, lse
 
 
-def _bwd_inputs(name, q, k, v, o, lse, do):
+def _bwd_inputs(name, q, k, v, o, lse, do, workspace=False):
+    """Checks the backward's inputs and runs the pass before it (the prep
+    kernel of `csrc/flash_bwd.cu`): delta = rowsum(dO * O) as [BH, S] f32
+    and, with `workspace`, the fused form's zeroed f32 dq workspace."""
     _check(name, q, k, v, o, do)
     if lse.shape != (q.shape[0], 1, q.shape[1]) or \
             lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"{name}: lse must be a contiguous f32 "
                          f"[BH, 1, S], got {tuple(lse.shape)} {lse.dtype}")
-    return _delta(do, o)
+    delta = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    dq_ws = torch.empty(q.shape, dtype=torch.float32, device=q.device) \
+        if workspace else None
+    _launch(_BWD, "flash_bwd_prep", (do, o, delta, dq_ws), q)
+    return delta, dq_ws
 
 
 def flash_attention_bwd_fused(q, k, v, o, lse, do, causal=False):
     """One pass over the (q, k) tiles for dq, dk, dv. dq is summed across
     the key-block CTAs with f32 atomics into a zeroed workspace, so it is
-    not bitwise reproducible; the workspace is scaled and cast here."""
+    not bitwise reproducible; a pass after the kernel scales and casts it."""
     if not _on_cuda("flash_bwd_fused", q):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
-    delta = _bwd_inputs("flash_bwd_fused", q, k, v, o, lse, do)
-    dq_ws = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    delta, dq_ws = _bwd_inputs("flash_bwd_fused", q, k, v, o, lse, do,
+                               workspace=True)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch(_BWD, "flash_bwd_fused", (q, k, v, do, lse, delta, dq_ws, dk, dv),
             q, causal)
     _count(flash_attention_bwd_fused)
-    dq = (dq_ws * (1.0 / math.sqrt(q.shape[-1]))).to(q.dtype)
+    dq = torch.empty_like(q)
+    _launch(_BWD, "flash_bwd_dq_cast", (dq_ws, dq), q)
     return dq, dk, dv
 
 
@@ -207,7 +231,7 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, causal=False):
     """dq of the two-pass form: one CTA per q block, no atomics."""
     if not _on_cuda("flash_bwd_dq", q):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal)[0]
-    delta = _bwd_inputs("flash_bwd_dq", q, k, v, o, lse, do)
+    delta, _ = _bwd_inputs("flash_bwd_dq", q, k, v, o, lse, do)
     dq = torch.empty_like(q)
     _launch(_BWD, "flash_bwd_dq", (q, k, v, do, lse, delta, dq), q, causal)
     _count(flash_attention_bwd_dq)
@@ -218,7 +242,7 @@ def flash_attention_bwd_dkv(q, k, v, o, lse, do, causal=False):
     """(dk, dv) of the two-pass form: one CTA per key block."""
     if not _on_cuda("flash_bwd_dkv", q):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal)[1:]
-    delta = _bwd_inputs("flash_bwd_dkv", q, k, v, o, lse, do)
+    delta, _ = _bwd_inputs("flash_bwd_dkv", q, k, v, o, lse, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch(_BWD, "flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv), q,
             causal)

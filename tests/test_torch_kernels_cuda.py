@@ -1,8 +1,12 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card.
 
 Every test here is marked `cuda` and skips without a CUDA device (the
-kernels have no CPU mode). This file imports neither jax nor the JAX
-package, so it also runs on a machine that has only torch:
+kernels have no CPU mode). The bf16 kernels at D 64 and 128 are the
+wgmma/TMA designs: besides the shapes of the main paths they are held at
+the edges of their tiles (ragged S inside a TMA box at a head boundary,
+S below one tile, BH = 1, D = 128, non-causal). This file imports
+neither jax nor the JAX package, so it also runs on a machine that has
+only torch:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 """
@@ -120,6 +124,52 @@ def test_flash_bwd_kernels_match_plain(cuda_device, shape):
             assert g.dtype == dtype and bool(torch.isfinite(g).all()), name
             torch.testing.assert_close(g.float(), r.float(), atol=atol,
                                        rtol=rtol, msg=name)
+
+
+# the wgmma/TMA kernels (bf16, D 64 and 128) at the edges of their tiles:
+# (BH, S, D, causal). S = 1000 and 100 end inside a TMA box at a head
+# boundary (the next head's rows must read as zeros), 50 and 100 are
+# shorter than one tile, BH = 1, non-causal
+WGMMA_CASES = [(2, 1000, 64, True), (3, 100, 64, False), (2, 100, 128, True),
+               (1, 1024, 64, True), (1, 50, 128, False),
+               (4, 1000, 128, False), (5, 300, 64, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WGMMA_CASES, ids=str)
+def test_wgmma_kernels_match_plain_at_tile_edges(cuda_device, case):
+    bh, s, d, causal = case
+    gen = torch.Generator(device="cuda").manual_seed(bh * s + d)
+    q, k, v, do = (torch.randn(bh, s, d, generator=gen, device="cuda")
+                   .bfloat16() for _ in range(4))
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal)
+    args = (q, k, v, out, lse, do, causal)
+    fused = tfa.flash_attention_bwd_fused(*args)
+    dq = tfa.flash_attention_bwd_dq(*args)
+    dk, dv = tfa.flash_attention_bwd_dkv(*args)
+    delta, workspace = tfa._bwd_inputs("prep", q, k, v, out, lse, do,
+                                       workspace=True)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = tfa.flash_attention_fwd_plain(q, k, v, causal)
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-3, atol=1e-3)
+    ref = tfa.flash_attention_bwd_plain(*args)
+    atol, rtol = _bwd_tol(torch.bfloat16)
+    for name, g, r in zip(("dq", "dk", "dv"), fused, ref):
+        assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.float(), r.float(), atol=atol,
+                                   rtol=rtol, msg=name)
+    # the fused and the two-pass dk/dv run one template: bit-equal; dq
+    # differs in the order of its f32 sums, then one bf16 rounding
+    assert torch.equal(fused[1], dk) and torch.equal(fused[2], dv)
+    torch.testing.assert_close(fused[0].float(), dq.float(), atol=1.6e-2,
+                               rtol=8e-3)
+    # the prep pass: delta in f32 (sums of D products in another order)
+    # and a zeroed workspace
+    torch.testing.assert_close(delta, tfa._delta(do, out), atol=1e-4,
+                               rtol=1e-4)
+    assert bool((workspace == 0).all())
 
 
 @pytest.mark.cuda
