@@ -18,16 +18,23 @@ last line is printed):
                PyTorch library call's (also both ways) and the least time
                the card could take; the fused and the two-pass backward
                held against each other, the backward's prep pass (delta,
-               the zeroed dq workspace) against its plain version. The three ring-attention block kernels: at the sp
-               train's hop (BH 96, 128 x 128, non-causal), causal hops on
-               the diagonal, in the past and in the future (exact zeros
-               and -1e30), an offset off the tile grid, Sq != Sk, D 128
-               and 256, and fp32;
+               the zeroed dq workspace) against its plain version. The
+               three ring-attention kernels through their one-hop
+               wrappers: at the sp train's hop (BH 96, 128 x 128,
+               non-causal), causal hops on the diagonal, in the past and
+               in the future (exact zeros and -1e30), an offset off the
+               tile grid, Sq != Sk, D 128 and 256, and fp32; at each of
+               those the ring-step forward and dk/dv on a group of two
+               slots merging into running accumulators (a future hop
+               leaves them bit-unchanged); and the step kernels on the
+               four slots of a ring step at the sp hop (non-causal, timed
+               per launch and per slot-hop, and causal);
   4. ring    - sequence_parallel_attention(impl="ring", causal=True) over
                a mesh of four slots at B=1, S=4096, H=12, D=64 in bf16,
                forward and backward, against the single-device flash
-               attention on the same q/k/v, with 16 launches of each ring
-               kernel;
+               attention on the same q/k/v; on one card 4 launches of the
+               forward and the dk/dv step kernels (16 slot-hops each) and
+               16 of dq;
   5. train   - GPTForCausalLM(gpt2_small(dropout=0.0)) at full width and
                depth, fp32 master weights drawn from a seed, trained in
                bf16 AMP on 8 x 1024 tokens through jit.TrainStep + AdamW:
@@ -50,8 +57,11 @@ last line is printed):
                and gradients against the same weights in fp32 without sp,
                then one warm-up step, 5 __call__ steps and a run() span of
                15. Every attention call must go through the ring kernels
-               (12 x 16 launches of each per step, none of the flash
-               kernels) and the loss must fall.
+               (per step on one card 12 x 4 launches and 12 x 16 slot-hops
+               of the forward and the dk/dv step kernels, 12 x 16 of dq;
+               on four cards 12 x 16 of each; none of the flash kernels),
+               the step-1 loss must be bit-equal when computed twice, and
+               the loss must fall.
 
 The last two lines are a JSON summary of the kernels and
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -295,24 +305,44 @@ def ring_pairs(sq, sk, offs, causal):
     return sum(min(max(q_off + i - k_off + 1, 0), sk) for i in range(sq))
 
 
-def ring_bound(name, bh, sq, sk, d, itemsize, causal, offs, peak_ops):
-    """Least time (ms) of one hop: the products over the visible pairs at
-    the peak for the input type, against each input read once and each
-    output written once (f32 dq, dk, dv at 4 bytes; a hop that sees no key
-    needs no input)."""
+def ring_work(name, bh, sq, sk, d, itemsize, causal, offs, merged):
+    """(FLOPs, bytes) of one hop: the products over the visible pairs, each
+    input read once and each output written once (f32 dq, dk, dv at 4
+    bytes; a hop that sees no key needs no input). With `merged`, the step
+    kernels' middle step: the forward reads and writes the f32 (o, lse)
+    accumulators instead of writing out, dk/dv reads and writes its f32
+    accumulators; a hop that sees no key touches none of them."""
     pairs = ring_pairs(sq, sk, offs, causal)
     flops = 2 * PRODUCTS[name] * d * pairs * bh
     qrows, krows = bh * sq * d, bh * sk * d
-    if name == "ring_fwd":     # q, k, v -> out, lse
+    if name == "ring_fwd" and merged:  # q, k, v, o, lse -> o, lse
+        reads = (qrows + 2 * krows) * itemsize + (qrows + bh * sq) * 4
+        writes = (qrows + bh * sq) * 4
+    elif name == "ring_fwd":   # q, k, v -> out, lse
         reads = (qrows + 2 * krows) * itemsize
         writes = qrows * itemsize + bh * sq * 4
     elif name == "ring_dq":    # q, dO, k, v, lse, delta -> dq f32
         reads = (2 * qrows + 2 * krows) * itemsize + 2 * bh * sq * 4
         writes = qrows * 4
-    else:                      # the same inputs -> dk, dv f32
-        reads = (2 * qrows + 2 * krows) * itemsize + 2 * bh * sq * 4
+    else:                      # the same inputs (+ dk, dv) -> dk, dv f32
+        reads = (2 * qrows + 2 * krows) * itemsize + 2 * bh * sq * 4 + \
+            (2 * krows * 4 if merged else 0)
         writes = 2 * krows * 4
-    nbytes = writes + (reads if pairs else 0)
+    if not pairs:
+        return 0, (0 if merged else writes)
+    return flops, reads + writes
+
+
+def ring_bound(name, bh, sq, sk, d, itemsize, causal, offs, peak_ops,
+               merged=False):
+    """Least time (ms) of a launch over the slot-hops at `offs` (one
+    (q_off, k_off) pair, or a list of them): FLOPs over the peak for the
+    input type against bytes over the memory rate, summed over the
+    slot-hops (`ring_work`)."""
+    offs = offs if isinstance(offs, list) else [offs]
+    flops, nbytes = map(sum, zip(*(
+        ring_work(name, bh, sq, sk, d, itemsize, causal, o, merged)
+        for o in offs)))
     t_ops, t_bytes = flops / peak_ops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
                                        else "bytes")
@@ -362,6 +392,8 @@ def ring_case(tra, torch, bh, sq, sk, d, dtype, causal, offs):
         check(all(bool((x == 0).all()) for x in (out, dq, dk, dv)) and
               bool((lse == -1e30).all()),
               f"the future hop did not write exact zeros and -1e30 at {where}")
+    step_errs = step_check(tra, torch, bh, sq, sk, d, dtype, causal, offs,
+                           tol, where)
     # the library yardstick where one SDPA call computes the same out: a
     # hop that sees every key (non-causal, or wholly in the past) or the
     # diagonal hop
@@ -409,7 +441,170 @@ def ring_case(tra, torch, bh, sq, sk, d, dtype, causal, offs):
                        "plain_ms": median_ms(plain, samples=10),
                        "library_ms": lib, "library_device_ms": lib_dev,
                        "bound_ms": bound_ms,
-                       "bound_by": bound_by, "future": future}
+                       "bound_by": bound_by, "future": future,
+                       "max_abs_err_group": step_errs.get(kname)}
+    return rows
+
+
+def step_check(tra, torch, bh, sq, sk, d, dtype, causal, offs, tol, where):
+    """ring_fwd_step and ring_dkv_step against their plain versions on a
+    group of two slots at the case's offsets (two draws of data), at a
+    middle step and the last (forward): the running f32 accumulators are
+    drawn at random, and a hop that sees no key must leave them
+    bit-unchanged. Returns each kernel's max abs error."""
+    gen = torch.Generator(device="cuda").manual_seed(
+        SEED + 4 + sq + sk + d + offs[0])
+
+    def draw(*shape, dt=dtype):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+
+    qs, dos = ([draw(bh, sq, d) for _ in range(2)] for _ in range(2))
+    ks, vs = ([draw(bh, sk, d) for _ in range(2)] for _ in range(2))
+    pair = [offs, offs]
+    o = [draw(bh, sq, d, dt=torch.float32) for _ in range(2)]
+    lse = [draw(bh, 1, sq, dt=torch.float32) + 5.0 for _ in range(2)]
+    future = causal and offs[1] >= offs[0] + sq
+    errs = {"ring_fwd": 0.0, "ring_dkv": 0.0}
+
+    def held(kname, got, want):
+        for g, w in zip(got, want):
+            check(bool(torch.isfinite(g.float()).all()),
+                  f"{kname}: non-finite output at {where}")
+            err, ok = close_enough(g, w, tol)
+            check(ok, f"{kname} (group of 2) disagrees with its plain version"
+                  f" at {where}: max abs err {err}")
+            errs[kname] = max(errs[kname], err)
+
+    for last in (False, True):
+        ok_, lk = [x.clone() for x in o], [x.clone() for x in lse]
+        op, lp = [x.clone() for x in o], [x.clone() for x in lse]
+        got = tra.ring_fwd_step(qs, ks, vs, pair, ok_, lk, causal, last=last)
+        want = tra.ring_fwd_step_plain(qs, ks, vs, pair, op, lp, causal,
+                                       last=last)
+        torch.cuda.synchronize()
+        held("ring_fwd", (got if last else ok_) + lk,
+             (want if last else op) + lp)
+        if future:
+            same = all(torch.equal(a, b) for a, b in zip(lk, lse)) and (
+                all(torch.equal(a, b.to(dtype)) for a, b in zip(got, o))
+                if last else all(torch.equal(a, b) for a, b in zip(ok_, o)))
+            check(same, f"the future hop changed the accumulators at {where}")
+    fwd = [tra.ring_block_fwd_plain(q, k, v, offs, causal)
+           for q, k, v in zip(qs, ks, vs)]
+    glse = [lse_ for _, lse_ in fwd]
+    delta = [(g.float() * out.float()).sum(-1)[:, None, :]
+             for g, (out, _) in zip(dos, fwd)]
+    dk, dv = ([draw(bh, sk, d, dt=torch.float32) for _ in range(2)]
+              for _ in range(2))
+    dkk, dvk = [x.clone() for x in dk], [x.clone() for x in dv]
+    dkp, dvp = [x.clone() for x in dk], [x.clone() for x in dv]
+    tra.ring_dkv_step(qs, ks, vs, dos, glse, delta, pair, dkk, dvk, causal)
+    tra.ring_dkv_step_plain(qs, ks, vs, dos, glse, delta, pair, dkp, dvp,
+                            causal)
+    torch.cuda.synchronize()
+    held("ring_dkv", dkk + dvk, dkp + dvp)
+    if future:
+        check(all(torch.equal(a, b) for a, b in zip(dkk + dvk, dk + dv)),
+              f"the future hop changed the dk/dv accumulators at {where}")
+    return errs
+
+
+def ring_step_case(tra, torch, bh, s_loc, d, dtype, causal, step,
+                   n=SP_DEGREE):
+    """The step kernels on the slots of one ring step on one card, as the
+    sp train gives them: n slots of [bh, s_loc, d], slot i at q_off =
+    i s_loc holding block (i - step) mod n, a middle step (accumulators
+    read and written, drawn from an earlier hop). Held against the plain
+    versions; timed through the wrapper (per launch), as device time per
+    launch and per slot-hop (a CUDA graph), beside the plain versions and
+    SDPA (the n hops stacked in one call, and one hop)."""
+    import torch.nn.functional as TF
+    from paddle_tpu_torch.utils.cuda_timing import median_ms
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5 + s_loc + d)
+
+    def draw(*shape, dt=dtype):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+
+    qs, dos, ks, vs, kp, vp = ([draw(bh, s_loc, d) for _ in range(n)]
+                               for _ in range(6))
+    offs = [(i * s_loc, ((i - step) % n) * s_loc) for i in range(n)]
+    prev = [(i * s_loc, ((i - step + 1) % n) * s_loc) for i in range(n)]
+    o = [torch.empty(bh, s_loc, d, device="cuda") for _ in range(n)]
+    lse = [torch.empty(bh, 1, s_loc, device="cuda") for _ in range(n)]
+    tra.ring_fwd_step_plain(qs, kp, vp, prev, o, lse, causal, first=True)
+    bf16 = dtype == torch.bfloat16
+    tol = 2e-2 if bf16 else 1e-4
+    where = f"ring step {step} of {n} slots [{bh}, {s_loc}, {d}] {dtype} " \
+        f"{causal=}"
+    ok_, lk = [x.clone() for x in o], [x.clone() for x in lse]
+    op, lp = [x.clone() for x in o], [x.clone() for x in lse]
+    tra.ring_fwd_step(qs, ks, vs, offs, ok_, lk, causal)
+    tra.ring_fwd_step_plain(qs, ks, vs, offs, op, lp, causal)
+    delta = [(g.float() * x).sum(-1)[:, None, :] for g, x in zip(dos, op)]
+    dk, dv = ([draw(bh, s_loc, d, dt=torch.float32) for _ in range(n)]
+              for _ in range(2))
+    dkk, dvk = [x.clone() for x in dk], [x.clone() for x in dv]
+    dkp, dvp = [x.clone() for x in dk], [x.clone() for x in dv]
+    dargs = (qs, ks, vs, dos, lp, delta, offs)
+    tra.ring_dkv_step(*dargs, dkk, dvk, causal)
+    tra.ring_dkv_step_plain(*dargs, dkp, dvp, causal)
+    torch.cuda.synchronize()
+    errs = {}
+    for kname, got, want in (("ring_fwd", ok_ + lk, op + lp),
+                             ("ring_dkv", dkk + dvk, dkp + dvp)):
+        errs[kname] = 0.0
+        for g, w in zip(got, want):
+            check(bool(torch.isfinite(g).all()), f"{kname}: non-finite at "
+                  f"{where}")
+            err, ok = close_enough(g, w, tol)
+            check(ok, f"{kname} disagrees with its plain version at {where}:"
+                  f" max abs err {err}")
+            errs[kname] = max(errs[kname], err)
+    stack = [torch.stack(x) for x in (qs, ks, vs, dos)]   # [n, bh, s, d]
+    lib = {}
+    if not causal:  # SDPA computes the hops' attention when all is visible
+        def sdpa():
+            return TF.scaled_dot_product_attention(*stack[:3])
+
+        def sdpa_hop():
+            return TF.scaled_dot_product_attention(
+                *(x[:1] for x in stack[:3]))
+        lq, lk_, lv = (x.detach().requires_grad_() for x in stack[:3])
+        lout = TF.scaled_dot_product_attention(lq, lk_, lv)
+        lib = {"fwd": (median_ms(sdpa), graph_ms(torch, sdpa),
+                       graph_ms(torch, sdpa_hop)),
+               "bwd": (median_ms(lambda: torch.autograd.grad(
+                   lout, (lq, lk_, lv), stack[3], retain_graph=True)),
+                   sdpa_backward_device_ms(torch, TF, *stack, False),
+                   sdpa_backward_device_ms(torch, TF,
+                                           *(x[:1] for x in stack), False))}
+    timed = {
+        "ring_fwd": (lambda: tra.ring_fwd_step(qs, ks, vs, offs, ok_, lk,
+                                               causal),
+                     lambda: tra.ring_fwd_step_plain(qs, ks, vs, offs, op,
+                                                     lp, causal), "fwd"),
+        "ring_dkv": (lambda: tra.ring_dkv_step(*dargs, dkk, dvk, causal),
+                     lambda: tra.ring_dkv_step_plain(*dargs, dkp, dvp,
+                                                     causal), "bwd")}
+    rows = {}
+    for kname, (fn, plain, lkey) in timed.items():
+        bound_ms, bound_by = ring_bound(kname, bh, s_loc, s_loc, d,
+                                        qs[0].element_size(), causal, offs,
+                                        PEAK_BF16 if bf16 else PEAK_FP32,
+                                        merged=True)
+        device_ms = graph_ms(torch, fn)
+        lib_ms, lib_dev, lib_hop = lib.get(lkey, (None, None, None))
+        rows[kname] = {"shape": [n, bh, s_loc, s_loc, d], "offs": offs,
+                       "dtype": str(dtype).replace("torch.", ""),
+                       "causal": causal, "max_abs_err": errs[kname],
+                       "tol": tol, "ms": median_ms(fn),
+                       "device_ms": device_ms,
+                       "device_ms_per_hop": device_ms / n,
+                       "plain_ms": median_ms(plain, samples=10),
+                       "library_ms": lib_ms, "library_device_ms": lib_dev,
+                       "library_hop_device_ms": lib_hop,
+                       "bound_ms": bound_ms, "bound_ms_per_hop": bound_ms / n,
+                       "bound_by": bound_by}
     return rows
 
 
@@ -758,6 +953,29 @@ def serve_phase(pt, fa, torch, np, card):
     return launches
 
 
+def ring_counts(tra):
+    """A reader of the ring wrappers' counts: launches of the three ring
+    kernels and the slot-hops of the two step kernels."""
+    def read():
+        return {"ring_fwd": tra.ring_fwd_step.launches,
+                "ring_fwd_hops": tra.ring_fwd_step.hops,
+                "ring_dq": tra.ring_block_dq.launches,
+                "ring_dkv": tra.ring_dkv_step.launches,
+                "ring_dkv_hops": tra.ring_dkv_step.hops}
+    return read
+
+
+def ring_launches_per_layer(devices):
+    """What one layer's forward and backward over the ring must launch: a
+    step kernel per ring step and device (MAX_SLOTS slots at most), dq per
+    hop, every slot-hop covered once."""
+    from paddle_tpu_torch.parallel import sp
+    n = len(devices)
+    steps = n * len(sp._step_groups(devices))
+    return {"ring_fwd": steps, "ring_fwd_hops": n * n, "ring_dq": n * n,
+            "ring_dkv": steps, "ring_dkv_hops": n * n}
+
+
 def ring_phase(fa, tra, torch, card, devices):
     """The 4-slot causal flash ring at S=4096 against single-device flash
     attention on the same q/k/v, forward and backward."""
@@ -784,15 +1002,16 @@ def ring_phase(fa, tra, torch, card, devices):
         grads = torch.autograd.grad((out.float() * w).sum(), (q, k, v))
         return out, grads
 
-    wrappers = (tra.ring_block_fwd, tra.ring_block_dq, tra.ring_block_dkv)
-    before = [c.launches for c in wrappers]
+    counts = ring_counts(tra)
+    before = counts()
     out, grads = fwd_bwd(ring)
     torch.cuda.synchronize()
-    launched = [c.launches - n for c, n in zip(wrappers, before)]
+    launched = {k: v - before[k] for k, v in counts().items()}
     ref, ref_grads = fwd_bwd(flash)
     torch.cuda.synchronize()
-    check(launched == [SP_DEGREE ** 2] * 3,
-          f"the 4-slot ring launched {launched} (fwd, dq, dkv), not 16 each")
+    want = ring_launches_per_layer(devices)
+    check(launched == want, f"the {SP_DEGREE}-slot ring launched {launched}"
+          f", not {want}")
     # both in bf16 with f32 accumulation; they tile the sequence and round
     # p to bf16 at different places
     err_out, ok = close_enough(out, ref, 2e-2)
@@ -813,7 +1032,7 @@ def ring_phase(fa, tra, torch, card, devices):
           f"device(s) at B={b} S={s} H={h} D={d} bf16 (s_loc "
           f"{s // SP_DEGREE}) vs single-device flash attention: out max abs"
           f" err {err_out:.3g} (tol 2e-2(1+|ref|)); {'; '.join(verdicts)}; "
-          f"launches fwd, dq, dkv = {launched}; forward+backward "
+          f"launches and slot-hops {launched}; forward+backward "
           f"{ring_ms:.3f} ms ring vs {flash_ms:.3f} ms flash (CUDA events) "
           f"[{card}]", flush=True)
 
@@ -867,12 +1086,17 @@ def sp_train_phase(pt, fa, tra, torch, np, card, devices):
     # fp32 at S=512 without sp takes the einsum path: no kernel
     loss32, g32 = grads_of(None, False)
     loss_sp, g_sp = grads_of("bfloat16", True)
+    loss_again, _ = grads_of("bfloat16", True)
     rel = abs(loss_sp - loss32) / abs(loss32)
     cos = min((cosine(a, b), n) for a, b, n in zip(g_sp, g32, pnames))
     print(f"sp_train: step-1 loss fp32 without sp {loss32:.6f}, bf16 sp=4 "
           f"ring {loss_sp:.6f}; rel err {rel:.3g} (tol 2e-2); min "
-          f"per-parameter grad cosine {cos[0]:.6f} ({cos[1]}, tol 0.99) "
+          f"per-parameter grad cosine {cos[0]:.6f} ({cos[1]}, tol 0.99); "
+          f"computed again {loss_again!r} vs {loss_sp!r} (bit-equal) "
           f"[{card}]", flush=True)
+    # no atomics anywhere on the ring: the step is bitwise reproducible
+    check(loss_again == loss_sp, f"the sp step-1 loss is not reproducible: "
+          f"{loss_sp!r} then {loss_again!r}")
     # bf16 weights, activations, logits and loss through 12 post-LN layers
     check(rel <= 2e-2, f"sp bf16 vs fp32 step-1 loss rel err {rel}")
     check(cos[0] >= 0.99, f"sp bf16 vs fp32 gradient cosine {cos}")
@@ -880,13 +1104,14 @@ def sp_train_phase(pt, fa, tra, torch, np, card, devices):
     torch.cuda.empty_cache()
 
     # ---- the main path: TrainStep through its entry points ----
-    ring = (tra.ring_block_fwd, tra.ring_block_dq, tra.ring_block_dkv)
+    ring = (tra.ring_fwd_step, tra.ring_block_dq, tra.ring_dkv_step)
     flash = (fa.flash_attention_fwd, fa.flash_attention_bwd_fused,
              fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in ring + flash:
         c.launches = 0
+    tra.ring_fwd_step.hops = tra.ring_dkv_step.hops = 0
     t_start = time.perf_counter()
     losses = [step(ids, ids, nsp)]                   # warm-up step
     torch.cuda.synchronize()
@@ -909,8 +1134,7 @@ def sp_train_phase(pt, fa, tra, torch, np, card, devices):
     torch.cuda.synchronize()
     run_ms = e0.elapsed_time(e1) / SP_RUN
     losses.extend(span.unbind(0))
-    launches = dict(zip(("ring_fwd", "ring_dq", "ring_dkv"),
-                        (c.launches for c in ring)))
+    launches = ring_counts(tra)()
     flash_launches = [c.launches for c in flash]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     n_steps = 1 + 5 + SP_RUN
@@ -918,10 +1142,10 @@ def sp_train_phase(pt, fa, tra, torch, np, card, devices):
     check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
     check(losses[-1] < losses[0], f"the loss did not fall over {n_steps} "
           f"steps on the repeated batch: {losses}")
-    want = n_layers * SP_DEGREE ** 2 * n_steps
-    check(all(n == want for n in launches.values()),
-          f"ring kernels launched {launches} in {n_steps} steps of "
-          f"{n_layers} layers (want {want} each)")
+    want = {k: n_layers * n_steps * v
+            for k, v in ring_launches_per_layer(devices).items()}
+    check(launches == want, f"ring kernels launched {launches} in {n_steps} "
+          f"steps of {n_layers} layers (want {want})")
     check(flash_launches == [0] * 4,
           f"the flash kernels launched {flash_launches} on the sp path")
 
@@ -979,9 +1203,12 @@ def sp_train_phase(pt, fa, tra, torch, np, card, devices):
           f"optimizer {split['optimizer']:.3f} ms (CUDA events, median of "
           f"3); peak max_memory_allocated {peak_gib:.2f} GiB [{card}]",
           flush=True)
-    print(f"sp_train: launches in {n_steps} steps: {launches} (= "
-          f"{n_layers} layers x {SP_DEGREE ** 2} hops x {n_steps}); flash "
-          f"kernels {flash_launches} [{card}]", flush=True)
+    per_step = {k: v // n_steps for k, v in launches.items()}
+    print(f"sp_train: ring launches and slot-hops in {n_steps} steps: "
+          f"{launches}; per step {per_step} ({n_layers} layers), ring "
+          f"kernel launches per step "
+          f"{sum(per_step[k] for k in ('ring_fwd', 'ring_dq', 'ring_dkv'))};"
+          f" flash kernels {flash_launches} [{card}]", flush=True)
     pt.parallel.set_mesh(None)
     del step, opt, net, values, slots
     torch.cuda.empty_cache()
@@ -1092,14 +1319,38 @@ def main() -> int:
             lib = "n/a" if r["library_ms"] is None else \
                 f"{r['library_ms']:.4f} library_device_ms=" \
                 f"{fmt_ms(r['library_device_ms'])}"
+            grp = "" if r["max_abs_err_group"] is None else \
+                f" group-of-2 step max_abs_err={r['max_abs_err_group']:.3g}"
+            fut = " (future hop: exact 0 / -1e30, accumulators unchanged)" \
+                if r["future"] else ""
             print(f"kernels: {kname} BH,Sq,Sk,D={r['shape']} {r['dtype']} "
                   f"causal={r['causal']} offs={r['offs']}"
-                  f"{' (future hop: exact 0 / -1e30)' if r['future'] else ''}"
-                  f" max_abs_err={r['max_abs_err']:.3g} (tol {r['tol']}) "
+                  f"{fut}"
+                  f" max_abs_err={r['max_abs_err']:.3g} (tol {r['tol']}){grp} "
                   f"kernel_ms={r['ms']:.4f} device_ms={r['device_ms']:.4f} "
                   f"plain_ms={r['plain_ms']:.4f} library_ms={lib} "
                   f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) [{card}]",
                   flush=True)
+    # the step kernels on the 4 slots of one card at the sp train's hop
+    # (non-causal, timed) and with causal offsets (past, diagonal, future
+    # slots in one launch)
+    step_rows = {}
+    for causal in (False, True):
+        rows = ring_step_case(tra, torch, 96, 128, 64, bf, causal, step=1)
+        step_rows[causal] = rows
+        for kname, r in rows.items():
+            print(f"kernels: {kname} step n,BH,Sq,Sk,D={r['shape']} "
+                  f"{r['dtype']} causal={r['causal']} offs={r['offs']} "
+                  f"max_abs_err={r['max_abs_err']:.3g} (tol {r['tol']}) "
+                  f"kernel_ms={r['ms']:.4f} per launch, device_ms="
+                  f"{r['device_ms']:.4f} per launch, "
+                  f"{r['device_ms_per_hop']:.4f} per slot-hop; plain_ms="
+                  f"{r['plain_ms']:.4f} library_ms={fmt_ms(r['library_ms'])}"
+                  f" library_device_ms={fmt_ms(r['library_device_ms'])} "
+                  f"(one hop {fmt_ms(r['library_hop_device_ms'])}) bound_ms="
+                  f"{r['bound_ms']:.4f} per launch, "
+                  f"{r['bound_ms_per_hop']:.4f} per slot-hop "
+                  f"({r['bound_by']}) [{card}]", flush=True)
     ring_devices = [torch.device("cuda", i) for i in range(SP_DEGREE)] \
         if torch.cuda.device_count() >= SP_DEGREE else \
         [torch.device("cuda", 0)] * SP_DEGREE
@@ -1116,17 +1367,18 @@ def main() -> int:
     for kname in ("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"):
         summary[kname] = dict(train_rows[kname],
                               launches=train_launches[kname])
-    # the ring kernels at the sp train's hop, launches from the sp train
+    # the ring kernels at the sp train's hop, launches from the sp train:
+    # the step kernels over the 4 slots of a ring step, dq on one hop
     for kname in ("ring_fwd", "ring_dq", "ring_dkv"):
-        summary[kname] = dict(ring_rows[0][kname],
-                              launches=sp_launches[kname])
+        row = ring_rows[0] if kname == "ring_dq" else step_rows[False]
+        summary[kname] = dict(row[kname], launches=sp_launches[kname])
     for kname, r in summary.items():
         path = "train + serve" if kname == "flash_fwd" else \
             "sp train" if kname.startswith("ring") else "train"
         print(f"kernels: {kname} summary at {r['shape']} {r['dtype']}: "
               f"max_abs_err={r['max_abs_err']:.3g} kernel_ms={r['ms']:.4f} "
               f"device_ms={r['device_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-              f"library_ms={r['library_ms']:.4f} "
+              f"library_ms={fmt_ms(r['library_ms'])} "
               f"library_device_ms={fmt_ms(r['library_device_ms'])} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
               f"launches={r['launches']} ({path}) [{card}]", flush=True)
@@ -1136,7 +1388,9 @@ def main() -> int:
                 "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"],
-                "library_device_ms": r["library_device_ms"]}
+                "library_device_ms": r["library_device_ms"],
+                **{k: r[k] for k in ("device_ms_per_hop", "bound_ms_per_hop",
+                                     "library_hop_device_ms") if k in r}}
                for kname, r in summary.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -27,40 +27,347 @@
 // Both bounds are computed per tile from the offsets, which need not lie on
 // the tile grid, and every score is masked by global position, so the
 // bounds only skip work. A hop wholly in the future runs zero iterations
-// and still writes its outputs (0, and -1e30 for lse). Ragged Sq and Sk are
+// (ring_dq still writes its zeros; the step entries below treat it as a
+// hop that sees no key). Ragged Sq and Sk are
 // masked in the kernels: rows and keys past the end are zero-filled on the
 // way in and never written.
 //
+// The forward and dk/dv entries take a ring step: every slot of the ring
+// that lies on this device, in one launch (ring_fwd_step, ring_dkv_step).
+// Each slot has its own q, k, v (and dO, lse, delta) and offsets; all share
+// BH, Sq, Sk, D and the dtype. Their epilogues do what the reference does
+// around the hop kernel (paddle_tpu/parallel/sp.py:191-276), so the hop's
+// own outputs never reach device memory:
+//   ring_fwd_step merges the hop into the slot's running f32 accumulators
+//     (o [BH, Sq, D], lse [BH, Sq]) as sp.py:214-218 does:
+//       lse' = logaddexp(lse, lse_hop),
+//       o'   = o exp(lse - lse') + o_hop exp(lse_hop - lse'),
+//     with o_hop kept in f32 (the reference rounds it to q's dtype first).
+//     `first`: nothing is read; the hop's (o, lse) is written, which is the
+//     merge into (0, -1e30). `last`: out = o' in q's dtype is written
+//     instead of o (lse' still is). A row that sees no key of the hop leaves
+//     its accumulators bit-unchanged (the merge with lse_hop = -1e30 gives
+//     the same up to f32 rounding); under `first` it gets o = 0 and
+//     lse = -1e30;
+//   ring_dkv_step adds the hop's scale ds^T q and p^T dO into the slot's
+//     rotating f32 dk/dv accumulators [BH, Sk, D] (stores them under
+//     `first`). One CTA owns each key tile: no atomics, deterministic.
+// ring_dq keeps one launch per hop.
+//
 // Bound on the H100: at the ERNIE-base path shape (BH = 96, Sq = Sk = 128,
-// D = 64, bf16, non-causal) one hop is ~0.4 GFLOP (0.4 us at 989 TFLOP/s)
-// against 6.3 MB for the forward (1.9 us at 3.35 TB/s): a hop that small is
-// bound by its bytes and, below that, by its launch. At long shards (S =
-// 1024 per shard) the hops are bound by operations, as rows 1-4 are.
-// Design (right and simple first; wgmma, TMA and pipelining are later
-// work), the tiles of flash_fwd.cu and flash_bwd.cu:
+// D = 64, bf16, non-causal) one slot-hop is ~0.4 GFLOP (0.4 us at 989
+// TFLOP/s) against 4.7 MB of q/k/v plus 6.3 MB of f32 o read and written
+// for the merged forward (3.3 us at 3.35 TB/s), and 6.3 MB of bf16 inputs
+// plus 12.6 MB of f32 dk/dv read and written for dk/dv (5.6 us): bound by
+// bytes, so the design keeps the hop's outputs in registers and merges
+// them in the epilogue, and covers the slots of a step in one launch
+// (768 forward CTAs at the sp hop, 192 for each of its four slots).
+//
+// bf16 at D = 64 and 128 (every main path): warp-specialised wgmma kernels
+// on csrc/hopper.cuh, after flash_fwd.cu and flash_bwd.cu:
+//   * forward: one CTA per (bh, 64-row q tile, slot); one consumer
+//     warpgroup and one producer thread issuing TMA loads: Q once, K and V
+//     tiles of 128 keys through mbarrier stages (3 at D = 64, 2 CTAs per
+//     SM; 2 at D = 128) into 128-byte-swizzled shared memory; S = Q K^T and
+//     O += P V on wgmma (P from registers, V MN-major); the online softmax
+//     in base 2, lse kept in natural-log units;
+//   * dk/dv: one CTA per (bh, 128-key tile, slot), two consumer warpgroups
+//     of 64 keys and one producer warp: K, V once, Q, dO, lse and delta of
+//     64-row q blocks through two TMA stages; s^T, dp^T, dv += p^T dO and
+//     dk += ds^T q on wgmma;
+//   * per-slot tensor maps and pointers live in one __grid_constant__
+//     argument: at most kMaxSlots slots per launch (the 4 KB parameter
+//     space), the wrapper raises above that.
+// Masks and trip counts come from the global offsets, which need not lie on
+// any tile grid: every score is masked by global position (hidden scores
+// give p = 0 exactly), the loop bounds only skip work, and a hop wholly in
+// the future runs zero iterations and loads nothing.
+// D = 256 bf16 and fp32 keep the simple kernels below behind the same
+// slot tables and epilogues (no main path runs them):
 //   * bf16: tiles of 64 q rows x 64 keys on mma.sync m16n8k16 (bf16 in, f32
 //     accumulate); forward and dq: one CTA per (bh, 64-row q tile), a loop
 //     over key tiles, the score fragments re-packed in registers as the A
 //     operand of the next product; dk/dv: one CTA per (bh, 64-key tile),
 //     each warp computes s^T = k q^T for its 16 keys, a loop over q tiles.
 //     At D = 256 the dq and dk/dv CTAs have 8 warps, two per row group,
-//     each accumulating half of the head dimension.
-//   * dq has one CTA per q tile and dk/dv one per key tile: no atomics, so
-//     the ring is deterministic.
+//     each accumulating half of the head dimension. The dq pass runs these
+//     at every D;
 //   * fp32: the same algorithm on plain FMA in 32 x 32 tiles (TF32 tensor
 //     cores keep ~3 digits, against a 1e-4 tolerance).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-//        -Xcompiler -fPIC -o libring_attention.so ring_attention.cu
+//        -Xcompiler -fPIC -o libring_attention.so ring_attention.cu -lcuda
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 constexpr float kMask = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kMaxSlots = 4;  // slots of one ring step per launch
+
+// ---------------------------------------------------------------------------
+// the slot tables of a ring step
+// ---------------------------------------------------------------------------
+struct FwdSlot {
+  const void *q, *k, *v;  // [bh, Sq, D], [bh, Sk, D] x 2
+  float* o;    // running f32 out [bh, Sq, D]; unused when first && last
+  float* lse;             // running f32 lse [bh, Sq]
+  void* out;              // [bh, Sq, D] in q's dtype, written when last
+  int q_off, k_off;
+};
+
+struct DkvSlot {
+  const void *q, *k, *v, *dout;  // q, dout [bh, Sq, D]; k, v [bh, Sk, D]
+  const float *lse, *delta;      // [bh, Sq]
+  float *dk, *dv;                // rotating f32 accumulators [bh, Sk, D]
+  int q_off, k_off;
+};
+
+struct FwdTable {
+  FwdSlot s[kMaxSlots];
+};
+
+struct DkvTable {
+  DkvSlot s[kMaxSlots];
+};
+
+// the wgmma kernels' tables: a tensor map per operand and slot
+struct FwdMaps {
+  CUtensorMap q, k, v;
+};
+
+struct DkvMaps {
+  CUtensorMap q, k, v, dout;
+};
+
+struct FwdWgParams {
+  FwdMaps maps[kMaxSlots];
+  FwdSlot s[kMaxSlots];
+};
+
+struct DkvWgParams {
+  DkvMaps maps[kMaxSlots];
+  DkvSlot s[kMaxSlots];
+};
+
+static_assert(sizeof(DkvWgParams) + 64 <= 4096,
+              "a launch's slots must fit the 4 KB parameter space");
+
+// ---------------------------------------------------------------------------
+// the forward's merge into the running accumulators (sp.py:214-218)
+// ---------------------------------------------------------------------------
+// What one q row does with its hop result: o' = o * w_old + acc * w_new
+// (acc the hop's unnormalised sum, so w_new carries 1 / l), lse' = lse.
+// `lo` is the running lse (read only when !first), `lse_hop` the hop's
+// natural-log lse, -1e30 for a row that saw no key.
+struct RowMerge {
+  float w_old, w_new, lse;
+  bool write_o;    // o (or, when last, out) is written
+  bool write_lse;  // lse is written
+};
+
+__device__ __forceinline__ RowMerge row_merge(float lo, float lse_hop,
+                                              float inv_l, int first,
+                                              int last) {
+  const bool seen = lse_hop > kMask;
+  RowMerge m;
+  if (first) {  // the merge into (0, -1e30)
+    m.w_old = 0.f;
+    m.w_new = seen ? inv_l : 0.f;
+    m.lse = seen ? lse_hop : kMask;
+    m.write_o = m.write_lse = true;
+  } else if (!seen) {  // the accumulators stay as they are
+    m.w_old = 1.f;
+    m.w_new = 0.f;
+    m.lse = lo;
+    m.write_o = last;  // only out, the accumulator cast
+    m.write_lse = false;
+  } else {
+    const float mx = fmaxf(lo, lse_hop);
+    m.lse = mx + log1pf(expf(-fabsf(lo - lse_hop)));
+    m.w_old = expf(lo - m.lse);
+    m.w_new = expf(lse_hop - m.lse) * inv_l;
+    m.write_o = m.write_lse = true;
+  }
+  return m;
+}
+
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+__device__ __forceinline__ void store2(bf16* p, float x, float y) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  *reinterpret_cast<__nv_bfloat162*>(p) = v;
+}
+
+// The merge epilogue of a q tile held in the mma / wgmma accumulator
+// layout: acc[4n + 2h + e] is (row row0 + 8h, column 8n + 2t + e) of the
+// hop's unnormalised output, lse_hop[h] and inv_l[h] its rows' lse and
+// 1 / l. Every lane of the warp calls it (the running lse is read by lane
+// t = 0 of each quad and shuffled to the other three).
+// The epilogues below read every running value they need before they
+// store any: a load after a store through another pointer (o and out, dk
+// and dv) cannot be moved ahead of it by the compiler, and a chain of such
+// pairs costs one round trip to device memory each.
+
+// dk or dv of the key rows key0 + 8h, h in [h0, h0 + kRows), in the mma /
+// wgmma accumulator layout (acc[4n + 2h + e] is key key0 + 8h, column
+// col + 8n + e): acc * s stored under `first`, else added to the slot's
+// running values. kRows rows are read at once (registers allowing).
+template <int DW, int kRows>
+__device__ __forceinline__ void add_rows(float* dst, const float* acc,
+                                         float s, int h0, int key0, int Sk,
+                                         size_t kbase, int D, int col,
+                                         int first) {
+  float2 old[kRows][DW / 8];
+#pragma unroll
+  for (int hh = 0; hh < kRows; ++hh) {
+    const int key = key0 + 8 * (h0 + hh);
+#pragma unroll
+    for (int n = 0; n < DW / 8; ++n)
+      old[hh][n] = !first && key < Sk
+                       ? *reinterpret_cast<const float2*>(
+                             dst + (kbase + key) * D + col + 8 * n)
+                       : make_float2(0.f, 0.f);
+  }
+#pragma unroll
+  for (int hh = 0; hh < kRows; ++hh) {
+    const int h = h0 + hh, key = key0 + 8 * h;
+    if (key >= Sk) continue;
+#pragma unroll
+    for (int n = 0; n < DW / 8; ++n)
+      store2(dst + (kbase + key) * D + col + 8 * n,
+             fmaf(acc[4 * n + 2 * h], s, old[hh][n].x),
+             fmaf(acc[4 * n + 2 * h + 1], s, old[hh][n].y));
+  }
+}
+
+// both accumulators of a key tile's fragment: dk = scale ds^T q, dv = p^T dO
+template <int DW, int kRows>
+__device__ __forceinline__ void add_dkv_fragment(const DkvSlot& sl,
+                                                 const float* acc_dk,
+                                                 const float* acc_dv,
+                                                 int key0, int Sk,
+                                                 size_t kbase, int D, int col,
+                                                 float scale, int first) {
+#pragma unroll
+  for (int h0 = 0; h0 < 2; h0 += kRows) {
+    add_rows<DW, kRows>(sl.dk, acc_dk, scale, h0, key0, Sk, kbase, D, col,
+                        first);
+    add_rows<DW, kRows>(sl.dv, acc_dv, 1.f, h0, key0, Sk, kbase, D, col,
+                        first);
+  }
+}
+
+// the running o of q rows row0 + 8h, h in [h0, h0 + kRows), at this
+// thread's columns (zeros under `first` and past Sq)
+template <int D, int kRows>
+__device__ __forceinline__ void load_o_rows(float2 (&old)[kRows][D / 8],
+                                            const FwdSlot& sl, int h0,
+                                            int row0, int t, int Sq,
+                                            size_t rbase, int first) {
+#pragma unroll
+  for (int hh = 0; hh < kRows; ++hh) {
+    const int row = row0 + 8 * (h0 + hh);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      old[hh][n] = !first && row < Sq
+                       ? *reinterpret_cast<const float2*>(
+                             sl.o + (rbase + row) * D + 2 * t + 8 * n)
+                       : make_float2(0.f, 0.f);
+  }
+}
+
+// the running lse of the thread's two rows, read by lane t = 0 of each
+// quad (0 under `first` and past Sq)
+__device__ __forceinline__ void load_lse_rows(float (&lo)[2],
+                                              const FwdSlot& sl, int row0,
+                                              int t, int Sq, size_t rbase,
+                                              int first) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    lo[h] = (!first && t == 0 && row < Sq) ? sl.lse[rbase + row] : 0.f;
+  }
+}
+
+// what each of the thread's two rows does with its hop, the running lse
+// shuffled from lane t = 0 of the quad (every lane of the warp calls it)
+__device__ __forceinline__ void row_merges(RowMerge (&m)[2],
+                                           const float (&lo)[2],
+                                           const float (&lse_hop)[2],
+                                           const float (&inv_l)[2], int lane,
+                                           int first, int last) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    m[h] = row_merge(__shfl_sync(0xffffffffu, lo[h], lane & ~3), lse_hop[h],
+                     inv_l[h], first, last);
+}
+
+// o' = o w_old + acc w_new for rows row0 + 8h, h in [h0, h0 + kRows), in
+// the mma / wgmma accumulator layout (acc[4n + 2h + e] is row row0 + 8h,
+// column 8n + 2t + e), written to o, or when last to out; and lse'
+template <int D, int kRows, typename OutT>
+__device__ __forceinline__ void merge_rows(const float* acc,
+                                           const float2 (&old)[kRows][D / 8],
+                                           const RowMerge (&m)[2], int h0,
+                                           int row0, int t, int Sq,
+                                           size_t rbase, const FwdSlot& sl,
+                                           int last) {
+#pragma unroll
+  for (int hh = 0; hh < kRows; ++hh) {
+    const int h = h0 + hh, row = row0 + 8 * h;
+    if (row >= Sq) continue;
+    if (m[h].write_o) {
+      const size_t off = (rbase + row) * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const float x = fmaf(old[hh][n].x, m[h].w_old,
+                             acc[4 * n + 2 * h] * m[h].w_new);
+        const float y = fmaf(old[hh][n].y, m[h].w_old,
+                             acc[4 * n + 2 * h + 1] * m[h].w_new);
+        if (last)
+          store2(static_cast<OutT*>(sl.out) + off + 8 * n, x, y);
+        else
+          store2(sl.o + off + 8 * n, x, y);
+      }
+    }
+    if (m[h].write_lse && t == 0) sl.lse[rbase + row] = m[h].lse;
+  }
+}
+
+// The merge epilogue of a q tile held in the mma / wgmma accumulator
+// layout, lse_hop[h] and inv_l[h] the hop's lse and 1 / l of its two rows;
+// the running o is read kRows rows at a time.
+template <int D, int kRows, typename OutT>
+__device__ __forceinline__ void merge_fragment(const float* acc,
+                                               const float (&lse_hop)[2],
+                                               const float (&inv_l)[2],
+                                               int row0, int t, int lane,
+                                               int Sq, size_t rbase,
+                                               const FwdSlot& sl, int first,
+                                               int last) {
+  float lo[2];
+  load_lse_rows(lo, sl, row0, t, Sq, rbase, first);
+  RowMerge m[2];
+  row_merges(m, lo, lse_hop, inv_l, lane, first, last);
+#pragma unroll
+  for (int h0 = 0; h0 < 2; h0 += kRows) {
+    float2 old[kRows][D / 8];
+    load_o_rows<D, kRows>(old, sl, h0, row0, t, Sq, rbase, first);
+    merge_rows<D, kRows, OutT>(acc, old, m, h0, row0, t, Sq, rbase, sl,
+                               last);
+  }
+}
 
 // ---------------------------------------------------------------------------
 // tile bounds from the global offsets
@@ -195,10 +502,13 @@ constexpr int bwd_bf16_smem_bytes() {
 
 template <int D>
 __global__ void __launch_bounds__(kFwdThreads)
-ring_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, int Sq, int Sk, int q_off,
-                     int k_off, int causal, float scale) {
+ring_fwd_bf16_kernel(const __grid_constant__ FwdTable tab, int Sq, int Sk,
+                     int causal, int first, int last, float scale) {
+  const FwdSlot& sl = tab.s[blockIdx.z];
+  const bf16* __restrict__ q = static_cast<const bf16*>(sl.q);
+  const bf16* __restrict__ k = static_cast<const bf16*>(sl.k);
+  const bf16* __restrict__ v = static_cast<const bf16*>(sl.v);
+  const int q_off = sl.q_off, k_off = sl.k_off;
   constexpr int QS = D + 8;   // row stride of the Q and K tiles
   constexpr int VS = kB + 8;  // row stride of the V^T tile
   constexpr int CH = D / 8;
@@ -323,25 +633,18 @@ ring_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
-  // written for every row, also when the loop ran zero times
+  // merged for every row, also when the loop ran zero times
+  float lse_hop[2], inv_l[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float l = l_run[h];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const float lsafe = fmaxf(l, 1e-30f);
-    const int row = row0 + h * 8;
-    if (row < Sq) {
-      bf16* orow = o + qbase + (size_t)row * D + 2 * t;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<uint32_t*>(orow + n * 8) =
-            pack_bf16(acc[n][2 * h] / lsafe, acc[n][2 * h + 1] / lsafe);
-      if (t == 0)
-        lse[(size_t)blockIdx.y * Sq + row] =
-            l > 0.f ? m_run[h] + logf(lsafe) : kMask;
-    }
+    lse_hop[h] = l > 0.f ? m_run[h] + logf(l) : kMask;
+    inv_l[h] = l > 0.f ? 1.f / l : 0.f;
   }
+  merge_fragment<D, 1, bf16>(&acc[0][0], lse_hop, inv_l, row0, t, lane, Sq,
+                             (size_t)blockIdx.y * Sq, sl, first, last);
 }
 
 template <int D>
@@ -463,12 +766,16 @@ ring_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D>
 __global__ void __launch_bounds__(Bf16Cfg<D>::kThreads)
-ring_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int Sq, int Sk, int q_off,
-                     int k_off, int causal, float scale) {
+ring_dkv_bf16_kernel(const __grid_constant__ DkvTable tab, int Sq, int Sk,
+                     int causal, int first, float scale) {
+  const DkvSlot& sl = tab.s[blockIdx.z];
+  const bf16* __restrict__ q = static_cast<const bf16*>(sl.q);
+  const bf16* __restrict__ k = static_cast<const bf16*>(sl.k);
+  const bf16* __restrict__ v = static_cast<const bf16*>(sl.v);
+  const bf16* __restrict__ dout = static_cast<const bf16*>(sl.dout);
+  const float* __restrict__ lse = sl.lse;
+  const float* __restrict__ delta = sl.delta;
+  const int q_off = sl.q_off, k_off = sl.k_off;
   using C = Bf16Cfg<D>;
   constexpr int TS = C::TS, DW = C::DW, NT = C::kThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -570,21 +877,12 @@ ring_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
-  // written for every key, also when the loop ran zero times
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int key = k0 + rg * 16 + g + h * 8;
-    if (key < Sk) {
-      const size_t off = kbase + (size_t)key * D + d0 + 2 * t;
-#pragma unroll
-      for (int n = 0; n < DW / 8; ++n) {
-        *reinterpret_cast<float2*>(dk + off + n * 8) = make_float2(
-            acc_dk[n][2 * h] * scale, acc_dk[n][2 * h + 1] * scale);
-        *reinterpret_cast<float2*>(dv + off + n * 8) =
-            make_float2(acc_dv[n][2 * h], acc_dv[n][2 * h + 1]);
-      }
-    }
-  }
+  // stored under `first` (also when the loop ran zero times), else added;
+  // a hop that saw no q row leaves the accumulators as they are
+  if (!first && qb_begin >= n_qb) return;
+  add_dkv_fragment<DW, 1>(sl, &acc_dk[0][0], &acc_dv[0][0], k0 + rg * 16 + g,
+                          Sk, (size_t)blockIdx.y * Sk, D, d0 + 2 * t, scale,
+                          first);
 }
 
 // ---------------------------------------------------------------------------
@@ -623,10 +921,13 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
 
 template <int D>
 __global__ void __launch_bounds__(kFThreads)
-ring_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ o,
-                    float* __restrict__ lse, int Sq, int Sk, int q_off,
-                    int k_off, int causal, float scale) {
+ring_fwd_f32_kernel(const __grid_constant__ FwdTable tab, int Sq, int Sk,
+                    int causal, int first, int last, float scale) {
+  const FwdSlot& sl = tab.s[blockIdx.z];
+  const float* __restrict__ q = static_cast<const float*>(sl.q);
+  const float* __restrict__ k = static_cast<const float*>(sl.k);
+  const float* __restrict__ v = static_cast<const float*>(sl.v);
+  const int q_off = sl.q_off, k_off = sl.k_off;
   constexpr int QS = D + 1;
   constexpr int PS = kFB + 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -702,17 +1003,28 @@ ring_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
+  // merged for every row, also when the loop ran zero times; the running
+  // lse is read by the row's first lane and shuffled to the other three
   float l = l_run;
   l += __shfl_xor_sync(0xffffffffu, l, 1);
   l += __shfl_xor_sync(0xffffffffu, l, 2);
-  const float lsafe = fmaxf(l, 1e-30f);
+  const size_t rrow = (size_t)blockIdx.y * Sq + qrow;
+  float lo = (!first && sub == 0 && qrow < Sq) ? sl.lse[rrow] : 0.f;
+  lo = __shfl_sync(0xffffffffu, lo, (tid & 31) & ~3);
   if (qrow < Sq) {
+    const RowMerge m = row_merge(lo, l > 0.f ? m_run + logf(l) : kMask,
+                                 l > 0.f ? 1.f / l : 0.f, first, last);
+    float* dst = last ? static_cast<float*>(sl.out) : sl.o;
+    if (m.write_o) {
 #pragma unroll
-    for (int i = 0; i < D / 4; ++i)
-      o[qbase + (size_t)qrow * D + sub + 4 * i] = acc[i] / lsafe;
-    if (sub == 0)
-      lse[(size_t)blockIdx.y * Sq + qrow] =
-          l > 0.f ? m_run + logf(lsafe) : kMask;
+      for (int i = 0; i < D / 4; ++i) {
+        const size_t off = qbase + (size_t)qrow * D + sub + 4 * i;
+        float x = acc[i] * m.w_new;
+        if (!first) x = fmaf(sl.o[off], m.w_old, x);
+        dst[off] = x;
+      }
+    }
+    if (m.write_lse && sub == 0) sl.lse[rrow] = m.lse;
   }
 }
 
@@ -797,13 +1109,16 @@ ring_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 __global__ void __launch_bounds__(kFThreads)
-ring_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dk,
-                    float* __restrict__ dv, int Sq, int Sk, int q_off,
-                    int k_off, int causal, float scale) {
+ring_dkv_f32_kernel(const __grid_constant__ DkvTable tab, int Sq, int Sk,
+                    int causal, int first, float scale) {
+  const DkvSlot& sl = tab.s[blockIdx.z];
+  const float* __restrict__ q = static_cast<const float*>(sl.q);
+  const float* __restrict__ k = static_cast<const float*>(sl.k);
+  const float* __restrict__ v = static_cast<const float*>(sl.v);
+  const float* __restrict__ dout = static_cast<const float*>(sl.dout);
+  const float* __restrict__ lse = sl.lse;
+  const float* __restrict__ delta = sl.delta;
+  const int q_off = sl.q_off, k_off = sl.k_off;
   constexpr int TS = D + 1, PS = kFB + 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sK = reinterpret_cast<float*>(smem_raw);
@@ -879,24 +1194,460 @@ ring_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
+  // stored under `first`, else added (a hop that saw no q row adds nothing)
   const int key = k0 + r;
-  if (key < Sk) {
+  if (key < Sk && (first || qb_begin < n_qb)) {
 #pragma unroll
     for (int i = 0; i < D / 4; ++i) {
-      dk[kbase + (size_t)key * D + sub + 4 * i] = acc_dk[i] * scale;
-      dv[kbase + (size_t)key * D + sub + 4 * i] = acc_dv[i];
+      const size_t off = kbase + (size_t)key * D + sub + 4 * i;
+      float x = acc_dk[i] * scale, y = acc_dv[i];
+      if (!first) {
+        x += sl.dk[off];
+        y += sl.dv[off];
+      }
+      sl.dk[off] = x;
+      sl.dv[off] = y;
     }
   }
 }
 
 // ---------------------------------------------------------------------------
+// bf16, D = 64 and 128: warp-specialised wgmma fed by TMA
+// ---------------------------------------------------------------------------
+template <int D>
+struct WgFwdCfg {
+  static constexpr int kM = 64;   // q rows per CTA: one consumer warpgroup
+  static constexpr int kN = 128;  // keys per K or V tile
+  // K/V stages: at D = 64 three fit two CTAs in an SM (as flash_fwd.cu);
+  // D = 128 takes two
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kThreads = 256;  // consumer + producer warpgroups
+  static constexpr int kQBytes = kM * D * 2;
+  static constexpr int kTileBytes = kN * D * 2;
+  // Q, the K ring, the V ring, the barriers; +1024 aligns the base
+  static constexpr int kSmem = kQBytes + 2 * kStages * kTileBytes + 128 +
+                               1024;
+};
+
+// one key tile of the online softmax in base 2, in place: s holds q k^T on
+// entry and p = exp2(s * s2scale - m) on exit. Hidden scores (keys past
+// Sk, and with `causal` keys after the row in global order: key > row +
+// diag, diag = q_off - k_off) become -inf and so p = 0 exactly: a row that
+// has seen no key keeps m = -1e30 and l = 0.
+template <int kN>
+__device__ __forceinline__ void ring_softmax(float (&s)[kN / 2],
+                                             float (&m_run)[2],
+                                             float (&l_run)[2],
+                                             float (&alpha)[2],
+                                             float s2scale, int k0, int Sk,
+                                             int row0, long long diag,
+                                             int causal, bool need_mask,
+                                             int t) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) {
+    const int h = (i >> 1) & 1;
+    if (need_mask) {
+      const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      if (key >= Sk || (causal && (long long)key > row0 + 8 * h + diag))
+        s[i] = -INFINITY;
+    }
+    mx[h] = fmaxf(mx[h], s[i]);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    mx[h] = fmaxf(m_run[h], mx[h] * s2scale);  // base-2 domain from here
+    alpha[h] = exp2f(m_run[h] - mx[h]);
+    m_run[h] = mx[h];
+    l_run[h] *= alpha[h];
+  }
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) {
+    const int h = (i >> 1) & 1;
+    const float p = exp2f(fmaf(s[i], s2scale, -m_run[h]));
+    s[i] = p;
+    l_run[h] += p;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(256, 2)
+ring_fwd_wgmma_kernel(const __grid_constant__ FwdWgParams prm, int Sq,
+                      int Sk, int causal, int first, int last,
+                      float s2scale) {
+  using namespace hopper;
+  using C = WgFwdCfg<D>;
+  constexpr int kM = C::kM, kN = C::kN, ST = C::kStages, NH = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + C::kQBytes;  // stage st at + st * kTileBytes
+  const uint32_t sV = sK + ST * C::kTileBytes;
+  // barriers: Q full, then per stage K full, V full, K/V empty
+  const uint32_t full_q = sV + ST * C::kTileBytes;
+  const uint32_t full_k = full_q + 8, full_v = full_k + 8 * ST,
+                 empty = full_v + 8 * ST;
+
+  const int bh = blockIdx.x;
+  const FwdSlot& sl = prm.s[blockIdx.z];
+  const FwdMaps& maps = prm.maps[blockIdx.z];
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kM;  // heaviest tiles first
+  const int n_kb = (Sk + kN - 1) / kN;
+  const int kb_end = key_tiles(q0, kM, kN, n_kb, sl.q_off, sl.k_off, causal);
+  const long long diag = (long long)sl.q_off - sl.k_off;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(full_k + 8 * st, 1);
+      mbar_init(full_v + 8 * st, 1);
+      mbar_init(empty + 8 * st, 1);  // the consumer warpgroup
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // producer: one thread loads Q, then keeps the K/V ring full, key
+    // tiles from the last one the q tile sees; nothing for a future hop
+    reg_dealloc<24>();
+    if (threadIdx.x == 128 && kb_end > 0) {
+      mbar_arrive_expect_tx(full_q, C::kQBytes);
+      for (int h = 0; h < NH; ++h)
+        tma_load_3d(sQ + h * kM * 128, &maps.q, full_q, h * 64, q0, bh);
+      for (int it = 0; it < kb_end; ++it) {
+        const int kb = kb_end - 1 - it, st = it % ST;
+        mbar_wait(empty + 8 * st, ((it / ST) & 1) ^ 1);
+        const uint32_t k_tile = sK + st * C::kTileBytes;
+        const uint32_t v_tile = sV + st * C::kTileBytes;
+        mbar_arrive_expect_tx(full_k + 8 * st, C::kTileBytes);
+        for (int h = 0; h < NH; ++h)
+          tma_load_3d(k_tile + h * kN * 128, &maps.k, full_k + 8 * st,
+                      h * 64, kb * kN, bh);
+        mbar_arrive_expect_tx(full_v + 8 * st, C::kTileBytes);
+        for (int h = 0; h < NH; ++h)
+          tma_load_3d(v_tile + h * kN * 128, &maps.v, full_v + 8 * st,
+                      h * 64, kb * kN, bh);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: q rows q0 .. q0 + 63
+  reg_alloc<232>();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;  // accumulator coordinates
+  const int row0 = q0 + warp * 16 + g;    // and row0 + 8
+
+  const size_t rbase = (size_t)bh * Sq;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m_run[2] = {kMask, kMask};
+  float l_run[2] = {0.f, 0.f};  // per-thread partial sums, reduced at the end
+  // the running o, read once: at D = 64 its loads are in flight under the
+  // mainloop (D = 128 has no registers to spare for it there)
+  float2 old[2][D / 8];
+  float lo[2];
+  load_lse_rows(lo, sl, row0, t, Sq, rbase, first);
+  if constexpr (D == 64)
+    load_o_rows<D, 2>(old, sl, 0, row0, t, Sq, rbase, first);
+
+  if (kb_end > 0) {
+    float s[kN / 2];
+    uint32_t pa[kN / 16][4];  // p of the previous tile, the PV A operand
+    float alpha[2];
+    mbar_wait(full_q, 0);
+
+    // s = q k^T for the tile in stage st: 64 rows x 128 keys, one group
+    auto issue_scores = [&](int st) {
+      const uint32_t k_tile = sK + st * C::kTileBytes;
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) s[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<kN, 0, 0>(
+            s, desc_kmajor(sQ + (kk >> 2) * kM * 128 + (kk & 3) * 32),
+            desc_kmajor(k_tile + (kk >> 2) * kN * 128 + (kk & 3) * 32));
+      wgmma_commit();
+    };
+    // acc += p v for the tile in stage st: p from registers, v MN-major
+    auto issue_pv = [&](int st) {
+      const uint32_t v_tile = sV + st * C::kTileBytes;
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk)
+        wgmma_rs<D, 1>(acc, pa[kk],
+                       desc_mnmajor(v_tile + kk * 2048, kN * 128));
+      wgmma_commit();
+    };
+    auto softmax = [&](int it) {
+      const int k0 = (kb_end - 1 - it) * kN;
+      ring_softmax<kN>(s, m_run, l_run, alpha, s2scale, k0, Sk, row0, diag,
+                       causal,
+                       tile_needs_mask(q0, kM, Sq, k0, kN, Sk, sl.q_off,
+                                       sl.k_off, causal),
+                       t);
+    };
+
+    mbar_wait(full_k, 0);
+    issue_scores(0);
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax(0);
+#pragma unroll
+    for (int kk = 0; kk < kN / 16; ++kk) hopper::pack_a(pa[kk], s, kk);
+
+    // steady state: tile it's scores and softmax run while the previous
+    // tile's PV product is in flight
+    for (int it = 1; it < kb_end; ++it) {
+      const int st = it % ST, pst = (it - 1) % ST;
+      mbar_wait(full_k + 8 * st, (it / ST) & 1);
+      issue_scores(st);
+      mbar_wait(full_v + 8 * pst, ((it - 1) / ST) & 1);
+      issue_pv(pst);
+      wgmma_wait<1>();  // the scores are in
+      fence_regs(s);
+      softmax(it);
+      wgmma_wait<0>();  // the previous PV product is in
+      fence_regs(acc);
+      if (tid == 0) mbar_arrive(empty + 8 * pst);  // the stage is consumed
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk) hopper::pack_a(pa[kk], s, kk);
+    }
+    {
+      const int it = kb_end - 1, st = it % ST;
+      mbar_wait(full_v + 8 * st, (it / ST) & 1);
+      wgmma_fence();
+      issue_pv(st);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (tid == 0) mbar_arrive(empty + 8 * st);
+    }
+  }
+
+  // merged for every row, also when the hop saw nothing
+  float lse_hop[2], inv_l[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_run[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    lse_hop[h] = l > 0.f ? m_run[h] * kLn2 + logf(l) : kMask;
+    inv_l[h] = l > 0.f ? 1.f / l : 0.f;
+  }
+  if constexpr (D != 64)
+    load_o_rows<D, 2>(old, sl, 0, row0, t, Sq, rbase, first);
+  RowMerge m[2];
+  row_merges(m, lo, lse_hop, inv_l, lane, first, last);
+  merge_rows<D, 2, bf16>(acc, old, m, 0, row0, t, Sq, rbase, sl, last);
+}
+
+template <int D>
+struct WgDkvCfg {
+  static constexpr int kN = 128;        // keys per CTA: 64 per consumer
+  static constexpr int kM = 64;         // q rows per streamed block
+  static constexpr int kStages = 2;     // q blocks in flight
+  static constexpr int kThreads = 384;  // consumer, consumer, producer
+  static constexpr int kKVBytes = kN * D * 2;  // the K (or V) tile
+  static constexpr int kQBytes = kM * D * 2;   // one Q (or dO) tile
+  static constexpr int kOffV = kKVBytes;
+  static constexpr int kOffQ = 2 * kKVBytes;
+  static constexpr int kOffDO = kOffQ + kStages * kQBytes;
+  static constexpr int kOffL = kOffDO + kStages * kQBytes;   // lse * log2(e)
+  static constexpr int kOffDl = kOffL + kStages * kM * 4;    // delta
+  static constexpr int kOffBar = kOffDl + kStages * kM * 4;
+  static constexpr int kSmem = kOffBar + 64 + 1024;  // +1024 aligns the base
+};
+
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+ring_dkv_wgmma_kernel(const __grid_constant__ DkvWgParams prm, int Sq,
+                      int Sk, int causal, int first, float scale) {
+  using namespace hopper;
+  using C = WgDkvCfg<D>;
+  constexpr int kN = C::kN, kM = C::kM, ST = C::kStages, NH = D / 64;
+  const int bh = blockIdx.x;
+  const DkvSlot& sl = prm.s[blockIdx.z];
+  const DkvMaps& maps = prm.maps[blockIdx.z];
+  const int k0 = blockIdx.y * kN;
+  const int n_qb = (Sq + kM - 1) / kM;
+  // q blocks before this one see none of the keys
+  const int qb_begin = first_q_tile(k0, kM, n_qb, sl.q_off, sl.k_off, causal);
+  const int n_it = n_qb - qb_begin;
+  // a hop that sees none of these keys adds nothing
+  if (!first && n_it == 0) return;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sb = (raw + 1023u) & ~1023u;
+  unsigned char* base = smem_raw + (sb - raw);  // the same bytes, generic
+  const uint32_t sK = sb, sV = sb + C::kOffV;
+  const uint32_t sQ = sb + C::kOffQ, sDO = sb + C::kOffDO;  // + st * kQBytes
+  float* sL = reinterpret_cast<float*>(base + C::kOffL);    // [st][kM]
+  float* sDl = reinterpret_cast<float*>(base + C::kOffDl);
+  // barriers: K/V full, then per stage q-block full and empty
+  const uint32_t full_kv = sb + C::kOffBar;
+  const uint32_t full = full_kv + 8, empty = full + 8 * ST;
+
+  const size_t rbase = (size_t)bh * Sq;
+  const long long diag = (long long)sl.q_off - sl.k_off;
+  const float s2scale = scale * kLog2e;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(full + 8 * st, 32);  // the producer warp's lanes
+      mbar_init(empty + 8 * st, 2);  // one arrival per consumer warpgroup
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer warp: K and V once, then Q, dO, lse and delta per q block
+    reg_dealloc<40>();
+    if (threadIdx.x < 288 && n_it > 0) {
+      const int lane = threadIdx.x & 31;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(full_kv, 2 * C::kKVBytes);
+        for (int h = 0; h < NH; ++h) {
+          tma_load_3d(sK + h * kN * 128, &maps.k, full_kv, h * 64, k0, bh);
+          tma_load_3d(sV + h * kN * 128, &maps.v, full_kv, h * 64, k0, bh);
+        }
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int q0 = (qb_begin + it) * kM, st = it % ST;
+        mbar_wait(empty + 8 * st, ((it / ST) & 1) ^ 1);
+        for (int r = lane; r < kM; r += 32) {
+          const bool ok = q0 + r < Sq;
+          sL[st * kM + r] = ok ? sl.lse[rbase + q0 + r] * kLog2e : 0.f;
+          sDl[st * kM + r] = ok ? sl.delta[rbase + q0 + r] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(full + 8 * st, 2 * C::kQBytes);
+          for (int h = 0; h < NH; ++h) {
+            tma_load_3d(sQ + st * C::kQBytes + h * kM * 128, &maps.q,
+                        full + 8 * st, h * 64, q0, bh);
+            tma_load_3d(sDO + st * C::kQBytes + h * kM * 128, &maps.dout,
+                        full + 8 * st, h * 64, q0, bh);
+          }
+        } else {
+          mbar_arrive(full + 8 * st);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: keys k0 + 64 wg .. + 63
+  reg_alloc<232>();
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;  // accumulator coordinates
+  const int key0 = k0 + wg * 64 + warp * 16 + g;  // and key0 + 8
+  const uint32_t k_rows = sK + wg * 64 * 128, v_rows = sV + wg * 64 * 128;
+
+  float acc_dk[D / 2], acc_dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+  if (n_it > 0) mbar_wait(full_kv, 0);
+
+  for (int it = 0; it < n_it; ++it) {
+    const int q0 = (qb_begin + it) * kM, st = it % ST;
+    const uint32_t q_tile = sQ + st * C::kQBytes;
+    const uint32_t do_tile = sDO + st * C::kQBytes;
+    mbar_wait(full + 8 * st, (it / ST) & 1);
+
+    // s^T = k q^T and dp^T = v dO^T: 64 keys x 64 q rows
+    float s[kM / 2], dp[kM / 2];
+#pragma unroll
+    for (int i = 0; i < kM / 2; ++i) s[i] = dp[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t a_off = (kk >> 2) * kN * 128 + (kk & 3) * 32;
+      const uint32_t b_off = (kk >> 2) * kM * 128 + (kk & 3) * 32;
+      wgmma_ss<kM, 0, 0>(s, desc_kmajor(k_rows + a_off),
+                         desc_kmajor(q_tile + b_off));
+      wgmma_ss<kM, 0, 0>(dp, desc_kmajor(v_rows + a_off),
+                         desc_kmajor(do_tile + b_off));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // p^T and ds^T; hidden pairs (keys or q rows past the ends, with
+    // `causal` keys after the row in global order) get p = 0 exactly
+    const float* L = sL + st * kM;
+    const float* Dl = sDl + st * kM;
+    const bool need_mask =
+        tile_needs_mask(q0, kM, Sq, k0, kN, Sk, sl.q_off, sl.k_off, causal);
+#pragma unroll
+    for (int j = 0; j < kM / 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(L + 8 * j + 2 * t);
+      const float2 d2 = *reinterpret_cast<const float2*>(Dl + 8 * j + 2 * t);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * h + e;
+          const int qrow = q0 + 8 * j + 2 * t + e;
+          float p = exp2f(s[i] * s2scale - (e ? l2.y : l2.x));
+          if (need_mask) {
+            const int key = key0 + 8 * h;
+            if (key >= Sk || qrow >= Sq ||
+                (causal && (long long)key > qrow + diag))
+              p = 0.f;
+          }
+          s[i] = p;
+          dp[i] = p * (dp[i] - (e ? d2.y : d2.x));
+        }
+    }
+
+    // dv += p^T dO and dk += ds^T q: A from registers, B MN-major
+    uint32_t pa[kM / 16][4], da[kM / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kM / 16; ++kk) {
+      hopper::pack_a(pa[kk], s, kk);
+      hopper::pack_a(da[kk], dp, kk);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kM / 16; ++kk) {
+      wgmma_rs<D, 1>(acc_dv, pa[kk],
+                     desc_mnmajor(do_tile + kk * 2048, kM * 128));
+      wgmma_rs<D, 1>(acc_dk, da[kk],
+                     desc_mnmajor(q_tile + kk * 2048, kM * 128));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_dk);
+    fence_regs(acc_dv);
+    if (tid == 0) mbar_arrive(empty + 8 * st);  // Q, dO consumed
+  }
+
+  // stored under `first`, else added into the rotating accumulators
+  add_dkv_fragment<D, 2>(sl, acc_dk, acc_dv, key0, Sk, (size_t)bh * Sk, D,
+                         2 * t, scale, first);
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
-struct Args {
+struct Args {  // the dq entry's
   const void *q, *k, *v, *dout, *lse, *delta;
-  void *o, *dk, *dv;  // o: out (forward) or dq
-  void* lse_out;      // forward only
+  void* dq;
   int bh, Sq, Sk, q_off, k_off, causal;
+  cudaStream_t stream;
+};
+
+struct StepArgs {  // what the slots of a ring step share
+  int n, bh, Sq, Sk, causal, first, last;
   cudaStream_t stream;
 };
 
@@ -907,30 +1658,89 @@ cudaError_t prepare(Kernel kernel, int smem) {
 }
 
 template <int D>
-cudaError_t launch_fwd(const Args& a, int is_bf16) {
+cudaError_t launch_fwd_step(const FwdTable& tab, const StepArgs& a,
+                            int is_bf16) {
   const float scale = 1.0f / sqrtf((float)D);
   if (is_bf16) {
-    const int smem = fwd_bf16_smem_bytes<D>();
-    auto kernel = ring_fwd_bf16_kernel<D>;
-    cudaError_t err = prepare(kernel, smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((a.Sq + kB - 1) / kB, a.bh);
-    kernel<<<grid, kFwdThreads, smem, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o),
-        static_cast<float*>(a.lse_out), a.Sq, a.Sk, a.q_off, a.k_off,
-        a.causal, scale);
+    if constexpr (D != 256) {
+      using C = WgFwdCfg<D>;
+      FwdWgParams prm;
+      for (int i = 0; i < a.n; ++i) {
+        const FwdSlot& sl = tab.s[i];
+        if (encode_bhsd_map(&prm.maps[i].q, sl.q, a.bh, a.Sq, D, C::kM) ||
+            encode_bhsd_map(&prm.maps[i].k, sl.k, a.bh, a.Sk, D, C::kN) ||
+            encode_bhsd_map(&prm.maps[i].v, sl.v, a.bh, a.Sk, D, C::kN))
+          return cudaErrorInvalidValue;
+        prm.s[i] = sl;
+      }
+      auto kernel = ring_fwd_wgmma_kernel<D>;
+      cudaError_t err = prepare(kernel, C::kSmem);
+      if (err != cudaSuccess) return err;
+      dim3 grid(a.bh, (a.Sq + C::kM - 1) / C::kM, a.n);
+      kernel<<<grid, C::kThreads, C::kSmem, a.stream>>>(
+          prm, a.Sq, a.Sk, a.causal, a.first, a.last, kLog2e * scale);
+    } else {
+      const int smem = fwd_bf16_smem_bytes<D>();
+      auto kernel = ring_fwd_bf16_kernel<D>;
+      cudaError_t err = prepare(kernel, smem);
+      if (err != cudaSuccess) return err;
+      dim3 grid((a.Sq + kB - 1) / kB, a.bh, a.n);
+      kernel<<<grid, kFwdThreads, smem, a.stream>>>(
+          tab, a.Sq, a.Sk, a.causal, a.first, a.last, scale);
+    }
   } else {
     const int smem = fwd_f32_smem_bytes<D>();
     auto kernel = ring_fwd_f32_kernel<D>;
     cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return err;
-    dim3 grid((a.Sq + kFB - 1) / kFB, a.bh);
-    kernel<<<grid, kFThreads, smem, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<float*>(a.o),
-        static_cast<float*>(a.lse_out), a.Sq, a.Sk, a.q_off, a.k_off,
-        a.causal, scale);
+    dim3 grid((a.Sq + kFB - 1) / kFB, a.bh, a.n);
+    kernel<<<grid, kFThreads, smem, a.stream>>>(tab, a.Sq, a.Sk, a.causal,
+                                                a.first, a.last, scale);
+  }
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_step(const DkvTable& tab, const StepArgs& a,
+                            int is_bf16) {
+  const float scale = 1.0f / sqrtf((float)D);
+  if (is_bf16) {
+    if constexpr (D != 256) {
+      using C = WgDkvCfg<D>;
+      DkvWgParams prm;
+      for (int i = 0; i < a.n; ++i) {
+        const DkvSlot& sl = tab.s[i];
+        if (encode_bhsd_map(&prm.maps[i].q, sl.q, a.bh, a.Sq, D, C::kM) ||
+            encode_bhsd_map(&prm.maps[i].k, sl.k, a.bh, a.Sk, D, C::kN) ||
+            encode_bhsd_map(&prm.maps[i].v, sl.v, a.bh, a.Sk, D, C::kN) ||
+            encode_bhsd_map(&prm.maps[i].dout, sl.dout, a.bh, a.Sq, D,
+                            C::kM))
+          return cudaErrorInvalidValue;
+        prm.s[i] = sl;
+      }
+      auto kernel = ring_dkv_wgmma_kernel<D>;
+      cudaError_t err = prepare(kernel, C::kSmem);
+      if (err != cudaSuccess) return err;
+      dim3 grid(a.bh, (a.Sk + C::kN - 1) / C::kN, a.n);
+      kernel<<<grid, C::kThreads, C::kSmem, a.stream>>>(
+          prm, a.Sq, a.Sk, a.causal, a.first, scale);
+    } else {
+      const int smem = bwd_bf16_smem_bytes<D>();
+      auto kernel = ring_dkv_bf16_kernel<D>;
+      cudaError_t err = prepare(kernel, smem);
+      if (err != cudaSuccess) return err;
+      dim3 grid((a.Sk + kB - 1) / kB, a.bh, a.n);
+      kernel<<<grid, Bf16Cfg<D>::kThreads, smem, a.stream>>>(
+          tab, a.Sq, a.Sk, a.causal, a.first, scale);
+    }
+  } else {
+    const int smem = dkv_f32_smem_bytes<D>();
+    auto kernel = ring_dkv_f32_kernel<D>;
+    cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((a.Sk + kFB - 1) / kFB, a.bh, a.n);
+    kernel<<<grid, kFThreads, smem, a.stream>>>(tab, a.Sq, a.Sk, a.causal,
+                                                a.first, scale);
   }
   return cudaGetLastError();
 }
@@ -948,7 +1758,7 @@ cudaError_t launch_dq(const Args& a, int is_bf16) {
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
         static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<float*>(a.o), a.Sq, a.Sk, a.q_off, a.k_off, a.causal,
+        static_cast<float*>(a.dq), a.Sq, a.Sk, a.q_off, a.k_off, a.causal,
         scale);
   } else {
     const int smem = dq_f32_smem_bytes<D>();
@@ -960,61 +1770,14 @@ cudaError_t launch_dq(const Args& a, int is_bf16) {
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<float*>(a.o), a.Sq, a.Sk, a.q_off, a.k_off, a.causal,
+        static_cast<float*>(a.dq), a.Sq, a.Sk, a.q_off, a.k_off, a.causal,
         scale);
   }
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dkv(const Args& a, int is_bf16) {
-  const float scale = 1.0f / sqrtf((float)D);
-  if (is_bf16) {
-    const int smem = bwd_bf16_smem_bytes<D>();
-    auto kernel = ring_dkv_bf16_kernel<D>;
-    cudaError_t err = prepare(kernel, smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((a.Sk + kB - 1) / kB, a.bh);
-    kernel<<<grid, Bf16Cfg<D>::kThreads, smem, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.Sq, a.Sk,
-        a.q_off, a.k_off, a.causal, scale);
-  } else {
-    const int smem = dkv_f32_smem_bytes<D>();
-    auto kernel = ring_dkv_f32_kernel<D>;
-    cudaError_t err = prepare(kernel, smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((a.Sk + kFB - 1) / kFB, a.bh);
-    kernel<<<grid, kFThreads, smem, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.Sq, a.Sk,
-        a.q_off, a.k_off, a.causal, scale);
-  }
-  return cudaGetLastError();
-}
-
-enum Kind { kKindFwd, kKindDq, kKindDkv };
-
-int dispatch(Kind kind, const Args& a, int D, int is_bf16) {
-  if (a.bh < 1 || a.bh > 65535 || a.Sq < 1 || a.Sk < 1)
-    return (int)cudaErrorInvalidValue;
-#define PT_RING_CASE(DIM)                                             \
-  case DIM:                                                           \
-    if (kind == kKindFwd) return (int)launch_fwd<DIM>(a, is_bf16);    \
-    if (kind == kKindDq) return (int)launch_dq<DIM>(a, is_bf16);      \
-    return (int)launch_dkv<DIM>(a, is_bf16);
-  switch (D) {
-    PT_RING_CASE(64)
-    PT_RING_CASE(128)
-    PT_RING_CASE(256)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef PT_RING_CASE
+bool bad_shape(int n, int bh, int Sq, int Sk) {
+  return n < 1 || n > kMaxSlots || bh < 1 || bh > 65535 || Sq < 1 || Sk < 1;
 }
 
 }  // namespace
@@ -1024,34 +1787,83 @@ int dispatch(Kind kind, const Args& a, int D, int is_bf16) {
 // q_off, k_off: global positions of the first q row and the first key.
 // Each entry launches on `stream` and returns a cudaError_t.
 
-// out: [bh, Sq, D] in the input dtype; lse_out: [bh, Sq] f32
-extern "C" int ring_fwd(const void* q, const void* k, const void* v,
-                        void* out, void* lse_out, int bh, int Sq, int Sk,
-                        int D, int q_off, int k_off, int is_bf16, int causal,
-                        void* stream) {
-  Args a{q, k, v, nullptr, nullptr, nullptr, out, nullptr, nullptr,
-         lse_out, bh, Sq, Sk, q_off, k_off, causal,
-         static_cast<cudaStream_t>(stream)};
-  return dispatch(kKindFwd, a, D, is_bf16);
+// A ring step's forward over n <= kMaxSlots slots: ptrs holds, per slot,
+// q, k, v, o (f32 [bh, Sq, D], unused when first and last), lse (f32
+// [bh, Sq]), out ([bh, Sq, D] in the input dtype, written when last);
+// offs holds q_off, k_off per slot.
+extern "C" int ring_fwd_step(const void* const* ptrs, const int* offs, int n,
+                             int bh, int Sq, int Sk, int D, int is_bf16,
+                             int causal, int first, int last, void* stream) {
+  if (bad_shape(n, bh, Sq, Sk)) return (int)cudaErrorInvalidValue;
+  FwdTable tab{};
+  for (int i = 0; i < n; ++i) {
+    const void* const* p = ptrs + 6 * i;
+    tab.s[i] = FwdSlot{p[0], p[1], p[2],
+                       static_cast<float*>(const_cast<void*>(p[3])),
+                       static_cast<float*>(const_cast<void*>(p[4])),
+                       const_cast<void*>(p[5]), offs[2 * i], offs[2 * i + 1]};
+  }
+  const StepArgs a{n, bh, Sq, Sk, causal, first, last,
+                   static_cast<cudaStream_t>(stream)};
+  switch (D) {
+    case 64:
+      return (int)launch_fwd_step<64>(tab, a, is_bf16);
+    case 128:
+      return (int)launch_fwd_step<128>(tab, a, is_bf16);
+    case 256:
+      return (int)launch_fwd_step<256>(tab, a, is_bf16);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
-// dq: [bh, Sq, D] f32
+// A ring step's dk/dv over n <= kMaxSlots slots: ptrs holds, per slot, q,
+// k, v, dout, lse, delta, dk, dv (f32 [bh, Sk, D], stored when first, else
+// added to); offs holds q_off, k_off per slot.
+extern "C" int ring_dkv_step(const void* const* ptrs, const int* offs, int n,
+                             int bh, int Sq, int Sk, int D, int is_bf16,
+                             int causal, int first, void* stream) {
+  if (bad_shape(n, bh, Sq, Sk)) return (int)cudaErrorInvalidValue;
+  DkvTable tab{};
+  for (int i = 0; i < n; ++i) {
+    const void* const* p = ptrs + 8 * i;
+    tab.s[i] = DkvSlot{p[0], p[1], p[2], p[3],
+                       static_cast<const float*>(p[4]),
+                       static_cast<const float*>(p[5]),
+                       static_cast<float*>(const_cast<void*>(p[6])),
+                       static_cast<float*>(const_cast<void*>(p[7])),
+                       offs[2 * i], offs[2 * i + 1]};
+  }
+  const StepArgs a{n, bh, Sq, Sk, causal, first, 0,
+                   static_cast<cudaStream_t>(stream)};
+  switch (D) {
+    case 64:
+      return (int)launch_dkv_step<64>(tab, a, is_bf16);
+    case 128:
+      return (int)launch_dkv_step<128>(tab, a, is_bf16);
+    case 256:
+      return (int)launch_dkv_step<256>(tab, a, is_bf16);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// one hop's dq: [bh, Sq, D] f32
 extern "C" int ring_dq(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dq, int bh, int Sq, int Sk, int D, int q_off,
                        int k_off, int is_bf16, int causal, void* stream) {
-  Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, nullptr, bh, Sq,
-         Sk, q_off, k_off, causal, static_cast<cudaStream_t>(stream)};
-  return dispatch(kKindDq, a, D, is_bf16);
-}
-
-// dk, dv: [bh, Sk, D] f32
-extern "C" int ring_dkv(const void* q, const void* k, const void* v,
-                        const void* dout, const void* lse, const void* delta,
-                        void* dk, void* dv, int bh, int Sq, int Sk, int D,
-                        int q_off, int k_off, int is_bf16, int causal,
-                        void* stream) {
-  Args a{q, k, v, dout, lse, delta, nullptr, dk, dv, nullptr, bh, Sq, Sk,
-         q_off, k_off, causal, static_cast<cudaStream_t>(stream)};
-  return dispatch(kKindDkv, a, D, is_bf16);
+  if (bad_shape(1, bh, Sq, Sk)) return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, dout, lse, delta, dq, bh, Sq, Sk, q_off, k_off,
+               causal, static_cast<cudaStream_t>(stream)};
+  switch (D) {
+    case 64:
+      return (int)launch_dq<64>(a, is_bf16);
+    case 128:
+      return (int)launch_dq<128>(a, is_bf16);
+    case 256:
+      return (int)launch_dq<256>(a, is_bf16);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -194,20 +194,31 @@ def flash_attention_fwd(q, k, v, causal=False):
     return out, lse
 
 
+def flash_bwd_prep(do, o, workspace=False):
+    """The pass before a backward (the prep kernel of `csrc/flash_bwd.cu`):
+    delta = rowsum(dO * O) as [BH, S] f32 from dO, O [BH, S, D] and, with
+    `workspace`, a zeroed f32 [BH, S, D] buffer (the fused form's dq
+    workspace, the ring's dq accumulator), in one pass. CPU tensors take
+    `_delta` and `torch.zeros`."""
+    if not _on_cuda("flash_bwd_prep", do):
+        return _delta(do, o), torch.zeros(do.shape, dtype=torch.float32) \
+            if workspace else None
+    _check("flash_bwd_prep", do, o)
+    delta = torch.empty(do.shape[:2], dtype=torch.float32, device=do.device)
+    dq_ws = torch.empty(do.shape, dtype=torch.float32, device=do.device) \
+        if workspace else None
+    _launch(_BWD, "flash_bwd_prep", (do, o, delta, dq_ws), do)
+    return delta, dq_ws
+
+
 def _bwd_inputs(name, q, k, v, o, lse, do, workspace=False):
-    """Checks the backward's inputs and runs the pass before it (the prep
-    kernel of `csrc/flash_bwd.cu`): delta = rowsum(dO * O) as [BH, S] f32
-    and, with `workspace`, the fused form's zeroed f32 dq workspace."""
+    """Checks the backward's inputs and runs `flash_bwd_prep`."""
     _check(name, q, k, v, o, do)
     if lse.shape != (q.shape[0], 1, q.shape[1]) or \
             lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"{name}: lse must be a contiguous f32 "
                          f"[BH, 1, S], got {tuple(lse.shape)} {lse.dtype}")
-    delta = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    dq_ws = torch.empty(q.shape, dtype=torch.float32, device=q.device) \
-        if workspace else None
-    _launch(_BWD, "flash_bwd_prep", (do, o, delta, dq_ws), q)
-    return delta, dq_ws
+    return flash_bwd_prep(do, o, workspace)
 
 
 def flash_attention_bwd_fused(q, k, v, o, lse, do, causal=False):
@@ -319,4 +330,5 @@ __all__ = ["build", "build_bwd", "flash_attention", "flash_attention_arrays",
            "flash_attention_fwd", "flash_attention_fwd_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_bwd_fused", "flash_attention_bwd_two_pass",
-           "flash_attention_bwd_dq", "flash_attention_bwd_dkv"]
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+           "flash_bwd_prep"]

@@ -11,15 +11,18 @@ to the next slot with `Tensor.to(device, non_blocking=True)` (nothing to
 copy when two slots name one device). The `*_local` functions take and
 return those per-slot lists of shards.
 
-- Ring attention (`ring_flash_attention_local`): one hand-written kernel
-  call per hop (`kernels/ring_attention.py`), the hops merged by their lse
-  as the reference merges them (`_ring_flash_fwd` :191); its backward
-  (`_ring_flash_bwd_rule` :234) sums per-hop dq locally and rotates the
-  f32 dk/dv accumulators with their k/v blocks for n hops. Dispatch is the
-  reference's (:288-293): the flash ring when the local shard is at least
-  128 long and a multiple of min(512, shard), else the dense einsum ring
-  `ring_attention_local` (:50). The port's kernels tile at 64 on their
-  own, so only that rule reads the 512.
+- Ring attention (`ring_flash_attention_local`): the hand-written kernels
+  of `kernels/ring_attention.py`. The forward launches one kernel per ring
+  step and device, over every slot there, and merges each hop by its lse
+  in the kernel, as the reference merges them (`_ring_flash_fwd` :191);
+  its backward (`_ring_flash_bwd_rule` :234) sums per-hop dq locally (one
+  launch per hop) and adds each hop's dk/dv into f32 accumulators that
+  rotate with their k/v blocks for n hops (one launch per ring step and
+  device). On one card, 4 slots take 4 forward and 4 dk/dv launches per
+  layer. Dispatch is the reference's (:288-293): the flash ring when the
+  local shard is at least 128 long and a multiple of min(512, shard),
+  else the dense einsum ring `ring_attention_local` (:50). The port's
+  kernels tile on their own, so only that rule reads the 512.
 - Ulysses (`ulysses_attention_local`): regroups the shards from sequence
   to heads, runs dense attention over the whole sequence with H/n heads
   per slot, and regroups back. It runs no kernel.
@@ -157,65 +160,88 @@ def _from_bhsd(x, b, h):
     return x.reshape(b, h, s, d).transpose(1, 2)
 
 
+def _step_groups(devices):
+    """The slots of a ring step that share a device, in slot order, cut into
+    launches of at most `MAX_SLOTS`: one group of all slots on one card,
+    one group per slot on as many cards."""
+    from ..kernels.ring_attention import MAX_SLOTS
+    by_device = {}
+    for i, dev in enumerate(devices):
+        by_device.setdefault(dev, []).append(i)
+    return [idx[j:j + MAX_SLOTS] for idx in by_device.values()
+            for j in range(0, len(idx), MAX_SLOTS)]
+
+
 def _ring_flash_fwd(q, k, v, causal):
-    """Forward ring: the kernel once per hop and slot, the hops merged by
-    lse: out = sum_hops exp(lse_hop - lse_total) * out_hop, with an f32
-    accumulator and the result cast to q's dtype. Returns the per-slot
-    outputs [B, S_loc, H, D] and global lse rows [BH, 1, S_loc]."""
-    from ..kernels.ring_attention import ring_block_fwd
+    """Forward ring: one kernel launch per ring step and device covering
+    every slot there, each hop merged by lse into the slot's f32
+    accumulators in the kernel's epilogue (out = sum_hops exp(lse_hop -
+    lse_total) * out_hop); the last step writes out in q's dtype. Returns
+    the per-slot outputs [B, S_loc, H, D] and global lse rows
+    [BH, 1, S_loc]."""
+    from ..kernels.ring_attention import ring_fwd_step
     n = len(q)
     devices = _devices_of(q)
     b, s, h, d = q[0].shape
     qf = [_to_bhsd(x) for x in q]
     k_cur, v_cur = [_to_bhsd(x) for x in k], [_to_bhsd(x) for x in v]
-    o = [torch.zeros((b * h, s, d), dtype=torch.float32, device=dev)
-         for dev in devices]
-    lse = [torch.full((b * h, 1, s), -1e30, dtype=torch.float32, device=dev)
+    # written by the first step, read by the later ones (none with n = 1)
+    o = [torch.empty((b * h, s, d), dtype=torch.float32, device=dev)
+         if n > 1 else None for dev in devices]
+    lse = [torch.empty((b * h, 1, s), dtype=torch.float32, device=dev)
            for dev in devices]
+    out = [None] * n
+    groups = _step_groups(devices)
     for step in range(n):
-        for my in range(n):
-            kb = (my - step) % n
-            o_b, lse_b = ring_block_fwd(qf[my], k_cur[my], v_cur[my],
-                                        (my * s, kb * s), causal)
-            lse_new = torch.logaddexp(lse[my], lse_b)
-            w_old = torch.exp(lse[my] - lse_new)
-            w_new = torch.exp(lse_b - lse_new)
-            o[my] = o[my] * w_old.transpose(1, 2) \
-                + o_b.float() * w_new.transpose(1, 2)
-            lse[my] = lse_new
+        for grp in groups:
+            res = ring_fwd_step(
+                [qf[i] for i in grp], [k_cur[i] for i in grp],
+                [v_cur[i] for i in grp],
+                [(i * s, ((i - step) % n) * s) for i in grp],
+                [o[i] for i in grp], [lse[i] for i in grp], causal,
+                first=step == 0, last=step == n - 1)
+            if res is not None:
+                for i, x in zip(grp, res):
+                    out[i] = x
         if step < n - 1:
             k_cur, v_cur = _rotate(k_cur, devices), _rotate(v_cur, devices)
-    out = [_from_bhsd(x, b, h).to(q[0].dtype) for x in o]
-    return out, lse
+    return [_from_bhsd(x, b, h) for x in out], lse
 
 
 def _ring_flash_bwd(q, k, v, out, lse, g, causal):
-    """Backward ring: dq accumulates in place on its slot; the f32 dk/dv
-    accumulators rotate WITH their k/v blocks and arrive home after n hops.
-    The global lse makes every hop's p globally normalized, so the hops'
-    contributions just sum."""
-    from ..kernels.ring_attention import ring_block_dkv, ring_block_dq
+    """Backward ring: dq accumulates in place on its slot (one kernel per
+    hop); the f32 dk/dv accumulators rotate WITH their k/v blocks, take
+    each hop in the dk/dv kernel's epilogue (one launch per ring step and
+    device) and arrive home after n hops. delta and the zeroed dq
+    accumulator come from one prep pass per slot. The global lse makes
+    every hop's p globally normalized, so the hops' contributions just
+    sum."""
+    from ..kernels.flash_attention import flash_bwd_prep
+    from ..kernels.ring_attention import ring_block_dq, ring_dkv_step
     n = len(q)
     devices = _devices_of(q)
     b, s, h, d = q[0].shape
     qf = [_to_bhsd(x) for x in q]
     dof = [_to_bhsd(x) for x in g]
-    delta = [(gx.float() * _to_bhsd(ox).float()).sum(-1)[:, None, :]
-             for gx, ox in zip(dof, out)]
+    prep = [flash_bwd_prep(gx, _to_bhsd(ox), workspace=True)
+            for gx, ox in zip(dof, out)]
+    delta = [x[:, None, :] for x, _ in prep]
+    dq = [ws for _, ws in prep]
     k_cur, v_cur = [_to_bhsd(x) for x in k], [_to_bhsd(x) for x in v]
-    dq = [torch.zeros((b * h, s, d), dtype=torch.float32, device=dev)
-          for dev in devices]
-    dk_cur = [torch.zeros_like(x) for x in dq]
-    dv_cur = [torch.zeros_like(x) for x in dq]
+    # written by the first step's kernels, added to by the later ones
+    dk_cur = [torch.empty((b * h, s, d), dtype=torch.float32, device=dev)
+              for dev in devices]
+    dv_cur = [torch.empty_like(x) for x in dk_cur]
+    groups = _step_groups(devices)
     for step in range(n):
+        offs = [(my * s, ((my - step) % n) * s) for my in range(n)]
         for my in range(n):
-            kb = (my - step) % n
-            args = (qf[my], k_cur[my], v_cur[my], dof[my], lse[my],
-                    delta[my], (my * s, kb * s), causal)
-            dq[my] += ring_block_dq(*args)
-            dk_b, dv_b = ring_block_dkv(*args)
-            dk_cur[my] += dk_b
-            dv_cur[my] += dv_b
+            dq[my] += ring_block_dq(qf[my], k_cur[my], v_cur[my], dof[my],
+                                    lse[my], delta[my], offs[my], causal)
+        for grp in groups:
+            ring_dkv_step(*([x[i] for i in grp] for x in (
+                qf, k_cur, v_cur, dof, lse, delta, offs, dk_cur, dv_cur)),
+                causal, first=step == 0)
         # k/v need not make the last hop: nothing reads them after it
         if step < n - 1:
             k_cur, v_cur = _rotate(k_cur, devices), _rotate(v_cur, devices)

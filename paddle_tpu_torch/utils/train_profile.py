@@ -12,7 +12,8 @@ through `jit.TrainStep` + `AdamW(1e-4)`:
 
 It warms up, times a few steps without the profiler (host clock, synced),
 then traces as many with CUPTI and prints the device time per step by
-kernel, grouped into the attention kernels, the matrix products, the
+kernel, grouped into the ring-attention kernels, the other attention
+kernels (flash, the backward's prep pass), the matrix products, the
 elementwise and reduction kernels and the optimizer's, with the device's
 idle share of the traced window and of the untraced steps. Run on a
 machine with a CUDA device:
@@ -34,8 +35,8 @@ import numpy as np
 import torch
 
 # kernel-name patterns of each group, tried in order
-GROUPS = (("attention", ("flash_fwd", "flash_bwd", "ring_fwd", "ring_dq",
-                         "ring_dkv")),
+GROUPS = (("ring_attention", ("ring_fwd", "ring_dq", "ring_dkv")),
+          ("attention", ("flash_fwd", "flash_bwd")),
           ("optimizer", ("foreach", "multi_tensor")),
           ("products", ("gemm", "cutlass", "sm90_xmma", "nvjet", "cublas",
                         "gemv", "splitk")),

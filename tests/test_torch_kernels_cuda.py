@@ -17,7 +17,9 @@ from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.kernels import ring_attention as tra
 from paddle_tpu_torch.parallel import sp as tsp
 
-RING_WRAPPERS = (tra.ring_block_fwd, tra.ring_block_dq, tra.ring_block_dkv)
+# the counted ring wrappers: the forward and dk/dv step kernels (also
+# behind the one-hop ring_block_fwd / ring_block_dkv) and dq
+RING_WRAPPERS = (tra.ring_fwd_step, tra.ring_block_dq, tra.ring_dkv_step)
 
 
 @pytest.fixture()
@@ -284,6 +286,102 @@ def test_ring_kernels_match_plain(cuda_device, case):
         _ring_close(g, r, dtype, name)
 
 
+def _step_inputs(n, bh, sq, sk, d, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*shape, dt=dtype):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+    qs, dos = ([draw(bh, sq, d) for _ in range(n)] for _ in range(2))
+    ks, vs = ([draw(bh, sk, d) for _ in range(n)] for _ in range(2))
+    o = [draw(bh, sq, d, dt=torch.float32) for _ in range(n)]
+    lse = [draw(bh, 1, sq, dt=torch.float32) + 5.0 for _ in range(n)]
+    dk, dv = ([draw(bh, sk, d, dt=torch.float32) for _ in range(n)]
+              for _ in range(2))
+    return qs, ks, vs, dos, o, lse, dk, dv
+
+
+def _clones(xs):
+    return [x.clone() for x in xs]
+
+
+# the step kernels: the sp train's ring step (4 slots on one card, hop
+# (i, i - 1)), and each ring case above as a group of two slots
+STEP_CASES = [(4, 96, 128, 128, 64, torch.bfloat16, c,
+               [(128 * i, 128 * ((i - 1) % 4)) for i in range(4)])
+              for c in (False, True)] + \
+    [(2, *dims, dtype, causal, [offs, offs])
+     for *dims, dtype, causal, offs in RING_CASES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", STEP_CASES, ids=str)
+@pytest.mark.parametrize("first,last", [(True, False), (False, False),
+                                        (False, True)])
+def test_ring_step_kernels_match_plain(cuda_device, case, first, last):
+    n, bh, sq, sk, d, dtype, causal, offs = case
+    qs, ks, vs, dos, o, lse, dk, dv = _step_inputs(n, bh, sq, sk, d, dtype,
+                                                   n + sq + sk + d)
+    counts = [tra.ring_fwd_step.launches, tra.ring_fwd_step.hops,
+              tra.ring_dkv_step.launches, tra.ring_dkv_step.hops]
+    ok, lk, op, lp = _clones(o), _clones(lse), _clones(o), _clones(lse)
+    got = tra.ring_fwd_step(qs, ks, vs, offs, ok, lk, causal, first, last)
+    want = tra.ring_fwd_step_plain(qs, ks, vs, offs, op, lp, causal, first,
+                                   last)
+    fwd = [tra.ring_block_fwd_plain(q, k, v, off, causal)
+           for q, k, v, off in zip(qs, ks, vs, offs)]
+    glse = [x for _, x in fwd]
+    delta = [(g.float() * x.float()).sum(-1)[:, None, :]
+             for g, (x, _) in zip(dos, fwd)]
+    dkk, dvk, dkp, dvp = _clones(dk), _clones(dv), _clones(dk), _clones(dv)
+    tra.ring_dkv_step(qs, ks, vs, dos, glse, delta, offs, dkk, dvk, causal,
+                      first)
+    tra.ring_dkv_step_plain(qs, ks, vs, dos, glse, delta, offs, dkp, dvp,
+                            causal, first)
+    torch.cuda.synchronize()
+    assert [tra.ring_fwd_step.launches, tra.ring_fwd_step.hops,
+            tra.ring_dkv_step.launches, tra.ring_dkv_step.hops] == \
+        [counts[0] + 1, counts[1] + n, counts[2] + 1, counts[3] + n]
+    if last:
+        assert all(x.dtype == dtype for x in got)
+        pairs = zip(got, want)
+    else:
+        assert got is None
+        pairs = zip(ok, op)
+    for i, (g, r) in enumerate(pairs):
+        _ring_close(g, r, dtype, f"o/out[{i}]")
+    for name, gs, rs in (("lse", lk, lp), ("dk", dkk, dkp), ("dv", dvk, dvp)):
+        for i, (g, r) in enumerate(zip(gs, rs)):
+            _ring_close(g, r, dtype, f"{name}[{i}]")
+    for i, off in enumerate(offs):
+        if causal and off[1] >= off[0] + sq and not first:
+            # a hop wholly in the future leaves the accumulators as they are
+            assert torch.equal(lk[i], lse[i])
+            assert torch.equal(got[i], o[i].to(dtype)) if last else \
+                torch.equal(ok[i], o[i])
+            assert torch.equal(dkk[i], dk[i]) and torch.equal(dvk[i], dv[i])
+
+
+@pytest.mark.cuda
+def test_ring_steps_are_deterministic_and_capped(cuda_device):
+    qs, ks, vs, dos, o, lse, dk, dv = _step_inputs(4, 96, 128, 128, 64,
+                                                   torch.bfloat16, 1)
+    offs = [(128 * i, 128 * ((i - 2) % 4)) for i in range(4)]
+    delta = [torch.ones_like(x) for x in lse]
+    runs = []
+    for _ in range(2):
+        ok, lk, dkk, dvk = _clones(o), _clones(lse), _clones(dk), _clones(dv)
+        tra.ring_fwd_step(qs, ks, vs, offs, ok, lk)
+        tra.ring_dkv_step(qs, ks, vs, dos, lse, delta, offs, dkk, dvk)
+        runs.append(ok + lk + dkk + dvk)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    five = (qs + qs[:1], ks + ks[:1], vs + vs[:1], offs + offs[:1])
+    with pytest.raises(ValueError, match="slots in one launch"):
+        tra.ring_fwd_step(*five, o + o[:1], lse + lse[:1])
+    with pytest.raises(ValueError, match="accumulators must be f32"):
+        tra.ring_fwd_step(qs, ks, vs, offs, [x.bfloat16() for x in o], lse)
+
+
 @pytest.mark.cuda
 def test_ring_future_hop_writes_exact_zeros(cuda_device):
     # a hop wholly in the future runs no iteration and must still write
@@ -317,8 +415,9 @@ def test_ring_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
 @pytest.mark.parametrize("causal", [False, True])
 def test_sequence_parallel_attention_on_the_card(cuda_device, causal):
     # four ring slots on one card: the flash ring records one autograd node
-    # per slot, launches 16 hops each way, and its output and gradients
-    # match the same ring on the CPU (plain versions)
+    # per slot, launches one forward and one dk/dv step kernel per ring
+    # step (4 launches of 16 slot-hops) and dq per hop (16), and its output
+    # and gradients match the same ring on the CPU (plain versions)
     from paddle_tpu_torch.parallel import create_mesh, topology
     prev = topology.get_mesh()
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -328,12 +427,15 @@ def test_sequence_parallel_attention_on_the_card(cuda_device, causal):
     try:
         mesh = create_mesh({"sp": 4}, devices=["cuda:0"] * 4)
         counts = [f.launches for f in RING_WRAPPERS]
+        hops = [tra.ring_fwd_step.hops, tra.ring_dkv_step.hops]
         out = tsp.sequence_parallel_attention(q, k, v, causal=causal)
         assert out.grad_fn is not None and out.dtype == torch.bfloat16
         (out.float() * w).sum().backward()
         torch.cuda.synchronize()
         assert [f.launches - c for f, c in zip(RING_WRAPPERS, counts)] == \
-            [16, 16, 16]
+            [4, 16, 4]
+        assert [tra.ring_fwd_step.hops - hops[0],
+                tra.ring_dkv_step.hops - hops[1]] == [16, 16]
         cq, ck, cv = (x.detach().cpu().float().requires_grad_()
                       for x in (q, k, v))
         cpu_mesh = create_mesh({"sp": 4}, devices=["cpu"] * 4)

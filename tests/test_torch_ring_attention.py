@@ -116,3 +116,185 @@ def test_offsets_are_host_ints_or_a_pair_tensor():
     b = tra.ring_block_fwd(tq, tk, tv, torch.tensor([96, 0]), True)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+# ---- the ring steps: hops merged (forward) and summed (dk/dv) ---------------
+# one slot's q (Sq = 128 at q_off = 96, off the 64-row tile grid) against
+# k/v blocks of Sk = 192 at the k_off of each ring step: the first hop is
+# partly visible (rows before key 192 see none of it), the second wholly in
+# the future, the third in the past, the last on the diagonal
+SQ, SK, Q_OFF = 128, 192, 96
+HOPS = [192, 384, 0, 96]
+
+
+def _hop_inputs(seed):
+    rng = np.random.default_rng(seed)
+    q, do = (rng.standard_normal((BH, SQ, D)).astype(np.float32)
+             for _ in range(2))
+    kv = [(rng.standard_normal((BH, SK, D)).astype(np.float32),
+           rng.standard_normal((BH, SK, D)).astype(np.float32))
+          for _ in HOPS]
+    return q, kv, do
+
+
+def _jax_ring_fwd(q, kv, causal, jdt):
+    # the reference's composition (paddle_tpu/parallel/sp.py:205-219): the
+    # Pallas hop kernel, then the lse merge in f32
+    o = jnp.zeros((BH, SQ, D), jnp.float32)
+    lse = jnp.full((BH, 1, SQ), -1e30, jnp.float32)
+    for (k, v), k_off in zip(kv, HOPS):
+        o_b, lse_b = jring_fwd(
+            jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+            jnp.asarray((Q_OFF, k_off), jnp.int32), causal=causal,
+            block_q=64, block_k=64, interpret=True)
+        lse_new = jnp.logaddexp(lse, lse_b)
+        o = o * jnp.swapaxes(jnp.exp(lse - lse_new), 1, 2) + \
+            o_b.astype(jnp.float32) * jnp.swapaxes(jnp.exp(lse_b - lse_new),
+                                                   1, 2)
+        lse = lse_new
+    return np.array(o.astype(jdt).astype(jnp.float32)), np.array(lse)
+
+
+def _torch_ring_fwd(q, kv, causal, tdt):
+    tq = torch.from_numpy(q).to(tdt)
+    o = [torch.empty(BH, SQ, D)]
+    lse = [torch.empty(BH, 1, SQ)]
+    for step, ((k, v), k_off) in enumerate(zip(kv, HOPS)):
+        out = tra.ring_fwd_step_plain(
+            [tq], [torch.from_numpy(k).to(tdt)],
+            [torch.from_numpy(v).to(tdt)], [(Q_OFF, k_off)], o, lse, causal,
+            first=step == 0, last=step == len(HOPS) - 1)
+    return out[0], lse[0]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_fwd_step_matches_the_pallas_hops_and_merge(causal, dtype):
+    jdt, tdt = DTYPES[dtype]
+    q, kv, _ = _hop_inputs(7)
+    want_out, want_lse = _jax_ring_fwd(q, kv, causal, jdt)
+    out, lse = _torch_ring_fwd(q, kv, causal, tdt)
+    assert out.dtype == tdt and out.shape == (BH, SQ, D)
+    _close(out, want_out, dtype, "out")
+    _close(lse, want_lse, dtype, "lse")
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_dkv_step_matches_the_sum_of_the_pallas_hops(causal, dtype):
+    jdt, tdt = DTYPES[dtype]
+    q, kv, do = _hop_inputs(8)
+    out, lse = _jax_ring_fwd(q, kv, causal, jdt)
+    delta = (do * out).sum(-1)[:, None, :].astype(np.float32)
+    tq, tdo = (torch.from_numpy(x).to(tdt) for x in (q, do))
+    tlse, tdelta = torch.from_numpy(lse), torch.from_numpy(delta)
+    # one key block held through every hop, as a rotating accumulator sees
+    # its own block against each slot's q: here the same q at each offset
+    k, v = kv[0]
+    want_dk = want_dv = 0.0
+    dk, dv = [torch.empty(BH, SK, D)], [torch.empty(BH, SK, D)]
+    for step, k_off in enumerate(HOPS):
+        jdk, jdv = jring_dkv(
+            *(jnp.asarray(x, jdt) for x in (q, k, v, do)), jnp.asarray(lse),
+            jnp.asarray(delta), jnp.asarray((Q_OFF, k_off), jnp.int32),
+            causal=causal, block_q=64, block_k=64, interpret=True)
+        want_dk, want_dv = want_dk + np.asarray(jdk), want_dv + np.asarray(jdv)
+        tra.ring_dkv_step_plain(
+            [tq], [torch.from_numpy(k).to(tdt)], [torch.from_numpy(v).to(tdt)],
+            [tdo], [tlse], [tdelta], [(Q_OFF, k_off)], dk, dv, causal,
+            first=step == 0)
+    _close(dk[0], want_dk, dtype, "dk")
+    _close(dv[0], want_dv, dtype, "dv")
+
+
+def _four_slots(seed, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dtype)
+    qs, dos = ([t(BH, SQ, D) for _ in range(4)] for _ in range(2))
+    ks, vs = ([t(BH, SK, D) for _ in range(4)] for _ in range(2))
+    offs = [(Q_OFF + 128 * i, k_off) for i, k_off in enumerate(HOPS)]
+    return qs, ks, vs, dos, offs
+
+
+@pytest.mark.parametrize("first,last", [(True, False), (False, False),
+                                        (False, True), (True, True)])
+def test_a_group_of_four_slots_is_four_groups_of_one(first, last):
+    qs, ks, vs, dos, offs = _four_slots(9)
+    rng = np.random.default_rng(10)
+    o0 = [torch.from_numpy(rng.standard_normal((BH, SQ, D))
+                           .astype(np.float32)) for _ in range(4)]
+    l0 = [torch.from_numpy(rng.standard_normal((BH, 1, SQ))
+                           .astype(np.float32)) for _ in range(4)]
+    o1, l1 = [x.clone() for x in o0], [x.clone() for x in l0]
+    got = tra.ring_fwd_step(qs, ks, vs, offs, o0, l0, True, first, last)
+    want = [tra.ring_fwd_step([qs[i]], [ks[i]], [vs[i]], [offs[i]],
+                              [o1[i]], [l1[i]], True, first, last)
+            for i in range(4)]
+    for a, b in zip(o0 + l0, o1 + l1):
+        assert torch.equal(a, b)
+    if last:
+        for a, (b,) in zip(got, want):
+            assert torch.equal(a, b)
+    lse = l0
+    delta = [torch.from_numpy(rng.standard_normal((BH, 1, SQ))
+                              .astype(np.float32)) for _ in range(4)]
+    dk0 = [torch.from_numpy(rng.standard_normal((BH, SK, D))
+                            .astype(np.float32)) for _ in range(4)]
+    dv0 = [x * 2 for x in dk0]
+    dk1, dv1 = [x.clone() for x in dk0], [x.clone() for x in dv0]
+    tra.ring_dkv_step(qs, ks, vs, dos, lse, delta, offs, dk0, dv0, True,
+                      first)
+    for i in range(4):
+        tra.ring_dkv_step([qs[i]], [ks[i]], [vs[i]], [dos[i]], [lse[i]],
+                          [delta[i]], [offs[i]], [dk1[i]], [dv1[i]], True,
+                          first)
+    for a, b in zip(dk0 + dv0, dk1 + dv1):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_first_is_the_merge_into_empty_accumulators(dtype):
+    # forward: `first` on garbage equals the merge into (0, -1e30); dk/dv:
+    # `first` on garbage equals the sum into zeros
+    tdt = DTYPES[dtype][1]
+    qs, ks, vs, dos, offs = _four_slots(11, tdt)
+    garbage = [torch.full((BH, SQ, D), float("nan")) for _ in range(4)]
+    glse = [torch.full((BH, 1, SQ), 3.0) for _ in range(4)]
+    zeros = [torch.zeros(BH, SQ, D) for _ in range(4)]
+    empty = [torch.full((BH, 1, SQ), -1e30) for _ in range(4)]
+    tra.ring_fwd_step(qs, ks, vs, offs, garbage, glse, True, first=True)
+    tra.ring_fwd_step(qs, ks, vs, offs, zeros, empty, True)
+    for a, b in zip(garbage + glse, zeros + empty):
+        assert torch.equal(a, b)
+    # the wholly future slot (offs[1]) is the merge's identity
+    assert bool((zeros[1] == 0).all()) and bool((empty[1] == -1e30).all())
+    delta = [torch.ones(BH, 1, SQ) for _ in range(4)]
+    dk = [torch.full((BH, SK, D), float("nan")) for _ in range(4)]
+    dv = [torch.full((BH, SK, D), float("nan")) for _ in range(4)]
+    dk0, dv0 = ([torch.zeros(BH, SK, D) for _ in range(4)] for _ in range(2))
+    tra.ring_dkv_step(qs, ks, vs, dos, empty, delta, offs, dk, dv, True,
+                      first=True)
+    tra.ring_dkv_step(qs, ks, vs, dos, empty, delta, offs, dk0, dv0, True)
+    for a, b in zip(dk + dv, dk0 + dv0):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_bwd_prep_delta_matches_the_reference_ring(dtype):
+    # delta as `_ring_flash_bwd_rule` computes it (paddle_tpu/parallel/
+    # sp.py:248), and the zeroed dq accumulator
+    from paddle_tpu_torch.kernels.flash_attention import flash_bwd_prep
+    jdt, tdt = DTYPES[dtype]
+    q, _, do = _hop_inputs(12)
+    want = jnp.sum(jnp.asarray(do, jdt).astype(jnp.float32) *
+                   jnp.asarray(q, jdt).astype(jnp.float32), axis=-1)
+    delta, dq = flash_bwd_prep(torch.from_numpy(do).to(tdt),
+                               torch.from_numpy(q).to(tdt), workspace=True)
+    assert delta.dtype == dq.dtype == torch.float32
+    # f32 sums of D products in another order
+    np.testing.assert_allclose(delta.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    assert dq.shape == (BH, SQ, D) and bool((dq == 0).all())

@@ -92,15 +92,50 @@ def test_short_shards_match_the_jax_functions(impl, causal):
 @pytest.mark.parametrize("s,hops", [(512, 16), (256, 0), (96, 0)])
 def test_the_flash_ring_dispatch_rule_is_the_references(monkeypatch, s,
                                                         hops):
-    # flash blocks when s_loc >= 128 and s_loc % min(512, s_loc) == 0
+    # flash blocks when s_loc >= 128 and s_loc % min(512, s_loc) == 0;
+    # counted in slot-hops of the forward's ring steps
     calls = []
-    real = tra.ring_block_fwd
-    monkeypatch.setattr(tra, "ring_block_fwd",
-                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    real = tra.ring_fwd_step
+    monkeypatch.setattr(tra, "ring_fwd_step",
+                        lambda *a, **k: calls.append(len(a[0])) or
+                        real(*a, **k))
     ttopo.create_mesh({"sp": 4}, devices=CPU4)
     q = torch.from_numpy(_qkvw(1, s, 2, 64, 2)[0])
     out = tsp.sequence_parallel_attention(q, q, q, impl="ring", causal=True)
-    assert out.shape == q.shape and len(calls) == hops
+    assert out.shape == q.shape and sum(calls) == hops
+
+
+@pytest.mark.parametrize("devices,groups", [
+    (CPU4, [[0, 1, 2, 3]]),
+    (["cpu:0", "cpu:1", "cpu:0", "cpu:1"], [[0, 2], [1, 3]]),
+    (["cpu"] * 6, [[0, 1, 2, 3], [4, 5]])])
+def test_ring_steps_group_the_slots_of_a_device(devices, groups):
+    # one launch per ring step and device, at most MAX_SLOTS slots each
+    assert tra.MAX_SLOTS == 4
+    assert tsp._step_groups([torch.device(d) for d in devices]) == groups
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_the_ring_calls_each_step_kernel_once_per_ring_step(monkeypatch,
+                                                            causal):
+    # four slots on one device: the forward and the dk/dv kernels take all
+    # four slots of a ring step in one call (4 calls of 4 slot-hops each);
+    # dq keeps one call per hop (16)
+    calls = {"fwd": [], "dkv": [], "dq": []}
+    for name, key in (("ring_fwd_step", "fwd"), ("ring_dkv_step", "dkv"),
+                      ("ring_block_dq", "dq")):
+        real = getattr(tra, name)
+
+        def spy(*a, _real=real, _key=key, **k):
+            calls[_key].append(len(a[0]) if _key != "dq" else 1)
+            return _real(*a, **k)
+        monkeypatch.setattr(tra, name, spy)
+    ttopo.create_mesh({"sp": 4}, devices=CPU4)
+    q, k, v = (torch.from_numpy(x).requires_grad_()
+               for x in _qkvw(1, 512, 2, 64, 6)[:3])
+    tsp.sequence_parallel_attention(q, k, v, impl="ring",
+                                    causal=causal).sum().backward()
+    assert calls == {"fwd": [4] * 4, "dkv": [4] * 4, "dq": [1] * 16}
 
 
 def test_no_mesh_or_one_slot_is_plain_attention():
