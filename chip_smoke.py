@@ -18,23 +18,29 @@ last line is printed):
                PyTorch library call's (also both ways) and the least time
                the card could take; the fused and the two-pass backward
                held against each other, the backward's prep pass (delta,
-               the zeroed dq workspace) against its plain version. The
-               three ring-attention kernels through their one-hop
-               wrappers: at the sp train's hop (BH 96, 128 x 128,
+               the zeroed dq workspace) against its plain version, the dq
+               pass at both CTA sizes of its wgmma template and run twice
+               (bit-equal). The three ring-attention kernels through their
+               one-hop wrappers: at the sp train's hop (BH 96, 128 x 128,
                non-causal), causal hops on the diagonal, in the past and
                in the future (exact zeros and -1e30), an offset off the
                tile grid, Sq != Sk, D 128 and 256, and fp32; at each of
-               those the ring-step forward and dk/dv on a group of two
-               slots merging into running accumulators (a future hop
-               leaves them bit-unchanged); and the step kernels on the
+               those the three step kernels on a group of two slots
+               adding into running accumulators (a future hop leaves them
+               bit-unchanged); the forward and dk/dv step kernels on the
                four slots of a ring step at the sp hop (non-causal, timed
-               per launch and per slot-hop, and causal);
+               per launch and per slot-hop, and causal); the dq step on
+               four slots at nine cases, from non-zero accumulators, at
+               both CTA sizes;
   4. ring    - sequence_parallel_attention(impl="ring", causal=True) over
                a mesh of four slots at B=1, S=4096, H=12, D=64 in bf16,
                forward and backward, against the single-device flash
-               attention on the same q/k/v; on one card 4 launches of the
-               forward and the dk/dv step kernels (16 slot-hops each) and
-               16 of dq;
+               attention on the same q/k/v; on one card 4 launches of
+               each of the three step kernels (16 slot-hops each); then
+               fp16 attention, which the kernels do not take: one
+               scaled_dot_product_attention call at S=4096 (the einsum
+               path) and one fp16 ring over the four slots (the dense
+               ring), no kernel launched, against fp32;
   5. train   - GPTForCausalLM(gpt2_small(dropout=0.0)) at full width and
                depth, fp32 master weights drawn from a seed, trained in
                bf16 AMP on 8 x 1024 tokens through jit.TrainStep + AdamW:
@@ -58,10 +64,11 @@ last line is printed):
                then one warm-up step, 5 __call__ steps and a run() span of
                15. Every attention call must go through the ring kernels
                (per step on one card 12 x 4 launches and 12 x 16 slot-hops
-               of the forward and the dk/dv step kernels, 12 x 16 of dq;
-               on four cards 12 x 16 of each; none of the flash kernels),
-               the step-1 loss must be bit-equal when computed twice, and
-               the loss must fall.
+               of each of the three step kernels; on four cards 12 x 16
+               of each; none of the flash kernels), the step-1 loss must
+               be bit-equal when computed twice (the three lowest
+               per-parameter gradient cosines are printed), and the loss
+               must fall.
 
 The last two lines are a JSON summary of the kernels and
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -96,20 +103,22 @@ SOURCES = {"flash_fwd": "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
            "flash_bwd_fused": "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
            "flash_bwd_dq": "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
            "flash_bwd_dkv": "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
-           "ring_fwd": RING_SRC, "ring_dq": RING_SRC, "ring_dkv": RING_SRC}
+           "ring_fwd": RING_SRC, "ring_dq_step": RING_SRC,
+           "ring_dkv": RING_SRC}
 REPLACES = {"flash_fwd": "paddle_tpu/kernels/flash_attention.py:58",
             "flash_bwd_fused": "paddle_tpu/kernels/flash_attention.py:732",
             "flash_bwd_dq": "paddle_tpu/kernels/flash_attention.py:239",
             "flash_bwd_dkv": "paddle_tpu/kernels/flash_attention.py:280",
             "ring_fwd": "paddle_tpu/kernels/flash_attention.py:506",
-            "ring_dq": "paddle_tpu/kernels/flash_attention.py:551",
+            "ring_dq_step": "paddle_tpu/kernels/flash_attention.py:551",
             "ring_dkv": "paddle_tpu/kernels/flash_attention.py:592"}
 # products per visible (q, k) pair, in units of D multiply-adds x 2:
 # forward q k^T and p v; fused backward the five of _bwd_tile_pds and its
 # users; the dq pass recomputes s and dp and forms ds k; the dk/dv pass
 # recomputes s and dp and forms p^T dO and ds^T q (the ring kernels alike)
 PRODUCTS = {"flash_fwd": 2, "flash_bwd_fused": 5, "flash_bwd_dq": 3,
-            "flash_bwd_dkv": 4, "ring_fwd": 2, "ring_dq": 3, "ring_dkv": 4}
+            "flash_bwd_dkv": 4, "ring_fwd": 2, "ring_dq_step": 3,
+            "ring_dkv": 4}
 # [BH, S, D] tensors read and written, [BH, S] f32 rows read and written
 TRAFFIC = {"flash_fwd": (4, 1), "flash_bwd_fused": (7, 2),
            "flash_bwd_dq": (5, 2), "flash_bwd_dkv": (6, 2)}
@@ -220,15 +229,20 @@ def bwd_case(fa, torch, b, s, h, d, dtype, causal):
     fused = fa.flash_attention_bwd_fused(*args)
     dq = fa.flash_attention_bwd_dq(*args)
     dk, dv = fa.flash_attention_bwd_dkv(*args)
+    dq_again = fa.flash_attention_bwd_dq(*args)
+    bf16 = dtype == torch.bfloat16
     torch.cuda.synchronize()
     ref = fa.flash_attention_bwd_plain(*args)
-    bf16 = dtype == torch.bfloat16
     # bf16: the kernels round p and ds to bf16 before the products (as the
     # Pallas kernels do) and store bf16 gradients; the plain version keeps
     # f32 throughout. fp32: f32 everywhere, sums in another order.
     tol = 2e-2 if bf16 else 1e-4
     where = f"{b=} {s=} {h=} {d=} {dtype} {causal=}"
     errs = {}
+    # one CTA owns each q block and loops over the keys in one order: a
+    # second run gives the same bits
+    check(torch.equal(dq_again, dq),
+          f"flash_bwd_dq is not bitwise reproducible at {where}")
     for kname, got in (("flash_bwd_fused", fused), ("flash_bwd_dq", (dq,)),
                        ("flash_bwd_dkv", (dk, dv))):
         want = ref if kname == "flash_bwd_fused" else \
@@ -310,8 +324,8 @@ def ring_work(name, bh, sq, sk, d, itemsize, causal, offs, merged):
     input read once and each output written once (f32 dq, dk, dv at 4
     bytes; a hop that sees no key needs no input). With `merged`, the step
     kernels' middle step: the forward reads and writes the f32 (o, lse)
-    accumulators instead of writing out, dk/dv reads and writes its f32
-    accumulators; a hop that sees no key touches none of them."""
+    accumulators instead of writing out, dq and dk/dv read and write their
+    f32 accumulators; a hop that sees no key touches none of them."""
     pairs = ring_pairs(sq, sk, offs, causal)
     flops = 2 * PRODUCTS[name] * d * pairs * bh
     qrows, krows = bh * sq * d, bh * sk * d
@@ -321,8 +335,9 @@ def ring_work(name, bh, sq, sk, d, itemsize, causal, offs, merged):
     elif name == "ring_fwd":   # q, k, v -> out, lse
         reads = (qrows + 2 * krows) * itemsize
         writes = qrows * itemsize + bh * sq * 4
-    elif name == "ring_dq":    # q, dO, k, v, lse, delta -> dq f32
-        reads = (2 * qrows + 2 * krows) * itemsize + 2 * bh * sq * 4
+    elif name == "ring_dq_step":  # q, dO, k, v, lse, delta (+ dq) -> dq
+        reads = (2 * qrows + 2 * krows) * itemsize + 2 * bh * sq * 4 + \
+            (qrows * 4 if merged else 0)
         writes = qrows * 4
     else:                      # the same inputs (+ dk, dv) -> dk, dv f32
         reads = (2 * qrows + 2 * krows) * itemsize + 2 * bh * sq * 4 + \
@@ -377,7 +392,7 @@ def ring_case(tra, torch, bh, sq, sk, d, dtype, causal, offs):
     where = f"BH={bh} Sq={sq} Sk={sk} D={d} {dtype} {causal=} {offs=}"
     errs = {}
     for kname, pairs in (("ring_fwd", ((out, ref_out), (lse, ref_lse))),
-                         ("ring_dq", ((dq, ref_dq),)),
+                         ("ring_dq_step", ((dq, ref_dq),)),
                          ("ring_dkv", ((dk, ref_dk), (dv, ref_dv)))):
         errs[kname] = 0.0
         for got, want in pairs:
@@ -422,9 +437,9 @@ def ring_case(tra, torch, bh, sq, sk, d, dtype, causal, offs):
         "ring_fwd": (lambda: tra.ring_block_fwd(q, k, v, offs, causal),
                      lambda: tra.ring_block_fwd_plain(q, k, v, offs, causal),
                      lib_fwd, lib_fwd_dev),
-        "ring_dq": (lambda: tra.ring_block_dq(*bargs),
-                    lambda: tra.ring_block_dq_plain(*bargs), lib_bwd,
-                    lib_bwd_dev),
+        "ring_dq_step": (lambda: tra.ring_block_dq(*bargs),
+                         lambda: tra.ring_block_dq_plain(*bargs), lib_bwd,
+                         lib_bwd_dev),
         "ring_dkv": (lambda: tra.ring_block_dkv(*bargs),
                      lambda: tra.ring_block_dkv_plain(*bargs), lib_bwd,
                      lib_bwd_dev)}
@@ -447,11 +462,11 @@ def ring_case(tra, torch, bh, sq, sk, d, dtype, causal, offs):
 
 
 def step_check(tra, torch, bh, sq, sk, d, dtype, causal, offs, tol, where):
-    """ring_fwd_step and ring_dkv_step against their plain versions on a
-    group of two slots at the case's offsets (two draws of data), at a
-    middle step and the last (forward): the running f32 accumulators are
-    drawn at random, and a hop that sees no key must leave them
-    bit-unchanged. Returns each kernel's max abs error."""
+    """The three step kernels against their plain versions on a group of
+    two slots at the case's offsets (two draws of data), at a middle step
+    and the last (forward): the running f32 accumulators are drawn at
+    random, and a hop that sees no key must leave them bit-unchanged.
+    Returns each kernel's max abs error."""
     gen = torch.Generator(device="cuda").manual_seed(
         SEED + 4 + sq + sk + d + offs[0])
 
@@ -464,7 +479,7 @@ def step_check(tra, torch, bh, sq, sk, d, dtype, causal, offs, tol, where):
     o = [draw(bh, sq, d, dt=torch.float32) for _ in range(2)]
     lse = [draw(bh, 1, sq, dt=torch.float32) + 5.0 for _ in range(2)]
     future = causal and offs[1] >= offs[0] + sq
-    errs = {"ring_fwd": 0.0, "ring_dkv": 0.0}
+    errs = {"ring_fwd": 0.0, "ring_dq_step": 0.0, "ring_dkv": 0.0}
 
     def held(kname, got, want):
         for g, w in zip(got, want):
@@ -494,18 +509,25 @@ def step_check(tra, torch, bh, sq, sk, d, dtype, causal, offs, tol, where):
     glse = [lse_ for _, lse_ in fwd]
     delta = [(g.float() * out.float()).sum(-1)[:, None, :]
              for g, (out, _) in zip(dos, fwd)]
+    dq = [draw(bh, sq, d, dt=torch.float32) for _ in range(2)]
     dk, dv = ([draw(bh, sk, d, dt=torch.float32) for _ in range(2)]
               for _ in range(2))
+    dqk, dqp = [x.clone() for x in dq], [x.clone() for x in dq]
     dkk, dvk = [x.clone() for x in dk], [x.clone() for x in dv]
     dkp, dvp = [x.clone() for x in dk], [x.clone() for x in dv]
-    tra.ring_dkv_step(qs, ks, vs, dos, glse, delta, pair, dkk, dvk, causal)
-    tra.ring_dkv_step_plain(qs, ks, vs, dos, glse, delta, pair, dkp, dvp,
-                            causal)
+    dargs = (qs, ks, vs, dos, glse, delta, pair)
+    tra.ring_dq_step(*dargs, dqk, causal)
+    tra.ring_dq_step_plain(*dargs, dqp, causal)
+    tra.ring_dkv_step(*dargs, dkk, dvk, causal)
+    tra.ring_dkv_step_plain(*dargs, dkp, dvp, causal)
     torch.cuda.synchronize()
+    held("ring_dq_step", dqk, dqp)
     held("ring_dkv", dkk + dvk, dkp + dvp)
     if future:
-        check(all(torch.equal(a, b) for a, b in zip(dkk + dvk, dk + dv)),
-              f"the future hop changed the dk/dv accumulators at {where}")
+        check(all(torch.equal(a, b) for a, b in zip(dqk + dkk + dvk,
+                                                    dq + dk + dv)),
+              f"the future hop changed the dq or dk/dv accumulators at "
+              f"{where}")
     return errs
 
 
@@ -606,6 +628,91 @@ def ring_step_case(tra, torch, bh, s_loc, d, dtype, causal, step,
                        "bound_ms": bound_ms, "bound_ms_per_hop": bound_ms / n,
                        "bound_by": bound_by}
     return rows
+
+
+def dq_step_case(tra, torch, bh, sq, sk, d, dtype, causal, offs):
+    """ring_dq_step on the slots of one ring step (one slot per (q_off,
+    k_off) in `offs`: q, dO [bh, sq, d] against k, v [bh, sk, d]) against
+    ring_dq_step_plain, both adding into the same non-zero f32
+    accumulators: the part each added is held to the tolerance, and a slot
+    whose hop is wholly in the future must leave its accumulator
+    bit-unchanged. lse and delta are the hop's own (its plain forward's), as
+    step_check takes them. Timed through the wrapper (per launch), as device
+    time per launch and per slot-hop (a CUDA graph), beside the plain
+    version and SDPA's backward (the slots' hops stacked in one call, and
+    one hop) where SDPA computes the same attention."""
+    import torch.nn.functional as TF
+    from paddle_tpu_torch.utils.cuda_timing import median_ms
+    n = len(offs)
+    gen = torch.Generator(device="cuda").manual_seed(
+        SEED + 6 + sq + sk + d + offs[0][0])
+
+    def draw(*shape, dt=dtype):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+
+    qs, dos = ([draw(bh, sq, d) for _ in range(n)] for _ in range(2))
+    ks, vs = ([draw(bh, sk, d) for _ in range(n)] for _ in range(2))
+    fwd = [tra.ring_block_fwd_plain(q, k, v, off, causal)
+           for q, k, v, off in zip(qs, ks, vs, offs)]
+    lse = [x for _, x in fwd]
+    delta = [(g.float() * o.float()).sum(-1)[:, None, :]
+             for g, (o, _) in zip(dos, fwd)]
+    acc = [draw(bh, sq, d, dt=torch.float32) for _ in range(n)]
+    dargs = (qs, ks, vs, dos, lse, delta, offs)
+    bf16 = dtype == torch.bfloat16
+    # bf16: ds is rounded to bf16 before ds k, as the Pallas kernel does;
+    # the plain version keeps f32. fp32: sums in another order.
+    tol = 2e-2 if bf16 else 1e-4
+    where = f"dq step of {n} slots [{bh}, {sq}, {sk}, {d}] {dtype} " \
+        f"{causal=} {offs=}"
+    want = [x.clone() for x in acc]
+    tra.ring_dq_step_plain(*dargs, want, causal)
+    got = [x.clone() for x in acc]
+    tra.ring_dq_step(*dargs, got, causal)
+    torch.cuda.synchronize()
+    err = 0.0
+    for i, (g, w, a) in enumerate(zip(got, want, acc)):
+        check(bool(torch.isfinite(g).all()),
+              f"ring_dq_step: non-finite at {where}")
+        # the added part alone: the accumulator's own size must not widen
+        # the tolerance
+        e, ok = close_enough(g - a, w - a, tol)
+        check(ok, f"ring_dq_step disagrees with its plain version at "
+              f"{where}: max abs err {e}")
+        err = max(err, e)
+        if causal and offs[i][1] >= offs[i][0] + sq:
+            check(torch.equal(g, a), f"ring_dq_step changed slot {i}'s "
+                  f"accumulator, whose hop is wholly in the future, at "
+                  f"{where}")
+    lib = (None, None, None)
+    diag = all(o[0] == o[1] for o in offs) and sq == sk
+    if not causal or diag:
+        stack = [torch.stack(x) for x in (qs, ks, vs, dos)]  # [n, bh, s, d]
+        lq, lk, lv = (x.detach().requires_grad_() for x in stack[:3])
+        lout = TF.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
+        lib = (median_ms(lambda: torch.autograd.grad(
+            lout, (lq, lk, lv), stack[3], retain_graph=True)),
+            sdpa_backward_device_ms(torch, TF, *stack, causal),
+            sdpa_backward_device_ms(torch, TF, *(x[:1] for x in stack),
+                                    causal))
+    timed = [x.clone() for x in acc]
+    device_ms = graph_ms(torch, lambda: tra.ring_dq_step(*dargs, timed,
+                                                        causal))
+    plain = [x.clone() for x in acc]
+    bound_ms, bound_by = ring_bound("ring_dq_step", bh, sq, sk, d,
+                                    qs[0].element_size(), causal, list(offs),
+                                    PEAK_BF16 if bf16 else PEAK_FP32,
+                                    merged=True)
+    return {"shape": [n, bh, sq, sk, d], "offs": [list(o) for o in offs],
+            "dtype": str(dtype).replace("torch.", ""), "causal": causal,
+            "max_abs_err": err, "tol": tol,
+            "ms": median_ms(lambda: tra.ring_dq_step(*dargs, timed, causal)),
+            "device_ms": device_ms, "device_ms_per_hop": device_ms / n,
+            "plain_ms": median_ms(lambda: tra.ring_dq_step_plain(
+                *dargs, plain, causal), samples=10),
+            "library_ms": lib[0], "library_device_ms": lib[1],
+            "library_hop_device_ms": lib[2], "bound_ms": bound_ms,
+            "bound_ms_per_hop": bound_ms / n, "bound_by": bound_by}
 
 
 def graph_ms(torch, fn, calls=20, samples=10, stream=None):
@@ -953,27 +1060,39 @@ def serve_phase(pt, fa, torch, np, card):
     return launches
 
 
+RING_KERNELS = ("ring_fwd", "ring_dq_step", "ring_dkv")
+
+
+def ring_wrappers(tra):
+    """The counted wrappers of the three ring step kernels, by name."""
+    return dict(zip(RING_KERNELS, (tra.ring_fwd_step, tra.ring_dq_step,
+                                   tra.ring_dkv_step)))
+
+
 def ring_counts(tra):
-    """A reader of the ring wrappers' counts: launches of the three ring
-    kernels and the slot-hops of the two step kernels."""
+    """A reader of the ring wrappers' counts: launches and slot-hops of the
+    three step kernels."""
     def read():
-        return {"ring_fwd": tra.ring_fwd_step.launches,
-                "ring_fwd_hops": tra.ring_fwd_step.hops,
-                "ring_dq": tra.ring_block_dq.launches,
-                "ring_dkv": tra.ring_dkv_step.launches,
-                "ring_dkv_hops": tra.ring_dkv_step.hops}
+        counts = {}
+        for name, w in ring_wrappers(tra).items():
+            counts[name] = w.launches
+            counts[name + "_hops"] = w.hops
+        return counts
     return read
 
 
 def ring_launches_per_layer(devices):
-    """What one layer's forward and backward over the ring must launch: a
-    step kernel per ring step and device (MAX_SLOTS slots at most), dq per
-    hop, every slot-hop covered once."""
+    """What one layer's forward and backward over the ring must launch:
+    each step kernel once per ring step and device (MAX_SLOTS slots at
+    most), every slot-hop covered once."""
     from paddle_tpu_torch.parallel import sp
     n = len(devices)
     steps = n * len(sp._step_groups(devices))
-    return {"ring_fwd": steps, "ring_fwd_hops": n * n, "ring_dq": n * n,
-            "ring_dkv": steps, "ring_dkv_hops": n * n}
+    want = {}
+    for name in RING_KERNELS:
+        want[name] = steps
+        want[name + "_hops"] = n * n
+    return want
 
 
 def ring_phase(fa, tra, torch, card, devices):
@@ -1037,6 +1156,73 @@ def ring_phase(fa, tra, torch, card, devices):
           f"[{card}]", flush=True)
 
 
+def fp16_phase(fa, tra, torch, card, devices):
+    """fp16 attention, which the kernels do not take, on the card: one
+    scaled_dot_product_attention call (S=4096, D=64, no mask) takes the
+    einsum path, and one sequence_parallel_attention(impl="ring") over a
+    mesh of four slots takes the dense ring; neither launches a kernel, and
+    both agree with the fp32 einsum path on the same q/k/v. The memory the
+    fp16 call holds above what was allocated before it (its peak, output
+    and saved tensors included) is printed beside the bf16 kernel's."""
+    from paddle_tpu_torch.nn.functional.attention import (
+        _einsum_attention, scaled_dot_product_attention)
+    from paddle_tpu_torch.parallel import create_mesh, set_mesh, sp
+    b, s, h, d = 1, 4096, 12, 64
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda")
+               for _ in range(3))
+    ref = _einsum_attention(q, k, v, is_causal=True)
+    counted = (fa.flash_attention_fwd, fa.flash_attention_bwd_fused,
+               fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
+               *ring_wrappers(tra).values())
+    before = [c.launches for c in counted]
+    h16 = [x.half().requires_grad_() for x in (q, k, v)]
+
+    def peak_mib(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+    out, mib16 = peak_mib(lambda: scaled_dot_product_attention(
+        *h16, is_causal=True))
+    mesh = create_mesh({"sp": SP_DEGREE}, devices=devices)
+    set_mesh(None)
+    ring_out = sp.sequence_parallel_attention(*h16, impl="ring",
+                                              causal=True, mesh=mesh)
+    grads = torch.autograd.grad(ring_out.float().sum(), h16)
+    torch.cuda.synchronize()
+    launched = [c.launches - n for c, n in zip(counted, before)]
+    check(launched == [0] * len(counted), f"fp16 attention launched kernels "
+          f"{launched} (flash fwd, fused, dq, dkv, ring fwd, dq, dkv)")
+    check(all(bool(torch.isfinite(x).all()) for x in (out, ring_out, *grads))
+          and out.dtype == ring_out.dtype == torch.float16,
+          "fp16 attention: non-finite or not fp16")
+    # fp16 inputs, products and outputs (2^-11 relative) against fp32
+    errs = []
+    for name, got in (("sdpa", out), ("ring", ring_out)):
+        err, ok = close_enough(got, ref, 1e-2)
+        check(ok, f"fp16 {name} attention vs the fp32 einsum path: max abs "
+              f"err {err}")
+        errs.append(err)
+    print(f"fp16: scaled_dot_product_attention at B={b} S={s} H={h} D={d} "
+          f"causal (einsum path) max abs err {errs[0]:.3g}, "
+          f"sequence_parallel_attention ring over {SP_DEGREE} slots (dense "
+          f"ring, forward + backward) max abs err {errs[1]:.3g} vs the fp32 "
+          f"einsum path (tol 1e-2(1+|ref|)); kernel launches {launched} "
+          f"[{card}]", flush=True)
+    # the same call in bf16 takes the flash kernel (outside the counts)
+    b16 = [x.bfloat16().requires_grad_() for x in (q, k, v)]
+    _, mib_bf16 = peak_mib(lambda: scaled_dot_product_attention(
+        *b16, is_causal=True))
+    print(f"fp16: memory above the inputs of one scaled_dot_product_attention"
+          f" call at B={b} S={s} H={h} D={d} causal, with autograd: fp16 "
+          f"einsum path {mib16:.1f} MiB, bf16 flash kernel {mib_bf16:.1f} "
+          f"MiB [{card}]", flush=True)
+
+
 def sp_train_phase(pt, fa, tra, torch, np, card, devices):
     """ERNIE-base pretraining with the sp=4 ring through TrainStep."""
     from paddle_tpu_torch.jit import amp_functional_call, split_state
@@ -1088,11 +1274,13 @@ def sp_train_phase(pt, fa, tra, torch, np, card, devices):
     loss_sp, g_sp = grads_of("bfloat16", True)
     loss_again, _ = grads_of("bfloat16", True)
     rel = abs(loss_sp - loss32) / abs(loss32)
-    cos = min((cosine(a, b), n) for a, b, n in zip(g_sp, g32, pnames))
+    lowest = sorted((cosine(a, b), n) for a, b, n in zip(g_sp, g32, pnames))
+    cos = lowest[0]
     print(f"sp_train: step-1 loss fp32 without sp {loss32:.6f}, bf16 sp=4 "
-          f"ring {loss_sp:.6f}; rel err {rel:.3g} (tol 2e-2); min "
-          f"per-parameter grad cosine {cos[0]:.6f} ({cos[1]}, tol 0.99); "
-          f"computed again {loss_again!r} vs {loss_sp!r} (bit-equal) "
+          f"ring {loss_sp:.6f}; rel err {rel:.3g} (tol 2e-2); lowest "
+          f"per-parameter grad cosines "
+          f"{', '.join(f'{c:.6f} ({n})' for c, n in lowest[:3])} (tol 0.99);"
+          f" computed again {loss_again!r} vs {loss_sp!r} (bit-equal) "
           f"[{card}]", flush=True)
     # no atomics anywhere on the ring: the step is bitwise reproducible
     check(loss_again == loss_sp, f"the sp step-1 loss is not reproducible: "
@@ -1100,18 +1288,32 @@ def sp_train_phase(pt, fa, tra, torch, np, card, devices):
     # bf16 weights, activations, logits and loss through 12 post-LN layers
     check(rel <= 2e-2, f"sp bf16 vs fp32 step-1 loss rel err {rel}")
     check(cos[0] >= 0.99, f"sp bf16 vs fp32 gradient cosine {cos}")
-    del g32, g_sp
+    del g_sp
+    # diagnostics, no check: the ring alone (fp32 through the ring
+    # kernels) and bf16 alone (bf16 without sp, the einsum attention), each
+    # vs fp32 without sp, say which of the two moves the lowest cosines
+    for name, amp_dtype, use_sp in (("fp32 sp=4 ring", None, True),
+                                    ("bf16 without sp", "bfloat16", False)):
+        loss_x, g_x = grads_of(amp_dtype, use_sp)
+        low = sorted((cosine(a, b), n) for a, b, n in zip(g_x, g32, pnames))
+        print(f"sp_train: step-1 {name}: loss {loss_x:.6f}; lowest "
+              f"per-parameter grad cosines vs fp32 without sp "
+              f"{', '.join(f'{c:.6f} ({n})' for c, n in low[:3])} [{card}]",
+              flush=True)
+        del g_x
+    del g32
     torch.cuda.empty_cache()
 
     # ---- the main path: TrainStep through its entry points ----
-    ring = (tra.ring_fwd_step, tra.ring_block_dq, tra.ring_dkv_step)
+    ring = tuple(ring_wrappers(tra).values())
     flash = (fa.flash_attention_fwd, fa.flash_attention_bwd_fused,
              fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in ring + flash:
         c.launches = 0
-    tra.ring_fwd_step.hops = tra.ring_dkv_step.hops = 0
+    for c in ring:
+        c.hops = 0
     t_start = time.perf_counter()
     losses = [step(ids, ids, nsp)]                   # warm-up step
     torch.cuda.synchronize()
@@ -1181,7 +1383,8 @@ def sp_train_phase(pt, fa, tra, torch, np, card, devices):
         emb.token_type_embeddings.weight.numel()
     att = layers[0].attention
     step_flops = 6 * (n_params - lookups) * tokens + n_layers * 2 * (
-        PRODUCTS["ring_fwd"] + PRODUCTS["ring_dq"] + PRODUCTS["ring_dkv"]) \
+        PRODUCTS["ring_fwd"] + PRODUCTS["ring_dq_step"] +
+        PRODUCTS["ring_dkv"]) \
         * att.head_dim * SP_S * SP_S * SP_B * att.num_heads
     where = "four cards" if len(set(devices)) > 1 else \
         f"{SP_DEGREE} slots of one card"
@@ -1207,7 +1410,7 @@ def sp_train_phase(pt, fa, tra, torch, np, card, devices):
     print(f"sp_train: ring launches and slot-hops in {n_steps} steps: "
           f"{launches}; per step {per_step} ({n_layers} layers), ring "
           f"kernel launches per step "
-          f"{sum(per_step[k] for k in ('ring_fwd', 'ring_dq', 'ring_dkv'))};"
+          f"{sum(per_step[k] for k in RING_KERNELS)};"
           f" flash kernels {flash_launches} [{card}]", flush=True)
     pt.parallel.set_mesh(None)
     del step, opt, net, values, slots
@@ -1274,6 +1477,7 @@ def main() -> int:
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) [{card}]",
               flush=True)
     bwd_cases = [(TRAIN_B, TRAIN_S, 12, 64, torch.bfloat16, True),  # train
+                 (TRAIN_B, TRAIN_S, 12, 64, torch.bfloat16, False),
                  (TRAIN_B, TRAIN_S, 6, 128, torch.bfloat16, True),
                  (TRAIN_B, TRAIN_S, 3, 256, torch.bfloat16, True),
                  (1, 4096, 12, 64, torch.float32, False),
@@ -1351,10 +1555,45 @@ def main() -> int:
                   f"{r['bound_ms']:.4f} per launch, "
                   f"{r['bound_ms_per_hop']:.4f} per slot-hop "
                   f"({r['bound_by']}) [{card}]", flush=True)
+    # the dq step on the 4 slots of a ring step, adding into non-zero
+    # accumulators: (BH, Sq, Sk, D, dtype, causal, [(q_off, k_off)] * 4)
+    sp_hop = [(128 * i, 128 * ((i - 1) % SP_DEGREE)) for i in range(SP_DEGREE)]
+    diag = [(1024 * i, 1024 * i) for i in range(SP_DEGREE)]
+    dq_cases = [(96, 128, 128, 64, bf, False, sp_hop),     # the sp train's
+                (96, 128, 128, 64, bf, True, sp_hop),      # past/future/...
+                (12, 1024, 1024, 64, bf, True, diag),      # diagonal
+                (12, 1024, 1024, 64, bf, True,             # wholly future
+                 [(1024 * i, 1024 * (i + 1)) for i in range(SP_DEGREE)]),
+                (12, 128, 128, 64, bf, True,               # off the tiles
+                 [(96, 0), (160, 32), (32, 0), (0, 200)]),
+                (12, 100, 200, 64, bf, True,               # ragged Sq
+                 [(150, 0), (50, 0), (250, 100), (0, 100)]),
+                (6, 1024, 1024, 128, bf, True, diag),
+                (3, 1024, 1024, 256, bf, True, diag),
+                (12, 256, 256, 64, torch.float32, True,
+                 [(256, 128), (0, 0), (512, 0), (0, 256)])]
+    dq_rows = []
+    for case in dq_cases:
+        r = dq_step_case(tra, torch, *case)
+        dq_rows.append(r)
+        print(f"kernels: ring_dq_step step n,BH,Sq,Sk,D={r['shape']} "
+              f"{r['dtype']} causal={r['causal']} offs={r['offs']} "
+              f"max_abs_err={r['max_abs_err']:.3g} (tol {r['tol']}; future "
+              f"slots' accumulators bit-unchanged) kernel_ms={r['ms']:.4f} "
+              f"per launch, device_ms={r['device_ms']:.4f} per launch, "
+              f"{r['device_ms_per_hop']:.4f} "
+              f"per slot-hop; plain_ms={r['plain_ms']:.4f} "
+              f"library_ms={fmt_ms(r['library_ms'])} library_device_ms="
+              f"{fmt_ms(r['library_device_ms'])} (one hop "
+              f"{fmt_ms(r['library_hop_device_ms'])}) bound_ms="
+              f"{r['bound_ms']:.4f} per launch, "
+              f"{r['bound_ms_per_hop']:.4f} per slot-hop ({r['bound_by']}) "
+              f"[{card}]", flush=True)
     ring_devices = [torch.device("cuda", i) for i in range(SP_DEGREE)] \
         if torch.cuda.device_count() >= SP_DEGREE else \
         [torch.device("cuda", 0)] * SP_DEGREE
     ring_phase(fa, tra, torch, card, ring_devices)
+    fp16_phase(fa, tra, torch, card, ring_devices)
 
     # ---- the main paths, each with its counts set to 0 just before ----
     train_launches = train_phase(pt, fa, torch, np, card, train_rows)
@@ -1368,10 +1607,11 @@ def main() -> int:
         summary[kname] = dict(train_rows[kname],
                               launches=train_launches[kname])
     # the ring kernels at the sp train's hop, launches from the sp train:
-    # the step kernels over the 4 slots of a ring step, dq on one hop
-    for kname in ("ring_fwd", "ring_dq", "ring_dkv"):
-        row = ring_rows[0] if kname == "ring_dq" else step_rows[False]
-        summary[kname] = dict(row[kname], launches=sp_launches[kname])
+    # the step kernels over the 4 slots of a ring step
+    for kname in RING_KERNELS:
+        row = dq_rows[0] if kname == "ring_dq_step" else \
+            step_rows[False][kname]
+        summary[kname] = dict(row, launches=sp_launches[kname])
     for kname, r in summary.items():
         path = "train + serve" if kname == "flash_fwd" else \
             "sp train" if kname.startswith("ring") else "train"

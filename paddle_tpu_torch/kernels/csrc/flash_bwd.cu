@@ -52,8 +52,13 @@
 //   * the wrapper's passes around it are kernels of this file: flash_bwd_prep
 //     (delta and the zeroed workspace in one pass over dO and O) and
 //     flash_bwd_dq_cast (dq = workspace * scale in the input dtype).
-// The dq pass (flash_bwd_dq), D = 256 and fp32 keep the mma.sync and FMA
-// kernels below:
+// The dq pass (flash_bwd_dq) at bf16, D = 64 and 128, is the template of
+// csrc/dq_wgmma.cuh, which ring_attention.cu's dq step shares: one CTA per
+// (bh, q tile of 64 rows), the longest causal loops first; Q and dO
+// once and K, V tiles of 64 keys streamed by TMA; s = q k^T, dp = dO v^T
+// and dq += ds k on wgmma (ds from registers, k MN-major); dq * scale
+// stored in bf16. One CTA per q tile and no atomics: deterministic.
+// D = 256 and fp32 keep the mma.sync and FMA kernels below:
 //   * tiles of 64 q rows x 64 keys (bf16) or 32 x 32 (fp32); the dq pass is
 //     one CTA per (bh, 64-row q block), a loop over the key blocks up to
 //     the diagonal, dq in f32 registers: deterministic; at D = 256 the
@@ -77,6 +82,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dq_wgmma.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -84,7 +90,7 @@ namespace {
 constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
-// bf16 on mma.sync: the dq pass, and the dk/dv pass at D = 256
+// bf16 on mma.sync: the dq and dk/dv passes at D = 256
 // ---------------------------------------------------------------------------
 constexpr int kB = 64;  // q rows and keys per tile
 
@@ -342,7 +348,7 @@ flash_bwd_kv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// dq pass of the two-pass form: no atomics
+// dq pass of the two-pass form at D = 256: no atomics
 template <int D>
 __global__ void __launch_bounds__(Bf16Cfg<D>::kThreads)
 flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
@@ -973,6 +979,30 @@ cudaError_t launch_kv_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// the dq pass at bf16, D = 64 and 128: csrc/dq_wgmma.cuh's template, dq
+// stored in bf16
+template <int D>
+__global__ void __launch_bounds__(dq_wgmma::Cfg<D>::kThreads,
+                                  dq_wgmma::Cfg<D>::kMinBlocks)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ dq_wgmma::Params<1> prm,
+                          int Sq, int Sk, int causal, float scale) {
+  dq_wgmma::run<D, false>(prm.maps[0], prm.s[0], Sq, Sk, causal, scale);
+}
+
+template <int D>
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dq, int bh, int S,
+                            int causal, cudaStream_t stream) {
+  dq_wgmma::Params<1> prm;
+  if (dq_wgmma::encode_maps<D>(&prm.maps[0], q, k, v, dout, bh, S, S))
+    return cudaErrorInvalidValue;
+  prm.s[0] = dq_wgmma::Slot{static_cast<const float*>(lse),
+                            static_cast<const float*>(delta), dq, 0, 0};
+  return dq_wgmma::launch<D>(flash_bwd_dq_wgmma_kernel<D>, prm, 1, bh, S, S,
+                             causal, stream);
+}
+
 // ---------------------------------------------------------------------------
 // the passes around the backward kernels
 // ---------------------------------------------------------------------------
@@ -1100,17 +1130,23 @@ template <int D>
 cudaError_t launch_dq(const Args& a, int is_bf16, int causal) {
   const float scale = 1.0f / sqrtf((float)D);
   if (is_bf16) {
-    using T = __nv_bfloat16;
-    const int smem = bf16_dq_smem_bytes<D>();
-    auto kernel = flash_bwd_dq_bf16_kernel<D>;
-    cudaError_t err = prepare(kernel, smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((a.S + kB - 1) / kB, a.bh);
-    kernel<<<grid, Bf16Cfg<D>::kThreads, smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<T*>(a.dq), a.S, causal, scale);
+    if constexpr (D != 256) {
+      return launch_dq_wgmma<D>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq,
+                                a.bh, a.S, causal, a.stream);
+    } else {
+      using T = __nv_bfloat16;
+      const int smem = bf16_dq_smem_bytes<D>();
+      auto kernel = flash_bwd_dq_bf16_kernel<D>;
+      cudaError_t err = prepare(kernel, smem);
+      if (err != cudaSuccess) return err;
+      dim3 grid((a.S + kB - 1) / kB, a.bh);
+      kernel<<<grid, Bf16Cfg<D>::kThreads, smem, a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+          static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+          static_cast<const float*>(a.lse),
+          static_cast<const float*>(a.delta), static_cast<T*>(a.dq), a.S,
+          causal, scale);
+    }
   } else {
     const int smem = f32_dq_smem_bytes<D>();
     auto kernel = flash_bwd_dq_f32_kernel<D>;

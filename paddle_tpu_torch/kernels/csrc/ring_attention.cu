@@ -1,22 +1,22 @@
-// Ring-attention block kernels for Hopper (sm_90a): one ring hop's forward,
-// dq and dk/dv.
+// Ring-attention block kernels for Hopper (sm_90a): one ring step's
+// forward, dq and dk/dv.
 //
 // Replaces, in paddle_tpu/kernels/flash_attention.py:
-//   ring_fwd -> _fa_ring_fwd_kernel (:506, via ring_block_fwd :644)
-//   ring_dq  -> _fa_ring_dq_kernel  (:551, via ring_block_dq  :668)
-//   ring_dkv -> _fa_ring_dkv_kernel (:592, via ring_block_dkv :693)
+//   ring_fwd_step -> _fa_ring_fwd_kernel (:506, via ring_block_fwd :644)
+//   ring_dq_step  -> _fa_ring_dq_kernel  (:551, via ring_block_dq  :668)
+//   ring_dkv_step -> _fa_ring_dkv_kernel (:592, via ring_block_dkv :693)
 // Same functions. A ring hop attends the local q [BH, Sq, D] against the
 // held k/v block [BH, Sk, D]; (q_off, k_off) are the global positions of
 // their first rows. A key is visible to a q row (causal) when
 // k_off + key <= q_off + row. scale = 1/sqrt(D), natural exp:
-//   ring_fwd: out [BH, Sq, D] in q's dtype and lse [BH, Sq] f32 = m + log l
-//             (online softmax); a row that sees no key of the block gives
-//             out = 0 and lse = -1e30, so the caller's lse merge gives it
-//             zero weight;
-//   ring_dq:  dq [BH, Sq, D] f32 = scale * sum_keys ds k, with
-//             p = exp(s - lse), ds = p * (dO v^T - delta), lse and delta
-//             the caller's (global) rows;
-//   ring_dkv: dk [BH, Sk, D] f32 = scale * ds^T q and dv f32 = p^T dO.
+//   forward: out [BH, Sq, D] in q's dtype and lse [BH, Sq] f32 = m + log l
+//            (online softmax); a row that sees no key of the block gives
+//            out = 0 and lse = -1e30, so the caller's lse merge gives it
+//            zero weight;
+//   dq:      dq [BH, Sq, D] f32 = scale * sum_keys ds k, with
+//            p = exp(s - lse), ds = p * (dO v^T - delta), lse and delta
+//            the caller's (global) rows;
+//   dk/dv:   dk [BH, Sk, D] f32 = scale * ds^T q and dv f32 = p^T dO.
 // Roundings as in the reference: p to v's (dO's) dtype before p v (p^T dO),
 // ds to q's dtype before ds k and ds^T q; dq, dk, dv stay f32 because the
 // caller sums them over the hops.
@@ -27,14 +27,13 @@
 // Both bounds are computed per tile from the offsets, which need not lie on
 // the tile grid, and every score is masked by global position, so the
 // bounds only skip work. A hop wholly in the future runs zero iterations
-// (ring_dq still writes its zeros; the step entries below treat it as a
-// hop that sees no key). Ragged Sq and Sk are
-// masked in the kernels: rows and keys past the end are zero-filled on the
-// way in and never written.
+// and is treated as a hop that sees no key. Ragged Sq and Sk are masked in
+// the kernels: rows and keys past the end are zero-filled on the way in
+// and never written.
 //
-// The forward and dk/dv entries take a ring step: every slot of the ring
-// that lies on this device, in one launch (ring_fwd_step, ring_dkv_step).
-// Each slot has its own q, k, v (and dO, lse, delta) and offsets; all share
+// Every entry takes a ring step: every slot of the ring that lies on this
+// device, in one launch (ring_fwd_step, ring_dq_step, ring_dkv_step). Each
+// slot has its own q, k, v (and dO, lse, delta) and offsets; all share
 // BH, Sq, Sk, D and the dtype. Their epilogues do what the reference does
 // around the hop kernel (paddle_tpu/parallel/sp.py:191-276), so the hop's
 // own outputs never reach device memory:
@@ -49,19 +48,23 @@
 //     its accumulators bit-unchanged (the merge with lse_hop = -1e30 gives
 //     the same up to f32 rounding); under `first` it gets o = 0 and
 //     lse = -1e30;
+//   ring_dq_step adds the hop's dq into the slot's f32 dq accumulator
+//     [BH, Sq, D] (sp.py:259-261), which the caller zeroes once before the
+//     ring; a q tile that sees no key of its hop leaves it untouched. One
+//     CTA owns each q tile: no atomics, deterministic;
 //   ring_dkv_step adds the hop's scale ds^T q and p^T dO into the slot's
 //     rotating f32 dk/dv accumulators [BH, Sk, D] (stores them under
 //     `first`). One CTA owns each key tile: no atomics, deterministic.
-// ring_dq keeps one launch per hop.
 //
 // Bound on the H100: at the ERNIE-base path shape (BH = 96, Sq = Sk = 128,
 // D = 64, bf16, non-causal) one slot-hop is ~0.4 GFLOP (0.4 us at 989
 // TFLOP/s) against 4.7 MB of q/k/v plus 6.3 MB of f32 o read and written
-// for the merged forward (3.3 us at 3.35 TB/s), and 6.3 MB of bf16 inputs
-// plus 12.6 MB of f32 dk/dv read and written for dk/dv (5.6 us): bound by
-// bytes, so the design keeps the hop's outputs in registers and merges
-// them in the epilogue, and covers the slots of a step in one launch
-// (768 forward CTAs at the sp hop, 192 for each of its four slots).
+// for the merged forward (3.3 us at 3.35 TB/s), 6.3 MB of bf16 inputs plus
+// 6.3 MB of f32 dq read and written for dq (3.8 us), and 6.3 MB of bf16
+// inputs plus 12.6 MB of f32 dk/dv read and written for dk/dv (5.6 us):
+// bound by bytes, so the design keeps the hop's outputs in registers and
+// merges them in the epilogue, and covers the slots of a step in one
+// launch (768 forward CTAs at the sp hop, 192 for each of its four slots).
 //
 // bf16 at D = 64 and 128 (every main path): warp-specialised wgmma kernels
 // on csrc/hopper.cuh, after flash_fwd.cu and flash_bwd.cu:
@@ -71,6 +74,10 @@
 //     SM; 2 at D = 128) into 128-byte-swizzled shared memory; S = Q K^T and
 //     O += P V on wgmma (P from registers, V MN-major); the online softmax
 //     in base 2, lse kept in natural-log units;
+//   * dq: the template of csrc/dq_wgmma.cuh (shared with flash_bwd.cu's dq
+//     pass): one CTA per (bh, q tile, slot), Q and dO once, K and V tiles
+//     of 64 keys streamed by TMA; s, dp and dq += ds k on wgmma; the
+//     epilogue adds into the f32 accumulator, every value read first;
 //   * dk/dv: one CTA per (bh, 128-key tile, slot), two consumer warpgroups
 //     of 64 keys and one producer warp: K, V once, Q, dO, lse and delta of
 //     64-row q blocks through two TMA stages; s^T, dp^T, dv += p^T dO and
@@ -90,8 +97,7 @@
 //     operand of the next product; dk/dv: one CTA per (bh, 64-key tile),
 //     each warp computes s^T = k q^T for its 16 keys, a loop over q tiles.
 //     At D = 256 the dq and dk/dv CTAs have 8 warps, two per row group,
-//     each accumulating half of the head dimension. The dq pass runs these
-//     at every D;
+//     each accumulating half of the head dimension;
 //   * fp32: the same algorithm on plain FMA in 32 x 32 tiles (TF32 tensor
 //     cores keep ~3 digits, against a 1e-4 tolerance).
 //
@@ -103,6 +109,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "dq_wgmma.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -131,8 +138,19 @@ struct DkvSlot {
   int q_off, k_off;
 };
 
+struct DqSlot {
+  const void *q, *k, *v, *dout;  // q, dout [bh, Sq, D]; k, v [bh, Sk, D]
+  const float *lse, *delta;      // [bh, Sq]
+  float* dq;                     // the f32 accumulator [bh, Sq, D]
+  int q_off, k_off;
+};
+
 struct FwdTable {
   FwdSlot s[kMaxSlots];
+};
+
+struct DqTable {
+  DqSlot s[kMaxSlots];
 };
 
 struct DkvTable {
@@ -158,7 +176,11 @@ struct DkvWgParams {
   DkvSlot s[kMaxSlots];
 };
 
+using DqWgParams = dq_wgmma::Params<kMaxSlots>;
+
 static_assert(sizeof(DkvWgParams) + 64 <= 4096,
+              "a launch's slots must fit the 4 KB parameter space");
+static_assert(sizeof(DqWgParams) + 64 <= 4096,
               "a launch's slots must fit the 4 KB parameter space");
 
 // ---------------------------------------------------------------------------
@@ -373,17 +395,9 @@ __device__ __forceinline__ void merge_fragment(const float* acc,
 // tile bounds from the global offsets
 // ---------------------------------------------------------------------------
 
-// number of key tiles (of bk keys, n_kb in all) that rows [q0, q0 + bq) of
-// the local q can see: the last row sees the keys below q_off + q0 + bq -
-// k_off
-__device__ __forceinline__ int key_tiles(int q0, int bq, int bk, int n_kb,
-                                         int q_off, int k_off, int causal) {
-  if (!causal) return n_kb;
-  const long long vis = (long long)q_off + q0 + bq - k_off;
-  if (vis <= 0) return 0;
-  const long long n = (vis + bk - 1) / bk;
-  return n < n_kb ? (int)n : n_kb;
-}
+// the key-tile trip count and the per-tile mask test of csrc/dq_wgmma.cuh
+using dq_wgmma::key_tiles;
+using dq_wgmma::tile_needs_mask;
 
 // first q tile (of bq rows, n_qb in all) whose last row sees key k0
 __device__ __forceinline__ int first_q_tile(int k0, int bq, int n_qb,
@@ -394,16 +408,6 @@ __device__ __forceinline__ int first_q_tile(int k0, int bq, int n_qb,
   if (x <= 0) return 0;
   const long long qb = x / bq;
   return qb < n_qb ? (int)qb : n_qb;
-}
-
-// whether some (row, key) of the tile pair is hidden: past the ends, or a
-// key after the row in global order
-__device__ __forceinline__ bool tile_needs_mask(int q0, int bq, int Sq,
-                                                int k0, int bk, int Sk,
-                                                int q_off, int k_off,
-                                                int causal) {
-  return q0 + bq > Sq || k0 + bk > Sk ||
-         (causal && (long long)k_off + k0 + bk - 1 > (long long)q_off + q0);
 }
 
 __device__ __forceinline__ bool visible(int row, int Sq, int key, int Sk,
@@ -649,12 +653,16 @@ ring_fwd_bf16_kernel(const __grid_constant__ FwdTable tab, int Sq, int Sk,
 
 template <int D>
 __global__ void __launch_bounds__(Bf16Cfg<D>::kThreads)
-ring_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
-                    int Sq, int Sk, int q_off, int k_off, int causal,
-                    float scale) {
+ring_dq_bf16_kernel(const __grid_constant__ DqTable tab, int Sq, int Sk,
+                    int causal, float scale) {
+  const DqSlot& sl = tab.s[blockIdx.z];
+  const bf16* __restrict__ q = static_cast<const bf16*>(sl.q);
+  const bf16* __restrict__ k = static_cast<const bf16*>(sl.k);
+  const bf16* __restrict__ v = static_cast<const bf16*>(sl.v);
+  const bf16* __restrict__ dout = static_cast<const bf16*>(sl.dout);
+  const float* __restrict__ lse = sl.lse;
+  const float* __restrict__ delta = sl.delta;
+  const int q_off = sl.q_off, k_off = sl.k_off;
   using C = Bf16Cfg<D>;
   constexpr int TS = C::TS, DW = C::DW, NT = C::kThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -665,6 +673,10 @@ ring_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int qb = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int q0 = qb * kB;
+  const int n_kb = (Sk + kB - 1) / kB;
+  const int kb_end = key_tiles(q0, kB, kB, n_kb, q_off, k_off, causal);
+  // a q tile that sees no key of the hop leaves its accumulator as it is
+  if (kb_end == 0) return;
   const size_t qbase = (size_t)blockIdx.y * Sq * D;
   const size_t kbase = (size_t)blockIdx.y * Sk * D;
   const size_t rbase = (size_t)blockIdx.y * Sq;
@@ -693,8 +705,6 @@ ring_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const bf16* qw = sQ + (rg * 16 + g) * TS + 2 * t;
   const bf16* ow = sdO + (rg * 16 + g) * TS + 2 * t;
-  const int n_kb = (Sk + kB - 1) / kB;
-  const int kb_end = key_tiles(q0, kB, kB, n_kb, q_off, k_off, causal);
 
   for (int kb = 0; kb < kb_end; ++kb) {
     const int k0 = kb * kB;
@@ -750,16 +760,28 @@ ring_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
-  // written for every row, also when the loop ran zero times
+  // dq * scale added into the accumulator, every value read first
+  float2 old[2][DW / 8];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + h * 8;
+#pragma unroll
+    for (int n = 0; n < DW / 8; ++n)
+      old[h][n] = row < Sq ? *reinterpret_cast<const float2*>(
+                                 sl.dq + qbase + (size_t)row * D + d0 +
+                                 2 * t + n * 8)
+                           : make_float2(0.f, 0.f);
+  }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + h * 8;
     if (row < Sq) {
-      float* out = dq + qbase + (size_t)row * D + d0 + 2 * t;
+      float* out = sl.dq + qbase + (size_t)row * D + d0 + 2 * t;
 #pragma unroll
       for (int n = 0; n < DW / 8; ++n)
         *reinterpret_cast<float2*>(out + n * 8) =
-            make_float2(acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
+            make_float2(fmaf(acc[n][2 * h], scale, old[h][n].x),
+                        fmaf(acc[n][2 * h + 1], scale, old[h][n].y));
     }
   }
 }
@@ -1030,12 +1052,16 @@ ring_fwd_f32_kernel(const __grid_constant__ FwdTable tab, int Sq, int Sk,
 
 template <int D>
 __global__ void __launch_bounds__(kFThreads)
-ring_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta, float* __restrict__ dq,
-                   int Sq, int Sk, int q_off, int k_off, int causal,
-                   float scale) {
+ring_dq_f32_kernel(const __grid_constant__ DqTable tab, int Sq, int Sk,
+                   int causal, float scale) {
+  const DqSlot& sl = tab.s[blockIdx.z];
+  const float* __restrict__ q = static_cast<const float*>(sl.q);
+  const float* __restrict__ k = static_cast<const float*>(sl.k);
+  const float* __restrict__ v = static_cast<const float*>(sl.v);
+  const float* __restrict__ dout = static_cast<const float*>(sl.dout);
+  const float* __restrict__ lse = sl.lse;
+  const float* __restrict__ delta = sl.delta;
+  const int q_off = sl.q_off, k_off = sl.k_off;
   constexpr int TS = D + 1, PS = kFB + 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sQ = reinterpret_cast<float*>(smem_raw);
@@ -1046,6 +1072,10 @@ ring_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int qb = gridDim.x - 1 - blockIdx.x;
   const int q0 = qb * kFB;
+  const int n_kb = (Sk + kFB - 1) / kFB;
+  const int kb_end = key_tiles(q0, kFB, kFB, n_kb, q_off, k_off, causal);
+  // a q tile that sees no key of the hop leaves its accumulator as it is
+  if (kb_end == 0) return;
   const size_t qbase = (size_t)blockIdx.y * Sq * D;
   const size_t kbase = (size_t)blockIdx.y * Sk * D;
   const size_t rbase = (size_t)blockIdx.y * Sq;
@@ -1062,8 +1092,6 @@ ring_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < D / 4; ++i) acc[i] = 0.f;
 
-  const int n_kb = (Sk + kFB - 1) / kFB;
-  const int kb_end = key_tiles(q0, kFB, kFB, n_kb, q_off, k_off, causal);
   for (int kb = 0; kb < kb_end; ++kb) {
     const int k0 = kb * kFB;
     __syncthreads();
@@ -1100,10 +1128,14 @@ ring_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
+  // dq * scale added into the accumulator, every value read first
   if (qrow < Sq) {
+    float* dst = sl.dq + qbase + (size_t)qrow * D + sub;
+    float old[D / 4];
 #pragma unroll
-    for (int i = 0; i < D / 4; ++i)
-      dq[qbase + (size_t)qrow * D + sub + 4 * i] = acc[i] * scale;
+    for (int i = 0; i < D / 4; ++i) old[i] = dst[4 * i];
+#pragma unroll
+    for (int i = 0; i < D / 4; ++i) dst[4 * i] = fmaf(acc[i], scale, old[i]);
   }
 }
 
@@ -1636,16 +1668,20 @@ ring_dkv_wgmma_kernel(const __grid_constant__ DkvWgParams prm, int Sq,
                          2 * t, scale, first);
 }
 
+// the dq step: csrc/dq_wgmma.cuh's template over the slots of a ring step,
+// adding into each slot's f32 accumulator
+template <int D>
+__global__ void __launch_bounds__(dq_wgmma::Cfg<D>::kThreads,
+                                  dq_wgmma::Cfg<D>::kMinBlocks)
+ring_dq_wgmma_kernel(const __grid_constant__ DqWgParams prm, int Sq, int Sk,
+                     int causal, float scale) {
+  dq_wgmma::run<D, true>(prm.maps[blockIdx.z], prm.s[blockIdx.z], Sq, Sk,
+                         causal, scale);
+}
+
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
-struct Args {  // the dq entry's
-  const void *q, *k, *v, *dout, *lse, *delta;
-  void* dq;
-  int bh, Sq, Sk, q_off, k_off, causal;
-  cudaStream_t stream;
-};
-
 struct StepArgs {  // what the slots of a ring step share
   int n, bh, Sq, Sk, causal, first, last;
   cudaStream_t stream;
@@ -1746,32 +1782,43 @@ cudaError_t launch_dkv_step(const DkvTable& tab, const StepArgs& a,
 }
 
 template <int D>
-cudaError_t launch_dq(const Args& a, int is_bf16) {
+cudaError_t launch_dq_wgmma(const DqTable& tab, const StepArgs& a) {
+  DqWgParams prm;
+  for (int i = 0; i < a.n; ++i) {
+    const DqSlot& sl = tab.s[i];
+    if (dq_wgmma::encode_maps<D>(&prm.maps[i], sl.q, sl.k, sl.v, sl.dout,
+                                 a.bh, a.Sq, a.Sk))
+      return cudaErrorInvalidValue;
+    prm.s[i] = dq_wgmma::Slot{sl.lse, sl.delta, sl.dq, sl.q_off, sl.k_off};
+  }
+  return dq_wgmma::launch<D>(ring_dq_wgmma_kernel<D>, prm, a.n, a.bh, a.Sq,
+                             a.Sk, a.causal, a.stream);
+}
+
+template <int D>
+cudaError_t launch_dq_step(const DqTable& tab, const StepArgs& a,
+                           int is_bf16) {
   const float scale = 1.0f / sqrtf((float)D);
   if (is_bf16) {
-    const int smem = bwd_bf16_smem_bytes<D>();
-    auto kernel = ring_dq_bf16_kernel<D>;
-    cudaError_t err = prepare(kernel, smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((a.Sq + kB - 1) / kB, a.bh);
-    kernel<<<grid, Bf16Cfg<D>::kThreads, smem, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<float*>(a.dq), a.Sq, a.Sk, a.q_off, a.k_off, a.causal,
-        scale);
+    if constexpr (D != 256) {
+      return launch_dq_wgmma<D>(tab, a);
+    } else {
+      const int smem = bwd_bf16_smem_bytes<D>();
+      auto kernel = ring_dq_bf16_kernel<D>;
+      cudaError_t err = prepare(kernel, smem);
+      if (err != cudaSuccess) return err;
+      dim3 grid((a.Sq + kB - 1) / kB, a.bh, a.n);
+      kernel<<<grid, Bf16Cfg<D>::kThreads, smem, a.stream>>>(
+          tab, a.Sq, a.Sk, a.causal, scale);
+    }
   } else {
     const int smem = dq_f32_smem_bytes<D>();
     auto kernel = ring_dq_f32_kernel<D>;
     cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return err;
-    dim3 grid((a.Sq + kFB - 1) / kFB, a.bh);
-    kernel<<<grid, kFThreads, smem, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<float*>(a.dq), a.Sq, a.Sk, a.q_off, a.k_off, a.causal,
-        scale);
+    dim3 grid((a.Sq + kFB - 1) / kFB, a.bh, a.n);
+    kernel<<<grid, kFThreads, smem, a.stream>>>(tab, a.Sq, a.Sk, a.causal,
+                                                scale);
   }
   return cudaGetLastError();
 }
@@ -1848,21 +1895,31 @@ extern "C" int ring_dkv_step(const void* const* ptrs, const int* offs, int n,
   }
 }
 
-// one hop's dq: [bh, Sq, D] f32
-extern "C" int ring_dq(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* delta,
-                       void* dq, int bh, int Sq, int Sk, int D, int q_off,
-                       int k_off, int is_bf16, int causal, void* stream) {
-  if (bad_shape(1, bh, Sq, Sk)) return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, dout, lse, delta, dq, bh, Sq, Sk, q_off, k_off,
-               causal, static_cast<cudaStream_t>(stream)};
+// A ring step's dq over n <= kMaxSlots slots: ptrs holds, per slot, q, k,
+// v, dout, lse, delta, dq (the f32 accumulator [bh, Sq, D], added to);
+// offs holds q_off, k_off per slot.
+extern "C" int ring_dq_step(const void* const* ptrs, const int* offs, int n,
+                            int bh, int Sq, int Sk, int D, int is_bf16,
+                            int causal, void* stream) {
+  if (bad_shape(n, bh, Sq, Sk)) return (int)cudaErrorInvalidValue;
+  DqTable tab{};
+  for (int i = 0; i < n; ++i) {
+    const void* const* p = ptrs + 7 * i;
+    tab.s[i] = DqSlot{p[0], p[1], p[2], p[3],
+                      static_cast<const float*>(p[4]),
+                      static_cast<const float*>(p[5]),
+                      static_cast<float*>(const_cast<void*>(p[6])),
+                      offs[2 * i], offs[2 * i + 1]};
+  }
+  const StepArgs a{n, bh, Sq, Sk, causal, 0, 0,
+                   static_cast<cudaStream_t>(stream)};
   switch (D) {
     case 64:
-      return (int)launch_dq<64>(a, is_bf16);
+      return (int)launch_dq_step<64>(tab, a, is_bf16);
     case 128:
-      return (int)launch_dq<128>(a, is_bf16);
+      return (int)launch_dq_step<128>(tab, a, is_bf16);
     case 256:
-      return (int)launch_dq<256>(a, is_bf16);
+      return (int)launch_dq_step<256>(tab, a, is_bf16);
     default:
       return (int)cudaErrorInvalidValue;
   }

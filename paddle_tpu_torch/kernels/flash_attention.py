@@ -11,7 +11,8 @@ Counterpart of `paddle_tpu/kernels/flash_attention.py`. Two sources:
   `_flash_bwd_fused_bhsd` :799) as `flash_attention_bwd_fused`, and
   `_fa_bwd_dq_kernel` (:239) with `_fa_bwd_dkv_kernel` (:280), the
   two-pass form of `_flash_bwd_bhsd` (:336), as `flash_attention_bwd_dq`
-  and `flash_attention_bwd_dkv`.
+  and `flash_attention_bwd_dkv`. The dq pass shares its Hopper template
+  (`csrc/dq_wgmma.cuh`) with the ring's dq step.
 
 `_FlashCore` is the counterpart of the `custom_vjp` `_flash_core`
 (:406-439): its forward saves (q, k, v, out, lse) as `_flash_core_fwd`
@@ -47,6 +48,9 @@ from . import _build
 
 _FWD, _BWD = "flash_fwd", "flash_bwd"
 _HEAD_DIMS = (64, 128, 256)
+# the dtypes the kernels take: the dispatch of `nn.functional` and of the
+# sp ring sends every other dtype to its plain path
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _count_lock = threading.Lock()
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: pointers, then ints ((bh, S, D, is_bf16, causal) for the
@@ -152,7 +156,7 @@ def _check(name, *tensors):
     if q.dim() != 3 or any(x.shape != q.shape for x in tensors[1:]):
         raise ValueError(f"{name}: q/k/v must share one [BH, S, D] shape, "
                          f"got {[tuple(x.shape) for x in tensors]}")
-    if q.dtype not in (torch.bfloat16, torch.float32) or \
+    if q.dtype not in KERNEL_DTYPES or \
             any(x.dtype != q.dtype for x in tensors[1:]):
         raise TypeError(f"{name}: bf16 or fp32 q/k/v of one dtype, got "
                         f"{[x.dtype for x in tensors]}")
@@ -331,4 +335,4 @@ __all__ = ["build", "build_bwd", "flash_attention", "flash_attention_arrays",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_bwd_fused", "flash_attention_bwd_two_pass",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "flash_bwd_prep"]
+           "flash_bwd_prep", "KERNEL_DTYPES"]

@@ -3,7 +3,7 @@
 Counterpart of the ring block kernels of
 `paddle_tpu/kernels/flash_attention.py` (:495-717), the building blocks of
 sequence-parallel ring attention (`parallel/sp.py`). `csrc/ring_attention.cu`
-replaces all three, the forward and dk/dv as one launch per ring step:
+replaces all three, each as one launch per ring step:
 
 - `ring_fwd_step` -> `_fa_ring_fwd_kernel` (:506, via `ring_block_fwd`
   :644) and the merge around it (`parallel/sp.py:214-218`): every slot of a
@@ -15,9 +15,12 @@ replaces all three, the forward and dk/dv as one launch per ring step:
   row that sees no key of its hop keeps its accumulators as they are.
   `ring_block_fwd` is a group of one with `first` and `last`: (out in q's
   dtype, lse), 0 and -1e30 for a row that sees nothing;
-- `ring_block_dq` -> `_fa_ring_dq_kernel` (:551, via `ring_block_dq` :668):
-  the hop's dq `[BH, Sq, D]` in f32 from the caller's lse and delta, one
-  launch per hop;
+- `ring_dq_step` -> `_fa_ring_dq_kernel` (:551, via `ring_block_dq` :668)
+  and the sum around it (`parallel/sp.py:258-260`): every slot of a ring
+  step in one launch, each adding its hop's dq, from the caller's lse and
+  delta, into its f32 dq accumulator `[BH, Sq, D]`; a q tile that sees no
+  key of its hop leaves it untouched. `ring_block_dq` is a group of one
+  that returns a fresh f32 dq;
 - `ring_dkv_step` -> `_fa_ring_dkv_kernel` (:592, via `ring_block_dkv`
   :693) and the accumulation around it (`parallel/sp.py:264-265`): every
   slot of a ring step in one launch, each adding its hop's dk, dv into the
@@ -42,10 +45,10 @@ loop bounds are only shortcuts. Ragged Sq and Sk are masked in the kernels
 too, so a CUDA tensor never reaches a plain version. On a CUDA tensor a
 wrapper launches its kernel or raises; only a tensor on the CPU takes the
 plain PyTorch version, which the CPU tests hold against the Pallas kernels
-in interpret mode. `ring_fwd_step`, `ring_dkv_step` and `ring_block_dq`
-count their launches in `<wrapper>.launches`; the step wrappers also count
-the slot-hops they served in `<wrapper>.hops`. A launch takes at most
-`MAX_SLOTS` slots (the kernel's parameter space holds their tensor maps).
+in interpret mode. The step wrappers count their launches in
+`<wrapper>.launches` and the slot-hops they served in `<wrapper>.hops`. A
+launch takes at most `MAX_SLOTS` slots (the kernel's parameter space holds
+their tensor maps).
 """
 from __future__ import annotations
 
@@ -56,15 +59,15 @@ import math
 import torch
 
 from . import _build
-from .flash_attention import _HEAD_DIMS, _count, _count_lock, _on_cuda
+from .flash_attention import KERNEL_DTYPES, _HEAD_DIMS, _count_lock, _on_cuda
 
 _SRC = "ring_attention"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C signatures: (ptrs, offs, then n, bh, Sq, Sk, D, is_bf16, causal, first
-# [, last]) for the step entries, (pointers, then bh, Sq, Sk, D, q_off,
-# k_off, is_bf16, causal) for ring_dq; the stream last
+# C signatures: ptrs, offs, then n, bh, Sq, Sk, D, is_bf16, causal [, first
+# [, last]] (first for dk/dv, first and last for the forward); the stream
+# last
 _SIGNATURES = {"ring_fwd_step": [_P, _P] + [_I] * 9,
-               "ring_dq": [_P] * 7 + [_I] * 8,
+               "ring_dq_step": [_P, _P] + [_I] * 7,
                "ring_dkv_step": [_P, _P] + [_I] * 8}
 _INT_MAX = 2 ** 31 - 1
 MAX_SLOTS = 4  # slots per launch: kMaxSlots of csrc/ring_attention.cu
@@ -95,24 +98,19 @@ def _check_offsets(name, offs, sq, sk):
         raise ValueError(f"{name}: offsets {offs} outside [0, 2^31)")
 
 
-def _call(fn_name, ints, q, ptrs=None, offs=None, tensors=None):
-    """Launch a C entry on q's device and current stream: the step entries
-    take a pointer table and an offset table, ring_dq the tensors' own
-    pointers; `ints` follow."""
+def _call(fn_name, ints, q, ptrs, offs):
+    """Launch a step entry on q's device and current stream: a pointer
+    table and an offset table, then `ints`."""
     bh, sq, d = q.shape
     # switching devices costs more than the launch: only when needed
     on = contextlib.nullcontext() if q.device.index == \
         torch.cuda.current_device() else torch.cuda.device(q.device)
     with on:
         stream = torch.cuda.current_stream().cuda_stream
-        if tensors is not None:
-            rc = _entry(fn_name)(*(x.data_ptr() for x in tensors), *ints,
-                                 stream)
-        else:
-            table = (ctypes.c_void_p * len(ptrs))(*ptrs)
-            otable = (ctypes.c_int * len(offs))(*offs)
-            rc = _entry(fn_name)(ctypes.addressof(table),
-                                 ctypes.addressof(otable), *ints, stream)
+        table = (ctypes.c_void_p * len(ptrs))(*ptrs)
+        otable = (ctypes.c_int * len(offs))(*offs)
+        rc = _entry(fn_name)(ctypes.addressof(table),
+                             ctypes.addressof(otable), *ints, stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name} launch failed: cudaError_t {rc} "
                            f"(BH={bh}, Sq={sq}, D={d}, dtype={q.dtype})")
@@ -128,7 +126,7 @@ def _check(name, q, k, v, do=None, lse=None, delta=None):
                          "[BH, Sq, D] and k/v [BH, Sk, D], got "
                          f"{[tuple(x.shape) for x in (*rows, k, v)]}")
     mats = (*rows, k, v)
-    if q.dtype not in (torch.bfloat16, torch.float32) or \
+    if q.dtype not in KERNEL_DTYPES or \
             any(x.dtype != q.dtype for x in mats):
         raise TypeError(f"{name}: bf16 or fp32 inputs of one dtype, got "
                         f"{[x.dtype for x in mats]}")
@@ -261,11 +259,19 @@ def ring_fwd_step_plain(qs, ks, vs, offs, o, lse, causal=False, first=False,
 
 
 def ring_block_dq_plain(q, k, v, do, lse, delta, offs, causal=False):
-    """Plain version of the dq kernel, in f32: dq = scale * ds k with
+    """Plain version of one dq hop, in f32: dq = scale * ds k with
     p = exp(s - lse), ds = p * (dO v^T - delta). Returns f32 [BH, Sq, D]."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    _, ds = _probs_and_ds(q, k, v, do, lse, delta, offs, causal)
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, _offsets(offs), causal)
     return torch.matmul(ds, k.float()) * scale
+
+
+def ring_dq_step_plain(qs, ks, vs, dos, lses, deltas, offs, dqs,
+                       causal=False):
+    """Plain version of the dq ring step, slot by slot: each hop's dq
+    added into dqs[i] in place."""
+    for i, args in enumerate(zip(qs, ks, vs, dos, lses, deltas, offs)):
+        dqs[i].add_(ring_block_dq_plain(*args, causal))
 
 
 def ring_block_dkv_plain(q, k, v, do, lse, delta, offs, causal=False):
@@ -359,6 +365,31 @@ def ring_dkv_step(qs, ks, vs, dos, lses, deltas, offs, dks, dvs,
     _count_step(ring_dkv_step, len(qs))
 
 
+def ring_dq_step(qs, ks, vs, dos, lses, deltas, offs, dqs, causal=False):
+    """One ring step's dq over the slots on one device, in one launch: each
+    slot's hop added into its f32 dq accumulator dqs[i] [BH, Sq, D] in
+    place; one CTA per q tile, no atomics."""
+    offs = [_offsets(x) for x in offs]
+    if not _on_cuda("ring_dq_step", qs[0]):
+        return ring_dq_step_plain(qs, ks, vs, dos, lses, deltas, offs, dqs,
+                                  causal)
+    _check_group("ring_dq_step", qs, ks, offs)
+    q0 = qs[0]
+    ptrs = []
+    for i in range(len(qs)):
+        _check("ring_dq_step", qs[i], ks[i], vs[i], dos[i], lses[i],
+               deltas[i])
+        _check_acc("ring_dq_step", dqs[i], q0.shape, q0)
+        ptrs += [x.data_ptr() for x in (qs[i], ks[i], vs[i], dos[i],
+                                        lses[i], deltas[i], dqs[i])]
+    bh, sq, d = q0.shape
+    _call("ring_dq_step",
+          [len(qs), bh, sq, ks[0].shape[1], d, int(q0.dtype == torch.bfloat16),
+           int(bool(causal))], q0, ptrs,
+          _flat_offsets(offs))
+    _count_step(ring_dq_step, len(qs))
+
+
 def ring_block_fwd(q, k, v, offs, causal=False):
     """One ring hop: (out [BH, Sq, D] in q's dtype, lse [BH, 1, Sq] f32), a
     forward ring step of one slot with `first` and `last`."""
@@ -372,18 +403,12 @@ def ring_block_fwd(q, k, v, offs, causal=False):
 
 
 def ring_block_dq(q, k, v, do, lse, delta, offs, causal=False):
-    """The hop's dq, f32 [BH, Sq, D]: one CTA per q tile, no atomics."""
-    offs = _offsets(offs)
+    """The hop's dq, f32 [BH, Sq, D]: a dq ring step of one slot into a
+    zeroed accumulator."""
     if not _on_cuda("ring_dq", q):
         return ring_block_dq_plain(q, k, v, do, lse, delta, offs, causal)
-    _check("ring_dq", q, k, v, do, lse, delta)
-    _check_offsets("ring_dq", offs, q.shape[1], k.shape[1])
-    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    bh, sq, d = q.shape
-    _call("ring_dq", [bh, sq, k.shape[1], d, *offs,
-                      int(q.dtype == torch.bfloat16), int(bool(causal))], q,
-          tensors=(q, k, v, do, lse, delta, dq))
-    _count(ring_block_dq)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    ring_dq_step([q], [k], [v], [do], [lse], [delta], [offs], [dq], causal)
     return dq
 
 
@@ -400,12 +425,11 @@ def ring_block_dkv(q, k, v, do, lse, delta, offs, causal=False):
     return dk, dv
 
 
-ring_block_dq.launches = 0
-for _wrapper in (ring_fwd_step, ring_dkv_step):
+for _wrapper in (ring_fwd_step, ring_dq_step, ring_dkv_step):
     _wrapper.launches = _wrapper.hops = 0
 
-__all__ = ["MAX_SLOTS", "build", "ring_fwd_step", "ring_dkv_step",
-           "ring_block_fwd", "ring_block_dq", "ring_block_dkv",
-           "ring_fwd_step_plain", "ring_dkv_step_plain",
-           "ring_block_fwd_plain", "ring_block_dq_plain",
-           "ring_block_dkv_plain"]
+__all__ = ["MAX_SLOTS", "build", "ring_fwd_step", "ring_dq_step",
+           "ring_dkv_step", "ring_block_fwd", "ring_block_dq",
+           "ring_block_dkv", "ring_fwd_step_plain", "ring_dq_step_plain",
+           "ring_dkv_step_plain", "ring_block_fwd_plain",
+           "ring_block_dq_plain", "ring_block_dkv_plain"]

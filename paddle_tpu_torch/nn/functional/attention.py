@@ -1,12 +1,16 @@
 """Attention functionals.
 
 Counterpart of `paddle_tpu/nn/functional/attention.py` (:20-85). The
-dispatch keeps the JAX package's conditions and thresholds unchanged, with
-"the tensors lie on a CUDA device" in place of "a TPU is present": no
-mask, no dropout, head_dim 64/128/256, q/k/v of one length, and a
-sequence of at least 1024 (bf16 after promotion) or 4096 (otherwise) go
-to the hand-written flash-attention kernel. Everything else takes the
-einsum path below, with the causal mask at -1e9.
+dispatch keeps the JAX package's conditions and thresholds, with "the
+tensors lie on a CUDA device" in place of "a TPU is present": no mask, no
+dropout, head_dim 64/128/256, q/k/v of one length, and a sequence of at
+least 1024 (bf16 after promotion) or 4096 (otherwise) go to the
+hand-written flash-attention kernel. It adds one condition, because the
+port's kernels are built for bf16 and fp32 only while the reference's
+Pallas kernels take any dtype: the promoted dtype is bf16 or fp32. So an
+fp16 call (`amp.auto_cast(dtype="float16")`) takes the einsum path on the
+card. Everything else takes the einsum path below, with the causal mask at
+-1e9.
 """
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ import math
 
 import torch
 
+from ...kernels.flash_attention import KERNEL_DTYPES
 from .common import dropout as _dropout
 
 
@@ -22,11 +27,14 @@ def _promoted(q, k, v) -> torch.dtype:
 
 
 def _flash_eligible(q, k, v, attn_mask=None, dropout_p=0.0) -> bool:
-    """Every kernel condition except the device one (:40-44). The length
+    """Every kernel condition except the device one (:40-44), and the
+    kernels' dtypes: the promoted dtype is bf16 or fp32. The length
     threshold is keyed on the promoted dtype, as in the reference."""
     seq_len, head_dim = q.shape[1], q.shape[-1]
-    min_seq = 1024 if _promoted(q, k, v) == torch.bfloat16 else 4096
-    return (attn_mask is None and dropout_p == 0.0
+    promoted = _promoted(q, k, v)
+    min_seq = 1024 if promoted == torch.bfloat16 else 4096
+    return (promoted in KERNEL_DTYPES and attn_mask is None
+            and dropout_p == 0.0
             and seq_len >= min_seq
             and k.shape[1] == seq_len and v.shape[1] == seq_len
             and head_dim in (64, 128, 256))
@@ -54,14 +62,19 @@ def _einsum_attention(q, k, v, attn_mask=None, dropout_p=0.0,
     scale = 1.0 / math.sqrt(q.shape[-1])
     qa, ka, va = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     logits = torch.einsum("bhsd,bhtd->bhst", qa, ka) * scale
+    # -1e9 in the logits' dtype, as the reference's jnp.asarray(-1e9,
+    # dtype): -inf in fp16 (masked_fill refuses a Python scalar that
+    # overflows the dtype; a scalar, not a tensor, keeps the call free of a
+    # host-to-device copy)
+    masked = float("-inf") if torch.finfo(logits.dtype).max < 1e9 else -1e9
     if is_causal:
         s, t = logits.shape[-2], logits.shape[-1]
         cmask = torch.ones((s, t), dtype=torch.bool,
                            device=logits.device).tril()
-        logits = logits.masked_fill(~cmask, -1e9)
+        logits = logits.masked_fill(~cmask, masked)
     if attn_mask is not None:
         if attn_mask.dtype == torch.bool:
-            logits = logits.masked_fill(~attn_mask, -1e9)
+            logits = logits.masked_fill(~attn_mask, masked)
         else:
             logits = logits + attn_mask.to(logits.dtype)
     probs = torch.softmax(logits, dim=-1)

@@ -15,14 +15,18 @@ return those per-slot lists of shards.
   of `kernels/ring_attention.py`. The forward launches one kernel per ring
   step and device, over every slot there, and merges each hop by its lse
   in the kernel, as the reference merges them (`_ring_flash_fwd` :191);
-  its backward (`_ring_flash_bwd_rule` :234) sums per-hop dq locally (one
-  launch per hop) and adds each hop's dk/dv into f32 accumulators that
-  rotate with their k/v blocks for n hops (one launch per ring step and
-  device). On one card, 4 slots take 4 forward and 4 dk/dv launches per
-  layer. Dispatch is the reference's (:288-293): the flash ring when the
-  local shard is at least 128 long and a multiple of min(512, shard),
-  else the dense einsum ring `ring_attention_local` (:50). The port's
-  kernels tile on their own, so only that rule reads the 512.
+  its backward (`_ring_flash_bwd_rule` :234) adds each hop's dq into the
+  slot's f32 accumulator and each hop's dk/dv into f32 accumulators that
+  rotate with their k/v blocks for n hops, in the kernels' epilogues (one
+  dq and one dk/dv launch per ring step and device). On one card, 4 slots
+  take 4 forward, 4 dq and 4 dk/dv launches per layer. Dispatch is the
+  reference's (:288-293): the flash ring when the local shard is at least
+  128 long and a multiple of min(512, shard), else the dense einsum ring
+  `ring_attention_local` (:50). The port's kernels tile on their own, so
+  only that rule reads the 512. It adds one condition, for what the
+  port's kernels are built for: q/k/v of one dtype, bf16 or fp32, and a
+  head_dim of 64, 128 or 256 (the reference's Pallas kernels take any);
+  other shards take the dense ring too.
 - Ulysses (`ulysses_attention_local`): regroups the shards from sequence
   to heads, runs dense attention over the whole sequence with H/n heads
   per slot, and regroups back. It runs no kernel.
@@ -33,6 +37,7 @@ import math
 
 import torch
 
+from ..kernels.flash_attention import KERNEL_DTYPES, _HEAD_DIMS
 from ..nn.functional.attention import scaled_dot_product_attention
 from .topology import get_mesh
 
@@ -209,15 +214,15 @@ def _ring_flash_fwd(q, k, v, causal):
 
 
 def _ring_flash_bwd(q, k, v, out, lse, g, causal):
-    """Backward ring: dq accumulates in place on its slot (one kernel per
-    hop); the f32 dk/dv accumulators rotate WITH their k/v blocks, take
-    each hop in the dk/dv kernel's epilogue (one launch per ring step and
-    device) and arrive home after n hops. delta and the zeroed dq
-    accumulator come from one prep pass per slot. The global lse makes
-    every hop's p globally normalized, so the hops' contributions just
-    sum."""
+    """Backward ring: each hop's dq is added into the slot's f32
+    accumulator in the dq kernel's epilogue; the f32 dk/dv accumulators
+    rotate WITH their k/v blocks, take each hop in the dk/dv kernel's
+    epilogue and arrive home after n hops (one launch of each per ring step
+    and device). delta and the zeroed dq accumulator come from one prep
+    pass per slot. The global lse makes every hop's p globally normalized,
+    so the hops' contributions just sum."""
     from ..kernels.flash_attention import flash_bwd_prep
-    from ..kernels.ring_attention import ring_block_dq, ring_dkv_step
+    from ..kernels.ring_attention import ring_dkv_step, ring_dq_step
     n = len(q)
     devices = _devices_of(q)
     b, s, h, d = q[0].shape
@@ -235,10 +240,9 @@ def _ring_flash_bwd(q, k, v, out, lse, g, causal):
     groups = _step_groups(devices)
     for step in range(n):
         offs = [(my * s, ((my - step) % n) * s) for my in range(n)]
-        for my in range(n):
-            dq[my] += ring_block_dq(qf[my], k_cur[my], v_cur[my], dof[my],
-                                    lse[my], delta[my], offs[my], causal)
         for grp in groups:
+            ring_dq_step(*([x[i] for i in grp] for x in (
+                qf, k_cur, v_cur, dof, lse, delta, offs, dq)), causal)
             ring_dkv_step(*([x[i] for i in grp] for x in (
                 qf, k_cur, v_cur, dof, lse, delta, offs, dk_cur, dv_cur)),
                 causal, first=step == 0)
@@ -277,15 +281,26 @@ class _RingFlash(torch.autograd.Function):
         return (None, *dq, *dk, *dv)
 
 
+def _kernels_take(q, k, v):
+    """Whether the ring kernels take these shards: one dtype, bf16 or
+    fp32, and a head_dim they are built for."""
+    dtype = q[0].dtype
+    return (dtype in KERNEL_DTYPES and k[0].dtype == v[0].dtype == dtype
+            and q[0].shape[-1] in _HEAD_DIMS)
+
+
 def ring_flash_attention_local(q, k, v, causal=False, block_q=None,
                                block_k=None):
     """Ring attention with the flash block kernels over the per-slot
     shards; the dense einsum ring when the local sequence is too short for
-    the reference's flash blocks (its rule, sp.py:288-293)."""
+    the reference's flash blocks (its rule, sp.py:288-293), or when the
+    kernels do not take the shards' dtype or head_dim (the reference's
+    Pallas kernels take any: fp16 and odd head dims compute there, so they
+    compute here, on the dense ring)."""
     s_loc = q[0].shape[1]
     bq = min(block_q or DEFAULT_BLOCK_Q, s_loc)
     bk = min(block_k or DEFAULT_BLOCK_K, s_loc)
-    if s_loc < 128 or s_loc % bq or s_loc % bk:
+    if s_loc < 128 or s_loc % bq or s_loc % bk or not _kernels_take(q, k, v):
         return ring_attention_local(q, k, v, causal=causal)
     return list(_RingFlash.apply(bool(causal), *q, *k, *v))
 

@@ -17,9 +17,9 @@ from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.kernels import ring_attention as tra
 from paddle_tpu_torch.parallel import sp as tsp
 
-# the counted ring wrappers: the forward and dk/dv step kernels (also
-# behind the one-hop ring_block_fwd / ring_block_dkv) and dq
-RING_WRAPPERS = (tra.ring_fwd_step, tra.ring_block_dq, tra.ring_dkv_step)
+# the counted ring wrappers: the forward, dq and dk/dv step kernels (also
+# behind the one-hop ring_block_fwd / ring_block_dq / ring_block_dkv)
+RING_WRAPPERS = (tra.ring_fwd_step, tra.ring_dq_step, tra.ring_dkv_step)
 
 
 @pytest.fixture()
@@ -321,8 +321,7 @@ def test_ring_step_kernels_match_plain(cuda_device, case, first, last):
     n, bh, sq, sk, d, dtype, causal, offs = case
     qs, ks, vs, dos, o, lse, dk, dv = _step_inputs(n, bh, sq, sk, d, dtype,
                                                    n + sq + sk + d)
-    counts = [tra.ring_fwd_step.launches, tra.ring_fwd_step.hops,
-              tra.ring_dkv_step.launches, tra.ring_dkv_step.hops]
+    counts = [x for f in RING_WRAPPERS for x in (f.launches, f.hops)]
     ok, lk, op, lp = _clones(o), _clones(lse), _clones(o), _clones(lse)
     got = tra.ring_fwd_step(qs, ks, vs, offs, ok, lk, causal, first, last)
     want = tra.ring_fwd_step_plain(qs, ks, vs, offs, op, lp, causal, first,
@@ -337,10 +336,14 @@ def test_ring_step_kernels_match_plain(cuda_device, case, first, last):
                       first)
     tra.ring_dkv_step_plain(qs, ks, vs, dos, glse, delta, offs, dkp, dvp,
                             causal, first)
+    # dq adds into the accumulators at every step (no `first`): here the
+    # running o stands in for a dq accumulator from earlier hops
+    dqk, dqp = _clones(o), _clones(o)
+    tra.ring_dq_step(qs, ks, vs, dos, glse, delta, offs, dqk, causal)
+    tra.ring_dq_step_plain(qs, ks, vs, dos, glse, delta, offs, dqp, causal)
     torch.cuda.synchronize()
-    assert [tra.ring_fwd_step.launches, tra.ring_fwd_step.hops,
-            tra.ring_dkv_step.launches, tra.ring_dkv_step.hops] == \
-        [counts[0] + 1, counts[1] + n, counts[2] + 1, counts[3] + n]
+    assert [x for f in RING_WRAPPERS for x in (f.launches, f.hops)] == \
+        [c + (1 if i % 2 == 0 else n) for i, c in enumerate(counts)]
     if last:
         assert all(x.dtype == dtype for x in got)
         pairs = zip(got, want)
@@ -349,7 +352,8 @@ def test_ring_step_kernels_match_plain(cuda_device, case, first, last):
         pairs = zip(ok, op)
     for i, (g, r) in enumerate(pairs):
         _ring_close(g, r, dtype, f"o/out[{i}]")
-    for name, gs, rs in (("lse", lk, lp), ("dk", dkk, dkp), ("dv", dvk, dvp)):
+    for name, gs, rs in (("lse", lk, lp), ("dq", dqk, dqp), ("dk", dkk, dkp),
+                         ("dv", dvk, dvp)):
         for i, (g, r) in enumerate(zip(gs, rs)):
             _ring_close(g, r, dtype, f"{name}[{i}]")
     for i, off in enumerate(offs):
@@ -359,6 +363,8 @@ def test_ring_step_kernels_match_plain(cuda_device, case, first, last):
             assert torch.equal(got[i], o[i].to(dtype)) if last else \
                 torch.equal(ok[i], o[i])
             assert torch.equal(dkk[i], dk[i]) and torch.equal(dvk[i], dv[i])
+        if causal and off[1] >= off[0] + sq:
+            assert torch.equal(dqk[i], o[i])
 
 
 @pytest.mark.cuda
@@ -370,9 +376,11 @@ def test_ring_steps_are_deterministic_and_capped(cuda_device):
     runs = []
     for _ in range(2):
         ok, lk, dkk, dvk = _clones(o), _clones(lse), _clones(dk), _clones(dv)
+        dqk = _clones(o)
         tra.ring_fwd_step(qs, ks, vs, offs, ok, lk)
         tra.ring_dkv_step(qs, ks, vs, dos, lse, delta, offs, dkk, dvk)
-        runs.append(ok + lk + dkk + dvk)
+        tra.ring_dq_step(qs, ks, vs, dos, lse, delta, offs, dqk)
+        runs.append(ok + lk + dkk + dvk + dqk)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(*runs))
     five = (qs + qs[:1], ks + ks[:1], vs + vs[:1], offs + offs[:1])
@@ -415,9 +423,9 @@ def test_ring_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
 @pytest.mark.parametrize("causal", [False, True])
 def test_sequence_parallel_attention_on_the_card(cuda_device, causal):
     # four ring slots on one card: the flash ring records one autograd node
-    # per slot, launches one forward and one dk/dv step kernel per ring
-    # step (4 launches of 16 slot-hops) and dq per hop (16), and its output
-    # and gradients match the same ring on the CPU (plain versions)
+    # per slot, launches each of the forward, dq and dk/dv step kernels
+    # once per ring step (4 launches of 16 slot-hops), and its output and
+    # gradients match the same ring on the CPU (plain versions)
     from paddle_tpu_torch.parallel import create_mesh, topology
     prev = topology.get_mesh()
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -427,15 +435,15 @@ def test_sequence_parallel_attention_on_the_card(cuda_device, causal):
     try:
         mesh = create_mesh({"sp": 4}, devices=["cuda:0"] * 4)
         counts = [f.launches for f in RING_WRAPPERS]
-        hops = [tra.ring_fwd_step.hops, tra.ring_dkv_step.hops]
+        hops = [f.hops for f in RING_WRAPPERS]
         out = tsp.sequence_parallel_attention(q, k, v, causal=causal)
         assert out.grad_fn is not None and out.dtype == torch.bfloat16
         (out.float() * w).sum().backward()
         torch.cuda.synchronize()
         assert [f.launches - c for f, c in zip(RING_WRAPPERS, counts)] == \
-            [4, 16, 4]
-        assert [tra.ring_fwd_step.hops - hops[0],
-                tra.ring_dkv_step.hops - hops[1]] == [16, 16]
+            [4, 4, 4]
+        assert [f.hops - c for f, c in zip(RING_WRAPPERS, hops)] == \
+            [16, 16, 16]
         cq, ck, cv = (x.detach().cpu().float().requires_grad_()
                       for x in (q, k, v))
         cpu_mesh = create_mesh({"sp": 4}, devices=["cpu"] * 4)
@@ -453,14 +461,127 @@ def test_sequence_parallel_attention_on_the_card(cuda_device, causal):
 
 
 @pytest.mark.cuda
-def test_sequence_parallel_attention_raises_for_a_head_dim_off_the_kernels(
+def test_sequence_parallel_attention_takes_the_dense_ring_for_a_head_dim_off_the_kernels(
         cuda_device):
+    # the ring kernels' wrappers raise for a head_dim they are not built
+    # for; sequence_parallel_attention sends such shards to the dense ring
+    # (as fp16 ones), which computes them without a kernel
     from paddle_tpu_torch.parallel import create_mesh, topology
     prev = topology.get_mesh()
     q = torch.zeros(1, 512, 2, 32, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        tra.ring_block_fwd(q[0].transpose(0, 1).contiguous(),
+                           q[0].transpose(0, 1).contiguous(),
+                           q[0].transpose(0, 1).contiguous(), (0, 0))
     try:
         mesh = create_mesh({"sp": 4}, devices=["cuda:0"] * 4)
-        with pytest.raises(ValueError, match="head_dim"):
-            tsp.sequence_parallel_attention(q, q, q, mesh=mesh)
+        counts = [f.launches for f in RING_WRAPPERS]
+        out = tsp.sequence_parallel_attention(q, q, q, mesh=mesh)
+        torch.cuda.synchronize()
+        assert [f.launches for f in RING_WRAPPERS] == counts
+        assert out.shape == q.shape and bool(torch.isfinite(out).all())
     finally:
         topology.set_mesh(prev)
+
+
+# ---- the dq step: csrc/dq_wgmma.cuh over the slots of a ring step ----------
+# (BH, Sq, Sk, D, dtype, causal, offsets of 4 slots): the sp train's ring
+# step (causal both ways), a causal diagonal at S_loc = 1024, hops wholly
+# in the future, offsets off the tile grid, ragged Sq, D 128 and 256, fp32
+SP_HOP = [(128 * i, 128 * ((i - 1) % 4)) for i in range(4)]
+DQ_STEP_CASES = [
+    (96, 128, 128, 64, torch.bfloat16, False, SP_HOP),
+    (96, 128, 128, 64, torch.bfloat16, True, SP_HOP),
+    (12, 1024, 1024, 64, torch.bfloat16, True,
+     [(1024 * i, 1024 * i) for i in range(4)]),
+    (12, 1024, 1024, 64, torch.bfloat16, True,
+     [(1024 * i, 1024 * (i + 1)) for i in range(4)]),
+    (12, 128, 128, 64, torch.bfloat16, True,
+     [(96, 0), (160, 32), (32, 0), (0, 200)]),
+    (12, 100, 200, 64, torch.bfloat16, True,
+     [(150, 0), (50, 0), (250, 100), (0, 100)]),
+    (6, 1024, 1024, 128, torch.bfloat16, True,
+     [(1024 * i, 1024 * i) for i in range(4)]),
+    (3, 512, 512, 256, torch.bfloat16, True,
+     [(512 * i, 512 * i) for i in range(4)]),
+    (12, 256, 256, 64, torch.float32, True,
+     [(256, 128), (0, 0), (512, 0), (0, 256)])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DQ_STEP_CASES, ids=str)
+def test_ring_dq_step_matches_plain(cuda_device, case):
+    bh, sq, sk, d, dtype, causal, offs = case
+    qs, ks, vs, dos, acc, _, _, _ = _step_inputs(4, bh, sq, sk, d, dtype,
+                                                 bh + sq + sk + d)
+    fwd = [tra.ring_block_fwd_plain(q, k, v, off, causal)
+           for q, k, v, off in zip(qs, ks, vs, offs)]
+    lse = [x for _, x in fwd]
+    delta = [(g.float() * x.float()).sum(-1)[:, None, :]
+             for g, (x, _) in zip(dos, fwd)]
+    got, want = _clones(acc), _clones(acc)
+    counts = (tra.ring_dq_step.launches, tra.ring_dq_step.hops)
+    tra.ring_dq_step(qs, ks, vs, dos, lse, delta, offs, got, causal)
+    torch.cuda.synchronize()
+    assert (tra.ring_dq_step.launches, tra.ring_dq_step.hops) == \
+        (counts[0] + 1, counts[1] + 4)
+    tra.ring_dq_step_plain(qs, ks, vs, dos, lse, delta, offs, want, causal)
+    for i, (g, w) in enumerate(zip(got, want)):
+        # the added part alone: the accumulator's own size must not widen
+        # the tolerance
+        _ring_close(g - acc[i], w - acc[i], dtype, f"dq[{i}]")
+        if causal and offs[i][1] >= offs[i][0] + sq:
+            # a hop wholly in the future leaves the accumulator untouched
+            assert torch.equal(g, acc[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WGMMA_CASES + [(8, 1024, 64, True)],
+                         ids=str)
+def test_flash_bwd_dq_is_bitwise_reproducible(cuda_device, case):
+    # one CTA per q tile, no atomics: a second run repeats the bits, and
+    # both match the plain backward
+    bh, s, d, causal = case
+    gen = torch.Generator(device="cuda").manual_seed(bh + s + d)
+    q, k, v, do = (torch.randn(bh, s, d, generator=gen, device="cuda")
+                   .bfloat16() for _ in range(4))
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal)
+    args = (q, k, v, out, lse, do, causal)
+    ref = tfa.flash_attention_bwd_plain(*args)[0]
+    atol, rtol = _bwd_tol(torch.bfloat16)
+    first = tfa.flash_attention_bwd_dq(*args)
+    again = tfa.flash_attention_bwd_dq(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    torch.testing.assert_close(first.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_fp16_attention_takes_the_plain_paths_on_the_card(cuda_device):
+    # the kernels are bf16 and fp32: an fp16 call that the reference's
+    # rule sends to its kernel (S = 4096, D = 64, no mask) takes the einsum
+    # path here, and the fp16 sp ring the dense ring; no kernel launches
+    from paddle_tpu_torch.nn.functional.attention import (
+        _einsum_attention, scaled_dot_product_attention)
+    from paddle_tpu_torch.parallel import create_mesh, topology
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn(1, 4096, 4, 64, generator=gen, device="cuda")
+               for _ in range(3))
+    ref = _einsum_attention(q, k, v, is_causal=True)
+    counted = (tfa.flash_attention_fwd, *RING_WRAPPERS)
+    counts = [f.launches for f in counted]
+    h16 = [x.half() for x in (q, k, v)]
+    out = scaled_dot_product_attention(*h16, is_causal=True)
+    prev = topology.get_mesh()
+    try:
+        mesh = create_mesh({"sp": 4}, devices=["cuda:0"] * 4)
+        ring = tsp.sequence_parallel_attention(*h16, causal=True, mesh=mesh)
+    finally:
+        topology.set_mesh(prev)
+    torch.cuda.synchronize()
+    assert [f.launches for f in counted] == counts
+    # fp16 inputs, products and outputs (2^-11 relative) against fp32
+    for got in (out, ring):
+        assert got.dtype == torch.float16
+        torch.testing.assert_close(got.float(), ref, atol=1e-2, rtol=1e-2)

@@ -103,6 +103,32 @@ def test_sdpa_einsum_path(mask, causal):
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("mask", [None, "bool"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_sdpa_einsum_path_in_fp16(mask, causal):
+    # fp16 takes the einsum path (the kernels are bf16 and fp32): the masked
+    # logits are -1e9 in fp16, which is -inf, as in the reference
+    rng = np.random.RandomState(6)
+    q, k, v = (rng.randn(2, 96, 3, 64).astype(np.float16) for _ in range(3))
+    m = None
+    if mask == "bool":
+        m = rng.rand(2, 1, 96, 96) > 0.3
+        m[..., 0] = True                       # every row sees one key
+    want = jattn.scaled_dot_product_attention(
+        JTensor(jnp.asarray(q)), JTensor(jnp.asarray(k)),
+        JTensor(jnp.asarray(v)),
+        attn_mask=None if m is None else paddle.to_tensor(m),
+        is_causal=causal, training=False).numpy()
+    got = t_sdpa(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                 attn_mask=None if m is None else torch.from_numpy(m),
+                 is_causal=causal, training=False)
+    assert want.dtype == np.float16 and got.dtype == torch.float16
+    # fp16 logits, probabilities and products in both, summed in another
+    # order (2^-11 relative at |x| < 4)
+    np.testing.assert_allclose(got.float().numpy(), want.astype(np.float32),
+                               rtol=5e-3, atol=5e-3)
+
+
 def test_sdpa_einsum_path_promotes_mixed_dtypes():
     rng = np.random.RandomState(5)
     q, k, v = (rng.randn(1, 64, 2, 64).astype(np.float32) for _ in range(3))

@@ -9,6 +9,9 @@ key per q row (or none at all, the future hop): the reference's out for a
 row that sees nothing depends on its block size, and the ring gives such
 a row zero weight.
 """
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -298,3 +301,95 @@ def test_bwd_prep_delta_matches_the_reference_ring(dtype):
     np.testing.assert_allclose(delta.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
     assert dq.shape == (BH, SQ, D) and bool((dq == 0).all())
+
+
+# ---- the dq step: a 4-slot ring's hops added into the accumulators ---------
+# four slots of S_LOC = 96 rows: slot i holds q rows from 96 i, off the
+# kernels' 64-row tile grid, and at ring step `step` the key block of slot
+# (i - step) mod 4. The accumulators start non-zero, as a dq step finds
+# them after earlier hops.
+S_LOC, N_SLOTS = 96, 4
+
+
+def _ring_slots(seed):
+    """Per-slot q, k, v, dO [BH, S_LOC, D] and the global lse and delta
+    rows [BH, 1, S_LOC] of attention over the whole sequence, in float64
+    (p = exp(s - lse) as the ring's backward gives it)."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.standard_normal((BH, N_SLOTS * S_LOC, D))
+                   for _ in range(4))
+    return q, k, v, do
+
+
+def _global_rows(q, k, v, do, causal):
+    s = q @ np.swapaxes(k, 1, 2) / np.sqrt(D)
+    if causal:
+        n = s.shape[-1]
+        s = np.where(np.tril(np.ones((n, n), bool)), s, -np.inf)
+    lse = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) + s.max(-1)
+    out = np.exp(s - lse[..., None]) @ v
+    return lse[:, None, :], (do * out).sum(-1)[:, None, :]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_dq_step_adds_the_pallas_hops_into_the_accumulators(causal,
+                                                                 dtype):
+    jdt, tdt = DTYPES[dtype]
+    q, k, v, do = _ring_slots(13)
+    lse, delta = (x.astype(np.float32) for x in _global_rows(q, k, v, do,
+                                                               causal))
+
+    def slot(x, i):
+        return x[..., i * S_LOC:(i + 1) * S_LOC, :].astype(np.float32)
+
+    def rows(x, i):
+        return x[..., i * S_LOC:(i + 1) * S_LOC]
+    acc0 = np.random.default_rng(14).standard_normal(
+        (N_SLOTS, BH, S_LOC, D)).astype(np.float32)
+    want = acc0.astype(np.float64)
+    dqs = [torch.from_numpy(x.copy()) for x in acc0]
+    tq, tdo = ([torch.from_numpy(slot(x, i)).to(tdt) for i in range(N_SLOTS)]
+               for x in (q, do))
+    tk, tv = ([torch.from_numpy(slot(x, i)).to(tdt) for i in range(N_SLOTS)]
+              for x in (k, v))
+    tlse, tdelta = ([torch.from_numpy(np.ascontiguousarray(rows(x, i)))
+                     for i in range(N_SLOTS)] for x in (lse, delta))
+    # one trace for the 16 hops: the offsets are traced values
+    hop_dq = jax.jit(functools.partial(jring_dq, causal=causal, block_q=32,
+                                       block_k=32, interpret=True))
+    for step in range(N_SLOTS):
+        blocks = [(i - step) % N_SLOTS for i in range(N_SLOTS)]
+        offs = [(i * S_LOC, b * S_LOC) for i, b in enumerate(blocks)]
+        for i, b in enumerate(blocks):
+            want[i] += np.asarray(hop_dq(
+                *(jnp.asarray(slot(x, j), jdt)
+                  for x, j in ((q, i), (k, b), (v, b), (do, i))),
+                jnp.asarray(rows(lse, i)), jnp.asarray(rows(delta, i)),
+                jnp.asarray(offs[i], jnp.int32)))
+        tra.ring_dq_step_plain(tq, [tk[b] for b in blocks],
+                               [tv[b] for b in blocks], tdo, tlse, tdelta,
+                               offs, dqs, causal)
+    for i in range(N_SLOTS):
+        assert dqs[i].dtype == torch.float32
+        _close(dqs[i], want[i], dtype, f"dq[{i}]")
+
+
+def test_ring_dq_step_is_the_sum_of_ring_block_dq():
+    # the step over four slots adds exactly what four one-hop calls return
+    qs, ks, vs, dos, offs = _four_slots(15)
+    rng = np.random.default_rng(16)
+    lse = [torch.from_numpy(rng.standard_normal((BH, 1, SQ))
+                            .astype(np.float32)) + 5.0 for _ in range(4)]
+    delta = [torch.from_numpy(rng.standard_normal((BH, 1, SQ))
+                              .astype(np.float32)) for _ in range(4)]
+    acc = [torch.from_numpy(rng.standard_normal((BH, SQ, D))
+                            .astype(np.float32)) for _ in range(4)]
+    got = [x.clone() for x in acc]
+    tra.ring_dq_step(qs, ks, vs, dos, lse, delta, offs, got, True)
+    for i in range(4):
+        hop = tra.ring_block_dq(qs[i], ks[i], vs[i], dos[i], lse[i],
+                                delta[i], offs[i], True)
+        assert torch.equal(got[i], acc[i] + hop)
+    # the wholly future slot (offs[1]) adds exact zeros
+    assert torch.equal(got[1], acc[1])

@@ -82,6 +82,56 @@ def test_flash_ring_matches_the_jax_flash_ring(causal):
     _compare(_qkvw(1, 512, 2, 64, 0), "ring", causal)
 
 
+def _run_in(arrs, impl, causal, jdt, tdt):
+    """Both functions on inputs rounded to one dtype; results in f32."""
+    arrs = [np.asarray(jnp.asarray(x, jdt).astype(jnp.float32))
+            for x in arrs]
+
+    def jloss(q, k, v, w):
+        out = jspa(q, k, v, impl=impl, causal=causal)._value
+        return (out.astype(jnp.float32) * w).sum(), out
+
+    jcreate_mesh({"sp": 4})
+    (_, jout), jgrads = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1, 2), has_aux=True))(
+            *(jnp.asarray(x, jdt) for x in arrs[:3]), jnp.asarray(arrs[3]))
+    ttopo.create_mesh({"sp": 4}, devices=CPU4)
+    q, k, v = (torch.from_numpy(x).to(tdt).requires_grad_()
+               for x in arrs[:3])
+    out = tsp.sequence_parallel_attention(q, k, v, impl=impl, causal=causal)
+    (out.float() * torch.from_numpy(arrs[3])).sum().backward()
+    assert out.dtype == tdt and all(x.grad.dtype == tdt for x in (q, k, v))
+    return ([np.asarray(jout.astype(jnp.float32))] +
+            [np.asarray(g.astype(jnp.float32)) for g in jgrads],
+            [out.detach().float().numpy()] +
+            [x.grad.float().numpy() for x in (q, k, v)])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fp16_ring_matches_the_jax_flash_ring(causal):
+    # s_loc = 128 at fp16: the reference runs its flash ring (the Pallas
+    # kernels take fp16), the port its dense ring (its kernels are bf16 and
+    # fp32). fp16 inputs; the reference rounds p and ds to fp16 before the
+    # products and each hop's out to fp16, the dense ring keeps f32, and
+    # both round out and the gradients to fp16 (2^-11 relative, 1e-3 at
+    # the largest values here, |x| < 2)
+    want, got = _run_in(_qkvw(1, 512, 2, 64, 7), "ring", causal,
+                        jnp.float16, torch.float16)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-2, atol=1e-3, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_head_dim_96_ring_matches_the_jax_flash_ring(causal):
+    # s_loc = 128 at D = 96: the reference's flash ring against the port's
+    # dense ring, fp32 in both (products and the merge in another order)
+    want, got = _run_in(_qkvw(1, 512, 2, 96, 8), "ring", causal,
+                        jnp.float32, torch.float32)
+    np.testing.assert_allclose(got[0], want[0], rtol=2e-5, atol=2e-5)
+    for name, g, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4, err_msg=name)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("impl", ["ring", "ring_dense", "ulysses"])
 def test_short_shards_match_the_jax_functions(impl, causal):
@@ -118,16 +168,15 @@ def test_ring_steps_group_the_slots_of_a_device(devices, groups):
 @pytest.mark.parametrize("causal", [False, True])
 def test_the_ring_calls_each_step_kernel_once_per_ring_step(monkeypatch,
                                                             causal):
-    # four slots on one device: the forward and the dk/dv kernels take all
-    # four slots of a ring step in one call (4 calls of 4 slot-hops each);
-    # dq keeps one call per hop (16)
+    # four slots on one device: the forward, dq and dk/dv kernels each take
+    # all four slots of a ring step in one call (4 calls of 4 slot-hops)
     calls = {"fwd": [], "dkv": [], "dq": []}
     for name, key in (("ring_fwd_step", "fwd"), ("ring_dkv_step", "dkv"),
-                      ("ring_block_dq", "dq")):
+                      ("ring_dq_step", "dq")):
         real = getattr(tra, name)
 
         def spy(*a, _real=real, _key=key, **k):
-            calls[_key].append(len(a[0]) if _key != "dq" else 1)
+            calls[_key].append(len(a[0]))
             return _real(*a, **k)
         monkeypatch.setattr(tra, name, spy)
     ttopo.create_mesh({"sp": 4}, devices=CPU4)
@@ -135,7 +184,7 @@ def test_the_ring_calls_each_step_kernel_once_per_ring_step(monkeypatch,
                for x in _qkvw(1, 512, 2, 64, 6)[:3])
     tsp.sequence_parallel_attention(q, k, v, impl="ring",
                                     causal=causal).sum().backward()
-    assert calls == {"fwd": [4] * 4, "dkv": [4] * 4, "dq": [1] * 16}
+    assert calls == {"fwd": [4] * 4, "dkv": [4] * 4, "dq": [4] * 4}
 
 
 def test_no_mesh_or_one_slot_is_plain_attention():
