@@ -12,8 +12,10 @@ last line is printed):
                paths built from the sources in the checkout (one nvcc per
                source, all started together);
   3. kernels - each kernel held against its plain PyTorch version on the
-               card, at the shapes the main paths give it and at the other
-               shapes it accepts, with its time through the wrapper and on
+               card, at the shapes the main paths give it (the titan
+               layer's BH 128, S 2048, D 64, non-causal among them) and at
+               the other shapes it accepts, with its time through the
+               wrapper and on
                the device alone (a CUDA graph), its plain version's, the
                PyTorch library call's (also both ways) and the least time
                the card could take; the fused and the two-pass backward
@@ -46,10 +48,13 @@ last line is printed):
                bf16 AMP on 8 x 1024 tokens through jit.TrainStep + AdamW:
                the step-1 gradients against the same weights in fp32 and
                against the deterministic two-pass backward, then one
-               warm-up step, 5 __call__ steps, a run() span of 5 steps and
-               one step under torch.use_deterministic_algorithms. Every
-               attention forward and backward must go through the kernels
-               (launch counts) and the loss must fall;
+               warm-up step, 5 __call__ steps, a run() span of 5 steps (a
+               CUDA graph: its first step eager, one capture, 4 replays)
+               and one step under torch.use_deterministic_algorithms.
+               Every attention forward and backward must go through the
+               kernels (launch counts: the wrappers count host calls, so
+               the capture counts once and the replays not at all) and
+               the loss must fall;
   6. serve   - the same model at full width in bf16, served through
                Predictor -> ServingEngine: 8 requests of 1024 tokens from
                4 threads. Every attention call must go through the kernel
@@ -63,12 +68,36 @@ last line is printed):
                and gradients against the same weights in fp32 without sp,
                then one warm-up step, 5 __call__ steps and a run() span of
                15. Every attention call must go through the ring kernels
-               (per step on one card 12 x 4 launches and 12 x 16 slot-hops
-               of each of the three step kernels; on four cards 12 x 16
-               of each; none of the flash kernels), the step-1 loss must
-               be bit-equal when computed twice (the three lowest
-               per-parameter gradient cosines are printed), and the loss
-               must fall.
+               (per host-driven step on one card 12 x 4 launches and
+               12 x 16 slot-hops of each of the three step kernels; on
+               four cards 12 x 16 of each, and run() is a loop there; none
+               of the flash kernels), the step-1 loss must be bit-equal
+               when computed twice (the three lowest per-parameter
+               gradient cosines are printed), and the loss must fall;
+  8. flagship - ErnieForPretraining(ernie_base(hidden_dropout_prob=0.0))
+               without sp at 32 x 128, as bench.py trains it
+               (paddle_tpu_torch.utils.bench.ernie_train): run() spans of
+               20 steps, 3 reps; samples/s, spread, MFU by bench.py's
+               formula and from cost_analysis (within 10% of each
+               other), the forward / backward / optimizer split,
+               memory_report and peak memory, the per-step path with and
+               without io.DevicePrefetcher. The loss must fall;
+  9. titan   - four titan layers, ErnieScanStack(4096, 64, 16384, 4,
+               remat="dots") at 2 x 2048 (bench.ernie10b_layer): run()
+               spans of 10 steps, 3 reps; ms per layer-sample, MFU, peak
+               memory. The loss must fall;
+ 10. graph   - for GPT-2, the flagship, titan and the sp train: from one
+               saved state, run() over 12 distinct steps (one CUDA-graph
+               replay each) against the eager loop of __call__ (GPT-2 and
+               titan under torch.use_deterministic_algorithms, since the
+               fused backward's dq atomics do not repeat bitwise): per-step
+               losses within 1e-4 relative, parameter cosine >= 0.9999;
+               the replayed span's kernels counted by symbol in the
+               torch.profiler device trace: GPT-2 12 flash forward and 12
+               fused backward launches per step, titan 4 and 4 under
+               "dots" (8 forwards under remat=True, and fewer GEMMs), the
+               sp train 48 of each ring step kernel on one card, the
+               flagship none.
 
 The last two lines are a JSON summary of the kernels and
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -76,6 +105,7 @@ The last two lines are a JSON summary of the kernels and
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
 import json
 import math
@@ -98,6 +128,11 @@ SP_B, SP_S, SP_DEGREE = 8, 512, 4
 # step 2 and it falls steadily only from about step 12, so the span runs
 # the path past that point before "the loss fell" is read
 SP_RUN = 15
+# run() spans of the flagship and titan phases, and of the graph phase's
+# comparison of run() with the eager loop
+FLAGSHIP_RUN, TITAN_RUN, GRAPH_RUN = 20, 10, 12
+TITAN_B, TITAN_S = 2, 2048      # the titan arm's batch (bench.py:702)
+FLAGSHIP_B, FLAGSHIP_S = 32, 128
 RING_SRC = "paddle_tpu_torch/kernels/csrc/ring_attention.cu"
 SOURCES = {"flash_fwd": "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
            "flash_bwd_fused": "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
@@ -784,6 +819,7 @@ def cosine(a, b):
 def train_phase(pt, fa, torch, np, card, shape_rows):
     """gpt2_small trained in bf16 AMP through jit.TrainStep + AdamW."""
     from paddle_tpu_torch.jit import amp_functional_call, split_state
+    from paddle_tpu_torch.utils.bench import step_split_ms
     pt.set_device("gpu")
     pt.seed(SEED)
     model = pt.models.GPTForCausalLM(pt.models.gpt2_small(dropout=0.0))
@@ -883,41 +919,25 @@ def train_phase(pt, fa, torch, np, card, shape_rows):
         counters)}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     n_steps = 1 + 5 + 5 + 1
+    # the wrappers count host calls: run()'s span is its eager first step
+    # and one capture (the replays launch on the device alone; the graph
+    # phase counts them in the device trace)
+    n_host = 1 + 5 + 2 + 1
     losses = [float(x) for x in losses]
     check(all(math.isfinite(x) for x in losses + [det_loss]),
           f"non-finite loss: {losses} {det_loss}")
     check(losses[-1] < losses[0], f"the loss did not fall over 10 steps on "
           f"the repeated batch: {losses}")
-    check(launches["flash_fwd"] == n_layers * n_steps,
+    check(launches["flash_fwd"] == n_layers * n_host,
           f"flash_fwd launched {launches['flash_fwd']} times in "
-          f"{n_steps} steps of {n_layers} layers")
-    check(launches["flash_bwd_fused"] == n_layers * (n_steps - 1),
+          f"{n_host} host-driven steps of {n_layers} layers")
+    check(launches["flash_bwd_fused"] == n_layers * (n_host - 1),
           f"flash_bwd_fused launched {launches['flash_bwd_fused']} times")
     check(det == [n_layers, 0, n_layers, n_layers],
           f"the deterministic step launched {det} (fwd, fused, dq, dkv)")
 
     # ---- where one step's device time goes (outside the counted run) ----
-    values = [p.detach().clone() for p in ps]
-    slots = opt.init_state(ps)
-    split = {"forward": [], "backward": [], "optimizer": []}
-    for _ in range(4):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        with torch.enable_grad():
-            logits = amp_functional_call(model, pnames, ps, bnames, bufs,
-                                         [ids], "bfloat16")
-            loss = crit(logits, ids)
-        ev[1].record()
-        grads = torch.autograd.grad(loss, ps)
-        ev[2].record()
-        opt.functional_update(values, grads, slots, opt.get_lr(), 2.0,
-                              params_meta=ps)
-        ev[3].record()
-        torch.cuda.synchronize()
-        for j, key in enumerate(split):
-            split[key].append(ev[j].elapsed_time(ev[j + 1]))
-        del logits, loss, grads
-    split = {k: statistics.median(v[1:]) for k, v in split.items()}
+    split = step_split_ms(step, ids, ids)
     med_ms = statistics.median(step_ms)
     tokens = TRAIN_B * TRAIN_S
     # 6 FLOPs per parameter per token (the embedding table counted once, as
@@ -953,10 +973,11 @@ def train_phase(pt, fa, torch, np, card, shape_rows):
           f"{bwd_row['wrapper_device_ms']:.4f}) ms, CUDA graphs at this "
           f"shape); peak max_memory_allocated "
           f"{peak_gib:.2f} GiB [{card}]", flush=True)
-    print(f"train: attention launches in {n_steps} steps: {launches} "
-          f"(deterministic step: fwd, fused, dq, dkv = {det}) [{card}]",
-          flush=True)
-    del step, opt, model, values, slots
+    print(f"train: attention launches (host calls) in {n_steps} steps, "
+          f"{n_host} of them from the host (run()'s span: its first step "
+          f"and one capture): {launches} (deterministic step: fwd, fused, "
+          f"dq, dkv = {det}) [{card}]", flush=True)
+    del step, opt, model
     torch.cuda.empty_cache()
     return launches
 
@@ -1226,6 +1247,7 @@ def fp16_phase(fa, tra, torch, card, devices):
 def sp_train_phase(pt, fa, tra, torch, np, card, devices):
     """ERNIE-base pretraining with the sp=4 ring through TrainStep."""
     from paddle_tpu_torch.jit import amp_functional_call, split_state
+    from paddle_tpu_torch.utils.bench import step_split_ms
     pt.set_device("gpu")
     pt.seed(SEED)
     pt.parallel.HybridCommunicateGroup(
@@ -1340,39 +1362,22 @@ def sp_train_phase(pt, fa, tra, torch, np, card, devices):
     flash_launches = [c.launches for c in flash]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     n_steps = 1 + 5 + SP_RUN
+    # host calls: on one card run()'s span is its first step and one
+    # capture; across cards run() is the loop of its steps
+    n_host = 1 + 5 + (2 if len(set(devices)) == 1 else SP_RUN)
     losses = [float(x) for x in losses]
     check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
     check(losses[-1] < losses[0], f"the loss did not fall over {n_steps} "
           f"steps on the repeated batch: {losses}")
-    want = {k: n_layers * n_steps * v
+    want = {k: n_layers * n_host * v
             for k, v in ring_launches_per_layer(devices).items()}
-    check(launches == want, f"ring kernels launched {launches} in {n_steps} "
-          f"steps of {n_layers} layers (want {want})")
+    check(launches == want, f"ring kernels launched {launches} in {n_host} "
+          f"host-driven steps of {n_layers} layers (want {want})")
     check(flash_launches == [0] * 4,
           f"the flash kernels launched {flash_launches} on the sp path")
 
     # ---- where one step's device time goes (outside the counted run) ----
-    values = [p.detach().clone() for p in ps]
-    slots = opt.init_state(ps)
-    split = {"forward": [], "backward": [], "optimizer": []}
-    for _ in range(4):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        with torch.enable_grad():
-            logits, nsp_logits = amp_functional_call(
-                net, pnames, ps, bnames, bufs, [ids], "bfloat16")
-            loss = loss_fn(logits, nsp_logits, ids, nsp)
-        ev[1].record()
-        grads = torch.autograd.grad(loss, ps)
-        ev[2].record()
-        opt.functional_update(values, grads, slots, opt.get_lr(), 2.0,
-                              params_meta=ps)
-        ev[3].record()
-        torch.cuda.synchronize()
-        for j, key in enumerate(split):
-            split[key].append(ev[j].elapsed_time(ev[j + 1]))
-        del logits, nsp_logits, loss, grads
-    split = {k: statistics.median(v[1:]) for k, v in split.items()}
+    split = step_split_ms(step, ids, ids, nsp)
     med_ms = statistics.median(step_ms)
     tokens = SP_B * SP_S
     # 6 FLOPs per product parameter per token (the word embeddings counted
@@ -1406,16 +1411,260 @@ def sp_train_phase(pt, fa, tra, torch, np, card, devices):
           f"optimizer {split['optimizer']:.3f} ms (CUDA events, median of "
           f"3); peak max_memory_allocated {peak_gib:.2f} GiB [{card}]",
           flush=True)
-    per_step = {k: v // n_steps for k, v in launches.items()}
-    print(f"sp_train: ring launches and slot-hops in {n_steps} steps: "
+    per_step = {k: v // n_host for k, v in launches.items()}
+    print(f"sp_train: ring launches and slot-hops (host calls) in "
+          f"{n_host} host-driven steps of {n_steps}: "
           f"{launches}; per step {per_step} ({n_layers} layers), ring "
           f"kernel launches per step "
           f"{sum(per_step[k] for k in RING_KERNELS)};"
           f" flash kernels {flash_launches} [{card}]", flush=True)
     pt.parallel.set_mesh(None)
-    del step, opt, net, values, slots
+    del step, opt, net
     torch.cuda.empty_cache()
     return launches
+
+
+def flagship_phase(pt, torch, card):
+    """The flagship as bench.py trains it, through run(): ERNIE-base
+    without sp at 32 x 128 (utils/bench.py's ernie_train, shorter spans)."""
+    from paddle_tpu_torch.utils import bench
+    pt.set_device("gpu")
+    r = bench.ernie_train(n_steps=FLAGSHIP_RUN, reps=3, prefetch_steps=10)
+    losses = r["losses_first_span"]
+    check(all(math.isfinite(x) for x in losses + [r["loss_last"]]),
+          f"flagship: non-finite loss {losses} {r['loss_last']}")
+    check(r["loss_last"] < r["loss_first"], f"flagship: the loss did not "
+          f"fall: {losses} ... {r['loss_last']}")
+    # the formula counts the position and token-type lookups and the
+    # pooler / NSP products at every token; at 128 tokens that is ~1%
+    ratio = r["flops_per_step_attributed"] / r["flops_per_step_formula"]
+    check(0.9 <= ratio <= 1.1, f"flagship: cost_analysis flops "
+          f"{r['flops_per_step_attributed']} vs the formula "
+          f"{r['flops_per_step_formula']}")
+    mem, split = r["memory"], r["split_ms"]
+    print(f"flagship: ernie_base without sp, bf16 AMP, {r['batch']}x"
+          f"{r['seqlen']}, AdamW(1e-4), MLM + NSP, run() spans of "
+          f"{r['n_steps']} steps x {r['reps']}: samples/s "
+          f"{r['samples_per_sec']:.1f} (spread {r['spread']:.3f}), step "
+          f"{r['step_ms']:.3f} ms, MFU {r['mfu']:.4f} (bench.py's formula, "
+          f"{r['flops_per_step_formula'] / 1e12:.4f} TFLOP per step) / "
+          f"{r['mfu_attributed']:.4f} (cost_analysis, "
+          f"{r['flops_per_step_attributed'] / 1e12:.4f} TFLOP, ratio "
+          f"{ratio:.4f}); first span {r['first_span_s']:.2f} s (capture "
+          f"in it); losses {[round(x, 4) for x in losses]} ... "
+          f"{r['loss_last']:.4f} [{card}]", flush=True)
+    print(f"flagship: one step's device time: forward "
+          f"{split['forward']:.3f} ms, backward {split['backward']:.3f} ms, "
+          f"optimizer {split['optimizer']:.3f} ms (CUDA events, eager); "
+          f"memory_report {mem}; per-step path samples/s prefetch off "
+          f"{r['overlap']['prefetch_off']['samples_per_sec']:.1f}, on "
+          f"{r['overlap']['prefetch_on']['samples_per_sec']:.1f} (speedup "
+          f"{r['overlap']['speedup']:.3f}) [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    return r
+
+
+def titan_phase(pt, fa, torch, card):
+    """Four titan layers through run(): ErnieScanStack(4096, 64, 16384, 4,
+    remat="dots") at 2 x 2048 (utils/bench.py's ernie10b_layer)."""
+    from paddle_tpu_torch.utils import bench
+    pt.set_device("gpu")
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_fused)
+    for c in counters:
+        c.launches = 0
+    r = bench.ernie10b_layer(n_steps=TITAN_RUN, reps=3)
+    launches = [c.launches for c in counters]
+    losses = r["losses_first_span"]
+    check(all(math.isfinite(x) for x in losses + [r["loss_last"]]),
+          f"titan: non-finite loss {losses} {r['loss_last']}")
+    check(r["loss_last"] < r["loss_first"], f"titan: the loss did not fall:"
+          f" {losses} ... {r['loss_last']}")
+    # host calls: one capture of the 4-layer step and its eager first step
+    check(launches[0] > 0 and launches[1] > 0,
+          f"titan: flash kernels launched {launches}")
+    mem = r["memory"]
+    print(f"titan: {r['layers']} layers {r['geometry']} batch {r['batch']},"
+          f" remat={r['remat']}, bf16 AMP, AdamW(1e-4), run() spans of "
+          f"{r['n_steps']} x {r['reps']}: layer_step_ms_per_sample "
+          f"{r['layer_step_ms_per_sample']:.3f}, step {r['step_ms']:.3f} ms "
+          f"(spread {r['spread']:.3f}), MFU {r['mfu']:.4f}; first span "
+          f"{r['first_span_s']:.2f} s; losses "
+          f"{[round(x, 5) for x in losses]} ... {r['loss_last']:.5f}; "
+          f"peak max_memory_allocated "
+          f"{mem['max_memory_allocated'] / 2 ** 30:.2f} GiB, reserved "
+          f"{mem['max_memory_reserved'] / 2 ** 30:.2f} GiB (the graph's "
+          f"pool); memory_report "
+          f"{mem}; flash launches (host calls) fwd, fused {launches} "
+          f"[{card}]", flush=True)
+    torch.cuda.empty_cache()
+    return dict(r, launches=launches)
+
+
+@contextlib.contextmanager
+def determinism(torch, on):
+    """torch.use_deterministic_algorithms for the block when `on`: the
+    flash backward then takes the two-pass kernels, without atomics."""
+    if not on:
+        yield
+        return
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+
+def graph_run_vs_loop(pt, torch, name, step, batch, n, card, want=None,
+                      deterministic=False):
+    """From one saved state, run() over n distinct steps (every step one
+    graph replay) against the eager loop of __call__ over the same steps:
+    per-step losses, bit-equality and the lowest parameter cosine after
+    the span. With `deterministic` both run under
+    torch.use_deterministic_algorithms: the fused flash backward sums dq
+    with atomics, so two runs of it differ by rounding, which bf16 losses
+    and Adam's steps on zero-gradient parameters make visible. Then, in
+    the default form, the per-step times of run() and of the loop (host
+    clock) and the port's kernels in the device trace of one replayed
+    span, against `want` per step."""
+    from paddle_tpu_torch.utils.train_profile import kernel_launches
+    saved = step.state_dict()
+    with determinism(torch, deterministic):
+        step.run(*batch)                   # capture (its first step eager)
+        step.set_state_dict(saved)
+        graph = step.run(*batch)
+        graph_params = [p.detach().clone() for p in step._ptensors]
+        step.set_state_dict(saved)
+        loop = torch.stack([step(*[x[i] for x in batch]) for i in range(n)])
+    g, lo = graph.float(), loop.float()
+    rel = ((g - lo).abs() / lo.abs()).max().item()
+    bit = torch.equal(graph, loop)
+    low = min((cosine(a.float(), b.float()), pname) for a, b, pname in
+              zip(graph_params, step._ptensors, step._pnames))
+    del graph_params
+    # the default form: capture, then time a replayed span and the loop
+    step.run(*batch)
+    step.set_state_dict(saved)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step.run(*batch)
+    torch.cuda.synchronize()
+    graph_ms = (time.perf_counter() - t0) * 1e3 / n
+    step.set_state_dict(saved)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        step(*[x[i] for x in batch])
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3 / n
+    step.set_state_dict(saved)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step.run(*batch)
+        torch.cuda.synchronize()
+    counts = kernel_launches(prof)
+    form = "deterministic backward" if deterministic else "default form"
+    print(f"graph: {name}: run() of {n} distinct steps (one graph replay "
+          f"each) vs the eager loop of __call__ from one saved state "
+          f"({form}): max rel loss diff {rel:.3g} (tol 1e-4), bit-equal "
+          f"{bit}, lowest parameter cosine {low[0]:.8f} ({low[1]}, tol "
+          f"0.9999); default form per step {graph_ms:.3f} ms run() vs "
+          f"{loop_ms:.3f} ms loop (host clock); device trace of one "
+          f"replayed span: {counts} [{card}]", flush=True)
+    check(rel <= 1e-4, f"graph {name}: run() vs loop losses {graph} {loop}")
+    check(low[0] >= 0.9999, f"graph {name}: parameter cosine {low}")
+    for kname, per_step in (want or {}).items():
+        check(counts[kname] == per_step * n, f"graph {name}: {kname} "
+              f"launched {counts[kname]} times in a replayed span of {n} "
+              f"(want {per_step} per step)")
+    return {"rel": rel, "bit_equal": bit, "cosine": low[0],
+            "graph_ms": graph_ms, "loop_ms": loop_ms, "counts": counts}
+
+
+def graph_phase(pt, torch, np, card):
+    """run() as one CUDA-graph replay per step, for the four trains (built
+    as train_profile and utils/bench.py build them)."""
+    from paddle_tpu_torch.utils import bench, train_profile
+    pt.set_device("gpu")
+    n = GRAPH_RUN
+    rng = np.random.default_rng(SEED + 11)
+    out = {}
+
+    def ids(vocab, *shape):
+        return torch.from_numpy(rng.integers(0, vocab, (n, *shape))).cuda()
+
+    def vocab_of(emb):
+        return emb.word_embeddings.weight.shape[0]
+
+    # GPT-2 small, 12 layers, 8 x 1024
+    pt.seed(SEED)
+    step, _ = train_profile.MODELS["gpt2"](pt, rng)
+    x = ids(vocab_of(step.model.gpt.embeddings), TRAIN_B, TRAIN_S)
+    per_layer = len(step.model.gpt.layers)
+    out["gpt2"] = graph_run_vs_loop(pt, torch, "gpt2_small", step, (x, x),
+                                    n, card, {"flash_fwd": per_layer,
+                                              "flash_bwd_fused": per_layer},
+                                    deterministic=True)
+    del step, x
+    torch.cuda.empty_cache()
+
+    # the flagship, 32 x 128: attention on the einsum path
+    pt.seed(SEED)
+    step = bench.flagship_step(pt)
+    x = ids(vocab_of(step.model.ernie.embeddings), FLAGSHIP_B, FLAGSHIP_S)
+    nsp = ids(2, FLAGSHIP_B)
+    out["flagship"] = graph_run_vs_loop(
+        pt, torch, "flagship", step, (x, x, nsp), n, card,
+        {"flash_fwd": 0, "flash_bwd_fused": 0})
+    del step, x, nsp
+    torch.cuda.empty_cache()
+
+    # four titan layers, 2 x 2048, remat="dots": one flash forward and one
+    # fused backward per layer and step, none recomputed
+    pt.seed(SEED)
+    step = bench.titan_step(pt)
+    x = torch.from_numpy(rng.random(
+        (n, TITAN_B, TITAN_S, step.model.hidden_size), np.float32) *
+        0.02).cuda()
+    out["titan"] = graph_run_vs_loop(pt, torch, "titan dots", step, (x,), n,
+                                     card, {"flash_fwd": 4,
+                                            "flash_bwd_fused": 4},
+                                     deterministic=True)
+    del step
+    torch.cuda.empty_cache()
+    # remat=True recomputes each layer's forward: 8 forwards per step
+    pt.seed(SEED)
+    step = bench.titan_step(pt, remat=True)
+    out["titan_remat"] = graph_run_vs_loop(
+        pt, torch, "titan remat=True", step, (x[:2],), 2, card,
+        {"flash_fwd": 8, "flash_bwd_fused": 4}, deterministic=True)
+    gemms = (out["titan"]["counts"]["gemm"] / n,
+             out["titan_remat"]["counts"]["gemm"] / 2)
+    print(f"graph: titan GEMM launches per step, dots {gemms[0]:.0f} vs "
+          f"remat=True {gemms[1]:.0f} (the recompute's products) [{card}]",
+          flush=True)
+    check(gemms[0] < gemms[1], f"titan dots recomputes products: {gemms}")
+    del step, x
+    torch.cuda.empty_cache()
+
+    # ERNIE-base over the sp=4 ring, 8 x 512, on the smoke's ring devices
+    pt.seed(SEED)
+    step, _ = train_profile.MODELS["ernie_sp"](pt, rng, sp=SP_DEGREE)
+    devices = list(pt.parallel.get_mesh().devices.reshape(-1))
+    x = ids(vocab_of(step.model.ernie.embeddings), SP_B, SP_S)
+    nsp = ids(2, SP_B)
+    per_layer = ring_launches_per_layer(devices)
+    layers = len(step.model.ernie.layers)
+    want = {k: layers * per_layer[k] for k in RING_KERNELS} \
+        if len(set(devices)) == 1 else None
+    out["sp"] = graph_run_vs_loop(pt, torch, "ernie_base sp=4", step,
+                                  (x, x, nsp), n, card, want)
+    pt.parallel.set_mesh(None)
+    del step, x, nsp
+    torch.cuda.empty_cache()
+    return out
 
 
 def spills(path):
@@ -1462,7 +1711,8 @@ def main() -> int:
                  (4, 1024, 6, 128, torch.bfloat16, True),
                  (4, 1024, 3, 256, torch.bfloat16, True),
                  (1, 4096, 12, 64, torch.float32, False),   # fp32 from 4096
-                 (4, 1000, 12, 64, torch.bfloat16, True)]   # ragged S
+                 (4, 1000, 12, 64, torch.bfloat16, True),   # ragged S
+                 (2, 2048, 64, 64, torch.bfloat16, False)]  # titan layer
     fwd_rows = []
     for case in fwd_cases:
         r = fwd_case(fa, torch, *case)
@@ -1481,7 +1731,8 @@ def main() -> int:
                  (TRAIN_B, TRAIN_S, 6, 128, torch.bfloat16, True),
                  (TRAIN_B, TRAIN_S, 3, 256, torch.bfloat16, True),
                  (1, 4096, 12, 64, torch.float32, False),
-                 (TRAIN_B, 1000, 12, 64, torch.bfloat16, True)]    # ragged
+                 (TRAIN_B, 1000, 12, 64, torch.bfloat16, True),    # ragged
+                 (2, 2048, 64, 64, torch.bfloat16, False)]         # titan
     bwd_rows = []
     for case in bwd_cases:
         rows = bwd_case(fa, torch, *case)
@@ -1599,13 +1850,18 @@ def main() -> int:
     train_launches = train_phase(pt, fa, torch, np, card, train_rows)
     serve_launches = serve_phase(pt, fa, torch, np, card)
     sp_launches = sp_train_phase(pt, fa, tra, torch, np, card, ring_devices)
+    flagship_phase(pt, torch, card)
+    titan = titan_phase(pt, fa, torch, card)
+    graph_phase(pt, torch, np, card)
 
     summary = {"flash_fwd": dict(serving_row,
                                  launches=train_launches["flash_fwd"]
-                                 + serve_launches)}
+                                 + serve_launches + titan["launches"][0])}
     for kname in ("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"):
         summary[kname] = dict(train_rows[kname],
-                              launches=train_launches[kname])
+                              launches=train_launches[kname] + (
+                                  titan["launches"][1]
+                                  if kname == "flash_bwd_fused" else 0))
     # the ring kernels at the sp train's hop, launches from the sp train:
     # the step kernels over the 4 slots of a ring step
     for kname in RING_KERNELS:
@@ -1613,7 +1869,8 @@ def main() -> int:
             step_rows[False][kname]
         summary[kname] = dict(row, launches=sp_launches[kname])
     for kname, r in summary.items():
-        path = "train + serve" if kname == "flash_fwd" else \
+        path = "train + serve + titan" if kname == "flash_fwd" else \
+            "train + titan" if kname == "flash_bwd_fused" else \
             "sp train" if kname.startswith("ring") else "train"
         print(f"kernels: {kname} summary at {r['shape']} {r['dtype']}: "
               f"max_abs_err={r['max_abs_err']:.3g} kernel_ms={r['ms']:.4f} "

@@ -1,8 +1,10 @@
 """Exported-flags registry, reduced to the flags the ported paths read.
 
 Counterpart of `paddle_tpu/core/flags.py`: `check_nan_inf` (read by
-`jit.TrainStep`) and the `FLAGS_serving_*` entries that
-`EngineConfig.from_flags` reads. Flags may be seeded from environment
+`jit.TrainStep`), the `FLAGS_serving_*` entries that
+`EngineConfig.from_flags` reads, and the data feed's `prefetch`,
+`prefetch_depth` and `dataloader_max_worker_restarts`, with the
+reference's defaults. Flags may be seeded from environment
 variables named FLAGS_<name>.
 """
 from __future__ import annotations
@@ -66,3 +68,13 @@ define_flag("serving_learn_buckets", True,
 define_flag("serving_warmup", True,
             "serving engine: pre-run every declared bucket x batch size "
             "at start()")
+define_flag("dataloader_max_worker_restarts", 2,
+            "DataLoader: respawns allowed per worker slot before a dead "
+            "worker becomes a hard error")
+define_flag("prefetch", False,
+            "io.maybe_wrap feeds the step through io.DevicePrefetcher (a "
+            "feeder thread stages FLAGS_prefetch_depth batches on the device "
+            "ahead of the consumer)")
+define_flag("prefetch_depth", 2,
+            "prefetch: batches staged on the device ahead of the consumer; "
+            "also the most that close() drops")

@@ -3,11 +3,16 @@
 Counterpart of `paddle_tpu/jit/train_step.py` (TrainStep :54-396,
 raise_nonfinite :33-51), with the same constructor. Where the reference
 compiles forward + backward + update into one XLA executable with donated
-parameter and slot buffers, the port runs them eagerly on the parameters'
-device and updates the parameters and slots in place. `run()` is the
-counterpart of the `lax.scan` span (:134-151): a Python loop over the
-leading axis that never reads a value back between steps; the losses stay
-on the device and are stacked once at the end.
+parameter and slot buffers, the port runs them on the parameters' device
+and updates the parameters and slots in place. The learning rate and the
+step counter are 0-d f32 tensors on that device (the reference's
+`_lr_arr` / `_t_arr`): the bias corrections read them there.
+
+`run()` is the counterpart of the `lax.scan` span (:375-396, "one host
+dispatch + one sync per span"). On a CUDA device it replays one CUDA graph
+per step: the first step of a new signature runs eagerly, the step is
+captured once, and every later step copies its batch into the graph's
+static inputs and replays it. On the CPU it is a loop over the steps.
 
 Usage:
     step = TrainStep(model, loss_fn, optimizer, amp_dtype="bfloat16")
@@ -19,15 +24,18 @@ reference are not ported.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from ..core import flags as _flags
 from ..core.enforce import UnimplementedError
 from ..core.place import resolve_device
 from ..core.random import get_rng_state, set_rng_state
+from ..parallel.topology import get_mesh
 from .functional import amp_functional_call, split_state
 
 
@@ -50,9 +58,25 @@ def raise_nonfinite(bad, pnames, context):
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    """A host copy; bf16 (which numpy lacks) widens exactly to f32."""
+    """A host copy, never a view of a CPU tensor that later steps update in
+    place; bf16 (which numpy lacks) widens exactly to f32."""
     t = t.detach()
-    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+    t = t.float() if t.dtype == torch.bfloat16 else t
+    return t.to("cpu", copy=True).numpy()
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+class _Captured:
+    """One step captured in a CUDA graph: its static inputs, the [capacity]
+    loss buffer and [capacity, P+1] flag buffer it writes at the span's
+    step index, and the data pointers of the state it was captured over."""
+
+    def __init__(self, graph, inputs, labels, losses, bads, ptrs):
+        self.graph, self.inputs, self.labels = graph, inputs, labels
+        self.losses, self.bads, self.ptrs = losses, bads, ptrs
 
 
 class TrainStep:
@@ -84,9 +108,17 @@ class TrainStep:
         opt = self.optimizer
         opt._parameter_list = opt._parameter_list or self._ptensors
         self._slots = opt.init_state(self._ptensors)
-        self._t = float(opt._step_count + 1)
         self._device = self._ptensors[0].device if self._ptensors \
             else resolve_device()
+        dev = self._device
+        # the step counter and the lr as device scalars; the index of the
+        # step within a run() span, where a replayed graph writes its loss
+        self._t = torch.tensor(float(opt._step_count + 1),
+                               dtype=torch.float32, device=dev)
+        self._lr = torch.zeros((), dtype=torch.float32, device=dev)
+        self._lr_host = None
+        self._i = torch.zeros(1, dtype=torch.int64, device=dev)
+        self._graphs = {}
         self._built = True
 
     def _prepare(self, batch):
@@ -99,6 +131,14 @@ class TrainStep:
         if n_mi is None:
             n_mi = len(arrs) if len(arrs) <= 1 else len(arrs) - 1
         return arrs[:n_mi], arrs[n_mi:]
+
+    def _set_lr(self):
+        """The optimizer's lr into the device scalar, only when it changed
+        (a scheduler tick); no copy from the host."""
+        lr = self.optimizer.get_lr()
+        if lr != self._lr_host:
+            self._lr.fill_(lr)
+            self._lr_host = lr
 
     def _loss_and_grads(self, inputs, labels):
         """Forward and backward at the current parameters: (loss, grads),
@@ -116,6 +156,8 @@ class TrainStep:
         return loss.detach(), grads
 
     def _one_step(self, inputs, labels):
+        """One step on the device alone: reads no value back, so it can be
+        captured. The optimizer's host counter is advanced by the caller."""
         loss, grads = self._loss_and_grads(inputs, labels)
         bad = None
         if self._nan_check:
@@ -124,35 +166,198 @@ class TrainStep:
         # in place: the reference donates these buffers to its update
         self.optimizer.functional_update(
             [p.detach() for p in self._ptensors], grads, self._slots,
-            self.optimizer.get_lr(), self._t, params_meta=self._ptensors)
-        self._t += 1.0
-        self.optimizer._step_count += 1
+            self._lr, self._t, params_meta=self._ptensors)
+        self._t.add_(1.0)
         return loss, bad
 
     def __call__(self, *batch):
         """batch: input tensors consumed by model.forward; loss_fn receives
-        the model output(s) and the remaining tensors. Returns the loss as
-        a 0-d tensor on the device (no host sync)."""
+        the model output(s) and the remaining tensors. Runs eagerly and
+        returns the loss as a 0-d tensor on the device (no host sync)."""
         inputs, labels = self._prepare(batch)
+        self._set_lr()
         loss, bad = self._one_step(inputs, labels)
+        self.optimizer._step_count += 1
         raise_nonfinite(bad, self._pnames, "train step")
         return loss
 
     def run(self, *batch):
         """Every tensor in `batch` is stacked along a leading n_steps axis;
-        runs the n optimizer steps and returns the [n] losses."""
+        runs the n optimizer steps and returns the [n] losses.
+
+        The lr is read once per span, as the reference fixes its
+        `_lr_arr` for a span. On one CUDA device each step is one replay
+        of a CUDA graph of the whole step (forward, backward, the update,
+        `t += 1`, the loss and, with FLAGS_check_nan_inf, the finite flags
+        written at the step's index). A graph is cached per signature (the
+        per-step shapes and dtypes, the AMP dtype, the nan check, the
+        deterministic-algorithms switch and the model's training flag) and
+        captured again when the parameters, slots, buffers or step scalars
+        no longer live where it was captured. The first step after a
+        capture is the eager warm-up (on a side stream) and counts as a
+        step; so `run()` of one step is that step alone. A failing capture
+        or replay raises: it never carries on eagerly. The kernels'
+        `.launches` counters count host calls, so a capture counts once and
+        a replay not at all. Dropout draws a fresh mask at every replay.
+
+        On the CPU, and where the parameters or the current mesh span more
+        than one device (a step no four-card machine has captured yet), the
+        span is a loop over the eager step."""
         inputs, labels = self._prepare(batch)
         n_steps = int(inputs[0].shape[0]) if inputs \
             else int(labels[0].shape[0])
+        self._set_lr()
+        if self._device.type == "cuda" and not self._spans_devices():
+            losses, bads = self._run_graph(inputs, labels, n_steps)
+        else:
+            losses, bads = self._run_loop(inputs, labels, n_steps)
+        self.optimizer._step_count += n_steps
+        raise_nonfinite(bads, self._pnames, "train step")
+        return losses
+
+    def _spans_devices(self) -> bool:
+        devices = {t.device for t in itertools.chain(self._ptensors,
+                                                     self._btensors)}
+        mesh = get_mesh()
+        if mesh is not None:
+            devices.update(torch.device(d) for d in mesh.devices.reshape(-1))
+        return len(devices) > 1
+
+    def _run_loop(self, inputs, labels, n_steps):
         losses, bads = [], []
         for i in range(n_steps):
             loss, bad = self._one_step([x[i] for x in inputs],
                                        [y[i] for y in labels])
             losses.append(loss)
             bads.append(bad)
-        raise_nonfinite(torch.stack(bads) if self._nan_check else None,
-                        self._pnames, "train step")
-        return torch.stack(losses)
+        return torch.stack(losses), \
+            torch.stack(bads) if self._nan_check else None
+
+    def _state_ptrs(self):
+        slots = (v for s in self._slots for v in s.values())
+        return tuple(t.data_ptr() for t in itertools.chain(
+            self._ptensors, self._btensors, slots,
+            (self._t, self._lr, self._i)))
+
+    def _run_graph(self, inputs, labels, n_steps):
+        key = (tuple((tuple(x.shape[1:]), x.dtype) for x in inputs),
+               tuple((tuple(y.shape[1:]), y.dtype) for y in labels),
+               self.amp_dtype, self._nan_check,
+               torch.are_deterministic_algorithms_enabled(),
+               self.model.training)
+        cap = self._graphs.get(key)
+        first = 0
+        if cap is None or cap.losses.shape[0] < n_steps or \
+                cap.ptrs != self._state_ptrs():
+            # drop the stale graph (and its memory pool) before capturing
+            self._graphs.pop(key, None)
+            cap = None
+            cap = self._capture(inputs, labels, n_steps)
+            self._graphs[key] = cap
+            first = 1
+        else:
+            self._i.zero_()
+        for i in range(first, n_steps):
+            for s, x in zip(cap.inputs, inputs):
+                s.copy_(x[i])
+            for s, y in zip(cap.labels, labels):
+                s.copy_(y[i])
+            cap.graph.replay()
+        return cap.losses[:n_steps].clone(), \
+            cap.bads[:n_steps].clone() if cap.bads is not None else None
+
+    def _record(self, loss, bad, losses, bads):
+        """Write the step's loss (and flags) at the span index; advance it."""
+        losses.index_copy_(0, self._i, loss.reshape(1))
+        if bads is not None:
+            bads.index_copy_(0, self._i, bad.reshape(1, -1))
+        self._i.add_(1)
+
+    def _capture(self, inputs, labels, n_steps):
+        """Run the span's first step eagerly on a side stream (cuBLAS, the
+        autograd engine and the kernels initialise lazily there), then
+        capture the step over static input buffers."""
+        static_in = [x[0].clone() for x in inputs]
+        static_lab = [y[0].clone() for y in labels]
+        self._i.zero_()
+        main = torch.cuda.current_stream(self._device)
+        side = torch.cuda.Stream(self._device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            loss, bad = self._one_step(static_in, static_lab)
+        main.wait_stream(side)
+        losses = torch.empty(n_steps, dtype=loss.dtype, device=self._device)
+        bads = torch.empty((n_steps, bad.numel()), dtype=torch.bool,
+                           device=self._device) if bad is not None else None
+        self._record(loss, bad, losses, bads)
+        del loss, bad
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                loss, bad = self._one_step(static_in, static_lab)
+                self._record(loss, bad, losses, bads)
+        except Exception as e:
+            # the warm-up step was taken: count it before raising
+            self.optimizer._step_count += 1
+            raise RuntimeError(
+                "TrainStep.run: capturing the step in a CUDA graph failed "
+                "(a host sync such as .item() or a data-dependent shape in "
+                "the model or loss?); the span's first step was taken "
+                "eagerly, the rest were not") from e
+        return _Captured(graph, static_in, static_lab, losses, bads,
+                         self._state_ptrs())
+
+    # ---- cost and memory of one step ----
+    def cost_analysis(self, *batch):
+        """{"flops", "bytes_accessed"} of one step at `batch`'s signature.
+
+        `flops`: what `torch.utils.flop_counter.FlopCounterMode` counts
+        over one eager forward + backward (products, and the flash
+        kernels through their registered formulas: 4·BH·S²·D forward,
+        10·BH·S²·D fused backward, halved when causal). Elementwise work
+        and the update are not counted. `bytes_accessed` is None: torch
+        does not count the bytes a step moves. Updates nothing."""
+        inputs, labels = self._prepare(batch)
+        with FlopCounterMode(display=False) as counter:
+            self._loss_and_grads(inputs, labels)
+        return {"flops": float(counter.get_total_flops()),
+                "bytes_accessed": None}
+
+    def memory_report(self, *batch):
+        """The reference's keys for one step at `batch`'s signature:
+        `argument_bytes` (parameters, slots, buffers, the step scalars and
+        one step's batch), `output_bytes` (the new parameters and slots,
+        the loss), `alias_bytes` (the parameters and slots, updated in
+        place where the reference donates them), `generated_code_bytes`
+        (0), and on CUDA `temp_bytes` (the peak allocated above the live
+        state during one eager forward + backward, gradients included;
+        the update's own scratch is not run, since it would change the
+        parameters) and `peak_bytes` (`torch.cuda.max_memory_allocated`
+        over that forward + backward). On the CPU `temp_bytes` and
+        `peak_bytes` are None. Updates nothing."""
+        inputs, labels = self._prepare(batch)
+        state = _nbytes(itertools.chain(
+            self._ptensors, (v for s in self._slots for v in s.values())))
+        scalars = _nbytes((self._t, self._lr))
+        args = state + _nbytes(self._btensors) + scalars + \
+            _nbytes(inputs + labels)
+        report = {"argument_bytes": args, "alias_bytes": state,
+                  "generated_code_bytes": 0, "temp_bytes": None,
+                  "peak_bytes": None}
+        if self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+            base = torch.cuda.memory_allocated(self._device)
+            torch.cuda.reset_peak_memory_stats(self._device)
+            loss, grads = self._loss_and_grads(inputs, labels)
+            torch.cuda.synchronize(self._device)
+            peak = torch.cuda.max_memory_allocated(self._device)
+            report["temp_bytes"] = peak - base
+            report["peak_bytes"] = peak
+        else:
+            loss, grads = self._loss_and_grads(inputs, labels)
+        report["output_bytes"] = state + _nbytes([loss]) + scalars
+        del loss, grads
+        return report
 
     # ---- full loop-state capture ----
     def state_dict(self):
@@ -171,11 +376,13 @@ class TrainStep:
                       for s in self._slots],
             "rng_key": {k: [x.numpy() for x in v] if isinstance(v, list)
                         else v.numpy() for k, v in rng.items()},
-            "t": np.asarray(self._t, np.float32),
+            "t": _host(self._t),
             "step_count": int(self.optimizer._step_count),
         }
 
     def set_state_dict(self, sd):
+        """Copies into the existing parameter, slot and step tensors in
+        place, so a captured step reads the new values."""
         if not self._built:
             self._build()
         params = sd["params"]
@@ -183,10 +390,12 @@ class TrainStep:
             for n, t in zip(self._pnames, self._ptensors):
                 if n in params:
                     t.copy_(torch.as_tensor(np.asarray(params[n])))
-        self._slots = [{k: torch.tensor(np.asarray(v), device=self._device)
-                        for k, v in s.items()} for s in sd["slots"]]
+            for slots, saved in zip(self._slots, sd["slots"]):
+                for k, v in slots.items():
+                    v.copy_(torch.as_tensor(np.asarray(saved[k])))
+            self._t.fill_(float(sd["t"]))
         set_rng_state(sd["rng_key"])
-        self._t = float(sd["t"])
+        self._lr_host = None
         self.optimizer._step_count = int(sd["step_count"])
 
 

@@ -14,9 +14,10 @@ Counterpart of `paddle_tpu/kernels/flash_attention.py`. Two sources:
   and `flash_attention_bwd_dkv`. The dq pass shares its Hopper template
   (`csrc/dq_wgmma.cuh`) with the ring's dq step.
 
-`_FlashCore` is the counterpart of the `custom_vjp` `_flash_core`
-(:406-439): its forward saves (q, k, v, out, lse) as `_flash_core_fwd`
-does, and its backward picks a form as `_flash_core_bwd` does, with this
+`flash_fwd_op` / `flash_bwd_op` (registered operators) are the
+counterpart of the `custom_vjp` `_flash_core` (:406-439): the forward
+saves (q, k, v, out, lse) as `_flash_core_fwd` does, and the backward
+picks a form as `_flash_core_bwd` does, with this
 card's reason in place of the TPU's VMEM cap: on Hopper the fused form
 sums dq across parallel CTAs with f32 atomics, so its dq is not bitwise
 reproducible from run to run. The fused form is the default; under
@@ -43,6 +44,7 @@ import math
 import threading
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 
@@ -286,28 +288,78 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False):
     return flash_attention_bwd_fused(q, k, v, o, lse, do, causal)
 
 
-class _FlashCore(torch.autograd.Function):
-    """[BH, S, D] attention with the kernels on both passes."""
+# The kernels as two registered operators, `paddle_tpu_torch::flash_fwd`
+# and `paddle_tpu_torch::flash_bwd`: the counterpart of the `custom_vjp`
+# `_flash_core` (:406-439). The forward saves (q, k, v, out, lse) as
+# `_flash_core_fwd` does. As operators they are visible to the dispatcher:
+# a selective-checkpoint policy can name the forward and keep its output
+# (the reference's `checkpoint_name(o, "flash_attn_out")`,
+# `models/ernie.py:419-420`), and `FlopCounterMode` counts both through
+# the formulas registered below.
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """[BH, S, D] q/k/v -> (out, lse [BH, 1, S] f32): `flash_attention_fwd`."""
+    return flash_attention_fwd(q, k, v, causal)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal):
-        out, lse = flash_attention_fwd(q, k, v, causal)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = causal
-        return out
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
-                                         ctx.causal)
-        return dq, dk, dv, None
+@flash_fwd_op.register_fake
+def _(q, k, v, causal):
+    return torch.empty_like(q), q.new_empty((q.shape[0], 1, q.shape[1]),
+                                            dtype=torch.float32)
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_bwd", mutates_args=())
+def flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                 causal: bool) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(dq, dk, dv): `flash_attention_bwd`."""
+    return flash_attention_bwd(q, k, v, o, lse, do, causal)
+
+
+@flash_bwd_op.register_fake
+def _(q, k, v, o, lse, do, causal):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _fwd_setup(ctx, inputs, output):
+    q, k, v, causal = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.causal = causal
+
+
+def _fwd_backward(ctx, do, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_bwd_op(q, k, v, out, lse, do.contiguous(), ctx.causal)
+    return dq, dk, dv, None
+
+
+flash_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
+
+
+def _attention_flops(q_shape, causal, products):
+    """2 FLOPs per multiply-add, D per product and visible (q, k) pair:
+    4·BH·S²·D forward (2 products), 10·BH·S²·D fused backward (5),
+    halved when causal."""
+    bh, s, d = q_shape
+    flops = 2 * products * bh * s * s * d
+    return flops // 2 if causal else flops
+
+
+@register_flop_formula(torch.ops.paddle_tpu_torch.flash_fwd)
+def _(q_shape, k_shape, v_shape, causal, *args, out_shape=None, **kwargs):
+    return _attention_flops(q_shape, causal, 2)
+
+
+@register_flop_formula(torch.ops.paddle_tpu_torch.flash_bwd)
+def _(q_shape, *args, out_shape=None, **kwargs):
+    return _attention_flops(q_shape, args[-1], 5)
 
 
 def flash_attention_arrays(q, k, v, causal=False):
     """q/k/v: [B, S, H, D] (paddle layout). Returns [B, S, H, D];
-    differentiable through `_FlashCore` on every device."""
+    differentiable through `flash_fwd_op` on every device."""
     b, s, h, d = q.shape
     if k.shape[1] != s or v.shape[1] != s:
         raise ValueError(
@@ -322,7 +374,7 @@ def flash_attention_arrays(q, k, v, causal=False):
     def to_bhsd(x):
         return x.transpose(1, 2).reshape(b * h, s, d).contiguous()
 
-    out = _FlashCore.apply(to_bhsd(q), to_bhsd(k), to_bhsd(v), bool(causal))
+    out, _ = flash_fwd_op(to_bhsd(q), to_bhsd(k), to_bhsd(v), bool(causal))
     return out.reshape(b, h, s, d).transpose(1, 2)
 
 
@@ -335,4 +387,4 @@ __all__ = ["build", "build_bwd", "flash_attention", "flash_attention_arrays",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_bwd_fused", "flash_attention_bwd_two_pass",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "flash_bwd_prep", "KERNEL_DTYPES"]
+           "flash_bwd_prep", "flash_fwd_op", "flash_bwd_op", "KERNEL_DTYPES"]

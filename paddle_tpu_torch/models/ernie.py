@@ -10,17 +10,28 @@ parameter names and layouts, so a JAX state dict loads by name.
 With `use_sp`, attention is `parallel.sequence_parallel_attention(impl=
 "ring")` over the current mesh's 'sp' axis, and the attention mask and
 dropout are ignored, as in the reference (:92-94). Tensor parallelism
-(`use_mp=True`) raises: it comes with the distributed slice. The scanned
-stack (`ErnieScanStack`) and the cached decode path (`forward_cached`) are
-not ported yet.
+(`use_mp=True`) raises: it comes with the distributed slice. The cached
+decode path (`forward_cached`) is not ported yet.
+
+`ErnieScanStack` (:321-466) keeps its layer weights stacked on a leading
+[L] axis and always runs attention through the flash kernels; where the
+reference scans one rematerialised layer, the port loops over the L
+layers, with `torch.utils.checkpoint` for its `remat` modes.
 """
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
+import torch.nn.functional as TF
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .. import nn
-from ..amp.state import maybe_cast
-from ..core.enforce import UnimplementedError
+from ..amp.state import amp_enabled, amp_state, maybe_cast
+from ..core.enforce import InvalidArgumentError, UnimplementedError
+from ..kernels.flash_attention import flash_attention_arrays
 from ..nn.functional.attention import scaled_dot_product_attention
 from ..parallel.sp import sequence_parallel_attention
 
@@ -196,10 +207,132 @@ def ernie_large(**kw):
                       num_attention_heads=16, intermediate_size=4096, **kw)
 
 
+def ernie_titan_10b(**kw):
+    """The ~10B-parameter titan geometry (:311-315)."""
+    return ErnieModel(vocab_size=50304, hidden_size=4096, num_hidden_layers=48,
+                      num_attention_heads=64, intermediate_size=16384,
+                      max_position_embeddings=2048, **kw)
+
+
 bert_base = ernie_base
 bert_large = ernie_large
 
+# the "dots" policy (:453-458): the outputs of the products without batch
+# dimensions and the flash forward's (out, lse) are saved; everything else
+# (layer norms, residuals, GELU, layout copies) is recomputed
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+               torch.ops.paddle_tpu_torch.flash_fwd.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_dots_context = functools.partial(create_selective_checkpoint_contexts,
+                                  _dots_policy)
+
+
+def _layer_norm(v, g, b):
+    """Statistics in fp32, the result back in the residual's dtype, eps
+    1e-5 (:396-405)."""
+    v32 = v.float()
+    mu = v32.mean(-1, keepdim=True)
+    var = v32.var(-1, keepdim=True, unbiased=False)
+    n = ((v32 - mu) * torch.rsqrt(var + 1e-5)).to(v.dtype)
+    return n * g + b
+
+
+class ErnieScanStack(nn.Layer):
+    """N identical post-LN transformer layers with stacked weights.
+
+    The weights live on a leading [L] axis under the reference's names and
+    shapes (`qkv_w [L, h, 3h]`, ...; :360-380), so a state dict moves
+    across by name. Semantics are a loop of `ErnieLayer(dropout=0)`, with
+    attention always through the flash kernels (:414-415).
+
+    remat: False = plain autograd; True = per-layer checkpointing (only
+    the layer boundaries are saved); "dots" = selective checkpointing: the
+    products' outputs and the flash output are saved, and only the layer
+    norms, residuals, GELU and layout copies are recomputed in the
+    backward, so no product and no flash forward runs twice.
+    """
+
+    def __init__(self, hidden_size, num_heads, intermediate_size, n_layers,
+                 remat=True, causal=False):
+        super().__init__()
+        if remat not in (False, True, "dots"):
+            raise InvalidArgumentError(
+                f"ErnieScanStack: remat must be False, True or 'dots', got "
+                f"{remat!r}")
+        h, ffn, n = hidden_size, intermediate_size, n_layers
+        self.hidden_size, self.num_heads, self.n_layers = h, num_heads, n
+        self.remat, self.causal = remat, causal
+        k = 1.0 / math.sqrt(h)
+
+        def mk(*shape):
+            return self.create_parameter(
+                shape, default_initializer=nn.initializer.Uniform(-k, k))
+
+        def const(value, *shape):
+            return self.create_parameter(
+                shape, default_initializer=nn.initializer.Constant(value))
+
+        self.qkv_w = mk(n, h, 3 * h)
+        self.qkv_b = const(0.0, n, 3 * h)
+        self.proj_w = mk(n, h, h)
+        self.proj_b = const(0.0, n, h)
+        self.fc1_w = mk(n, h, ffn)
+        self.fc1_b = const(0.0, n, ffn)
+        self.fc2_w = mk(n, ffn, h)
+        self.fc2_b = const(0.0, n, h)
+        self.ln1_g = const(1.0, n, h)
+        self.ln1_b = const(0.0, n, h)
+        self.ln2_g = const(1.0, n, h)
+        self.ln2_b = const(0.0, n, h)
+
+    def _weights(self):
+        return [self.qkv_w, self.qkv_b, self.proj_w, self.proj_b, self.fc1_w,
+                self.fc1_b, self.fc2_w, self.fc2_b, self.ln1_g, self.ln1_b,
+                self.ln2_g, self.ln2_b]
+
+    def _layer(self, x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b, fc2_w,
+               fc2_b, ln1_g, ln1_b, ln2_g, ln2_b):
+        """One layer (:388-425)."""
+        b, s, h = x.shape
+        nh = self.num_heads
+        qkv = torch.matmul(x, qkv_w) + qkv_b
+        q, k, v = (t.reshape(b, s, nh, h // nh) for t in qkv.chunk(3, -1))
+        o = flash_attention_arrays(q, k, v, causal=self.causal)
+        o = torch.matmul(o.reshape(b, s, h), proj_w) + proj_b
+        x = _layer_norm(x + o, ln1_g, ln1_b)
+        m = TF.gelu(torch.matmul(x, fc1_w) + fc1_b)
+        m = torch.matmul(m, fc2_w) + fc2_b
+        return _layer_norm(x + m, ln2_g, ln2_b)
+
+    def forward(self, x):
+        ws = self._weights()
+        if amp_enabled():
+            # the layer is below the AMP white list: the carry and the
+            # floating weights take the AMP dtype once (:441-451)
+            dt = amp_state().dtype
+            x = x.to(dt)
+            ws = [w.to(dt) if w.is_floating_point() else w for w in ws]
+        for i in range(self.n_layers):
+            wl = [w[i] for w in ws]
+            if self.remat == "dots":
+                x = checkpoint(self._layer, x, *wl, use_reentrant=False,
+                               preserve_rng_state=False,
+                               context_fn=_dots_context)
+            elif self.remat:
+                x = checkpoint(self._layer, x, *wl, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = self._layer(x, *wl)
+        return x
+
+
 __all__ = ["ErnieEmbeddings", "ErnieMLP", "ErnieSelfAttention", "ErnieLayer",
            "ErnieModel", "ErnieForSequenceClassification",
-           "ErnieForPretraining", "ernie_base", "ernie_large", "bert_base",
-           "bert_large"]
+           "ErnieForPretraining", "ErnieScanStack", "ernie_base",
+           "ernie_large", "ernie_titan_10b", "bert_base", "bert_large"]

@@ -1,6 +1,6 @@
-"""Parameter initializers used by the serving path's layers.
+"""Parameter initializers used by the ported layers.
 
-Counterpart of `paddle_tpu/nn/initializer.py` (Constant, Normal,
+Counterpart of `paddle_tpu/nn/initializer.py` (Constant, Normal, Uniform,
 XavierNormal) with the same fan-in/fan-out conventions. Values are drawn
 on the CPU from the package's `torch.Generator` (`core.random`), so one
 seed gives one set of weights on every device.
@@ -54,6 +54,16 @@ class Normal(Initializer):
         return z * self.std + self.mean
 
 
+class Uniform(Initializer):
+    def __init__(self, low=-1.0, high=1.0):
+        self.low, self.high = low, high
+
+    def _generate(self, shape):
+        u = torch.rand(shape, generator=rnd.default_generator(),
+                       dtype=torch.float32)
+        return u * (self.high - self.low) + self.low
+
+
 class XavierNormal(Initializer):
     def __init__(self, fan_in=None, fan_out=None, gain=1.0):
         self.fan_in, self.fan_out, self.gain = fan_in, fan_out, gain
@@ -67,4 +77,4 @@ class XavierNormal(Initializer):
                            dtype=torch.float32) * std
 
 
-__all__ = ["Initializer", "Constant", "Normal", "XavierNormal"]
+__all__ = ["Initializer", "Constant", "Normal", "Uniform", "XavierNormal"]

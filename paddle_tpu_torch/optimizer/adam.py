@@ -32,6 +32,15 @@ class Adam(Optimizer):
 
     def _apply(self, values, grads, slots, *, lr, t, wd):
         b1, b2 = self._beta1, self._beta2
+        if isinstance(t, torch.Tensor):
+            # on the device in f64, as Python computes `1 - b ** t` on the
+            # host, then rounded to f32 as the division rounds a host
+            # float (an f32 scalar keeps `_foreach_div` on its fused path)
+            t64 = t.double()
+            bc1 = (1 - torch.pow(b1, t64)).float()
+            bc2 = (1 - torch.pow(b2, t64)).float()
+        else:
+            bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t
         g32 = [g.float() for g in grads]
         p32 = [v.float() for v in values]  # the values themselves when f32
         if wd and not self._decoupled():
@@ -42,14 +51,16 @@ class Adam(Optimizer):
         torch._foreach_add_(m, g32, alpha=1 - b1)
         torch._foreach_mul_(v, b2)
         torch._foreach_addcmul_(v, g32, g32, value=1 - b2)
-        denom = torch._foreach_div(v, 1 - b2 ** t)
+        denom = torch._foreach_div(v, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self._epsilon)
-        upd = torch._foreach_div(m, 1 - b1 ** t)
+        upd = torch._foreach_div(m, bc1)
         torch._foreach_div_(upd, denom)
         if wd and self._decoupled():
             torch._foreach_add_(upd, p32, alpha=wd)
-        torch._foreach_add_(p32, upd, alpha=-lr)
+        # `alpha` takes a number only: the step is a product, then a sum
+        torch._foreach_mul_(upd, -lr)
+        torch._foreach_add_(p32, upd)
         for val, new in zip(values, p32):
             if new is not val:
                 val.copy_(new)

@@ -55,6 +55,9 @@ class Optimizer:
             raise RuntimeError("cannot set_lr when using an LRScheduler")
         self._learning_rate = float(value)
 
+    def set_lr_scheduler(self, scheduler):
+        self._learning_rate = scheduler
+
     # ---- subclass hooks ----
     def _create_slots(self, p) -> Dict[str, torch.Tensor]:
         return {}
@@ -62,7 +65,8 @@ class Optimizer:
     def _apply(self, values, grads, slots, *, lr, t, wd):
         """The update rule over a group of parameters that share lr and wd:
         writes the new values into `values` and the new slot values into
-        `slots` (in place)."""
+        `slots` (in place). `lr` and `t` are host floats or 0-d f32
+        tensors on the values' device (see `functional_update`)."""
         raise NotImplementedError
 
     def _param_wd(self, p) -> float:
@@ -125,8 +129,14 @@ class Optimizer:
         `params_meta` supplies the parameter objects the values belong to,
         so per-parameter coefficients (weight decay, need_clip, lr scale)
         align with them. `grad_clip=None` disables in-update clipping.
-        `lr` and `t` are host numbers: the bias corrections are computed on
-        the host and no value is read back from the device."""
+
+        `lr` and `t` are host numbers, or 0-d f32 tensors on the values'
+        device (the counterpart of the reference's `_lr_scalar` /
+        `_t_scalar`, :103-121): with tensors the bias corrections and the
+        lr scaling run on the device, so a step captured in a CUDA graph
+        reads the current values at every replay. Both forms run the same
+        operations on the same values; no value is read back from the
+        device."""
         params = list(params_meta) if params_meta is not None \
             else (self._parameter_list or [])
         if params and len(params) != len(values):
@@ -148,9 +158,11 @@ class Optimizer:
         for i, key in enumerate(zip(wds, lrs)):
             groups.setdefault(key, []).append(i)
         for (wd, plr), idx in groups.items():
+            group_lr = lr if plr == 1.0 else lr * plr
+            if not isinstance(group_lr, torch.Tensor):
+                group_lr, t = float(group_lr), float(t)
             self._apply([values[i] for i in idx], [grads[i] for i in idx],
-                        [slots[i] for i in idx], lr=float(lr) * plr,
-                        t=float(t), wd=wd)
+                        [slots[i] for i in idx], lr=group_lr, t=t, wd=wd)
         return values, slots
 
 
@@ -177,7 +189,8 @@ class SGD(Optimizer):
     def _apply(self, values, grads, slots, *, lr, t, wd):
         if wd:
             grads = torch._foreach_add(grads, values, alpha=wd)
-        torch._foreach_add_(values, grads, alpha=-lr)
+        # `alpha` takes a number only: the step is a product, then a sum
+        torch._foreach_add_(values, torch._foreach_mul(grads, -lr))
 
 
 __all__ = ["Optimizer", "SGD"]

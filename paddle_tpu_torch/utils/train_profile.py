@@ -8,18 +8,23 @@ through `jit.TrainStep` + `AdamW(1e-4)`:
 - `--model ernie_sp`: `ErnieForPretraining(ernie_base(hidden_dropout_prob=
   0.0, use_sp=True))` on 8 x 512 tokens with the MLM + NSP loss, under
   `HybridCommunicateGroup(sp_degree=4)` over four slots of `cuda:0` (or
-  four cards when there are four).
+  four cards when there are four);
+- `--model ernie`: the flagship of `utils/bench.py`, ERNIE-base without sp
+  on 32 x 128 tokens;
+- `--model titan`: the titan arm of `utils/bench.py`, four layers of
+  `ErnieScanStack(4096, 64, 16384, remat="dots")` on 2 x 2048.
 
 It warms up, times a few steps without the profiler (host clock, synced),
 then traces as many with CUPTI and prints the device time per step by
 kernel, grouped into the ring-attention kernels, the other attention
 kernels (flash, the backward's prep pass), the matrix products, the
 elementwise and reduction kernels and the optimizer's, with the device's
-idle share of the traced window and of the untraced steps. Run on a
-machine with a CUDA device:
+idle share of the traced window and of the untraced steps. It does the
+same for a `run()` span of as many steps (one CUDA-graph replay per step,
+after a first span that captures). Run on a machine with a CUDA device:
 
-    python -m paddle_tpu_torch.utils.train_profile [--model gpt2|ernie_sp]
-        [--steps 3] [--top 20]
+    python -m paddle_tpu_torch.utils.train_profile
+        [--model gpt2|ernie_sp|ernie|titan] [--steps 3] [--top 20]
 
 Prints one line per kernel group and per top kernel, and a JSON object as
 its last line.
@@ -28,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import time
 
@@ -41,6 +47,36 @@ GROUPS = (("ring_attention", ("ring_fwd", "ring_dq", "ring_dkv")),
           ("products", ("gemm", "cutlass", "sm90_xmma", "nvjet", "cublas",
                         "gemv", "splitk")),
           ("elementwise_and_reductions", ("",)))
+
+
+# the port's kernels by their symbols in a device trace (the C entries
+# launch these; a template's arguments tell the fused backward from the
+# dk/dv pass)
+KERNEL_SYMBOLS = (
+    ("flash_fwd", re.compile(r"\bflash_fwd_\w+_kernel\b")),
+    ("flash_bwd_fused", re.compile(r"\bflash_bwd_kv_\w+_kernel<[^>]*true>")),
+    ("flash_bwd_dkv", re.compile(r"\bflash_bwd_kv_\w+_kernel<[^>]*false>")),
+    ("flash_bwd_dq", re.compile(r"\bflash_bwd_dq_(wgmma|bf16|f32)_kernel\b")),
+    ("ring_fwd", re.compile(r"\bring_fwd_\w+_kernel\b")),
+    ("ring_dq_step", re.compile(r"\bring_dq_\w+_kernel\b")),
+    ("ring_dkv", re.compile(r"\bring_dkv_\w+_kernel\b")),
+    ("gemm", re.compile(r"gemm|cutlass|nvjet|xmma", re.IGNORECASE)))
+
+
+def kernel_launches(prof) -> dict:
+    """Launches of the port's kernels (and of the GEMMs) in a
+    `torch.profiler` trace, counted from its CUDA kernel events by
+    symbol: the count a CUDA graph's replays run, which the wrappers'
+    `.launches` (host calls) do not see."""
+    counts = {name: 0 for name, _ in KERNEL_SYMBOLS}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name, pattern in KERNEL_SYMBOLS:
+            if pattern.search(e.name):
+                counts[name] += 1
+                break
+    return counts
 
 
 def _group(name: str) -> str:
@@ -96,31 +132,35 @@ def _ernie_sp(pt, rng, sp=4):
     return step, (ids, ids, nsp)
 
 
-MODELS = {"gpt2": _gpt2, "ernie_sp": _ernie_sp}
+def _ernie(pt, rng):
+    """The flagship (ERNIE-base without sp) and one batch of 32 x 128."""
+    from .bench import flagship_step
+    step = flagship_step(pt)
+    vocab = step.model.ernie.embeddings.word_embeddings.weight.shape[0]
+    ids = torch.from_numpy(rng.integers(0, vocab, (32, 128))).cuda()
+    nsp = torch.from_numpy(rng.integers(0, 2, (32,))).cuda()
+    return step, (ids, ids, nsp)
 
 
-def profile(steps=3, top=20, model="gpt2", seed=0):
-    import paddle_tpu_torch as pt
-    if not torch.cuda.is_available():
-        raise RuntimeError("train_profile measures the card: no CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    pt.set_device("gpu")
-    pt.seed(seed)
-    step, batch = MODELS[model](pt, np.random.default_rng(seed))
-    for _ in range(3):
-        step(*batch)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        step(*batch)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3 / steps
+def _titan(pt, rng):
+    """Four titan layers and one batch of 2 x 2048 x 4096 inputs."""
+    from .bench import titan_step
+    x = torch.from_numpy(rng.random((2, 2048, 4096), np.float32) * 0.02)
+    return titan_step(pt), (x.cuda(),)
+
+
+MODELS = {"gpt2": _gpt2, "ernie_sp": _ernie_sp, "ernie": _ernie,
+          "titan": _titan}
+
+
+def _trace(fn, steps):
+    """(wall ms per step, busy ms per step, launches per step, kernels,
+    host ops, port kernel counts) of fn() under the profiler."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            step(*batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels, host = [], []
@@ -136,18 +176,67 @@ def profile(steps=3, top=20, model="gpt2", seed=0):
     kernels.sort(reverse=True)
     host.sort(reverse=True)
     busy = sum(ms for ms, _, _ in kernels)
+    return (wall_ms / steps, busy, sum(n for _, n, _ in kernels), kernels,
+            host, {k: v / steps for k, v in kernel_launches(prof).items()})
+
+
+def _timed_ms(fn, steps):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def profile(steps=3, top=20, model="gpt2", seed=0):
+    import paddle_tpu_torch as pt
+    if not torch.cuda.is_available():
+        raise RuntimeError("train_profile measures the card: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pt.set_device("gpu")
+    pt.seed(seed)
+    step, batch = MODELS[model](pt, np.random.default_rng(seed))
+    for _ in range(3):
+        step(*batch)
+
+    def calls():
+        for _ in range(steps):
+            step(*batch)
+
+    stacked = [x.expand(steps, *x.shape) for x in batch]
+
+    def span():
+        step.run(*stacked)
+
+    plain_ms = _timed_ms(calls, steps)
+    wall_ms, busy, launches, kernels, host, ours = _trace(calls, steps)
+    span()                           # the first span captures the graph
+    run_plain_ms = _timed_ms(span, steps)
+    run_wall_ms, run_busy, run_launches, _, run_host, run_ours = \
+        _trace(span, steps)
     groups = {}
     for ms, _, name in kernels:
         g = _group(name)
         groups[g] = groups.get(g, 0.0) + ms
     return {"card": _card(), "model": model, "steps": steps,
             "tokens": batch[0].numel(),
-            "wall_ms_per_step": wall_ms / steps,
+            "wall_ms_per_step": wall_ms,
             "unprofiled_ms_per_step": plain_ms,
             "device_busy_ms_per_step": busy,
-            "idle_share": 1.0 - busy * steps / wall_ms,
+            "idle_share": 1.0 - busy / wall_ms,
             "idle_share_unprofiled": 1.0 - busy / plain_ms,
-            "kernel_launches_per_step": sum(n for _, n, _ in kernels),
+            "kernel_launches_per_step": launches,
+            "port_kernels_per_step": ours,
+            "run": {"wall_ms_per_step": run_wall_ms,
+                    "unprofiled_ms_per_step": run_plain_ms,
+                    "device_busy_ms_per_step": run_busy,
+                    "idle_share": 1.0 - run_busy / run_wall_ms,
+                    "idle_share_unprofiled": 1.0 - run_busy / run_plain_ms,
+                    "kernel_launches_per_step": run_launches,
+                    "port_kernels_per_step": run_ours,
+                    "host_top": [{"self_ms_per_step": ms, "calls_per_step": n,
+                                  "op": name[:80]}
+                                 for ms, n, name in run_host[:5]]},
             "groups_ms_per_step": groups,
             "top": [{"ms_per_step": ms, "launches_per_step": n,
                      "kernel": name[:120]} for ms, n, name in kernels[:top]],
@@ -176,6 +265,16 @@ def main():
               flush=True)
     print(f"train_profile: {r['kernel_launches_per_step']} kernel launches "
           f"per step [{card}]", flush=True)
+    run = r["run"]
+    print(f"train_profile: run() span of {r['steps']} (one graph replay per "
+          f"step): wall {run['wall_ms_per_step']:.3f} ms per step (profiler "
+          f"on), device busy {run['device_busy_ms_per_step']:.3f} ms, idle "
+          f"share {run['idle_share']:.3f}; without the profiler "
+          f"{run['unprofiled_ms_per_step']:.3f} ms per step, idle share "
+          f"{run['idle_share_unprofiled']:.3f}; "
+          f"{run['kernel_launches_per_step']} kernel launches per step; "
+          f"port kernels per step {run['port_kernels_per_step']} [{card}]",
+          flush=True)
     for row in r["top"]:
         print(f"train_profile: {row['ms_per_step']:.3f} ms "
               f"x{row['launches_per_step']} {row['kernel']}", flush=True)

@@ -196,3 +196,90 @@ def test_tensor_parallelism_raises_naming_the_distributed_slice(layer):
         else:
             pt.models.ErnieForPretraining(pt.models.ErnieModel(**CFG),
                                           use_mp=True)
+
+
+# the flagship as bench.py trains it, at its CPU configuration
+# (bench.py:196-199): ErnieForPretraining without sp, 8 x 64 tokens
+FLAGSHIP = dict(vocab_size=1024, hidden_size=128, num_hidden_layers=2,
+                num_attention_heads=4, intermediate_size=512,
+                hidden_dropout_prob=0.0)
+FB, FS, FSTEPS = 8, 64, 5
+
+
+def _flagship_pair(amp):
+    """Both packages' flagship TrainStep (bench.py:201-210) from one JAX
+    checkpoint."""
+    from paddle_tpu_torch.utils.bench import flagship_step
+    paddle.seed(0)
+    jm = jmodels.ErnieForPretraining(jmodels.ErnieModel(**FLAGSHIP))
+    state = {k: np.asarray(v._value) for k, v in jm.state_dict().items()}
+    jloss, _ = _loss_fns()
+    jstep = JTrainStep(jm, jloss, paddle.optimizer.AdamW(
+        parameters=jm.parameters(), learning_rate=1e-4), amp_dtype=amp,
+        n_model_inputs=1)
+    tstep = flagship_step(pt, FLAGSHIP)
+    tstep.amp_dtype = amp
+    load_numpy_state(tstep.model, state)
+    return jstep, tstep
+
+
+def _flagship_batches(seed=0):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, FLAGSHIP["vocab_size"], (FSTEPS, FB, FS)).astype(
+        np.int32)
+    nsp = rng.integers(0, 2, (FSTEPS, FB)).astype(np.int32)
+    return ids, nsp
+
+
+@pytest.mark.parametrize("amp,rtol", [(None, 1e-4), ("bfloat16", 2e-2)])
+def test_flagship_run_matches_the_jax_run(amp, rtol):
+    jstep, tstep = _flagship_pair(amp)
+    ids, nsp = _flagship_batches()
+    want = np.asarray(jstep.run(paddle.to_tensor(ids), paddle.to_tensor(ids),
+                                paddle.to_tensor(nsp))._value, np.float32)
+    got = tstep.run(torch.from_numpy(ids), torch.from_numpy(ids),
+                    torch.from_numpy(nsp)).float().numpy()
+    # fp32: summation order only; bf16 AMP: both round every activation,
+    # logit and the loss to bf16 (2^-8), at different places
+    np.testing.assert_allclose(got, want, rtol=rtol)
+    assert got[-1] < got[0]
+    assert tstep.optimizer._step_count == FSTEPS
+
+
+def test_flagship_run_is_the_loop_of_calls():
+    """On the CPU run() is bit-equal to the same steps through __call__."""
+    _, a = _flagship_pair("bfloat16")
+    _, b = _flagship_pair("bfloat16")
+    ids, nsp = _flagship_batches(1)
+    calls = [a(torch.from_numpy(i), torch.from_numpy(i), torch.from_numpy(n))
+             for i, n in zip(ids, nsp)]
+    span = b.run(torch.from_numpy(ids), torch.from_numpy(ids),
+                 torch.from_numpy(nsp))
+    assert torch.equal(span, torch.stack(calls))
+    for (k, x), y in zip(a.model.state_dict().items(),
+                         b.model.state_dict().values()):
+        assert torch.equal(x, y), k
+
+
+def test_flagship_cost_analysis_counts_the_formulas_products():
+    """cost_analysis counts the products the step runs: bench.py's formula
+    (:258-262) less what it counts that no product computes, the position
+    and token-type lookups, and the pooler and NSP products at every token
+    where the model applies them to the first only."""
+    from paddle_tpu_torch.utils.bench import flagship_flops_per_sample
+    _, tstep = _flagship_pair("bfloat16")
+    ids, nsp = _flagship_batches()
+    cost = tstep.cost_analysis(torch.from_numpy(ids[0]),
+                               torch.from_numpy(ids[0]),
+                               torch.from_numpy(nsp[0]))
+    net = tstep.model
+    formula = flagship_flops_per_sample(net, FS) * FB
+    emb, h = net.ernie.embeddings, FLAGSHIP["hidden_size"]
+    lookups = emb.position_embeddings.weight.numel() + \
+        emb.token_type_embeddings.weight.numel()
+    first_token = net.ernie.pooler.weight.numel() + net.nsp.weight.numel()
+    products = formula - 6 * FB * (lookups * FS + first_token * (FS - 1))
+    assert cost["flops"] == products, (cost["flops"], products, formula)
+    assert cost["bytes_accessed"] is None
+    assert 0.85 < cost["flops"] / formula < 0.9  # 6·S·(512+2)·h of lookups
+    assert tstep.optimizer._step_count == 0

@@ -585,3 +585,131 @@ def test_fp16_attention_takes_the_plain_paths_on_the_card(cuda_device):
     for got in (out, ring):
         assert got.dtype == torch.float16
         torch.testing.assert_close(got.float(), ref, atol=1e-2, rtol=1e-2)
+
+
+# ---- TrainStep.run() as one CUDA-graph replay per step ----
+
+def _small_ernie_step(seed=0, layers=2):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.utils.bench import flagship_step
+    pt.set_device("gpu")
+    pt.seed(seed)
+    return flagship_step(pt, dict(vocab_size=1024, hidden_size=128,
+                                  num_hidden_layers=layers,
+                                  num_attention_heads=2,
+                                  intermediate_size=512,
+                                  hidden_dropout_prob=0.0))
+
+
+def _ernie_batches(n, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ids = torch.randint(0, 1024, (n, 4, 64), generator=gen, device="cuda")
+    nsp = torch.randint(0, 2, (n, 4), generator=gen, device="cuda")
+    return ids, ids, nsp
+
+
+@pytest.mark.cuda
+def test_run_graph_equals_the_loop_of_calls(cuda_device):
+    a, b = _small_ernie_step(), _small_ernie_step()
+    batch = _ernie_batches(6)
+    loop = torch.stack([a(*[x[i] for x in batch]) for i in range(6)])
+    span = b.run(*batch)                 # warm-up step, capture, 5 replays
+    assert len(b._graphs) == 1
+    torch.testing.assert_close(span.float(), loop.float(), rtol=1e-4,
+                               atol=0)
+    assert b.optimizer._step_count == 6 and float(b._t) == 7.0
+    for p, q in zip(a._ptensors, b._ptensors):
+        torch.testing.assert_close(p, q, rtol=1e-4, atol=1e-6)
+    again = b.run(*batch)                # all six steps replayed
+    assert len(b._graphs) == 1 and float(b._t) == 13.0
+    assert again[-1] < span[0]
+
+
+@pytest.mark.cuda
+def test_run_graph_follows_set_state_dict_and_replaced_params(cuda_device):
+    step = _small_ernie_step()
+    batch = _ernie_batches(4, seed=1)
+    step.run(*batch)
+    saved = step.state_dict()
+    cap = next(iter(step._graphs.values()))
+    first = step.run(*batch)
+    step.set_state_dict(saved)           # in place: the same graph replays
+    assert next(iter(step._graphs.values())) is cap
+    torch.testing.assert_close(step.run(*batch), first, rtol=0, atol=0)
+    # a parameter given new storage: the step is captured again
+    p = step._ptensors[0]
+    with torch.no_grad():
+        p.data = p.detach().clone()
+    step.set_state_dict(saved)
+    redo = step.run(*batch)
+    assert next(iter(step._graphs.values())) is not cap
+    torch.testing.assert_close(redo.float(), first.float(), rtol=1e-4,
+                               atol=0)
+
+
+@pytest.mark.cuda
+def test_run_graph_capture_failure_raises(cuda_device):
+    step = _small_ernie_step()
+    inner = step.loss_fn
+
+    def syncing_loss(*args):
+        loss = inner(*args)
+        float(loss)                      # a host sync: not capturable
+        return loss
+
+    step.loss_fn = syncing_loss
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        step.run(*_ernie_batches(3))
+    # the eager first step was taken and counted; nothing else ran
+    assert step.optimizer._step_count == 1 and float(step._t) == 2.0
+
+
+@pytest.mark.cuda
+def test_titan_dots_saves_the_flash_output_in_the_graph(cuda_device):
+    """Under remat="dots" a replayed step launches one flash forward and
+    one fused backward per layer; under remat=True the forward twice."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.utils.bench import titan_step
+    from paddle_tpu_torch.utils.train_profile import kernel_launches
+    pt.set_device("gpu")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.rand(3, 2, 1024, 256, generator=gen, device="cuda") * 0.02
+    counts = {}
+    for remat in ("dots", True):
+        pt.seed(0)
+        step = titan_step(pt, h=256, ffn=512, heads=4, n_layers=2,
+                          remat=remat)
+        step.run(x)
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            step.run(x)
+            torch.cuda.synchronize()
+        counts[remat] = kernel_launches(prof)
+    assert counts["dots"]["flash_fwd"] == 2 * 3
+    assert counts["dots"]["flash_bwd_fused"] == 2 * 3
+    assert counts[True]["flash_fwd"] == 2 * 2 * 3
+    assert counts[True]["flash_bwd_fused"] == 2 * 3
+    assert counts["dots"]["gemm"] < counts[True]["gemm"]
+
+
+@pytest.mark.cuda
+def test_prefetcher_on_a_side_stream_yields_the_source(cuda_device):
+    import numpy as np
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.io import DevicePrefetcher
+    pt.set_device("gpu")
+    src = [(np.full((64, 64), i, np.float32), np.arange(8) + i)
+           for i in range(9)]
+    feed = DevicePrefetcher(src, depth=3)
+    got = []
+    for x, y in feed:
+        assert x.device.type == "cuda" and y.device.type == "cuda"
+        got.append((x * 2, y.clone()))   # consumed on the current stream
+    torch.cuda.synchronize()
+    assert len(got) == len(src)
+    for (x, y), (sx, sy) in zip(got, src):
+        assert torch.equal(x.cpu(), torch.from_numpy(sx) * 2)
+        assert torch.equal(y.cpu(), torch.from_numpy(sy))
+    assert feed.stats()["consumed"] == 9
+    feed.close()

@@ -191,3 +191,99 @@ def test_check_nan_inf_raises_naming_the_parameters(nan_flag, path):
         str(jerr.value).split(": ", 1)[1]
     # state was committed before the raise
     assert tstep.optimizer._step_count == 1
+
+
+@pytest.mark.parametrize("opt_name", ["AdamW", "Adam", "SGD"])
+def test_tensor_lr_and_t_give_bit_equal_updates(opt_name):
+    """lr and t as 0-d f32 tensors (as TrainStep passes them) update the
+    values and slots bit-equally to host floats, on the CPU."""
+    gen = torch.Generator().manual_seed(0)
+    params = [torch.nn.Parameter(torch.randn(37, 5, generator=gen)),
+              torch.nn.Parameter(torch.randn(11, generator=gen))]
+    grads = [torch.randn(p.shape, generator=gen) for p in params]
+    opt = getattr(pt.optimizer, opt_name)(learning_rate=1.7e-3,
+                                          parameters=params,
+                                          weight_decay=0.01)
+    for t in (1, 2, 7, 60, 1000, 12345):
+        slots = [opt.init_state(params) for _ in range(2)]
+        for a, b in zip(*slots):
+            for k in a:
+                a[k].copy_(torch.rand(a[k].shape, generator=gen))
+                b[k].copy_(a[k])
+        vals = [[p.detach().clone() for p in params] for _ in range(2)]
+        opt.functional_update(vals[0], grads, slots[0], 1.7e-3, float(t),
+                              params_meta=params)
+        opt.functional_update(vals[1], grads, slots[1], torch.tensor(1.7e-3),
+                              torch.tensor(float(t)), params_meta=params)
+        for a, b in zip(*vals):
+            assert torch.equal(a, b), t
+        for a, b in zip(*slots):
+            for k in a:
+                assert torch.equal(a[k], b[k]), (t, k)
+
+
+def test_set_state_dict_keeps_the_slot_tensors():
+    state = _jax_pair(None)[2]
+    _, step = _torch_step(state, None)
+    ids = torch.from_numpy(_ids())
+    step(ids, ids)
+    saved = step.state_dict()
+    step(ids, ids)
+    slots = [dict(s) for s in step._slots]
+    ptrs = step._state_ptrs()
+    step.set_state_dict(saved)
+    # the same tensors, holding the saved values
+    assert ptrs == step._state_ptrs()
+    for before, after, want in zip(slots, step._slots, saved["slots"]):
+        for k in before:
+            assert after[k] is before[k]
+            np.testing.assert_array_equal(after[k].numpy(), want[k])
+    assert float(step._t) == float(saved["t"]) == 2.0
+
+
+def test_run_reads_the_lr_once_per_span():
+    """A scheduler ticked between spans moves the lr of the next span; the
+    step counter lives on the device and advances by the span."""
+    state = _jax_pair(None)[2]
+    tm_a, step_a = _torch_step(state, None)
+    tm_b, step_b = _torch_step(state, None)
+    for step in (step_a, step_b):
+        step.optimizer.set_lr_scheduler(
+            pt.optimizer.lr.StepDecay(learning_rate=LR, step_size=1,
+                                      gamma=0.5))
+    ids = [_ids(i) for i in range(4)]
+    want = []
+    for i, x in enumerate(ids):
+        want.append(step_a(torch.from_numpy(x), torch.from_numpy(x)))
+        if i % 2 == 1:
+            step_a.optimizer._learning_rate.step()
+    got = []
+    for span in (ids[:2], ids[2:]):
+        stacked = torch.from_numpy(np.stack(span))
+        got.append(step_b.run(stacked, stacked))
+        step_b.optimizer._learning_rate.step()
+    np.testing.assert_array_equal(torch.cat(got).numpy(),
+                                  torch.stack(want).numpy())
+    assert float(step_b._t) == 5.0 and step_b.optimizer._step_count == 4
+    for (k, a), b in zip(tm_a.state_dict().items(),
+                         tm_b.state_dict().values()):
+        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=k)
+
+
+def test_memory_report_on_the_cpu():
+    state = _jax_pair(None)[2]
+    tm, step = _torch_step(state, "bfloat16")
+    ids = torch.from_numpy(_ids())
+    report = step.memory_report(ids, ids)
+    n_params = sum(p.numel() for p in tm.parameters())
+    # f32 masters and two f32 Adam moments, updated in place
+    assert report["alias_bytes"] == 3 * 4 * n_params
+    assert report["argument_bytes"] == report["alias_bytes"] + 8 + \
+        2 * ids.numel() * ids.element_size()
+    assert report["output_bytes"] > report["alias_bytes"]
+    assert report["generated_code_bytes"] == 0
+    assert report["temp_bytes"] is None and report["peak_bytes"] is None
+    # a report takes no step
+    assert step.optimizer._step_count == 0
+    for k, v in tm.state_dict().items():
+        np.testing.assert_array_equal(v.numpy(), state[k], err_msg=k)
