@@ -33,16 +33,22 @@ last line is printed):
                four slots of a ring step at the sp hop (non-causal, timed
                per launch and per slot-hop, and causal); the dq step on
                four slots at nine cases, from non-zero accumulators, at
-               both CTA sizes;
+               both CTA sizes. Then each of the seven kernels in fp16 at its
+               main path's shape (rows 1-4 at the titan and the train
+               shapes, the ring steps at the sp hop), held to 5e-3 (1 +
+               |ref|) forward and 1e-2 (1 + |ref|) for the gradients, its
+               device time beside its bf16 row's and SDPA's in fp16;
   4. ring    - sequence_parallel_attention(impl="ring", causal=True) over
                a mesh of four slots at B=1, S=4096, H=12, D=64 in bf16,
                forward and backward, against the single-device flash
                attention on the same q/k/v; on one card 4 launches of
                each of the three step kernels (16 slot-hops each); then
-               fp16 attention, which the kernels do not take: one
-               scaled_dot_product_attention call at S=4096 (the einsum
-               path) and one fp16 ring over the four slots (the dense
-               ring), no kernel launched, against fp32;
+               fp16 attention: one scaled_dot_product_attention call at
+               S=4096 launches the flash forward (and its backward the
+               fused backward), one fp16 ring over the four slots 4
+               launches of each step kernel, both against fp32; the ring
+               at D=96 takes the dense ring, no launch; the fp16 call's
+               memory beside the fp16 einsum path's and the bf16 kernel's;
   5. train   - GPTForCausalLM(gpt2_small(dropout=0.0)) at full width and
                depth, fp32 master weights drawn from a seed, trained in
                bf16 AMP on 8 x 1024 tokens through jit.TrainStep + AdamW:
@@ -97,10 +103,44 @@ last line is printed):
                fused backward launches per step, titan 4 and 4 under
                "dots" (8 forwards under remat=True, and fewer GEMMs), the
                sp train 48 of each ring step kernel on one card, the
-               flagship none.
+               flagship none;
+ 11. fp16 titan - path A: the same four titan layers in fp16 AMP, eager,
+               AdamW(1e-4) + amp.GradScaler() at its defaults: the step-1
+               loss and unscaled gradients against fp32 on the card (fused
+               and two-pass backward: loss within 1e-2 relative, every
+               per-parameter cosine >= 0.99), 10 steps with finite losses
+               and scales, 4 + 4 fp16 flash launches in the device trace
+               of a step, then two steps with an inf injected into a
+               gradient (the first under torch.use_deterministic_
+               algorithms: the two-pass backward), each leaving
+               parameters, AdamW slots, step count and device t bit-
+               unchanged, together halving the scale; host launches over
+               those 13 steps exactly 4 x 13 forward, 4 x 12 fused, 4 dq
+               and 4 dk/dv; ms per step and peak memory beside the bf16
+               TrainStep __call__ of the same stack;
+ 12. fp16 sp - path B: ERNIE-base over the sp=4 ring in fp16 AMP, eager,
+               the same optimizer and scaler, MLM + NSP at 8 x 512 (the
+               loss in f32 on the fp16 logits): the step-1 loss and
+               gradients against fp32 without sp (the same tolerances),
+               steps until 8 were taken (at 2^15 the scaled gradients
+               overflow fp16, so the first steps are skipped while the
+               scale halves), the loss falling over the 8, 48 launches of
+               each ring step kernel per step (host counts) and in fp16 in
+               the device trace.
 
-The last two lines are a JSON summary of the kernels and
-`{"ok": true, "device": {...}}`. Imports nothing of JAX.
+Each fp16 step drives `scaler.step(opt)` after the scaled backward and no
+`scaler.update()`: the reference's step() already updates the scale once
+every optimizer has stepped, and an update() after it counts the step a
+second time, as a good one. The last two lines are a JSON summary of the
+kernels, one entry per kernel and dtype (bf16 from the bf16 paths, fp16
+from paths A and B), and `{"ok": true, "device": {...}}`. Imports nothing
+of JAX.
+
+    python3 chip_smoke.py --rows [ROOT] [DTYPE]
+
+measures only the seven kernels' device ms and their registers and
+spills, from ROOT's package and ROOT's own cases (see `kernel_rows`), so
+that two trees run in turn in one card session compare their rows.
 """
 from __future__ import annotations
 
@@ -110,6 +150,7 @@ import copy
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -119,7 +160,7 @@ import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
-PEAK_BF16 = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
+PEAK_BF16 = 989e12      # H100 SXM dense bf16 (and fp16) tensor-core FLOP/s
 PEAK_FP32 = 67e12       # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 TRAIN_B, TRAIN_S = 8, 1024
@@ -190,6 +231,24 @@ def attention_bound(name, bh, s, d, itemsize, causal, peak_ops):
                                        else "bytes")
 
 
+def tol_of(torch, dtype, grad=False):
+    """Tolerance of a kernel against its plain version (f32 throughout),
+    as max |err| <= tol (1 + |ref|): bf16 and fp16 round p (and ds) to
+    their type before the products, as the Pallas kernels do, and store in
+    it (2^-8, 2^-11 relative); fp16 is held to 5e-3 forward and 1e-2 for
+    the gradients. fp32: sums in another order."""
+    if dtype == torch.bfloat16:
+        return 2e-2
+    if dtype == torch.float16:
+        return 1e-2 if grad else 5e-3
+    return 1e-4
+
+
+def peak_of(torch, dtype):
+    """The card's peak rate for products of this input type."""
+    return PEAK_FP32 if dtype == torch.float32 else PEAK_BF16
+
+
 def close_enough(got, want, tol):
     """max |got - want| and whether it is <= tol + tol * |want| everywhere."""
     err = (got.float() - want.float()).abs()
@@ -207,14 +266,10 @@ def fwd_case(fa, torch, b, s, h, d, dtype, causal):
     out, lse = fa.flash_attention_fwd(q, k, v, causal)
     torch.cuda.synchronize()
     ref_out, ref_lse = fa.flash_attention_fwd_plain(q, k, v, causal)
-    bf16 = dtype == torch.bfloat16
-    # bf16: the kernel rounds p to bf16 before the PV product (as the
-    # Pallas kernel does) and stores out in bf16 (2^-8 relative); the
-    # plain version keeps p in f32. lse depends on f32 sums only, in
-    # another order and with exp2 for exp. fp32: f32 everywhere, sums in
-    # another order.
-    tol_out = 2e-2 if bf16 else 1e-4
-    tol_lse = 1e-3 if bf16 else 1e-4
+    # out: `tol_of`; lse depends on f32 sums only, in another order and
+    # with exp2 for exp
+    tol_out = tol_of(torch, dtype)
+    tol_lse = 1e-4 if dtype == torch.float32 else 1e-3
     check(bool(torch.isfinite(out.float()).all()), f"non-finite out {s=} {d=}")
     err_out, ok_out = close_enough(out, ref_out, tol_out)
     err_lse, ok_lse = close_enough(lse, ref_lse, tol_lse)
@@ -240,7 +295,7 @@ def fwd_case(fa, torch, b, s, h, d, dtype, causal):
         graph_ms(torch, library)
     bound_ms, bound_by = attention_bound(
         "flash_fwd", b * h, s, d, q.element_size(), causal,
-        PEAK_BF16 if bf16 else PEAK_FP32)
+        peak_of(torch, dtype))
     return {"shape": [b, s, h, d], "dtype": str(dtype).replace("torch.", ""),
             "causal": causal, "max_abs_err": err_out,
             "max_abs_err_lse": err_lse, "tol_out": tol_out,
@@ -265,13 +320,9 @@ def bwd_case(fa, torch, b, s, h, d, dtype, causal):
     dq = fa.flash_attention_bwd_dq(*args)
     dk, dv = fa.flash_attention_bwd_dkv(*args)
     dq_again = fa.flash_attention_bwd_dq(*args)
-    bf16 = dtype == torch.bfloat16
     torch.cuda.synchronize()
     ref = fa.flash_attention_bwd_plain(*args)
-    # bf16: the kernels round p and ds to bf16 before the products (as the
-    # Pallas kernels do) and store bf16 gradients; the plain version keeps
-    # f32 throughout. fp32: f32 everywhere, sums in another order.
-    tol = 2e-2 if bf16 else 1e-4
+    tol = tol_of(torch, dtype, grad=True)
     where = f"{b=} {s=} {h=} {d=} {dtype} {causal=}"
     errs = {}
     # one CTA owns each q block and loops over the keys in one order: a
@@ -331,7 +382,7 @@ def bwd_case(fa, torch, b, s, h, d, dtype, causal):
             fa._BWD, kname, entry, q, causal))
         bound_ms, bound_by = attention_bound(
             kname, b * h, s, d, q.element_size(), causal,
-            PEAK_BF16 if bf16 else PEAK_FP32)
+            peak_of(torch, dtype))
         rows[kname] = {"shape": [b, s, h, d],
                        "dtype": str(dtype).replace("torch.", ""),
                        "causal": causal, "max_abs_err": errs[kname],
@@ -589,8 +640,8 @@ def ring_step_case(tra, torch, bh, s_loc, d, dtype, causal, step,
     o = [torch.empty(bh, s_loc, d, device="cuda") for _ in range(n)]
     lse = [torch.empty(bh, 1, s_loc, device="cuda") for _ in range(n)]
     tra.ring_fwd_step_plain(qs, kp, vp, prev, o, lse, causal, first=True)
-    bf16 = dtype == torch.bfloat16
-    tol = 2e-2 if bf16 else 1e-4
+    tols = {"ring_fwd": tol_of(torch, dtype),
+            "ring_dkv": tol_of(torch, dtype, grad=True)}
     where = f"ring step {step} of {n} slots [{bh}, {s_loc}, {d}] {dtype} " \
         f"{causal=}"
     ok_, lk = [x.clone() for x in o], [x.clone() for x in lse]
@@ -613,7 +664,7 @@ def ring_step_case(tra, torch, bh, s_loc, d, dtype, causal, step,
         for g, w in zip(got, want):
             check(bool(torch.isfinite(g).all()), f"{kname}: non-finite at "
                   f"{where}")
-            err, ok = close_enough(g, w, tol)
+            err, ok = close_enough(g, w, tols[kname])
             check(ok, f"{kname} disagrees with its plain version at {where}:"
                   f" max abs err {err}")
             errs[kname] = max(errs[kname], err)
@@ -647,14 +698,13 @@ def ring_step_case(tra, torch, bh, s_loc, d, dtype, causal, step,
     for kname, (fn, plain, lkey) in timed.items():
         bound_ms, bound_by = ring_bound(kname, bh, s_loc, s_loc, d,
                                         qs[0].element_size(), causal, offs,
-                                        PEAK_BF16 if bf16 else PEAK_FP32,
-                                        merged=True)
+                                        peak_of(torch, dtype), merged=True)
         device_ms = graph_ms(torch, fn)
         lib_ms, lib_dev, lib_hop = lib.get(lkey, (None, None, None))
         rows[kname] = {"shape": [n, bh, s_loc, s_loc, d], "offs": offs,
                        "dtype": str(dtype).replace("torch.", ""),
                        "causal": causal, "max_abs_err": errs[kname],
-                       "tol": tol, "ms": median_ms(fn),
+                       "tol": tols[kname], "ms": median_ms(fn),
                        "device_ms": device_ms,
                        "device_ms_per_hop": device_ms / n,
                        "plain_ms": median_ms(plain, samples=10),
@@ -694,10 +744,7 @@ def dq_step_case(tra, torch, bh, sq, sk, d, dtype, causal, offs):
              for g, (o, _) in zip(dos, fwd)]
     acc = [draw(bh, sq, d, dt=torch.float32) for _ in range(n)]
     dargs = (qs, ks, vs, dos, lse, delta, offs)
-    bf16 = dtype == torch.bfloat16
-    # bf16: ds is rounded to bf16 before ds k, as the Pallas kernel does;
-    # the plain version keeps f32. fp32: sums in another order.
-    tol = 2e-2 if bf16 else 1e-4
+    tol = tol_of(torch, dtype, grad=True)
     where = f"dq step of {n} slots [{bh}, {sq}, {sk}, {d}] {dtype} " \
         f"{causal=} {offs=}"
     want = [x.clone() for x in acc]
@@ -736,8 +783,7 @@ def dq_step_case(tra, torch, bh, sq, sk, d, dtype, causal, offs):
     plain = [x.clone() for x in acc]
     bound_ms, bound_by = ring_bound("ring_dq_step", bh, sq, sk, d,
                                     qs[0].element_size(), causal, list(offs),
-                                    PEAK_BF16 if bf16 else PEAK_FP32,
-                                    merged=True)
+                                    peak_of(torch, dtype), merged=True)
     return {"shape": [n, bh, sq, sk, d], "offs": [list(o) for o in offs],
             "dtype": str(dtype).replace("torch.", ""), "causal": causal,
             "max_abs_err": err, "tol": tol,
@@ -1178,13 +1224,16 @@ def ring_phase(fa, tra, torch, card, devices):
 
 
 def fp16_phase(fa, tra, torch, card, devices):
-    """fp16 attention, which the kernels do not take, on the card: one
-    scaled_dot_product_attention call (S=4096, D=64, no mask) takes the
-    einsum path, and one sequence_parallel_attention(impl="ring") over a
-    mesh of four slots takes the dense ring; neither launches a kernel, and
-    both agree with the fp32 einsum path on the same q/k/v. The memory the
-    fp16 call holds above what was allocated before it (its peak, output
-    and saved tensors included) is printed beside the bf16 kernel's."""
+    """fp16 attention on the card, where the reference's rule sends it to
+    the kernels: one scaled_dot_product_attention call (S=4096, D=64, no
+    mask) launches the flash forward and, for its backward, the fused
+    backward; one sequence_parallel_attention(impl="ring") over a mesh of
+    four slots launches each ring step kernel once per ring step; both
+    agree with the fp32 einsum path on the same q/k/v. The ring at D=96,
+    which the kernels are not built for, takes the dense ring and launches
+    nothing. The memory each call holds above what was allocated before it
+    (its peak, output and saved tensors included) is printed for the fp16
+    kernel, the fp16 einsum path and the bf16 kernel."""
     from paddle_tpu_torch.nn.functional.attention import (
         _einsum_attention, scaled_dot_product_attention)
     from paddle_tpu_torch.parallel import create_mesh, set_mesh, sp
@@ -1196,7 +1245,6 @@ def fp16_phase(fa, tra, torch, card, devices):
     counted = (fa.flash_attention_fwd, fa.flash_attention_bwd_fused,
                fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
                *ring_wrappers(tra).values())
-    before = [c.launches for c in counted]
     h16 = [x.half().requires_grad_() for x in (q, k, v)]
 
     def peak_mib(fn):
@@ -1207,41 +1255,410 @@ def fp16_phase(fa, tra, torch, card, devices):
         torch.cuda.synchronize()
         return res, (torch.cuda.max_memory_allocated() - base) / 2 ** 20
 
-    out, mib16 = peak_mib(lambda: scaled_dot_product_attention(
-        *h16, is_causal=True))
+    def launched_by(fn):
+        before = [c.launches for c in counted]
+        res = fn()
+        torch.cuda.synchronize()
+        return res, [c.launches - n for c, n in zip(counted, before)]
+
+    (out, mib16), sdpa_launches = launched_by(lambda: peak_mib(
+        lambda: scaled_dot_product_attention(*h16, is_causal=True)))
+    _, bwd_launches = launched_by(
+        lambda: torch.autograd.grad(out.float().sum(), h16))
     mesh = create_mesh({"sp": SP_DEGREE}, devices=devices)
     set_mesh(None)
-    ring_out = sp.sequence_parallel_attention(*h16, impl="ring",
-                                              causal=True, mesh=mesh)
-    grads = torch.autograd.grad(ring_out.float().sum(), h16)
-    torch.cuda.synchronize()
-    launched = [c.launches - n for c, n in zip(counted, before)]
-    check(launched == [0] * len(counted), f"fp16 attention launched kernels "
-          f"{launched} (flash fwd, fused, dq, dkv, ring fwd, dq, dkv)")
+
+    def ring_fwd_bwd(xs):
+        res = sp.sequence_parallel_attention(*xs, impl="ring", causal=True,
+                                             mesh=mesh)
+        return res, torch.autograd.grad(res.float().sum(), xs)
+
+    (ring_out, grads), ring_launches = launched_by(lambda: ring_fwd_bwd(h16))
+    n_steps = ring_launches_per_layer(devices)["ring_fwd"]
+    check(sdpa_launches == [1, 0, 0, 0, 0, 0, 0] and
+          bwd_launches == [0, 1, 0, 0, 0, 0, 0] and
+          ring_launches == [0, 0, 0, 0] + [n_steps] * 3,
+          f"fp16 attention launched {sdpa_launches} (sdpa forward), "
+          f"{bwd_launches} (its backward), {ring_launches} (the ring); each "
+          "(flash fwd, fused, dq, dkv, ring fwd, dq, dkv)")
     check(all(bool(torch.isfinite(x).all()) for x in (out, ring_out, *grads))
           and out.dtype == ring_out.dtype == torch.float16,
           "fp16 attention: non-finite or not fp16")
-    # fp16 inputs, products and outputs (2^-11 relative) against fp32
+    # fp16 inputs and outputs (2^-11 relative), p rounded to fp16 before
+    # the PV product, against fp32
     errs = []
     for name, got in (("sdpa", out), ("ring", ring_out)):
         err, ok = close_enough(got, ref, 1e-2)
         check(ok, f"fp16 {name} attention vs the fp32 einsum path: max abs "
               f"err {err}")
         errs.append(err)
+    # a head dim off the kernels: the dense ring, no launch
+    odd = [torch.randn(b, 1024, 4, 96, generator=gen, device="cuda").half()
+           .requires_grad_() for _ in range(3)]
+    (dense, _), odd_launches = launched_by(lambda: ring_fwd_bwd(odd))
+    err_odd, ok_odd = close_enough(dense, _einsum_attention(
+        *(x.detach().float() for x in odd), is_causal=True), 1e-2)
+    check(odd_launches == [0] * len(counted) and ok_odd,
+          f"the fp16 ring at D=96 launched {odd_launches} or disagrees with "
+          f"fp32: max abs err {err_odd}")
     print(f"fp16: scaled_dot_product_attention at B={b} S={s} H={h} D={d} "
-          f"causal (einsum path) max abs err {errs[0]:.3g}, "
-          f"sequence_parallel_attention ring over {SP_DEGREE} slots (dense "
-          f"ring, forward + backward) max abs err {errs[1]:.3g} vs the fp32 "
-          f"einsum path (tol 1e-2(1+|ref|)); kernel launches {launched} "
-          f"[{card}]", flush=True)
-    # the same call in bf16 takes the flash kernel (outside the counts)
+          f"causal (flash kernel) max abs err {errs[0]:.3g}, "
+          f"sequence_parallel_attention ring over {SP_DEGREE} slots (ring "
+          f"kernels, forward + backward) max abs err {errs[1]:.3g} vs the "
+          f"fp32 einsum path (tol 1e-2(1+|ref|)); kernel launches: sdpa "
+          f"{sdpa_launches}, its backward {bwd_launches}, ring "
+          f"{ring_launches}; the D=96 ring (dense ring) {odd_launches}, max "
+          f"abs err {err_odd:.3g} [{card}]", flush=True)
+    # the same call on the einsum path in fp16 and on the kernel in bf16
+    # (outside the counts)
+    _, mib_einsum = peak_mib(lambda: _einsum_attention(*h16, is_causal=True))
     b16 = [x.bfloat16().requires_grad_() for x in (q, k, v)]
     _, mib_bf16 = peak_mib(lambda: scaled_dot_product_attention(
         *b16, is_causal=True))
     print(f"fp16: memory above the inputs of one scaled_dot_product_attention"
           f" call at B={b} S={s} H={h} D={d} causal, with autograd: fp16 "
-          f"einsum path {mib16:.1f} MiB, bf16 flash kernel {mib_bf16:.1f} "
-          f"MiB [{card}]", flush=True)
+          f"flash kernel {mib16:.1f} MiB, fp16 einsum path {mib_einsum:.1f} "
+          f"MiB, bf16 flash kernel {mib_bf16:.1f} MiB [{card}]", flush=True)
+    return {"sdpa_fp16_mib": mib16, "einsum_fp16_mib": mib_einsum,
+            "sdpa_bf16_mib": mib_bf16}
+
+
+def traced_half_launches(torch, fn):
+    """Run `fn` once under torch.profiler; the launches of the port's
+    kernels instantiated for fp16 (`__half` in the symbol) in its device
+    trace, by kernel."""
+    from paddle_tpu_torch.utils.train_profile import KERNEL_SYMBOLS
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {name: 0 for name, _ in KERNEL_SYMBOLS if name != "gemm"}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                "__half" not in e.name:
+            continue
+        for name, pattern in KERNEL_SYMBOLS:
+            if pattern.search(e.name):
+                if name in counts:
+                    counts[name] += 1
+                break
+    return counts
+
+
+def state_copy(opt, params):
+    """Copies of the parameters, the optimizer's slots, step count and
+    device t: what a skipped step must leave bit-unchanged."""
+    return ([p.detach().clone() for p in params],
+            [{k: v.clone() for k, v in opt._accumulators[id(p)].items()}
+             for p in params], opt._step_count,
+            None if opt._t_arr is None else opt._t_arr.clone())
+
+
+def state_unchanged(torch, opt, params, saved):
+    ps, slots, count, t = saved
+    return (all(torch.equal(p.detach(), x) for p, x in zip(params, ps))
+            and all(torch.equal(opt._accumulators[id(p)][k], v)
+                    for p, sl in zip(params, slots) for k, v in sl.items())
+            and opt._step_count == count
+            and (t is None or torch.equal(opt._t_arr, t)))
+
+
+def amp16_step(pt, net_loss, scaler, opt, inject=None):
+    """One step of fp16 AMP with a GradScaler: the loss under auto_cast,
+    the scaled backward, then `scaler.step`, which updates the scale itself
+    once every optimizer has stepped (the reference's step(), :171-177; an
+    update() after it would count the step a second time, as a good one).
+    `inject(params)` may write an inf into a gradient first. Returns the
+    loss."""
+    with pt.amp.auto_cast(dtype="float16"):
+        loss = net_loss()
+    scaler.scale(loss).backward()
+    if inject is not None:
+        inject()
+    scaler.step(opt)
+    opt.clear_grad()
+    return loss.detach()
+
+
+def fp16_titan_phase(pt, fa, torch, np, card):
+    """Path A: four titan layers, ErnieScanStack(4096, 64, 16384, 4,
+    remat="dots"), at 2 x 2048 in fp16 AMP, eager, with AdamW(1e-4) and
+    GradScaler() at its defaults."""
+    from paddle_tpu_torch.utils import bench
+    pt.set_device("gpu")
+    pt.seed(SEED)
+    net = pt.models.ErnieScanStack(4096, 64, 16384, 4, remat="dots")
+    params = list(net.parameters())
+    names = [n for n, _ in net.named_parameters()]
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.random((TITAN_B, TITAN_S, 4096), np.float32)
+                         * 0.02).cuda()
+
+    def net_loss():
+        return (net(x) ** 2).mean()       # bench.py's titan loss
+
+    # The step-1 check takes a random projection of the output as its
+    # loss: bench.py's loss, the mean square of a layer norm's output
+    # with unit gain and zero bias, is 1 up to the norm's eps, so its
+    # gradients below the last norm are ~1e-5 of a rounding step and
+    # compare as noise (cosine ~0.4 in fp16 as in bf16)
+    w = torch.from_numpy(rng.standard_normal((TITAN_B, TITAN_S, 4096))
+                         .astype(np.float32)).cuda()
+
+    def check_loss():
+        return (net(x).float() * w).mean()
+
+    # ---- step 1 against fp32 on the card (the fp32 flash kernels) ----
+    with torch.enable_grad():
+        loss32 = check_loss()
+        g32 = torch.autograd.grad(loss32, params)
+    loss32 = loss32.item()
+    scaler = pt.amp.GradScaler()
+
+    def grads16(deterministic):
+        with determinism(torch, deterministic), torch.enable_grad():
+            with pt.amp.auto_cast(dtype="float16"):
+                loss = check_loss()
+            g = torch.autograd.grad(scaler.scale(loss), params)
+        s = scaler.get_loss_scaling()
+        return loss.item(), [x.float() / s for x in g]
+
+    rows = []
+    for deterministic in (False, True):    # fused backward, then two-pass
+        loss16, g16 = grads16(deterministic)
+        rel = abs(loss16 - loss32) / abs(loss32)
+        low = sorted((cosine(a, b), n) for a, b, n in zip(g16, g32, names))
+        finite = all(bool(torch.isfinite(g).all()) for g in g16)
+        rows.append((rel, low[0]))
+        print(f"fp16_titan: step-1 projection loss fp32 {loss32:.8f}, fp16 "
+              f"AMP {loss16:.8f} (rel err {rel:.3g}, tol 1e-2); unscaled "
+              f"gradients at scale {scaler.get_loss_scaling():g} "
+              f"({'two-pass' if deterministic else 'fused'} backward) "
+              f"finite={finite}, lowest per-parameter cosines vs fp32 "
+              f"{', '.join(f'{c:.6f} ({n})' for c, n in low[:3])} (tol "
+              f"0.99) [{card}]", flush=True)
+        check(finite and rel <= 1e-2 and low[0][0] >= 0.99,
+              f"fp16 titan step 1 vs fp32: loss rel err {rel}, lowest "
+              f"cosine {low[0]}, finite {finite}")
+        del g16
+    del g32, w
+    torch.cuda.empty_cache()
+
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, parameters=params)
+    # ---- the main path, its counts set to 0 just before: 10 steps, one
+    # traced step, two steps with an injected inf (the first of them
+    # deterministic, so the two-pass backward runs on the main path) ----
+    flash = (fa.flash_attention_fwd, fa.flash_attention_bwd_fused,
+             fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in flash:
+        c.launches = 0
+    losses, scales, step_ms = [], [], []
+    for i in range(10):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        loss = amp16_step(pt, net_loss, scaler, opt)
+        e1.record()
+        torch.cuda.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+        losses.append(float(loss))
+        scales.append(scaler.get_loss_scaling())
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(math.isfinite(v) for v in losses + scales),
+          f"fp16 titan: non-finite loss or scale {losses} {scales}")
+    # the fp16 kernels in the device trace of one more step
+    traced = traced_half_launches(
+        torch, lambda: amp16_step(pt, net_loss, scaler, opt))
+    check(traced["flash_fwd"] == 4 and traced["flash_bwd_fused"] == 4,
+          f"fp16 titan step: fp16 flash launches in the device trace "
+          f"{traced}, want 4 + 4")
+
+    # ---- an inf in one gradient: the step leaves everything as it was;
+    # two such steps halve the scale (decr_every_n_nan_or_inf=2) ----
+    def inject():
+        params[0].grad.view(-1)[0] = float("inf")
+
+    scale_before = scaler.get_loss_scaling()
+    skipped = []
+    for deterministic in (True, False):
+        saved = state_copy(opt, params)
+        before = [c.launches for c in flash]
+        with determinism(torch, deterministic):
+            amp16_step(pt, net_loss, scaler, opt, inject)
+        torch.cuda.synchronize()
+        if deterministic:
+            det = [c.launches - n for c, n in zip(flash, before)]
+        skipped.append(state_unchanged(torch, opt, params, saved))
+        del saved
+    check(all(skipped) and scaler.get_loss_scaling() == scale_before / 2,
+          f"fp16 titan: injected infs left the state unchanged {skipped}, "
+          f"scale {scale_before} -> {scaler.get_loss_scaling()}")
+    launches = [c.launches for c in flash]
+    n_steps = 10 + 1 + 2
+    want = [4 * n_steps, 4 * (n_steps - 1), 4, 4]
+    check(det == [4, 0, 4, 4] and launches == want,
+          f"fp16 titan: host launches (fwd, fused, dq, dkv) {launches} in "
+          f"{n_steps} steps of 4 layers (want {want}), the deterministic "
+          f"step {det} (want [4, 0, 4, 4])")
+    med = statistics.median(step_ms[1:])
+    print(f"fp16_titan: {len(losses)} eager steps, losses "
+          f"{[round(v, 5) for v in losses]}, scales {scales}; step "
+          f"{med:.3f} ms median (CUDA events, steps 2-10); peak "
+          f"max_memory_allocated {peak_gib:.2f} GiB; fp16 flash launches "
+          f"in the device trace of one step {traced}; two injected infs: "
+          f"parameters, AdamW slots, step count and device t bit-unchanged "
+          f"{skipped}, scale {scale_before:g} -> "
+          f"{scaler.get_loss_scaling():g}; host launches (fwd, fused, dq, "
+          f"dkv) in the {n_steps} main-path steps {launches} [{card}]",
+          flush=True)
+    del opt, net, params, x
+    torch.cuda.empty_cache()
+
+    # the bf16 eager __call__ of the same stack, in this session
+    pt.seed(SEED)
+    step = bench.titan_step(pt)
+    xb = torch.from_numpy(rng.random((TITAN_B, TITAN_S, 4096), np.float32)
+                          * 0.02).cuda()
+    step(xb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bf16_ms = []
+    for _ in range(5):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        step(xb)
+        e1.record()
+        torch.cuda.synchronize()
+        bf16_ms.append(e0.elapsed_time(e1))
+    bf16_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"fp16_titan: beside it, the bf16 TrainStep __call__ of the same "
+          f"stack: {statistics.median(bf16_ms):.3f} ms median over 5 steps, "
+          f"peak max_memory_allocated {bf16_gib:.2f} GiB; fp16 eager "
+          f"{med:.3f} ms, {peak_gib:.2f} GiB [{card}]", flush=True)
+    del step, xb
+    torch.cuda.empty_cache()
+    return dict(zip(("flash_fwd", "flash_bwd_fused", "flash_bwd_dq",
+                     "flash_bwd_dkv"), launches))
+
+
+def fp16_sp_phase(pt, tra, torch, np, card, devices):
+    """Path B: ErnieForPretraining(ernie_base(use_sp=True)) at 8 x 512 over
+    HybridCommunicateGroup(sp_degree=4) in fp16 AMP, eager, MLM + NSP,
+    with AdamW(1e-4) and GradScaler() at its defaults."""
+    pt.set_device("gpu")
+    pt.seed(SEED)
+    pt.parallel.HybridCommunicateGroup(
+        hybrid_configs={"sp_degree": SP_DEGREE}, devices=devices)
+    net = pt.models.ErnieForPretraining(
+        pt.models.ernie_base(hidden_dropout_prob=0.0, use_sp=True))
+    layers = net.ernie.layers
+    params = list(net.parameters())
+    names = [n for n, _ in net.named_parameters()]
+    vocab = net.ernie.embeddings.word_embeddings.weight.shape[0]
+    ce = pt.nn.CrossEntropyLoss()
+    rng = np.random.default_rng(SEED)
+    ids = torch.from_numpy(rng.integers(0, vocab, (SP_B, SP_S))).cuda()
+    nsp = torch.from_numpy(rng.integers(0, 2, (SP_B,))).cuda()
+
+    def net_loss():
+        # the loss on the logits cast to f32: at init the MLM loss is ~105,
+        # and its mean over 4096 tokens taken in fp16 overflows (the sum
+        # does), in the reference's arithmetic as in the port's
+        logits, nsp_logits = net(ids)
+        return ce(logits.float().reshape(-1, vocab), ids.reshape(-1)) + \
+            ce(nsp_logits.float(), nsp)
+
+    def grads_of(fp16, use_sp):
+        for layer in layers:
+            layer.attention.use_sp = use_sp
+        try:
+            with torch.enable_grad():
+                if fp16:
+                    # the check's scale: 2^10 keeps the scaled fp16
+                    # gradients of the head inside fp16's range
+                    probe = pt.amp.GradScaler(init_loss_scaling=2.0 ** 10)
+                    with pt.amp.auto_cast(dtype="float16"):
+                        loss = net_loss()
+                    g = torch.autograd.grad(probe.scale(loss), params)
+                    g = [x.float() / probe.get_loss_scaling() for x in g]
+                else:
+                    loss = net_loss()
+                    g = torch.autograd.grad(loss, params)
+            torch.cuda.synchronize()
+        finally:
+            for layer in layers:
+                layer.attention.use_sp = True
+        return loss.item(), g
+
+    # ---- step 1: fp16 through the ring kernels vs fp32 without sp ----
+    loss32, g32 = grads_of(False, False)
+    loss16, g16 = grads_of(True, True)
+    rel = abs(loss16 - loss32) / abs(loss32)
+    low = sorted((cosine(a, b), n) for a, b, n in zip(g16, g32, names))
+    finite = all(bool(torch.isfinite(g).all()) for g in g16)
+    print(f"fp16_sp: step-1 loss fp32 without sp {loss32:.6f}, fp16 AMP "
+          f"sp={SP_DEGREE} ring {loss16:.6f} (rel err {rel:.3g}, tol 1e-2);"
+          f" unscaled gradients at scale 1024 finite={finite}, lowest "
+          f"per-parameter cosines "
+          f"{', '.join(f'{c:.6f} ({n})' for c, n in low[:3])} (tol 0.99) "
+          f"[{card}]", flush=True)
+    check(finite and rel <= 1e-2 and low[0][0] >= 0.99,
+          f"fp16 sp step 1 vs fp32: loss rel err {rel}, lowest cosine "
+          f"{low[0]}, finite {finite}")
+    del g16, g32
+    torch.cuda.empty_cache()
+
+    # ---- the main path, its counts set to 0 just before: steps until 8
+    # have been taken (a step whose gradients overflow fp16 is skipped,
+    # and two in a row halve the scale) ----
+    ring = ring_wrappers(tra)
+    for c in ring.values():
+        c.launches = c.hops = 0
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, parameters=params)
+    scaler = pt.amp.GradScaler()
+    losses, taken, scales, step_ms = [], [], [], []
+    while opt._step_count < 8 and len(losses) < 24:
+        count = opt._step_count
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        loss = amp16_step(pt, net_loss, scaler, opt)
+        e1.record()
+        torch.cuda.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+        losses.append(float(loss))
+        scales.append(scaler.get_loss_scaling())
+        taken.append(opt._step_count > count)
+    launches = ring_counts(tra)()
+    n_iter = len(losses)
+    per_layer = ring_launches_per_layer(devices)
+    want = {k: len(layers) * n_iter * v for k, v in per_layer.items()}
+    check(launches == want, f"fp16 sp: ring kernels launched {launches} in "
+          f"{n_iter} steps of {len(layers)} layers (want {want})")
+    traced = traced_half_launches(
+        torch, lambda: amp16_step(pt, net_loss, scaler, opt))
+    want_traced = len(layers) * per_layer["ring_fwd"]
+    check(all(traced[k] == want_traced for k in RING_KERNELS),
+          f"fp16 sp step: fp16 ring launches in the device trace {traced}, "
+          f"want {want_traced} of each")
+    took = [v for v, t in zip(losses, taken) if t]
+    check(all(math.isfinite(v) for v in losses) and len(took) == 8 and
+          took[-1] < took[0], f"fp16 sp: the loss did not fall over 8 "
+          f"taken steps: losses {losses}, taken {taken}, scales {scales}")
+    med = statistics.median(t for t, k in zip(step_ms, taken) if k)
+    print(f"fp16_sp: ernie_base use_sp=True, sp={SP_DEGREE} over "
+          f"{devices}, fp16 AMP, {SP_B}x{SP_S}, AdamW(1e-4), GradScaler(): "
+          f"{n_iter} steps, {n_iter - sum(taken)} skipped on overflow; losses "
+          f"{[round(v, 4) for v in losses]}, taken {taken}, scales "
+          f"{scales}; step {med:.3f} ms median over the taken steps (CUDA "
+          f"events); ring launches and slot-hops (host calls) {launches}; "
+          f"fp16 ring launches in the device trace of one step {traced} "
+          f"[{card}]", flush=True)
+    pt.parallel.set_mesh(None)
+    del opt, net, params
+    torch.cuda.empty_cache()
+    return launches
 
 
 def sp_train_phase(pt, fa, tra, torch, np, card, devices):
@@ -1667,11 +2084,78 @@ def graph_phase(pt, torch, np, card):
     return out
 
 
-def spills(path):
-    """`-Xptxas -v` lines of a built library's log that report spills."""
+def ptxas(path):
+    """{kernel symbol: {"registers": N, "spill": [stores, loads]}} from a
+    built library's `-Xptxas -v` log."""
+    out, name = {}, "?"
     with open(path + ".log") as f:
-        return [ln.strip() for ln in f if "bytes spill" in ln
-                and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
+        for line in f:
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                name = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                out.setdefault(name, {})["spill"] = [int(m.group(1)),
+                                                     int(m.group(2))]
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def spills(path):
+    """The kernels of a built library whose `-Xptxas -v` report spills."""
+    return [f"{k}: spill stores/loads {v['spill']}"
+            for k, v in ptxas(path).items() if any(v.get("spill", ()))]
+
+
+def kernel_rows(root=HERE, dtype_name="bfloat16"):
+    """`python3 chip_smoke.py --rows [ROOT] [DTYPE]`: one JSON line of the
+    seven attention kernels' device ms (a CUDA graph of 20 calls, median
+    of 10 replays) from ROOT's own package and its own `chip_smoke.py`
+    cases, at the train shape (rows 1-4; rows 1-2 also at the titan shape)
+    and at the sp hop (rows 5-7), with the registers and spills of every
+    kernel symbol from ROOT's build logs. Run on two trees in turn in one
+    card session (parent, change, change, parent), it compares their
+    kernel rows on the same card. ROOT defaults to this checkout."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: --rows needs an NVIDIA GPU")
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)        # ROOT's package and ROOT's cases
+    import chip_smoke as cs
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import ring_attention as tra
+    check(os.path.dirname(os.path.abspath(cs.__file__)) == root and
+          os.path.dirname(os.path.dirname(os.path.abspath(fa.__file__)))
+          == os.path.join(root, "paddle_tpu_torch"),
+          f"--rows: imported {cs.__file__} and {fa.__file__}, not {root}'s")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dtype = getattr(torch, dtype_name)
+    libs = {"flash_fwd": fa.build(), "flash_bwd": fa.build_bwd(),
+            "ring_attention": tra.build()}
+    rows = {}
+    for tag, (b, s, h, d, causal) in (("train", (TRAIN_B, TRAIN_S, 12, 64,
+                                                 True)),
+                                      ("titan", (TITAN_B, TITAN_S, 64, 64,
+                                                 False))):
+        rows[f"flash_fwd@{tag}"] = cs.fwd_case(
+            fa, torch, b, s, h, d, dtype, causal)["device_ms"]
+        bwd = cs.bwd_case(fa, torch, b, s, h, d, dtype, causal)
+        for kname in ("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"):
+            rows[f"{kname}@{tag}"] = bwd[kname]["device_ms"]
+    steps = cs.ring_step_case(tra, torch, 96, 128, 64, dtype, False, step=1)
+    for kname, r in steps.items():
+        rows[f"{kname}@sp_hop"] = r["device_ms"]
+    hop = [(128 * i, 128 * ((i - 1) % 4)) for i in range(4)]
+    rows["ring_dq_step@sp_hop"] = cs.dq_step_case(
+        tra, torch, 96, 128, 128, 64, dtype, False, hop)["device_ms"]
+    print(json.dumps({"root": root, "card": gpu_name_and_limit(),
+                      "dtype": dtype_name, "device_ms": rows,
+                      "ptxas": {k: ptxas(p) for k, p in libs.items()}}),
+          flush=True)
+    return 0
 
 
 def main() -> int:
@@ -1840,6 +2324,47 @@ def main() -> int:
               f"{r['bound_ms']:.4f} per launch, "
               f"{r['bound_ms_per_hop']:.4f} per slot-hop ({r['bound_by']}) "
               f"[{card}]", flush=True)
+    # ---- the seven kernels in fp16 at their main paths' shapes, beside
+    # their bf16 rows of this session ----
+    f16 = torch.float16
+    fp16_rows = {}
+    for tag, case, bf in (("train", (TRAIN_B, TRAIN_S, 12, 64, True),
+                           (fwd_rows[1], bwd_rows[0])),
+                          ("titan", (TITAN_B, TITAN_S, 64, 64, False),
+                           (fwd_rows[6], bwd_rows[6]))):
+        b_, s_, h_, d_, c_ = case
+        rows = dict(bwd_case(fa, torch, b_, s_, h_, d_, f16, c_),
+                    flash_fwd=fwd_case(fa, torch, b_, s_, h_, d_, f16, c_))
+        fp16_rows[tag] = rows
+        for kname in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq",
+                      "flash_bwd_dkv"):
+            r = rows[kname]
+            ref = bf[0] if kname == "flash_fwd" else bf[1][kname]
+            print(f"kernels: fp16 {kname} at the {tag} shape {r['shape']} "
+                  f"causal={r['causal']} max_abs_err={r['max_abs_err']:.3g} "
+                  f"(tol {r.get('tol', r.get('tol_out'))}) device_ms="
+                  f"{r['device_ms']:.4f} (bf16 {ref['device_ms']:.4f}, "
+                  f"ratio {r['device_ms'] / ref['device_ms']:.3f}) SDPA fp16 "
+                  f"library_device_ms={fmt_ms(r['library_device_ms'])} "
+                  f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+                  f"plain_ms={r['plain_ms']:.4f} [{card}]", flush=True)
+    fp16_steps = ring_step_case(tra, torch, 96, 128, 64, f16, False, step=1)
+    fp16_steps["ring_dq_step"] = dq_step_case(tra, torch, 96, 128, 128, 64,
+                                              f16, False, sp_hop)
+    for kname in RING_KERNELS:
+        r = fp16_steps[kname]
+        ref = dq_rows[0] if kname == "ring_dq_step" else \
+            step_rows[False][kname]
+        print(f"kernels: fp16 {kname} at the sp hop {r['shape']} "
+              f"max_abs_err={r['max_abs_err']:.3g} (tol {r['tol']}) "
+              f"device_ms={r['device_ms']:.4f} per launch of 4 slots, "
+              f"{r['device_ms_per_hop']:.4f} per slot-hop (bf16 "
+              f"{ref['device_ms']:.4f}, ratio "
+              f"{r['device_ms'] / ref['device_ms']:.3f}) SDPA fp16 "
+              f"library_device_ms={fmt_ms(r['library_device_ms'])} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"plain_ms={r['plain_ms']:.4f} [{card}]", flush=True)
+
     ring_devices = [torch.device("cuda", i) for i in range(SP_DEGREE)] \
         if torch.cuda.device_count() >= SP_DEGREE else \
         [torch.device("cuda", 0)] * SP_DEGREE
@@ -1853,6 +2378,8 @@ def main() -> int:
     flagship_phase(pt, torch, card)
     titan = titan_phase(pt, fa, torch, card)
     graph_phase(pt, torch, np, card)
+    fp16_flash = fp16_titan_phase(pt, fa, torch, np, card)
+    fp16_ring = fp16_sp_phase(pt, tra, torch, np, card, ring_devices)
 
     summary = {"flash_fwd": dict(serving_row,
                                  launches=train_launches["flash_fwd"]
@@ -1868,10 +2395,21 @@ def main() -> int:
         row = dq_rows[0] if kname == "ring_dq_step" else \
             step_rows[False][kname]
         summary[kname] = dict(row, launches=sp_launches[kname])
-    for kname, r in summary.items():
-        path = "train + serve + titan" if kname == "flash_fwd" else \
-            "train + titan" if kname == "flash_bwd_fused" else \
-            "sp train" if kname.startswith("ring") else "train"
+    # fp16: rows 1-4 at the titan shape, launches from path A; rows 5-7 at
+    # the sp hop, launches from path B
+    summary16 = {kname: dict(fp16_rows["titan"][kname],
+                             launches=fp16_flash[kname])
+                 for kname in fp16_flash}
+    for kname in RING_KERNELS:
+        summary16[kname] = dict(fp16_steps[kname], launches=fp16_ring[kname])
+    paths16 = {k: "fp16 titan" for k in fp16_flash}
+    paths16.update({k: "fp16 sp" for k in RING_KERNELS})
+    entries = [(k, r, "train + serve + titan" if k == "flash_fwd" else
+                "train + titan" if k == "flash_bwd_fused" else
+                "sp train" if k.startswith("ring") else "train")
+               for k, r in summary.items()] + \
+        [(k, r, paths16[k]) for k, r in summary16.items()]
+    for kname, r, path in entries:
         print(f"kernels: {kname} summary at {r['shape']} {r['dtype']}: "
               f"max_abs_err={r['max_abs_err']:.3g} kernel_ms={r['ms']:.4f} "
               f"device_ms={r['device_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
@@ -1879,7 +2417,8 @@ def main() -> int:
               f"library_device_ms={fmt_ms(r['library_device_ms'])} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
               f"launches={r['launches']} ({path}) [{card}]", flush=True)
-    kernels = [{"name": kname, "route": "cuda", "source": SOURCES[kname],
+    kernels = [{"name": kname, "dtype": r["dtype"], "route": "cuda",
+                "source": SOURCES[kname],
                 "replaces": REPLACES[kname], "launches": r["launches"],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
@@ -1888,7 +2427,7 @@ def main() -> int:
                 "library_device_ms": r["library_device_ms"],
                 **{k: r[k] for k in ("device_ms_per_hop", "bound_ms_per_hop",
                                      "library_hop_device_ms") if k in r}}
-               for kname, r in summary.items()]
+               for kname, r, _ in entries]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1897,4 +2436,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rows"]:
+        sys.exit(kernel_rows(*sys.argv[2:4]))
     sys.exit(main())

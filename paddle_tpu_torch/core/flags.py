@@ -1,11 +1,11 @@
 """Exported-flags registry, reduced to the flags the ported paths read.
 
 Counterpart of `paddle_tpu/core/flags.py`: `check_nan_inf` (read by
-`jit.TrainStep`), the `FLAGS_serving_*` entries that
-`EngineConfig.from_flags` reads, and the data feed's `prefetch`,
-`prefetch_depth` and `dataloader_max_worker_restarts`, with the
-reference's defaults. Flags may be seeded from environment
-variables named FLAGS_<name>.
+`jit.TrainStep`), `amp_fused_update` (read by `amp.GradScaler`), the
+`FLAGS_serving_*` entries that `EngineConfig.from_flags` reads, and the
+data feed's `prefetch`, `prefetch_depth` and
+`dataloader_max_worker_restarts`, with the reference's defaults. Flags
+may be seeded from environment variables named FLAGS_<name>.
 """
 from __future__ import annotations
 
@@ -49,6 +49,11 @@ def flag(name: str) -> Any:
 define_flag("check_nan_inf", False,
             "scan op outputs for NaN/Inf (operator.cc:1171); TrainStep "
             "checks the loss and every gradient")
+define_flag("amp_fused_update", True,
+            "GradScaler.step folds unscale + found_inf check + gate into "
+            "the optimizer's update (no host sync on found_inf before the "
+            "update); off = the legacy unscale_-then-step path with its "
+            "per-step host sync")
 define_flag("serving_max_batch_size", 8,
             "dynamic batcher: max rows coalesced into one Predictor call")
 define_flag("serving_batch_timeout_ms", 2.0,

@@ -5,8 +5,9 @@ raise_nonfinite :33-51), with the same constructor. Where the reference
 compiles forward + backward + update into one XLA executable with donated
 parameter and slot buffers, the port runs them on the parameters' device
 and updates the parameters and slots in place. The learning rate and the
-step counter are 0-d f32 tensors on that device (the reference's
-`_lr_arr` / `_t_arr`): the bias corrections read them there.
+step counter are the optimizer's 0-d f32 tensors on that device
+(`Optimizer._lr_scalar` / `_t_scalar`, the reference's `_lr_arr` /
+`_t_arr`): the bias corrections read them there.
 
 `run()` is the counterpart of the `lax.scan` span (:375-396, "one host
 dispatch + one sync per span"). On a CUDA device it replays one CUDA graph
@@ -111,12 +112,8 @@ class TrainStep:
         self._device = self._ptensors[0].device if self._ptensors \
             else resolve_device()
         dev = self._device
-        # the step counter and the lr as device scalars; the index of the
-        # step within a run() span, where a replayed graph writes its loss
-        self._t = torch.tensor(float(opt._step_count + 1),
-                               dtype=torch.float32, device=dev)
-        self._lr = torch.zeros((), dtype=torch.float32, device=dev)
-        self._lr_host = None
+        # the index of the step within a run() span, where a replayed
+        # graph writes its loss
         self._i = torch.zeros(1, dtype=torch.int64, device=dev)
         self._graphs = {}
         self._built = True
@@ -132,13 +129,12 @@ class TrainStep:
             n_mi = len(arrs) if len(arrs) <= 1 else len(arrs) - 1
         return arrs[:n_mi], arrs[n_mi:]
 
-    def _set_lr(self):
-        """The optimizer's lr into the device scalar, only when it changed
-        (a scheduler tick); no copy from the host."""
-        lr = self.optimizer.get_lr()
-        if lr != self._lr_host:
-            self._lr.fill_(lr)
-            self._lr_host = lr
+    def _scalars(self):
+        """The optimizer's lr and t device scalars, brought up to date
+        (lr after a scheduler tick, t after `_step_count` was set) before
+        a step or a span, never inside a capture; no copy from the host."""
+        opt = self.optimizer
+        return opt._lr_scalar(self._device), opt._t_scalar(self._device)
 
     def _loss_and_grads(self, inputs, labels):
         """Forward and backward at the current parameters: (loss, grads),
@@ -164,10 +160,11 @@ class TrainStep:
             bad = torch.stack([~torch.isfinite(loss)]
                               + [~torch.isfinite(g).all() for g in grads])
         # in place: the reference donates these buffers to its update
-        self.optimizer.functional_update(
+        opt = self.optimizer
+        opt.functional_update(
             [p.detach() for p in self._ptensors], grads, self._slots,
-            self._lr, self._t, params_meta=self._ptensors)
-        self._t.add_(1.0)
+            opt._lr_arr, opt._t_arr, params_meta=self._ptensors)
+        opt._t_arr.add_(1.0)
         return loss, bad
 
     def __call__(self, *batch):
@@ -175,9 +172,9 @@ class TrainStep:
         the model output(s) and the remaining tensors. Runs eagerly and
         returns the loss as a 0-d tensor on the device (no host sync)."""
         inputs, labels = self._prepare(batch)
-        self._set_lr()
+        self._scalars()
         loss, bad = self._one_step(inputs, labels)
-        self.optimizer._step_count += 1
+        self.optimizer._count_steps(1)
         raise_nonfinite(bad, self._pnames, "train step")
         return loss
 
@@ -206,12 +203,12 @@ class TrainStep:
         inputs, labels = self._prepare(batch)
         n_steps = int(inputs[0].shape[0]) if inputs \
             else int(labels[0].shape[0])
-        self._set_lr()
+        self._scalars()
         if self._device.type == "cuda" and not self._spans_devices():
             losses, bads = self._run_graph(inputs, labels, n_steps)
         else:
             losses, bads = self._run_loop(inputs, labels, n_steps)
-        self.optimizer._step_count += n_steps
+        self.optimizer._count_steps(n_steps)
         raise_nonfinite(bads, self._pnames, "train step")
         return losses
 
@@ -237,7 +234,7 @@ class TrainStep:
         slots = (v for s in self._slots for v in s.values())
         return tuple(t.data_ptr() for t in itertools.chain(
             self._ptensors, self._btensors, slots,
-            (self._t, self._lr, self._i)))
+            (self.optimizer._t_arr, self.optimizer._lr_arr, self._i)))
 
     def _run_graph(self, inputs, labels, n_steps):
         key = (tuple((tuple(x.shape[1:]), x.dtype) for x in inputs),
@@ -298,7 +295,7 @@ class TrainStep:
                 self._record(loss, bad, losses, bads)
         except Exception as e:
             # the warm-up step was taken: count it before raising
-            self.optimizer._step_count += 1
+            self.optimizer._count_steps(1)
             raise RuntimeError(
                 "TrainStep.run: capturing the step in a CUDA graph failed "
                 "(a host sync such as .item() or a data-dependent shape in "
@@ -338,7 +335,7 @@ class TrainStep:
         inputs, labels = self._prepare(batch)
         state = _nbytes(itertools.chain(
             self._ptensors, (v for s in self._slots for v in s.values())))
-        scalars = _nbytes((self._t, self._lr))
+        scalars = _nbytes(self._scalars())
         args = state + _nbytes(self._btensors) + scalars + \
             _nbytes(inputs + labels)
         report = {"argument_bytes": args, "alias_bytes": state,
@@ -376,7 +373,7 @@ class TrainStep:
                       for s in self._slots],
             "rng_key": {k: [x.numpy() for x in v] if isinstance(v, list)
                         else v.numpy() for k, v in rng.items()},
-            "t": _host(self._t),
+            "t": _host(self._scalars()[1]),
             "step_count": int(self.optimizer._step_count),
         }
 
@@ -393,10 +390,11 @@ class TrainStep:
             for slots, saved in zip(self._slots, sd["slots"]):
                 for k, v in slots.items():
                     v.copy_(torch.as_tensor(np.asarray(saved[k])))
-            self._t.fill_(float(sd["t"]))
+        opt = self.optimizer
+        opt._step_count = int(sd["step_count"])
+        opt._t_scalar(self._device).fill_(float(sd["t"]))
+        opt._t_host = float(sd["t"])
         set_rng_state(sd["rng_key"])
-        self._lr_host = None
-        self.optimizer._step_count = int(sd["step_count"])
 
 
 __all__ = ["TrainStep", "raise_nonfinite"]

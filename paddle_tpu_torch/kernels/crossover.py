@@ -1,13 +1,13 @@
 """Where the flash kernel overtakes the einsum path, measured on the card.
 
 `scaled_dot_product_attention` sends attention to the kernel from S=1024
-(bf16) or S=4096 (fp32), the JAX package's thresholds. This sweep times
-both routes, the forward alone and forward + backward (the three
-gradients of a fixed upstream gradient), at GPT-2 small's attention shape
-(B=4, H=12, D=64, causal, q/k/v sliced from one fused QKV tensor as the
-model gives them) over a range of sequence lengths, so the threshold can
-be set from numbers taken on this card. Run on a machine with a CUDA
-device:
+(bf16) or S=4096 (fp16, fp32), the JAX package's thresholds. This sweep
+times both routes in the three dtypes, the forward alone and forward +
+backward (the three gradients of a fixed upstream gradient), at GPT-2
+small's attention shape (B=4, H=12, D=64, causal, q/k/v sliced from one
+fused QKV tensor as the model gives them) over a range of sequence
+lengths, so the threshold can be set from numbers taken on this card.
+Run on a machine with a CUDA device:
 
     python -m paddle_tpu_torch.kernels.crossover
 
@@ -26,7 +26,7 @@ from .flash_attention import flash_attention_arrays
 
 
 def sweep(seqs=(128, 256, 512, 1024, 2048, 4096), b=4, h=12, d=64,
-          dtypes=(torch.bfloat16, torch.float32)):
+          dtypes=(torch.bfloat16, torch.float16, torch.float32)):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []

@@ -6,7 +6,8 @@
 //   s  = q k^T,  p = exp2(s * scale * log2(e) - lse * log2(e)),
 //   dp = dO v^T, ds = p * (dp - delta),  dq = scale * ds k,
 // with lse and delta the caller's rows (the ring's global ones), p and ds
-// rounded to bf16 before their products, hidden keys at p = 0 exactly. A
+// rounded to the element type T (bf16 or fp16, csrc/hopper.cuh's Elem<T>)
+// before their products, hidden keys at p = 0 exactly. A
 // key is hidden when it lies past Sk or, with `causal`, after the row in
 // global order: k_off + key > q_off + row. The two-pass form passes
 // (q_off, k_off) = (0, 0) and Sq = Sk = S.
@@ -21,7 +22,7 @@
 //     producer's registers to the consumer (24/232);
 //   * s = Q K^T and dp = dO V^T on wgmma m64n64k16 with both operands in
 //     shared memory, K-major as they lie; p and ds are formed in the
-//     accumulator registers and re-packed to bf16 as the register A
+//     accumulator registers and re-packed to T as the register A
 //     operand of dq += ds K, K read MN-major with the transpose flag: no
 //     operand is transposed by hand. The next tile's s and dp are issued
 //     while this tile's dq product runs;
@@ -36,7 +37,7 @@
 //     store (at D = 64 the loads are issued before the mainloop, at
 //     D = 128 after it, all of them before the first store). A q tile that
 //     sees no key leaves its accumulator untouched. Otherwise dq * scale is
-//     stored in bf16;
+//     stored in T;
 //   * one CTA owns each q tile and loops over the keys in one order: no
 //     atomics, the result repeats bitwise.
 #pragma once
@@ -69,7 +70,7 @@ __device__ __forceinline__ bool tile_needs_mask(int q0, int bq, int Sq,
          (causal && (long long)k_off + k0 + bk - 1 > (long long)q_off + q0);
 }
 
-// a slot's tensor maps ([BH, S, D] bf16, boxes of 64 columns: q and dout of
+// a slot's tensor maps ([BH, S, D] of T, boxes of 64 columns: q and dout of
 // kM rows, k and v of kN rows) and the rest of what it reads and writes
 struct Maps {
   CUtensorMap q, k, v, dout;
@@ -77,7 +78,7 @@ struct Maps {
 
 struct Slot {
   const float *lse, *delta;  // [BH, Sq] f32
-  void* dq;  // f32 accumulator [BH, Sq, D] (kAccumulate), else bf16 dq
+  void* dq;  // f32 accumulator [BH, Sq, D] (kAccumulate), else dq in T
   int q_off, k_off;
 };
 
@@ -123,7 +124,7 @@ __device__ __forceinline__ void load_acc(float2 (&old)[2][D / 8],
 
 // One CTA of the dq pass: q rows from tile blockIdx.y (the last tiles, the
 // longest causal loops, first), head blockIdx.x. Every thread calls it.
-template <int D, bool kAccumulate>
+template <typename T, int D, bool kAccumulate>
 __device__ __forceinline__ void run(const Maps& maps, const Slot& sl, int Sq,
                                     int Sk, int causal, float scale) {
   using namespace hopper;
@@ -222,10 +223,10 @@ __device__ __forceinline__ void run(const Maps& maps, const Slot& sl, int Sq,
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t a_off = (kk >> 2) * kM * 128 + (kk & 3) * 32;
         const uint32_t b_off = (kk >> 2) * kN * 128 + (kk & 3) * 32;
-        wgmma_ss<kN, 0, 0>(s, desc_kmajor(q_rows + a_off),
-                           desc_kmajor(k_tile + b_off));
-        wgmma_ss<kN, 0, 0>(dp, desc_kmajor(do_rows + a_off),
-                           desc_kmajor(v_tile + b_off));
+        wgmma_ss<T, kN, 0, 0>(s, desc_kmajor(q_rows + a_off),
+                              desc_kmajor(k_tile + b_off));
+        wgmma_ss<T, kN, 0, 0>(dp, desc_kmajor(do_rows + a_off),
+                              desc_kmajor(v_tile + b_off));
       }
       wgmma_commit();
     };
@@ -257,15 +258,15 @@ __device__ __forceinline__ void run(const Maps& maps, const Slot& sl, int Sq,
         dp[i] = p * (dp[i] - dl[h]);
       }
 #pragma unroll
-      for (int kk = 0; kk < kN / 16; ++kk) pack_a(da[kk], dp, kk);
+      for (int kk = 0; kk < kN / 16; ++kk) pack_a<T>(da[kk], dp, kk);
 
       // dq += ds k: ds from registers, k MN-major
       const uint32_t k_tile = sK + st * C::kTileBytes;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kN / 16; ++kk)
-        wgmma_rs<D, 1>(acc, da[kk], desc_mnmajor(k_tile + kk * 2048,
-                                                 kN * 128));
+        wgmma_rs<T, D, 1>(acc, da[kk], desc_mnmajor(k_tile + kk * 2048,
+                                                    kN * 128));
       wgmma_commit();
       if (it + 1 < n_it) {  // the next tile's s and dp under this product
         const int nst = (it + 1) % ST;
@@ -292,36 +293,36 @@ __device__ __forceinline__ void run(const Maps& maps, const Slot& sl, int Sq,
                         fmaf(acc[4 * n + 2 * h + 1], scale, old[h][n].y));
     }
   } else {
-    // dq * scale in bf16 (zeros for a tile that saw no key)
-    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(sl.dq);
+    // dq * scale in T (zeros for a tile that saw no key)
+    T* out = static_cast<T*>(sl.dq);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = row0 + 8 * h;
       if (row >= Sq) continue;
-      __nv_bfloat16* dst = out + (rbase + row) * D + 2 * t;
+      T* dst = out + (rbase + row) * D + 2 * t;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
         *reinterpret_cast<uint32_t*>(dst + 8 * n) =
-            pack_bf16(acc[4 * n + 2 * h] * scale,
-                      acc[4 * n + 2 * h + 1] * scale);
+            Elem<T>::pack(acc[4 * n + 2 * h] * scale,
+                     acc[4 * n + 2 * h + 1] * scale);
     }
   }
 }
 
 // host: the slot's tensor maps for a [bh, Sq, D] q / dout and [bh, Sk, D]
 // k / v; 0 or the driver's CUresult
-template <int D>
+template <typename T, int D>
 inline int encode_maps(Maps* m, const void* q, const void* k, const void* v,
                        const void* dout, int bh, int Sq, int Sk) {
   using C = Cfg<D>;
-  int r = encode_bhsd_map(&m->q, q, bh, Sq, D, C::kM);
-  if (!r) r = encode_bhsd_map(&m->k, k, bh, Sk, D, C::kN);
-  if (!r) r = encode_bhsd_map(&m->v, v, bh, Sk, D, C::kN);
-  if (!r) r = encode_bhsd_map(&m->dout, dout, bh, Sq, D, C::kM);
+  int r = encode_bhsd_map<T>(&m->q, q, bh, Sq, D, C::kM);
+  if (!r) r = encode_bhsd_map<T>(&m->k, k, bh, Sk, D, C::kN);
+  if (!r) r = encode_bhsd_map<T>(&m->v, v, bh, Sk, D, C::kN);
+  if (!r) r = encode_bhsd_map<T>(&m->dout, dout, bh, Sq, D, C::kM);
   return r;
 }
 
-// host: launch `kernel` (a __global__ that calls run<D, ...> with slot
+// host: launch `kernel` (a __global__ that calls run<T, D, ...> with slot
 // blockIdx.z of prm) over n slots of [bh, Sq] q rows
 template <int D, typename Kernel, typename P>
 inline cudaError_t launch(Kernel kernel, const P& prm, int n, int bh, int Sq,

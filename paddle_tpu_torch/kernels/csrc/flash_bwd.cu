@@ -22,9 +22,10 @@
 // the design keeps the S x S tiles in registers and shared memory and feeds
 // the products to the tensor cores.
 //
-// bf16 at D = 64 and 128 (every main path): the dk/dv pass and the fused
-// form are one warp-specialised wgmma template (flash_bwd_kv_wgmma_kernel,
-// kFused selecting the dq shares), so the two forms' dk and dv are
+// bf16 and fp16 at D = 64 and 128 (every main path): the dk/dv pass and
+// the fused form are one warp-specialised wgmma template
+// (flash_bwd_kv_wgmma_kernel, over the element type T of csrc/hopper.cuh's
+// Elem<T>, kFused selecting the dq shares), so the two forms' dk and dv are
 // bit-equal:
 //   * one CTA per (bh, 128-key block), the longest causal q loops first;
 //     two consumer warpgroups of 64 keys each and one producer warp:
@@ -35,7 +36,7 @@
 //     the ragged tail of a head;
 //   * s^T = k q^T and dp^T = v dO^T on wgmma m64n64k16, both operands in
 //     shared memory (K-major as they lie); p^T and ds^T are formed in the
-//     accumulator registers and re-packed to bf16 as the A operands of
+//     accumulator registers and re-packed to T as the A operands of
 //     dv += p^T dO and dk += ds^T q (wgmma from registers, dO and q read
 //     MN-major with the transpose flag): no operand is transposed by hand;
 //   * fused: the TPU carries dq in VMEM along a sequential grid axis; CTAs
@@ -52,14 +53,21 @@
 //   * the wrapper's passes around it are kernels of this file: flash_bwd_prep
 //     (delta and the zeroed workspace in one pass over dO and O) and
 //     flash_bwd_dq_cast (dq = workspace * scale in the input dtype).
-// The dq pass (flash_bwd_dq) at bf16, D = 64 and 128, is the template of
+// The dq pass (flash_bwd_dq) at bf16 / fp16, D = 64 and 128, is the
+// template of
 // csrc/dq_wgmma.cuh, which ring_attention.cu's dq step shares: one CTA per
 // (bh, q tile of 64 rows), the longest causal loops first; Q and dO
 // once and K, V tiles of 64 keys streamed by TMA; s = q k^T, dp = dO v^T
 // and dq += ds k on wgmma (ds from registers, k MN-major); dq * scale
-// stored in bf16. One CTA per q tile and no atomics: deterministic.
+// stored in T. One CTA per q tile and no atomics: deterministic.
+// fp16: ds = p * (dp - delta) is rounded to fp16 before its products, as
+// the Pallas kernel rounds it to the input dtype; under a large loss scale
+// it, and the dq of the fused form's cast, may overflow 65504 to inf. No
+// value is clamped: the Pallas kernel clamps none, and a loss scaler must
+// see the inf to skip the step.
 // D = 256 and fp32 keep the mma.sync and FMA kernels below:
-//   * tiles of 64 q rows x 64 keys (bf16) or 32 x 32 (fp32); the dq pass is
+//   * tiles of 64 q rows x 64 keys (bf16 / fp16, m16n8k16 .bf16 / .f16) or
+//     32 x 32 (fp32); the dq pass is
 //     one CTA per (bh, 64-row q block), a loop over the key blocks up to
 //     the diagonal, dq in f32 registers: deterministic; at D = 256 the
 //     dk/dv pass and the fused form are one CTA per (bh, 64-key block)
@@ -79,6 +87,7 @@
 //        -Xcompiler -fPIC -o libflash_bwd.so flash_bwd.cu -lcuda
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -90,12 +99,12 @@ namespace {
 constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
-// bf16 on mma.sync: the dq and dk/dv passes at D = 256
+// bf16 / fp16 on mma.sync: the dq and dk/dv passes at D = 256
 // ---------------------------------------------------------------------------
 constexpr int kB = 64;  // q rows and keys per tile
 
 template <int D>
-struct Bf16Cfg {
+struct MmaCfg {
   static constexpr int DW = D > 128 ? 128 : D;  // head-dim columns per warp
   static constexpr int kWarps = 4 * (D / DW);   // 4 row groups x D / DW
   static constexpr int kThreads = 32 * kWarps;
@@ -103,33 +112,26 @@ struct Bf16Cfg {
   static constexpr int PS = kB + 8;  // row stride of the [64][64] ds tile
 };
 
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-using hopper::pack_bf16;
+using hopper::mma_16816;
+using hopper::Elem;
 
 // two neighbouring elements of one row (the row-major fragment read)
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+template <typename T>
+__device__ __forceinline__ uint32_t ld32(const T* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // two elements of one column, rows r and r + 1 (the transposed read)
-__device__ __forceinline__ uint32_t ld_col2(const __nv_bfloat16* p,
-                                            int stride) {
+template <typename T>
+__device__ __forceinline__ uint32_t ld_col2(const T* p, int stride) {
   const uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
   const uint32_t hi = *reinterpret_cast<const uint16_t*>(p + stride);
   return lo | (hi << 16);
 }
 
 // A fragment of a 16 x 16 step from row-major rows (p = row g, column 2t)
-__device__ __forceinline__ void ld_a(uint32_t a[4], const __nv_bfloat16* p,
-                                     int stride) {
+template <typename T>
+__device__ __forceinline__ void ld_a(uint32_t a[4], const T* p, int stride) {
   a[0] = ld32(p);
   a[1] = ld32(p + 8 * stride);
   a[2] = ld32(p + 8);
@@ -137,19 +139,19 @@ __device__ __forceinline__ void ld_a(uint32_t a[4], const __nv_bfloat16* p,
 }
 
 // A fragment of the 16-column step kk from a 16 x 64 accumulator (the
-// score fragments of n-tiles 2kk and 2kk+1), rounded to bf16
+// score fragments of n-tiles 2kk and 2kk+1), rounded to T
+template <typename T>
 __device__ __forceinline__ void pack_a(uint32_t a[4], float (*c)[4], int kk) {
-  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  a[0] = Elem<T>::pack(c[2 * kk][0], c[2 * kk][1]);
+  a[1] = Elem<T>::pack(c[2 * kk][2], c[2 * kk][3]);
+  a[2] = Elem<T>::pack(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+  a[3] = Elem<T>::pack(c[2 * kk + 1][2], c[2 * kk + 1][3]);
 }
 
 // stage rows [row0, row0 + 64) of a [S, D] matrix into a padded tile;
 // rows past S read as zeros
-template <int D, int NT>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int row0,
+template <int D, int NT, typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
                                           int S, int tid) {
   constexpr int CH = D / 8;  // 16-byte chunks per row
   constexpr int TS = D + 8;
@@ -164,37 +166,33 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
 }
 
 template <int D>
-constexpr int bf16_kv_smem_bytes() {
+constexpr int mma_kv_smem_bytes() {
   // K, V, Q, dO tiles [64][D+8], ds tile [64][64+8], lse and delta rows
   return (4 * kB * (D + 8) + kB * (kB + 8)) * 2 + 2 * kB * 4;
 }
 
 template <int D>
-constexpr int bf16_dq_smem_bytes() {
+constexpr int mma_dq_smem_bytes() {
   return 4 * kB * (D + 8) * 2;  // Q, dO, K, V tiles
 }
 
 // dk/dv pass; with kFused also the dq shares, added into dq_ws (f32)
-template <int D, bool kFused>
-__global__ void __launch_bounds__(Bf16Cfg<D>::kThreads)
-flash_bwd_kv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv,
-                         float* __restrict__ dq_ws, int S, int causal,
-                         float scale) {
-  using C = Bf16Cfg<D>;
+template <typename T, int D, bool kFused>
+__global__ void __launch_bounds__(MmaCfg<D>::kThreads)
+flash_bwd_kv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dk,
+                        T* __restrict__ dv, float* __restrict__ dq_ws, int S,
+                        int causal, float scale) {
+  using C = MmaCfg<D>;
   constexpr int TS = C::TS, PS = C::PS, DW = C::DW, NT = C::kThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + kB * TS;
-  __nv_bfloat16* sQ = sV + kB * TS;
-  __nv_bfloat16* sdO = sQ + kB * TS;
-  __nv_bfloat16* sDS = sdO + kB * TS;  // ds as [q][key]
+  T* sK = reinterpret_cast<T*>(smem_raw);
+  T* sV = sK + kB * TS;
+  T* sQ = sV + kB * TS;
+  T* sdO = sQ + kB * TS;
+  T* sDS = sdO + kB * TS;  // ds as [q][key]
   float* sL = reinterpret_cast<float*>(sDS + kB * PS);  // lse * log2(e)
   float* sDl = sL + kB;                                  // delta
 
@@ -217,8 +215,8 @@ flash_bwd_kv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_dk[n][e] = acc_dv[n][e] = 0.f;
 
-  const __nv_bfloat16* kw = sK + (rg * 16 + g) * TS + 2 * t;
-  const __nv_bfloat16* vw = sV + (rg * 16 + g) * TS + 2 * t;
+  const T* kw = sK + (rg * 16 + g) * TS + 2 * t;
+  const T* vw = sV + (rg * 16 + g) * TS + 2 * t;
   const int n_qb = (S + kB - 1) / kB;
   // q blocks before k0 see none of these keys (tiles are square)
   const int qb_begin = causal ? kb : 0;
@@ -248,10 +246,10 @@ flash_bwd_kv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       ld_a(av, vw + kk * 16, TS);
 #pragma unroll
       for (int j = 0; j < kB / 8; ++j) {
-        const __nv_bfloat16* qp = sQ + (j * 8 + g) * TS + kk * 16 + 2 * t;
-        mma_bf16_16816(st[j], ak, ld32(qp), ld32(qp + 8));
-        const __nv_bfloat16* op = sdO + (j * 8 + g) * TS + kk * 16 + 2 * t;
-        mma_bf16_16816(dpt[j], av, ld32(op), ld32(op + 8));
+        const T* qp = sQ + (j * 8 + g) * TS + kk * 16 + 2 * t;
+        mma_16816<T>(st[j], ak, ld32(qp), ld32(qp + 8));
+        const T* op = sdO + (j * 8 + g) * TS + kk * 16 + 2 * t;
+        mma_16816<T>(dpt[j], av, ld32(op), ld32(op + 8));
       }
     }
 
@@ -278,17 +276,17 @@ flash_bwd_kv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < kB / 16; ++kk) {
       uint32_t ap[4], as[4];
-      pack_a(ap, st, kk);
-      pack_a(as, dpt, kk);
+      pack_a<T>(ap, st, kk);
+      pack_a<T>(as, dpt, kk);
 #pragma unroll
       for (int n = 0; n < DW / 8; ++n) {
         const int col = d0 + n * 8 + g;
-        const __nv_bfloat16* op = sdO + (kk * 16 + 2 * t) * TS + col;
-        mma_bf16_16816(acc_dv[n], ap, ld_col2(op, TS),
-                       ld_col2(op + 8 * TS, TS));
-        const __nv_bfloat16* qp = sQ + (kk * 16 + 2 * t) * TS + col;
-        mma_bf16_16816(acc_dk[n], as, ld_col2(qp, TS),
-                       ld_col2(qp + 8 * TS, TS));
+        const T* op = sdO + (kk * 16 + 2 * t) * TS + col;
+        mma_16816<T>(acc_dv[n], ap, ld_col2(op, TS),
+                     ld_col2(op + 8 * TS, TS));
+        const T* qp = sQ + (kk * 16 + 2 * t) * TS + col;
+        mma_16816<T>(acc_dk[n], as, ld_col2(qp, TS),
+                     ld_col2(qp + 8 * TS, TS));
       }
     }
 
@@ -300,13 +298,13 @@ flash_bwd_kv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             sDS[(j * 8 + 2 * t + (e & 1)) * PS + rg * 16 + g +
-                (e >> 1) * 8] = __float2bfloat16_rn(dpt[j][e]);
+                (e >> 1) * 8] = hopper::Elem<T>::round(dpt[j][e]);
       }
       __syncthreads();
       // this CTA's share of dq = ds k: the warp's 16 q rows x DW columns,
       // added into the f32 workspace
       uint32_t a[kB / 16][4];
-      const __nv_bfloat16* dsw = sDS + (rg * 16 + g) * PS + 2 * t;
+      const T* dsw = sDS + (rg * 16 + g) * PS + 2 * t;
 #pragma unroll
       for (int kk = 0; kk < kB / 16; ++kk) ld_a(a[kk], dsw + kk * 16, PS);
       const int row = q0 + rg * 16 + g;
@@ -315,9 +313,8 @@ flash_bwd_kv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         float c[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
         for (int kk = 0; kk < kB / 16; ++kk) {
-          const __nv_bfloat16* kp =
-              sK + (kk * 16 + 2 * t) * TS + d0 + n * 8 + g;
-          mma_bf16_16816(c, a[kk], ld_col2(kp, TS), ld_col2(kp + 8 * TS, TS));
+          const T* kp = sK + (kk * 16 + 2 * t) * TS + d0 + n * 8 + g;
+          mma_16816<T>(c, a[kk], ld_col2(kp, TS), ld_col2(kp + 8 * TS, TS));
         }
         float* out = dq_ws + base + d0 + n * 8 + 2 * t;
         if (row < S) {
@@ -339,33 +336,30 @@ flash_bwd_kv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       const size_t off = base + (size_t)key * D + d0 + 2 * t;
 #pragma unroll
       for (int n = 0; n < DW / 8; ++n) {
-        *reinterpret_cast<uint32_t*>(dk + off + n * 8) = pack_bf16(
+        *reinterpret_cast<uint32_t*>(dk + off + n * 8) = Elem<T>::pack(
             acc_dk[n][2 * h] * scale, acc_dk[n][2 * h + 1] * scale);
         *reinterpret_cast<uint32_t*>(dv + off + n * 8) =
-            pack_bf16(acc_dv[n][2 * h], acc_dv[n][2 * h + 1]);
+            Elem<T>::pack(acc_dv[n][2 * h], acc_dv[n][2 * h + 1]);
       }
     }
   }
 }
 
 // dq pass of the two-pass form at D = 256: no atomics
-template <int D>
-__global__ void __launch_bounds__(Bf16Cfg<D>::kThreads)
-flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dq, int S, int causal,
-                         float scale) {
-  using C = Bf16Cfg<D>;
+template <typename T, int D>
+__global__ void __launch_bounds__(MmaCfg<D>::kThreads)
+flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dq,
+                        int S, int causal, float scale) {
+  using C = MmaCfg<D>;
   constexpr int TS = C::TS, DW = C::DW, NT = C::kThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sdO = sQ + kB * TS;
-  __nv_bfloat16* sK = sdO + kB * TS;
-  __nv_bfloat16* sV = sK + kB * TS;
+  T* sQ = reinterpret_cast<T*>(smem_raw);
+  T* sdO = sQ + kB * TS;
+  T* sK = sdO + kB * TS;
+  T* sV = sK + kB * TS;
 
   const int qb = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int q0 = qb * kB;
@@ -395,8 +389,8 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  const __nv_bfloat16* qw = sQ + (rg * 16 + g) * TS + 2 * t;
-  const __nv_bfloat16* ow = sdO + (rg * 16 + g) * TS + 2 * t;
+  const T* qw = sQ + (rg * 16 + g) * TS + 2 * t;
+  const T* ow = sdO + (rg * 16 + g) * TS + 2 * t;
   const int n_kb = (S + kB - 1) / kB;
   const int kb_end = causal ? min(n_kb, qb + 1) : n_kb;
 
@@ -420,10 +414,10 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       ld_a(ao, ow + kk * 16, TS);
 #pragma unroll
       for (int j = 0; j < kB / 8; ++j) {
-        const __nv_bfloat16* kp = sK + (j * 8 + g) * TS + kk * 16 + 2 * t;
-        mma_bf16_16816(s[j], aq, ld32(kp), ld32(kp + 8));
-        const __nv_bfloat16* vp = sV + (j * 8 + g) * TS + kk * 16 + 2 * t;
-        mma_bf16_16816(dp[j], ao, ld32(vp), ld32(vp + 8));
+        const T* kp = sK + (j * 8 + g) * TS + kk * 16 + 2 * t;
+        mma_16816<T>(s[j], aq, ld32(kp), ld32(kp + 8));
+        const T* vp = sV + (j * 8 + g) * TS + kk * 16 + 2 * t;
+        mma_16816<T>(dp[j], ao, ld32(vp), ld32(vp + 8));
       }
     }
 
@@ -447,11 +441,11 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < kB / 16; ++kk) {
       uint32_t a[4];
-      pack_a(a, s, kk);
+      pack_a<T>(a, s, kk);
 #pragma unroll
       for (int n = 0; n < DW / 8; ++n) {
-        const __nv_bfloat16* kp = sK + (kk * 16 + 2 * t) * TS + d0 + n * 8 + g;
-        mma_bf16_16816(acc[n], a, ld_col2(kp, TS), ld_col2(kp + 8 * TS, TS));
+        const T* kp = sK + (kk * 16 + 2 * t) * TS + d0 + n * 8 + g;
+        mma_16816<T>(acc[n], a, ld_col2(kp, TS), ld_col2(kp + 8 * TS, TS));
       }
     }
   }
@@ -460,11 +454,11 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + h * 8;
     if (row < S) {
-      __nv_bfloat16* out = dq + base + (size_t)row * D + d0 + 2 * t;
+      T* out = dq + base + (size_t)row * D + d0 + 2 * t;
 #pragma unroll
       for (int n = 0; n < DW / 8; ++n)
         *reinterpret_cast<uint32_t*>(out + n * 8) =
-            pack_bf16(acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
+            Elem<T>::pack(acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
     }
   }
 }
@@ -689,8 +683,8 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// bf16, D = 64 and 128: the dk/dv pass (and the fused dq shares) on wgmma
-// fed by TMA
+// bf16 / fp16, D = 64 and 128: the dk/dv pass (and the fused dq shares) on
+// wgmma fed by TMA
 // ---------------------------------------------------------------------------
 template <int D>
 struct WgBwdCfg {
@@ -711,18 +705,16 @@ struct WgBwdCfg {
   static constexpr int kSmem = kOffBar + 64 + 1024;  // +1024 aligns the base
 };
 
-template <int D, bool kFused>
+template <typename T, int D, bool kFused>
 __global__ void __launch_bounds__(384, 1)
 flash_bwd_kv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
                           const __grid_constant__ CUtensorMap tm_do,
                           const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          __nv_bfloat16* __restrict__ dk,
-                          __nv_bfloat16* __restrict__ dv,
-                          float* __restrict__ dq_ws, int S, int causal,
-                          float scale) {
+                          const float* __restrict__ delta, T* __restrict__ dk,
+                          T* __restrict__ dv, float* __restrict__ dq_ws,
+                          int S, int causal, float scale) {
   using namespace hopper;
   using C = WgBwdCfg<D>;
   constexpr int kN = C::kN, kM = C::kM, ST = C::kStages, NH = D / 64;
@@ -821,10 +813,10 @@ flash_bwd_kv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t a_off = (kk >> 2) * kN * 128 + (kk & 3) * 32;
         const uint32_t b_off = (kk >> 2) * kM * 128 + (kk & 3) * 32;
-        wgmma_ss<kM, 0, 0>(s, desc_kmajor(k_rows + a_off),
-                           desc_kmajor(q_tile + b_off));
-        wgmma_ss<kM, 0, 0>(dp, desc_kmajor(v_rows + a_off),
-                           desc_kmajor(do_tile + b_off));
+        wgmma_ss<T, kM, 0, 0>(s, desc_kmajor(k_rows + a_off),
+                              desc_kmajor(q_tile + b_off));
+        wgmma_ss<T, kM, 0, 0>(dp, desc_kmajor(v_rows + a_off),
+                              desc_kmajor(do_tile + b_off));
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -861,16 +853,16 @@ flash_bwd_kv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       uint32_t pa[kM / 16][4], da[kM / 16][4];
 #pragma unroll
       for (int kk = 0; kk < kM / 16; ++kk) {
-        hopper::pack_a(pa[kk], s, kk);
-        hopper::pack_a(da[kk], dp, kk);
+        hopper::pack_a<T>(pa[kk], s, kk);
+        hopper::pack_a<T>(da[kk], dp, kk);
       }
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kM / 16; ++kk) {
-        wgmma_rs<D, 1>(acc_dv, pa[kk],
-                       desc_mnmajor(do_tile + kk * 2048, kM * 128));
-        wgmma_rs<D, 1>(acc_dk, da[kk],
-                       desc_mnmajor(q_tile + kk * 2048, kM * 128));
+        wgmma_rs<T, D, 1>(acc_dv, pa[kk],
+                          desc_mnmajor(do_tile + kk * 2048, kM * 128));
+        wgmma_rs<T, D, 1>(acc_dk, da[kk],
+                          desc_mnmajor(q_tile + kk * 2048, kM * 128));
       }
       wgmma_commit();
 
@@ -886,7 +878,7 @@ flash_bwd_kv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
             const int kl = kl0 + 8 * h;
             *reinterpret_cast<uint32_t*>(ds_ptr + kl * 128 +
                                          ((j ^ (kl & 7)) << 4) + 4 * t) =
-                pack_bf16(dp[4 * j + 2 * h], dp[4 * j + 2 * h + 1]);
+                Elem<T>::pack(dp[4 * j + 2 * h], dp[4 * j + 2 * h + 1]);
           }
         fence_proxy_async();
         named_barrier(1, 256);  // both halves of ds^T are written
@@ -900,8 +892,9 @@ flash_bwd_kv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kN / 16; ++kk)
-          wgmma_ss<D / 2, 1, 1>(dq, desc_mnmajor(ds_tile + kk * 2048, 8192),
-                                desc_mnmajor(k_cols + kk * 2048, kN * 128));
+          wgmma_ss<T, D / 2, 1, 1>(
+              dq, desc_mnmajor(ds_tile + kk * 2048, 8192),
+              desc_mnmajor(k_cols + kk * 2048, kN * 128));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dq);
@@ -944,63 +937,63 @@ flash_bwd_kv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int n = 0; n < D / 8; ++n) {
           *reinterpret_cast<uint32_t*>(dk + off + 8 * n) =
-              pack_bf16(acc_dk[4 * n + 2 * h] * scale,
-                        acc_dk[4 * n + 2 * h + 1] * scale);
+              Elem<T>::pack(acc_dk[4 * n + 2 * h] * scale,
+                       acc_dk[4 * n + 2 * h + 1] * scale);
           *reinterpret_cast<uint32_t*>(dv + off + 8 * n) =
-              pack_bf16(acc_dv[4 * n + 2 * h], acc_dv[4 * n + 2 * h + 1]);
+              Elem<T>::pack(acc_dv[4 * n + 2 * h], acc_dv[4 * n + 2 * h + 1]);
         }
       }
     }
   }
 }
 
-template <int D, bool kFused>
+template <typename T, int D, bool kFused>
 cudaError_t launch_kv_wgmma(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dk, void* dv, void* dq_ws,
                             int bh, int S, int causal, cudaStream_t stream) {
   using C = WgBwdCfg<D>;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  if (encode_bhsd_map(&tm_q, q, bh, S, D, C::kM) ||
-      encode_bhsd_map(&tm_k, k, bh, S, D, C::kN) ||
-      encode_bhsd_map(&tm_v, v, bh, S, D, C::kN) ||
-      encode_bhsd_map(&tm_do, dout, bh, S, D, C::kM))
+  if (encode_bhsd_map<T>(&tm_q, q, bh, S, D, C::kM) ||
+      encode_bhsd_map<T>(&tm_k, k, bh, S, D, C::kN) ||
+      encode_bhsd_map<T>(&tm_v, v, bh, S, D, C::kN) ||
+      encode_bhsd_map<T>(&tm_do, dout, bh, S, D, C::kM))
     return cudaErrorInvalidValue;
-  auto kernel = flash_bwd_kv_wgmma_kernel<D, kFused>;
+  auto kernel = flash_bwd_kv_wgmma_kernel<T, D, kFused>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return err;
   dim3 grid(bh, (S + C::kN - 1) / C::kN);
   kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
       tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), static_cast<float*>(dq_ws), S, causal,
+      static_cast<const float*>(delta), static_cast<T*>(dk),
+      static_cast<T*>(dv), static_cast<float*>(dq_ws), S, causal,
       1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
-// the dq pass at bf16, D = 64 and 128: csrc/dq_wgmma.cuh's template, dq
-// stored in bf16
-template <int D>
+// the dq pass at bf16 / fp16, D = 64 and 128: csrc/dq_wgmma.cuh's
+// template, dq stored in T
+template <typename T, int D>
 __global__ void __launch_bounds__(dq_wgmma::Cfg<D>::kThreads,
                                   dq_wgmma::Cfg<D>::kMinBlocks)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ dq_wgmma::Params<1> prm,
                           int Sq, int Sk, int causal, float scale) {
-  dq_wgmma::run<D, false>(prm.maps[0], prm.s[0], Sq, Sk, causal, scale);
+  dq_wgmma::run<T, D, false>(prm.maps[0], prm.s[0], Sq, Sk, causal, scale);
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dq, int bh, int S,
                             int causal, cudaStream_t stream) {
   dq_wgmma::Params<1> prm;
-  if (dq_wgmma::encode_maps<D>(&prm.maps[0], q, k, v, dout, bh, S, S))
+  if (dq_wgmma::encode_maps<T, D>(&prm.maps[0], q, k, v, dout, bh, S, S))
     return cudaErrorInvalidValue;
   prm.s[0] = dq_wgmma::Slot{static_cast<const float*>(lse),
                             static_cast<const float*>(delta), dq, 0, 0};
-  return dq_wgmma::launch<D>(flash_bwd_dq_wgmma_kernel<D>, prm, 1, bh, S, S,
-                             causal, stream);
+  return dq_wgmma::launch<D>(flash_bwd_dq_wgmma_kernel<T, D>, prm, 1, bh, S,
+                             S, causal, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1087,90 +1080,96 @@ cudaError_t prepare(Kernel kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-template <int D, bool kFused>
-cudaError_t launch_kv(const Args& a, int is_bf16, int causal) {
-  const float scale = 1.0f / sqrtf((float)D);
-  if (is_bf16) {
-    if constexpr (D != 256) {
-      return launch_kv_wgmma<D, kFused>(a.q, a.k, a.v, a.dout, a.lse, a.delta,
-                                        a.dk, a.dv, a.dq, a.bh, a.S, causal,
-                                        a.stream);
-    } else {
-      using T = __nv_bfloat16;
-      const int smem = bf16_kv_smem_bytes<D>();
-      auto kernel = flash_bwd_kv_bf16_kernel<D, kFused>;
-      cudaError_t err = prepare(kernel, smem);
-      if (err != cudaSuccess) return err;
-      dim3 grid((a.S + kB - 1) / kB, a.bh);
-      kernel<<<grid, Bf16Cfg<D>::kThreads, smem, a.stream>>>(
-          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-          static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-          static_cast<const float*>(a.lse),
-          static_cast<const float*>(a.delta), static_cast<T*>(a.dk),
-          static_cast<T*>(a.dv), static_cast<float*>(a.dq), a.S, causal,
-          scale);
-    }
+// bf16 / fp16 (T): the wgmma kernels, or the mma.sync ones at D = 256
+template <typename T, int D, bool kFused>
+cudaError_t launch_kv_16(const Args& a, int causal) {
+  if constexpr (D != 256) {
+    return launch_kv_wgmma<T, D, kFused>(a.q, a.k, a.v, a.dout, a.lse,
+                                         a.delta, a.dk, a.dv, a.dq, a.bh, a.S,
+                                         causal, a.stream);
   } else {
-    const int smem = f32_kv_smem_bytes<D>();
-    auto kernel = flash_bwd_kv_f32_kernel<D, kFused>;
+    const int smem = mma_kv_smem_bytes<D>();
+    auto kernel = flash_bwd_kv_mma_kernel<T, D, kFused>;
     cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return err;
-    dim3 grid((a.S + kFB - 1) / kFB, a.bh);
-    kernel<<<grid, kFThreads, smem, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+    dim3 grid((a.S + kB - 1) / kB, a.bh);
+    kernel<<<grid, MmaCfg<D>::kThreads, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<float*>(a.dk), static_cast<float*>(a.dv),
-        static_cast<float*>(a.dq), a.S, causal, scale);
+        static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+        static_cast<float*>(a.dq), a.S, causal, 1.0f / sqrtf((float)D));
+    return cudaGetLastError();
   }
+}
+
+// dtype: 0 fp32, 1 bf16, 2 fp16
+template <int D, bool kFused>
+cudaError_t launch_kv(const Args& a, int dtype, int causal) {
+  if (dtype == 1) return launch_kv_16<__nv_bfloat16, D, kFused>(a, causal);
+  if (dtype == 2) return launch_kv_16<__half, D, kFused>(a, causal);
+  if (dtype != 0) return cudaErrorInvalidValue;
+  const int smem = f32_kv_smem_bytes<D>();
+  auto kernel = flash_bwd_kv_f32_kernel<D, kFused>;
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.S + kFB - 1) / kFB, a.bh);
+  kernel<<<grid, kFThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+      static_cast<float*>(a.dq), a.S, causal, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dq(const Args& a, int is_bf16, int causal) {
-  const float scale = 1.0f / sqrtf((float)D);
-  if (is_bf16) {
-    if constexpr (D != 256) {
-      return launch_dq_wgmma<D>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq,
-                                a.bh, a.S, causal, a.stream);
-    } else {
-      using T = __nv_bfloat16;
-      const int smem = bf16_dq_smem_bytes<D>();
-      auto kernel = flash_bwd_dq_bf16_kernel<D>;
-      cudaError_t err = prepare(kernel, smem);
-      if (err != cudaSuccess) return err;
-      dim3 grid((a.S + kB - 1) / kB, a.bh);
-      kernel<<<grid, Bf16Cfg<D>::kThreads, smem, a.stream>>>(
-          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-          static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-          static_cast<const float*>(a.lse),
-          static_cast<const float*>(a.delta), static_cast<T*>(a.dq), a.S,
-          causal, scale);
-    }
+template <typename T, int D>
+cudaError_t launch_dq_16(const Args& a, int causal) {
+  if constexpr (D != 256) {
+    return launch_dq_wgmma<T, D>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq,
+                                 a.bh, a.S, causal, a.stream);
   } else {
-    const int smem = f32_dq_smem_bytes<D>();
-    auto kernel = flash_bwd_dq_f32_kernel<D>;
+    const int smem = mma_dq_smem_bytes<D>();
+    auto kernel = flash_bwd_dq_mma_kernel<T, D>;
     cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return err;
-    dim3 grid((a.S + kFB - 1) / kFB, a.bh);
-    kernel<<<grid, kFThreads, smem, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+    dim3 grid((a.S + kB - 1) / kB, a.bh);
+    kernel<<<grid, MmaCfg<D>::kThreads, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<float*>(a.dq), a.S, causal, scale);
+        static_cast<T*>(a.dq), a.S, causal, 1.0f / sqrtf((float)D));
+    return cudaGetLastError();
   }
+}
+
+template <int D>
+cudaError_t launch_dq(const Args& a, int dtype, int causal) {
+  if (dtype == 1) return launch_dq_16<__nv_bfloat16, D>(a, causal);
+  if (dtype == 2) return launch_dq_16<__half, D>(a, causal);
+  if (dtype != 0) return cudaErrorInvalidValue;
+  const int smem = f32_dq_smem_bytes<D>();
+  auto kernel = flash_bwd_dq_f32_kernel<D>;
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.S + kFB - 1) / kFB, a.bh);
+  kernel<<<grid, kFThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<float*>(a.dq), a.S, causal, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
 enum Kind { kKindFused, kKindDkv, kKindDq };
 
-int dispatch(Kind kind, const Args& a, int D, int is_bf16, int causal) {
+int dispatch(Kind kind, const Args& a, int D, int dtype, int causal) {
   if (a.bh < 1 || a.bh > 65535 || a.S < 1) return (int)cudaErrorInvalidValue;
 #define PT_BWD_CASE(DIM)                                                    \
   case DIM:                                                                 \
-    if (kind == kKindFused) return (int)launch_kv<DIM, true>(a, is_bf16, causal); \
-    if (kind == kKindDkv) return (int)launch_kv<DIM, false>(a, is_bf16, causal); \
-    return (int)launch_dq<DIM>(a, is_bf16, causal);
+    if (kind == kKindFused) return (int)launch_kv<DIM, true>(a, dtype, causal); \
+    if (kind == kKindDkv) return (int)launch_kv<DIM, false>(a, dtype, causal); \
+    return (int)launch_dq<DIM>(a, dtype, causal);
   switch (D) {
     PT_BWD_CASE(64)
     PT_BWD_CASE(128)
@@ -1181,10 +1180,33 @@ int dispatch(Kind kind, const Args& a, int D, int is_bf16, int causal) {
 #undef PT_BWD_CASE
 }
 
+// the passes around the kernels, by element type: 0 fp32, 1 bf16, 2 fp16
+template <int D>
+cudaError_t launch_prep_of(int dtype, const void* dout, const void* o,
+                           void* delta, void* dq_ws, int rows,
+                           cudaStream_t stream) {
+  if (dtype == 1)
+    return launch_prep<__nv_bfloat16, D>(dout, o, delta, dq_ws, rows, stream);
+  if (dtype == 2)
+    return launch_prep<__half, D>(dout, o, delta, dq_ws, rows, stream);
+  if (dtype == 0)
+    return launch_prep<float, D>(dout, o, delta, dq_ws, rows, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t launch_dq_cast(const void* dq_ws, void* dq, size_t n4, float scale,
+                           cudaStream_t stream) {
+  const int blocks = (int)((n4 + 255) / 256 < 4096 ? (n4 + 255) / 256 : 4096);
+  flash_bwd_dq_cast_kernel<T><<<blocks, 256, 0, stream>>>(
+      static_cast<const float*>(dq_ws), static_cast<T*>(dq), n4, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v, dout: [bh, S, D] contiguous and 16-byte aligned, one dtype
-// (is_bf16: 1 for bf16, 0 for fp32); lse, delta: [bh, S] f32. Each entry
+// (dtype: 0 fp32, 1 bf16, 2 fp16); lse, delta: [bh, S] f32. Each entry
 // launches on `stream` and returns a cudaError_t.
 
 // dq_ws: [bh, S, D] f32, zeroed by the caller, receives dq / scale (f32);
@@ -1192,72 +1214,65 @@ int dispatch(Kind kind, const Args& a, int D, int is_bf16, int causal) {
 extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dq_ws, void* dk,
-                               void* dv, int bh, int S, int D, int is_bf16,
+                               void* dv, int bh, int S, int D, int dtype,
                                int causal, void* stream) {
   const Args a{q, k, v, dout, lse, delta, dq_ws, dk, dv, bh, S,
                static_cast<cudaStream_t>(stream)};
-  return dispatch(kKindFused, a, D, is_bf16, causal);
+  return dispatch(kKindFused, a, D, dtype, causal);
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dk, void* dv, int bh,
-                             int S, int D, int is_bf16, int causal,
+                             int S, int D, int dtype, int causal,
                              void* stream) {
   const Args a{q, k, v, dout, lse, delta, nullptr, dk, dv, bh, S,
                static_cast<cudaStream_t>(stream)};
-  return dispatch(kKindDkv, a, D, is_bf16, causal);
+  return dispatch(kKindDkv, a, D, dtype, causal);
 }
 
 // dq in the input dtype
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dq, int bh, int S, int D,
-                            int is_bf16, int causal, void* stream) {
+                            int dtype, int causal, void* stream) {
   const Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, bh, S,
                static_cast<cudaStream_t>(stream)};
-  return dispatch(kKindDq, a, D, is_bf16, causal);
+  return dispatch(kKindDq, a, D, dtype, causal);
 }
 
 // delta: [bh, S] f32 <- rowsum(dout * o); dq_ws: [bh, S, D] f32 set to zero
 // when not null (the fused form's workspace).
 extern "C" int flash_bwd_prep(const void* dout, const void* o, void* delta,
-                              void* dq_ws, int bh, int S, int D, int is_bf16,
+                              void* dq_ws, int bh, int S, int D, int dtype,
                               void* stream) {
   if (bh < 1 || S < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = bh * S;
-#define PT_PREP_CASE(DIM)                                                    \
-  case DIM:                                                                  \
-    return is_bf16 ? (int)launch_prep<__nv_bfloat16, DIM>(dout, o, delta,    \
-                                                          dq_ws, rows, st)   \
-                   : (int)launch_prep<float, DIM>(dout, o, delta, dq_ws,     \
-                                                  rows, st);
   switch (D) {
-    PT_PREP_CASE(64)
-    PT_PREP_CASE(128)
-    PT_PREP_CASE(256)
+    case 64:
+      return (int)launch_prep_of<64>(dtype, dout, o, delta, dq_ws, rows, st);
+    case 128:
+      return (int)launch_prep_of<128>(dtype, dout, o, delta, dq_ws, rows, st);
+    case 256:
+      return (int)launch_prep_of<256>(dtype, dout, o, delta, dq_ws, rows, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
-#undef PT_PREP_CASE
 }
 
 // dq [bh, S, D] in the input dtype <- dq_ws * (1 / sqrt(D)), the fused
-// form's workspace scaled and cast.
+// form's workspace scaled and cast (fp16: a value past 65504 becomes inf,
+// as the cast of the Pallas kernel's f32 scratch does).
 extern "C" int flash_bwd_dq_cast(const void* dq_ws, void* dq, int bh, int S,
-                                 int D, int is_bf16, void* stream) {
+                                 int D, int dtype, void* stream) {
   if (bh < 1 || S < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t n4 = (size_t)bh * S * D / 4;
-  const int blocks = (int)((n4 + 255) / 256 < 4096 ? (n4 + 255) / 256 : 4096);
   const float scale = 1.0f / sqrtf((float)D);
-  if (is_bf16)
-    flash_bwd_dq_cast_kernel<__nv_bfloat16><<<blocks, 256, 0, st>>>(
-        static_cast<const float*>(dq_ws), static_cast<__nv_bfloat16*>(dq), n4,
-        scale);
-  else
-    flash_bwd_dq_cast_kernel<float><<<blocks, 256, 0, st>>>(
-        static_cast<const float*>(dq_ws), static_cast<float*>(dq), n4, scale);
-  return (int)cudaGetLastError();
+  if (dtype == 1)
+    return (int)launch_dq_cast<__nv_bfloat16>(dq_ws, dq, n4, scale, st);
+  if (dtype == 2) return (int)launch_dq_cast<__half>(dq_ws, dq, n4, scale, st);
+  if (dtype == 0) return (int)launch_dq_cast<float>(dq_ws, dq, n4, scale, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -13,8 +13,10 @@
 // stay on chip, the products must reach the tensor cores at wgmma's rate
 // and the loads must hide under them.
 //
-// bf16 at D = 64 and 128 (every main path): the warp-specialised wgmma
-// kernel.
+// bf16 and fp16 at D = 64 and 128 (every main path): the warp-specialised
+// wgmma kernel, one template over the element type (csrc/hopper.cuh's
+// Elem<T>: the .bf16 or .f16 products, the TMA data type, the rounding of
+// P into the A operand and of out).
 //   * one CTA per (bh, q tile), the heaviest causal tiles launched first;
 //     consumer warpgroups of 64 q rows each and one producer warpgroup
 //     whose single thread issues every TMA load (registers move from the
@@ -31,7 +33,8 @@
 //     the next head's rows;
 //   * S = Q K^T on wgmma m64n128k16 with both operands in shared memory
 //     (K is K-major as it lies); O += P V on wgmma m64nDk16 with P from
-//     registers (the score accumulator re-packed to bf16 in place) and V
+//     registers (the score accumulator re-packed to bf16 / fp16 in
+//     place: P lies in [0, 1], where fp16 is the finer of the two) and V
 //     read MN-major with the transpose flag: no transposition anywhere;
 //   * within a warpgroup the products overlap the softmax: tile i's
 //     scores are issued with tile i - 1's PV product, and tile i's
@@ -39,8 +42,10 @@
 //     warpgroups interleave on the tensor cores besides;
 //   * key tiles run from the diagonal (or ragged) tile down, so only the
 //     first one is masked; f32 running (m, l) and the O accumulator stay
-//     in registers; out (bf16) and lse are written from the registers.
-// D = 256 bf16 keeps the mma.sync kernel and fp32 the FMA kernel below (the
+//     in registers; out (bf16 / fp16) and lse are written from the
+//     registers.
+// D = 256 bf16 / fp16 keeps the mma.sync kernel (m16n8k16 .bf16 / .f16) and
+// fp32 the FMA kernel below (the
 // dispatcher admits fp32 from S = 4096; H100 tensor cores have no exact-fp32
 // mode): no main path runs them, and a 64 x 256 f32 accumulator per
 // warpgroup leaves no registers for the scores.
@@ -49,6 +54,7 @@
 //        -Xcompiler -fPIC -o libflash_fwd.so flash_fwd.cu -lcuda
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -62,47 +68,39 @@ constexpr float kMask = -1e30f;
 constexpr int kThreads = 128;
 
 // ---------------------------------------------------------------------------
-// bf16, D = 256: tensor cores through mma.sync
+// bf16 / fp16, D = 256: tensor cores through mma.sync
 // ---------------------------------------------------------------------------
 constexpr int kBQ = 64;  // q rows per CTA (16 per warp)
 constexpr int kBK = 64;  // keys per staged tile
 
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using hopper::mma_16816;
+using hopper::Elem;
 
-using hopper::pack_bf16;
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+template <typename T>
+__device__ __forceinline__ uint32_t ld32(const T* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
 template <int D>
-constexpr int bf16_smem_bytes() {
+constexpr int mma_smem_bytes() {
   // Q and K tiles [64][D+8], V^T tile [D][64+8]; the +8 pads rows so the
   // fragment reads of one warp hit 32 distinct banks
   return (2 * kBQ * (D + 8) + D * (kBK + 8)) * 2;
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                      int S, int causal, float s2scale) {
+flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int S, int causal,
+                     float s2scale) {
   constexpr int QS = D + 8;    // row stride of the Q and K tiles
   constexpr int VS = kBK + 8;  // row stride of the V^T tile
   constexpr int CH = D / 8;    // 16-byte chunks per row
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + kBQ * QS;
-  __nv_bfloat16* sVt = sK + kBK * QS;
+  T* sQ = reinterpret_cast<T*>(smem_raw);
+  T* sK = sQ + kBQ * QS;
+  T* sVt = sK + kBK * QS;
 
   const int qi = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int q0 = qi * kBQ;
@@ -131,7 +129,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int n_kb = (S + kBK - 1) / kBK;
   const int kb_end = causal ? min(n_kb, (q0 + kBQ + kBK - 1) / kBK) : n_kb;
-  const __nv_bfloat16* qw = sQ + (warp * 16 + g) * QS + 2 * t;
+  const T* qw = sQ + (warp * 16 + g) * QS + 2 * t;
 
   for (int kb = 0; kb < kb_end; ++kb) {
     const int k0 = kb * kBK;
@@ -145,7 +143,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         vv = *reinterpret_cast<const uint4*>(v + off);
       }
       *reinterpret_cast<uint4*>(sK + r * QS + c) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
+      const T* ve = reinterpret_cast<const T*>(&vv);
 #pragma unroll
       for (int e = 0; e < 8; ++e) sVt[(c + e) * VS + r] = ve[e];
     }
@@ -166,8 +164,8 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       a[3] = ld32(qw + 8 * QS + kk * 16 + 8);
 #pragma unroll
       for (int j = 0; j < kBK / 8; ++j) {
-        const __nv_bfloat16* kp = sK + (j * 8 + g) * QS + kk * 16 + 2 * t;
-        mma_bf16_16816(s[j], a, ld32(kp), ld32(kp + 8));
+        const T* kp = sK + (j * 8 + g) * QS + kk * 16 + 2 * t;
+        mma_16816<T>(s[j], a, ld32(kp), ld32(kp + 8));
       }
     }
 
@@ -217,14 +215,14 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
       uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      a[0] = Elem<T>::pack(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = Elem<T>::pack(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = Elem<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = Elem<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
-        const __nv_bfloat16* vp = sVt + (n * 8 + g) * VS + kk * 16 + 2 * t;
-        mma_bf16_16816(acc[n], a, ld32(vp), ld32(vp + 8));
+        const T* vp = sVt + (n * 8 + g) * VS + kk * 16 + 2 * t;
+        mma_16816<T>(acc[n], a, ld32(vp), ld32(vp + 8));
       }
     }
   }
@@ -237,11 +235,11 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const float lsafe = fmaxf(l, 1e-30f);
     const int row = row0 + h * 8;
     if (row < S) {
-      __nv_bfloat16* orow = o + base + (size_t)row * D + 2 * t;
+      T* orow = o + base + (size_t)row * D + 2 * t;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
         *reinterpret_cast<uint32_t*>(orow + n * 8) =
-            pack_bf16(acc[n][2 * h] / lsafe, acc[n][2 * h + 1] / lsafe);
+            Elem<T>::pack(acc[n][2 * h] / lsafe, acc[n][2 * h + 1] / lsafe);
       if (t == 0)
         lse[(size_t)blockIdx.y * S + row] = m_run[h] * kLn2 + logf(lsafe);
     }
@@ -359,7 +357,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16, D = 64 and 128: warp-specialised wgmma fed by TMA
+// bf16 / fp16, D = 64 and 128: warp-specialised wgmma fed by TMA
 // ---------------------------------------------------------------------------
 template <int D>
 struct WgCfg {
@@ -430,13 +428,13 @@ __device__ __forceinline__ void online_softmax(float (&s)[kN / 2],
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(WgCfg<D>::kThreads, WgCfg<D>::kMinBlocks)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
-                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                       int S, int causal, float s2scale) {
+                       T* __restrict__ o, float* __restrict__ lse, int S,
+                       int causal, float s2scale) {
   using namespace hopper;
   using C = WgCfg<D>;
   constexpr int kM = C::kM, kN = C::kN, ST = C::kStages, NH = D / 64;
@@ -515,7 +513,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<kN, 0, 0>(
+        wgmma_ss<T, kN, 0, 0>(
             s, desc_kmajor(q_rows + (kk >> 2) * kM * 128 + (kk & 3) * 32),
             desc_kmajor(k_tile + (kk >> 2) * kN * 128 + (kk & 3) * 32));
       wgmma_commit();
@@ -525,7 +523,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint32_t v_tile = sV + st * C::kTileBytes;
 #pragma unroll
       for (int kk = 0; kk < kN / 16; ++kk)
-        wgmma_rs<D, 1>(acc, pa[kk],
+        wgmma_rs<T, D, 1>(acc, pa[kk],
                        desc_mnmajor(v_tile + kk * 2048, kN * 128));
       wgmma_commit();
     };
@@ -539,7 +537,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     online_softmax<kN>(s, m_run, l_run, alpha, s2scale, (kb_end - 1) * kN,
                        S, causal, q0, row0, t);
 #pragma unroll
-    for (int kk = 0; kk < kN / 16; ++kk) pack_a(pa[kk], s, kk);
+    for (int kk = 0; kk < kN / 16; ++kk) pack_a<T>(pa[kk], s, kk);
 
     // steady state: tile it's scores and softmax run while the previous
     // tile's PV product is in flight
@@ -559,7 +557,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 #pragma unroll
-      for (int kk = 0; kk < kN / 16; ++kk) pack_a(pa[kk], s, kk);
+      for (int kk = 0; kk < kN / 16; ++kk) pack_a<T>(pa[kk], s, kk);
     }
     {
       const int it = kb_end - 1, st = it % ST;
@@ -579,92 +577,102 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const float lsafe = fmaxf(l, 1e-30f);
       const int row = row0 + 8 * h;
       if (row < S) {
-        __nv_bfloat16* orow = o + ((size_t)bh * S + row) * D + 2 * t;
+        T* orow = o + ((size_t)bh * S + row) * D + 2 * t;
 #pragma unroll
         for (int n = 0; n < D / 8; ++n)
           *reinterpret_cast<uint32_t*>(orow + 8 * n) =
-              pack_bf16(acc[4 * n + 2 * h] / lsafe,
-                        acc[4 * n + 2 * h + 1] / lsafe);
+              Elem<T>::pack(acc[4 * n + 2 * h] / lsafe,
+                       acc[4 * n + 2 * h + 1] / lsafe);
         if (t == 0) lse[(size_t)bh * S + row] = m_run[h] * kLn2 + logf(lsafe);
       }
     }
   }
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                          void* lse, int bh, int S, int causal,
                          cudaStream_t stream) {
   using C = WgCfg<D>;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (encode_bhsd_map(&tm_q, q, bh, S, D, C::kM) ||
-      encode_bhsd_map(&tm_k, k, bh, S, D, C::kN) ||
-      encode_bhsd_map(&tm_v, v, bh, S, D, C::kN))
+  if (encode_bhsd_map<T>(&tm_q, q, bh, S, D, C::kM) ||
+      encode_bhsd_map<T>(&tm_k, k, bh, S, D, C::kN) ||
+      encode_bhsd_map<T>(&tm_v, v, bh, S, D, C::kN))
     return cudaErrorInvalidValue;
-  auto kernel = flash_fwd_wgmma_kernel<D>;
+  auto kernel = flash_fwd_wgmma_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return err;
   dim3 grid(bh, (S + C::kM - 1) / C::kM);
   kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o),
+      tm_q, tm_k, tm_v, static_cast<T*>(o),
       static_cast<float*>(lse), S, causal, kLog2e / sqrtf((float)D));
   return cudaGetLastError();
 }
 
+// bf16 / fp16 (T): the wgmma kernel, or the mma.sync one at D = 256
+template <typename T, int D>
+cudaError_t launch_16(const void* q, const void* k, const void* v, void* o,
+                      void* lse, int bh, int S, int causal,
+                      cudaStream_t stream) {
+  if constexpr (D != 256) {
+    return launch_wgmma<T, D>(q, k, v, o, lse, bh, S, causal, stream);
+  } else {
+    const int smem = mma_smem_bytes<D>();
+    auto kernel = flash_fwd_mma_kernel<T, D>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((S + kBQ - 1) / kBQ, bh);
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o),
+        static_cast<float*>(lse), S, causal, kLog2e / sqrtf((float)D));
+    return cudaGetLastError();
+  }
+}
+
+// dtype: 0 fp32, 1 bf16, 2 fp16
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int bh, int S, int is_bf16, int causal,
+                   void* lse, int bh, int S, int dtype, int causal,
                    cudaStream_t stream) {
-  const float s2scale = kLog2e / sqrtf((float)D);
-  if (is_bf16) {
-    if constexpr (D != 256) {
-      return launch_wgmma<D>(q, k, v, o, lse, bh, S, causal, stream);
-    } else {
-      const int smem = bf16_smem_bytes<D>();
-      cudaError_t err = cudaFuncSetAttribute(
-          flash_fwd_bf16_kernel<D>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return err;
-      dim3 grid((S + kBQ - 1) / kBQ, bh);
-      flash_fwd_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
-          static_cast<const __nv_bfloat16*>(q),
-          static_cast<const __nv_bfloat16*>(k),
-          static_cast<const __nv_bfloat16*>(v),
-          static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), S,
-          causal, s2scale);
-    }
-  } else {
-    const int smem = f32_smem_bytes<D>();
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((S + kFBQ - 1) / kFBQ, bh);
-    flash_fwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o),
-        static_cast<float*>(lse), S, causal, s2scale);
-  }
+  if (dtype == 1)
+    return launch_16<__nv_bfloat16, D>(q, k, v, o, lse, bh, S, causal,
+                                       stream);
+  if (dtype == 2)
+    return launch_16<__half, D>(q, k, v, o, lse, bh, S, causal, stream);
+  if (dtype != 0) return cudaErrorInvalidValue;
+  const int smem = f32_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((S + kFBQ - 1) / kFBQ, bh);
+  flash_fwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), S, causal, kLog2e / sqrtf((float)D));
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k, v, o: [bh, S, D] contiguous, 16-byte aligned; lse: [bh, S] f32.
-// is_bf16: 1 for bf16 tensors, 0 for fp32. Returns a cudaError_t.
+// dtype: the tensors' element type, 0 fp32, 1 bf16, 2 fp16. Returns a
+// cudaError_t.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
-                         void* lse, int bh, int S, int D, int is_bf16,
+                         void* lse, int bh, int S, int D, int dtype,
                          int causal, void* stream) {
   if (bh < 1 || bh > 65535 || S < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return (int)launch<64>(q, k, v, o, lse, bh, S, is_bf16, causal, st);
+      return (int)launch<64>(q, k, v, o, lse, bh, S, dtype, causal, st);
     case 128:
-      return (int)launch<128>(q, k, v, o, lse, bh, S, is_bf16, causal, st);
+      return (int)launch<128>(q, k, v, o, lse, bh, S, dtype, causal, st);
     case 256:
-      return (int)launch<256>(q, k, v, o, lse, bh, S, is_bf16, causal, st);
+      return (int)launch<256>(q, k, v, o, lse, bh, S, dtype, causal, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

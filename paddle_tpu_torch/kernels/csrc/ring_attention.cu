@@ -66,8 +66,10 @@
 // merges them in the epilogue, and covers the slots of a step in one
 // launch (768 forward CTAs at the sp hop, 192 for each of its four slots).
 //
-// bf16 at D = 64 and 128 (every main path): warp-specialised wgmma kernels
-// on csrc/hopper.cuh, after flash_fwd.cu and flash_bwd.cu:
+// bf16 and fp16 at D = 64 and 128 (every main path): warp-specialised
+// wgmma kernels on csrc/hopper.cuh, after flash_fwd.cu and flash_bwd.cu,
+// each one template over the element type T (Elem<T>: the .bf16 or .f16
+// products, the TMA data type, the rounding of p and ds):
 //   * forward: one CTA per (bh, 64-row q tile, slot); one consumer
 //     warpgroup and one producer thread issuing TMA loads: Q once, K and V
 //     tiles of 128 keys through mbarrier stages (3 at D = 64, 2 CTAs per
@@ -89,10 +91,10 @@
 // any tile grid: every score is masked by global position (hidden scores
 // give p = 0 exactly), the loop bounds only skip work, and a hop wholly in
 // the future runs zero iterations and loads nothing.
-// D = 256 bf16 and fp32 keep the simple kernels below behind the same
-// slot tables and epilogues (no main path runs them):
-//   * bf16: tiles of 64 q rows x 64 keys on mma.sync m16n8k16 (bf16 in, f32
-//     accumulate); forward and dq: one CTA per (bh, 64-row q tile), a loop
+// D = 256 bf16 / fp16 and fp32 keep the simple kernels below behind the
+// same slot tables and epilogues (no main path runs them):
+//   * bf16 / fp16: tiles of 64 q rows x 64 keys on mma.sync m16n8k16 (T in,
+//     f32 accumulate); forward and dq: one CTA per (bh, 64-row q tile), a loop
 //     over key tiles, the score fragments re-packed in registers as the A
 //     operand of the next product; dk/dv: one CTA per (bh, 64-key tile),
 //     each warp computes s^T = k q^T for its 16 keys, a loop over q tiles.
@@ -105,6 +107,7 @@
 //        -Xcompiler -fPIC -o libring_attention.so ring_attention.cu -lcuda
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -114,7 +117,6 @@
 
 namespace {
 
-using bf16 = __nv_bfloat16;
 constexpr float kMask = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -226,9 +228,9 @@ __device__ __forceinline__ void store2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
 
-__device__ __forceinline__ void store2(bf16* p, float x, float y) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
-  *reinterpret_cast<__nv_bfloat162*>(p) = v;
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float x, float y) {
+  *reinterpret_cast<uint32_t*>(p) = hopper::Elem<T>::pack(x, y);
 }
 
 // The merge epilogue of a q tile held in the mma / wgmma accumulator
@@ -417,12 +419,12 @@ __device__ __forceinline__ bool visible(int row, int Sq, int key, int Sk,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync
+// bf16 / fp16: tensor cores through mma.sync
 // ---------------------------------------------------------------------------
 constexpr int kB = 64;  // q rows and keys per tile
 
 template <int D>
-struct Bf16Cfg {
+struct MmaCfg {
   static constexpr int DW = D > 128 ? 128 : D;  // head-dim columns per warp
   static constexpr int kWarps = 4 * (D / DW);   // 4 row groups x D / DW
   static constexpr int kThreads = 32 * kWarps;
@@ -430,35 +432,26 @@ struct Bf16Cfg {
 };
 constexpr int kFwdThreads = 128;  // the forward keeps 4 warps at every D
 
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using hopper::mma_16816;
+using hopper::Elem;
 
 // two neighbouring elements of one row (the row-major fragment read)
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+template <typename T>
+__device__ __forceinline__ uint32_t ld32(const T* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // two elements of one column, rows r and r + 1 (the transposed read)
-__device__ __forceinline__ uint32_t ld_col2(const bf16* p, int stride) {
+template <typename T>
+__device__ __forceinline__ uint32_t ld_col2(const T* p, int stride) {
   const uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
   const uint32_t hi = *reinterpret_cast<const uint16_t*>(p + stride);
   return lo | (hi << 16);
 }
 
 // A fragment of a 16 x 16 step from row-major rows (p = row g, column 2t)
-__device__ __forceinline__ void ld_a(uint32_t a[4], const bf16* p,
-                                     int stride) {
+template <typename T>
+__device__ __forceinline__ void ld_a(uint32_t a[4], const T* p, int stride) {
   a[0] = ld32(p);
   a[1] = ld32(p + 8 * stride);
   a[2] = ld32(p + 8);
@@ -466,20 +459,21 @@ __device__ __forceinline__ void ld_a(uint32_t a[4], const bf16* p,
 }
 
 // A fragment of the 16-column step kk from a 16 x 64 accumulator (the
-// fragments of n-tiles 2kk and 2kk+1), rounded to bf16
+// fragments of n-tiles 2kk and 2kk+1), rounded to T
+template <typename T>
 __device__ __forceinline__ void pack_a(uint32_t a[4], float (*c)[4], int kk) {
-  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  a[0] = Elem<T>::pack(c[2 * kk][0], c[2 * kk][1]);
+  a[1] = Elem<T>::pack(c[2 * kk][2], c[2 * kk][3]);
+  a[2] = Elem<T>::pack(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+  a[3] = Elem<T>::pack(c[2 * kk + 1][2], c[2 * kk + 1][3]);
 }
 
 // stage rows [row0, row0 + 64) of an [n, D] matrix into a tile with rows
 // padded by 8 (so a warp's fragment reads hit distinct banks); rows past n
 // read as zeros
-template <int D, int NT>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int row0, int n, int tid) {
+template <int D, int NT, typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
+                                          int n, int tid) {
   constexpr int CH = D / 8;  // 16-byte chunks per row
   constexpr int TS = D + 8;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
@@ -493,33 +487,33 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 }
 
 template <int D>
-constexpr int fwd_bf16_smem_bytes() {
+constexpr int fwd_mma_smem_bytes() {
   // Q and K tiles [64][D+8], V^T tile [D][64+8]
   return (2 * kB * (D + 8) + D * (kB + 8)) * 2;
 }
 
 template <int D>
-constexpr int bwd_bf16_smem_bytes() {
+constexpr int bwd_mma_smem_bytes() {
   // Q, dO, K, V tiles [64][D+8], and (dk/dv) the lse and delta rows
   return 4 * kB * (D + 8) * 2 + 2 * kB * 4;
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kFwdThreads)
-ring_fwd_bf16_kernel(const __grid_constant__ FwdTable tab, int Sq, int Sk,
-                     int causal, int first, int last, float scale) {
+ring_fwd_mma_kernel(const __grid_constant__ FwdTable tab, int Sq, int Sk,
+                    int causal, int first, int last, float scale) {
   const FwdSlot& sl = tab.s[blockIdx.z];
-  const bf16* __restrict__ q = static_cast<const bf16*>(sl.q);
-  const bf16* __restrict__ k = static_cast<const bf16*>(sl.k);
-  const bf16* __restrict__ v = static_cast<const bf16*>(sl.v);
+  const T* __restrict__ q = static_cast<const T*>(sl.q);
+  const T* __restrict__ k = static_cast<const T*>(sl.k);
+  const T* __restrict__ v = static_cast<const T*>(sl.v);
   const int q_off = sl.q_off, k_off = sl.k_off;
   constexpr int QS = D + 8;   // row stride of the Q and K tiles
   constexpr int VS = kB + 8;  // row stride of the V^T tile
   constexpr int CH = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + kB * QS;
-  bf16* sVt = sK + kB * QS;
+  T* sQ = reinterpret_cast<T*>(smem_raw);
+  T* sK = sQ + kB * QS;
+  T* sVt = sK + kB * QS;
 
   const int qi = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int q0 = qi * kB;
@@ -542,7 +536,7 @@ ring_fwd_bf16_kernel(const __grid_constant__ FwdTable tab, int Sq, int Sk,
 
   const int n_kb = (Sk + kB - 1) / kB;
   const int kb_end = key_tiles(q0, kB, kB, n_kb, q_off, k_off, causal);
-  const bf16* qw = sQ + (warp * 16 + g) * QS + 2 * t;
+  const T* qw = sQ + (warp * 16 + g) * QS + 2 * t;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 
   for (int kb = 0; kb < kb_end; ++kb) {
@@ -557,7 +551,7 @@ ring_fwd_bf16_kernel(const __grid_constant__ FwdTable tab, int Sq, int Sk,
         vv = *reinterpret_cast<const uint4*>(v + off);
       }
       *reinterpret_cast<uint4*>(sK + r * QS + c) = kv;
-      const bf16* ve = reinterpret_cast<const bf16*>(&vv);
+      const T* ve = reinterpret_cast<const T*>(&vv);
 #pragma unroll
       for (int e = 0; e < 8; ++e) sVt[(c + e) * VS + r] = ve[e];
     }
@@ -575,8 +569,8 @@ ring_fwd_bf16_kernel(const __grid_constant__ FwdTable tab, int Sq, int Sk,
       ld_a(a, qw + kk * 16, QS);
 #pragma unroll
       for (int j = 0; j < kB / 8; ++j) {
-        const bf16* kp = sK + (j * 8 + g) * QS + kk * 16 + 2 * t;
-        mma_bf16_16816(s[j], a, ld32(kp), ld32(kp + 8));
+        const T* kp = sK + (j * 8 + g) * QS + kk * 16 + 2 * t;
+        mma_16816<T>(s[j], a, ld32(kp), ld32(kp + 8));
       }
     }
 
@@ -628,11 +622,11 @@ ring_fwd_bf16_kernel(const __grid_constant__ FwdTable tab, int Sq, int Sk,
 #pragma unroll
     for (int kk = 0; kk < kB / 16; ++kk) {
       uint32_t a[4];
-      pack_a(a, s, kk);
+      pack_a<T>(a, s, kk);
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
-        const bf16* vp = sVt + (n * 8 + g) * VS + kk * 16 + 2 * t;
-        mma_bf16_16816(acc[n], a, ld32(vp), ld32(vp + 8));
+        const T* vp = sVt + (n * 8 + g) * VS + kk * 16 + 2 * t;
+        mma_16816<T>(acc[n], a, ld32(vp), ld32(vp + 8));
       }
     }
   }
@@ -647,29 +641,29 @@ ring_fwd_bf16_kernel(const __grid_constant__ FwdTable tab, int Sq, int Sk,
     lse_hop[h] = l > 0.f ? m_run[h] + logf(l) : kMask;
     inv_l[h] = l > 0.f ? 1.f / l : 0.f;
   }
-  merge_fragment<D, 1, bf16>(&acc[0][0], lse_hop, inv_l, row0, t, lane, Sq,
+  merge_fragment<D, 1, T>(&acc[0][0], lse_hop, inv_l, row0, t, lane, Sq,
                              (size_t)blockIdx.y * Sq, sl, first, last);
 }
 
-template <int D>
-__global__ void __launch_bounds__(Bf16Cfg<D>::kThreads)
-ring_dq_bf16_kernel(const __grid_constant__ DqTable tab, int Sq, int Sk,
-                    int causal, float scale) {
+template <typename T, int D>
+__global__ void __launch_bounds__(MmaCfg<D>::kThreads)
+ring_dq_mma_kernel(const __grid_constant__ DqTable tab, int Sq, int Sk,
+                   int causal, float scale) {
   const DqSlot& sl = tab.s[blockIdx.z];
-  const bf16* __restrict__ q = static_cast<const bf16*>(sl.q);
-  const bf16* __restrict__ k = static_cast<const bf16*>(sl.k);
-  const bf16* __restrict__ v = static_cast<const bf16*>(sl.v);
-  const bf16* __restrict__ dout = static_cast<const bf16*>(sl.dout);
+  const T* __restrict__ q = static_cast<const T*>(sl.q);
+  const T* __restrict__ k = static_cast<const T*>(sl.k);
+  const T* __restrict__ v = static_cast<const T*>(sl.v);
+  const T* __restrict__ dout = static_cast<const T*>(sl.dout);
   const float* __restrict__ lse = sl.lse;
   const float* __restrict__ delta = sl.delta;
   const int q_off = sl.q_off, k_off = sl.k_off;
-  using C = Bf16Cfg<D>;
+  using C = MmaCfg<D>;
   constexpr int TS = C::TS, DW = C::DW, NT = C::kThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sdO = sQ + kB * TS;
-  bf16* sK = sdO + kB * TS;
-  bf16* sV = sK + kB * TS;
+  T* sQ = reinterpret_cast<T*>(smem_raw);
+  T* sdO = sQ + kB * TS;
+  T* sK = sdO + kB * TS;
+  T* sV = sK + kB * TS;
 
   const int qb = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int q0 = qb * kB;
@@ -703,8 +697,8 @@ ring_dq_bf16_kernel(const __grid_constant__ DqTable tab, int Sq, int Sk,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  const bf16* qw = sQ + (rg * 16 + g) * TS + 2 * t;
-  const bf16* ow = sdO + (rg * 16 + g) * TS + 2 * t;
+  const T* qw = sQ + (rg * 16 + g) * TS + 2 * t;
+  const T* ow = sdO + (rg * 16 + g) * TS + 2 * t;
 
   for (int kb = 0; kb < kb_end; ++kb) {
     const int k0 = kb * kB;
@@ -726,10 +720,10 @@ ring_dq_bf16_kernel(const __grid_constant__ DqTable tab, int Sq, int Sk,
       ld_a(ao, ow + kk * 16, TS);
 #pragma unroll
       for (int j = 0; j < kB / 8; ++j) {
-        const bf16* kp = sK + (j * 8 + g) * TS + kk * 16 + 2 * t;
-        mma_bf16_16816(s[j], aq, ld32(kp), ld32(kp + 8));
-        const bf16* vp = sV + (j * 8 + g) * TS + kk * 16 + 2 * t;
-        mma_bf16_16816(dp[j], ao, ld32(vp), ld32(vp + 8));
+        const T* kp = sK + (j * 8 + g) * TS + kk * 16 + 2 * t;
+        mma_16816<T>(s[j], aq, ld32(kp), ld32(kp + 8));
+        const T* vp = sV + (j * 8 + g) * TS + kk * 16 + 2 * t;
+        mma_16816<T>(dp[j], ao, ld32(vp), ld32(vp + 8));
       }
     }
 
@@ -751,11 +745,11 @@ ring_dq_bf16_kernel(const __grid_constant__ DqTable tab, int Sq, int Sk,
 #pragma unroll
     for (int kk = 0; kk < kB / 16; ++kk) {
       uint32_t a[4];
-      pack_a(a, s, kk);
+      pack_a<T>(a, s, kk);
 #pragma unroll
       for (int n = 0; n < DW / 8; ++n) {
-        const bf16* kp = sK + (kk * 16 + 2 * t) * TS + d0 + n * 8 + g;
-        mma_bf16_16816(acc[n], a, ld_col2(kp, TS), ld_col2(kp + 8 * TS, TS));
+        const T* kp = sK + (kk * 16 + 2 * t) * TS + d0 + n * 8 + g;
+        mma_16816<T>(acc[n], a, ld_col2(kp, TS), ld_col2(kp + 8 * TS, TS));
       }
     }
   }
@@ -786,25 +780,25 @@ ring_dq_bf16_kernel(const __grid_constant__ DqTable tab, int Sq, int Sk,
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(Bf16Cfg<D>::kThreads)
-ring_dkv_bf16_kernel(const __grid_constant__ DkvTable tab, int Sq, int Sk,
-                     int causal, int first, float scale) {
+template <typename T, int D>
+__global__ void __launch_bounds__(MmaCfg<D>::kThreads)
+ring_dkv_mma_kernel(const __grid_constant__ DkvTable tab, int Sq, int Sk,
+                    int causal, int first, float scale) {
   const DkvSlot& sl = tab.s[blockIdx.z];
-  const bf16* __restrict__ q = static_cast<const bf16*>(sl.q);
-  const bf16* __restrict__ k = static_cast<const bf16*>(sl.k);
-  const bf16* __restrict__ v = static_cast<const bf16*>(sl.v);
-  const bf16* __restrict__ dout = static_cast<const bf16*>(sl.dout);
+  const T* __restrict__ q = static_cast<const T*>(sl.q);
+  const T* __restrict__ k = static_cast<const T*>(sl.k);
+  const T* __restrict__ v = static_cast<const T*>(sl.v);
+  const T* __restrict__ dout = static_cast<const T*>(sl.dout);
   const float* __restrict__ lse = sl.lse;
   const float* __restrict__ delta = sl.delta;
   const int q_off = sl.q_off, k_off = sl.k_off;
-  using C = Bf16Cfg<D>;
+  using C = MmaCfg<D>;
   constexpr int TS = C::TS, DW = C::DW, NT = C::kThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + kB * TS;
-  bf16* sQ = sV + kB * TS;
-  bf16* sdO = sQ + kB * TS;
+  T* sK = reinterpret_cast<T*>(smem_raw);
+  T* sV = sK + kB * TS;
+  T* sQ = sV + kB * TS;
+  T* sdO = sQ + kB * TS;
   float* sL = reinterpret_cast<float*>(sdO + kB * TS);  // lse
   float* sDl = sL + kB;                                  // delta
 
@@ -826,8 +820,8 @@ ring_dkv_bf16_kernel(const __grid_constant__ DkvTable tab, int Sq, int Sk,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_dk[n][e] = acc_dv[n][e] = 0.f;
 
-  const bf16* kw = sK + (rg * 16 + g) * TS + 2 * t;
-  const bf16* vw = sV + (rg * 16 + g) * TS + 2 * t;
+  const T* kw = sK + (rg * 16 + g) * TS + 2 * t;
+  const T* vw = sV + (rg * 16 + g) * TS + 2 * t;
   const int n_qb = (Sq + kB - 1) / kB;
   const int qb_begin = first_q_tile(k0, kB, n_qb, q_off, k_off, causal);
 
@@ -856,10 +850,10 @@ ring_dkv_bf16_kernel(const __grid_constant__ DkvTable tab, int Sq, int Sk,
       ld_a(av, vw + kk * 16, TS);
 #pragma unroll
       for (int j = 0; j < kB / 8; ++j) {
-        const bf16* qp = sQ + (j * 8 + g) * TS + kk * 16 + 2 * t;
-        mma_bf16_16816(st[j], ak, ld32(qp), ld32(qp + 8));
-        const bf16* op = sdO + (j * 8 + g) * TS + kk * 16 + 2 * t;
-        mma_bf16_16816(dpt[j], av, ld32(op), ld32(op + 8));
+        const T* qp = sQ + (j * 8 + g) * TS + kk * 16 + 2 * t;
+        mma_16816<T>(st[j], ak, ld32(qp), ld32(qp + 8));
+        const T* op = sdO + (j * 8 + g) * TS + kk * 16 + 2 * t;
+        mma_16816<T>(dpt[j], av, ld32(op), ld32(op + 8));
       }
     }
 
@@ -884,16 +878,16 @@ ring_dkv_bf16_kernel(const __grid_constant__ DkvTable tab, int Sq, int Sk,
 #pragma unroll
     for (int kk = 0; kk < kB / 16; ++kk) {
       uint32_t ap[4], as[4];
-      pack_a(ap, st, kk);
-      pack_a(as, dpt, kk);
+      pack_a<T>(ap, st, kk);
+      pack_a<T>(as, dpt, kk);
 #pragma unroll
       for (int n = 0; n < DW / 8; ++n) {
         const int col = d0 + n * 8 + g;
-        const bf16* op = sdO + (kk * 16 + 2 * t) * TS + col;
-        mma_bf16_16816(acc_dv[n], ap, ld_col2(op, TS),
+        const T* op = sdO + (kk * 16 + 2 * t) * TS + col;
+        mma_16816<T>(acc_dv[n], ap, ld_col2(op, TS),
                        ld_col2(op + 8 * TS, TS));
-        const bf16* qp = sQ + (kk * 16 + 2 * t) * TS + col;
-        mma_bf16_16816(acc_dk[n], as, ld_col2(qp, TS),
+        const T* qp = sQ + (kk * 16 + 2 * t) * TS + col;
+        mma_16816<T>(acc_dk[n], as, ld_col2(qp, TS),
                        ld_col2(qp + 8 * TS, TS));
       }
     }
@@ -1244,7 +1238,7 @@ ring_dkv_f32_kernel(const __grid_constant__ DkvTable tab, int Sq, int Sk,
 }
 
 // ---------------------------------------------------------------------------
-// bf16, D = 64 and 128: warp-specialised wgmma fed by TMA
+// bf16 / fp16, D = 64 and 128: warp-specialised wgmma fed by TMA
 // ---------------------------------------------------------------------------
 template <int D>
 struct WgFwdCfg {
@@ -1304,7 +1298,7 @@ __device__ __forceinline__ void ring_softmax(float (&s)[kN / 2],
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(256, 2)
 ring_fwd_wgmma_kernel(const __grid_constant__ FwdWgParams prm, int Sq,
                       int Sk, int causal, int first, int last,
@@ -1400,7 +1394,7 @@ ring_fwd_wgmma_kernel(const __grid_constant__ FwdWgParams prm, int Sq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<kN, 0, 0>(
+        wgmma_ss<T, kN, 0, 0>(
             s, desc_kmajor(sQ + (kk >> 2) * kM * 128 + (kk & 3) * 32),
             desc_kmajor(k_tile + (kk >> 2) * kN * 128 + (kk & 3) * 32));
       wgmma_commit();
@@ -1410,7 +1404,7 @@ ring_fwd_wgmma_kernel(const __grid_constant__ FwdWgParams prm, int Sq,
       const uint32_t v_tile = sV + st * C::kTileBytes;
 #pragma unroll
       for (int kk = 0; kk < kN / 16; ++kk)
-        wgmma_rs<D, 1>(acc, pa[kk],
+        wgmma_rs<T, D, 1>(acc, pa[kk],
                        desc_mnmajor(v_tile + kk * 2048, kN * 128));
       wgmma_commit();
     };
@@ -1429,7 +1423,7 @@ ring_fwd_wgmma_kernel(const __grid_constant__ FwdWgParams prm, int Sq,
     fence_regs(s);
     softmax(0);
 #pragma unroll
-    for (int kk = 0; kk < kN / 16; ++kk) hopper::pack_a(pa[kk], s, kk);
+    for (int kk = 0; kk < kN / 16; ++kk) hopper::pack_a<T>(pa[kk], s, kk);
 
     // steady state: tile it's scores and softmax run while the previous
     // tile's PV product is in flight
@@ -1448,7 +1442,7 @@ ring_fwd_wgmma_kernel(const __grid_constant__ FwdWgParams prm, int Sq,
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 #pragma unroll
-      for (int kk = 0; kk < kN / 16; ++kk) hopper::pack_a(pa[kk], s, kk);
+      for (int kk = 0; kk < kN / 16; ++kk) hopper::pack_a<T>(pa[kk], s, kk);
     }
     {
       const int it = kb_end - 1, st = it % ST;
@@ -1475,7 +1469,7 @@ ring_fwd_wgmma_kernel(const __grid_constant__ FwdWgParams prm, int Sq,
     load_o_rows<D, 2>(old, sl, 0, row0, t, Sq, rbase, first);
   RowMerge m[2];
   row_merges(m, lo, lse_hop, inv_l, lane, first, last);
-  merge_rows<D, 2, bf16>(acc, old, m, 0, row0, t, Sq, rbase, sl, last);
+  merge_rows<D, 2, T>(acc, old, m, 0, row0, t, Sq, rbase, sl, last);
 }
 
 template <int D>
@@ -1495,7 +1489,7 @@ struct WgDkvCfg {
   static constexpr int kSmem = kOffBar + 64 + 1024;  // +1024 aligns the base
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(384, 1)
 ring_dkv_wgmma_kernel(const __grid_constant__ DkvWgParams prm, int Sq,
                       int Sk, int causal, int first, float scale) {
@@ -1603,9 +1597,9 @@ ring_dkv_wgmma_kernel(const __grid_constant__ DkvWgParams prm, int Sq,
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t a_off = (kk >> 2) * kN * 128 + (kk & 3) * 32;
       const uint32_t b_off = (kk >> 2) * kM * 128 + (kk & 3) * 32;
-      wgmma_ss<kM, 0, 0>(s, desc_kmajor(k_rows + a_off),
+      wgmma_ss<T, kM, 0, 0>(s, desc_kmajor(k_rows + a_off),
                          desc_kmajor(q_tile + b_off));
-      wgmma_ss<kM, 0, 0>(dp, desc_kmajor(v_rows + a_off),
+      wgmma_ss<T, kM, 0, 0>(dp, desc_kmajor(v_rows + a_off),
                          desc_kmajor(do_tile + b_off));
     }
     wgmma_commit();
@@ -1645,15 +1639,15 @@ ring_dkv_wgmma_kernel(const __grid_constant__ DkvWgParams prm, int Sq,
     uint32_t pa[kM / 16][4], da[kM / 16][4];
 #pragma unroll
     for (int kk = 0; kk < kM / 16; ++kk) {
-      hopper::pack_a(pa[kk], s, kk);
-      hopper::pack_a(da[kk], dp, kk);
+      hopper::pack_a<T>(pa[kk], s, kk);
+      hopper::pack_a<T>(da[kk], dp, kk);
     }
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kM / 16; ++kk) {
-      wgmma_rs<D, 1>(acc_dv, pa[kk],
+      wgmma_rs<T, D, 1>(acc_dv, pa[kk],
                      desc_mnmajor(do_tile + kk * 2048, kM * 128));
-      wgmma_rs<D, 1>(acc_dk, da[kk],
+      wgmma_rs<T, D, 1>(acc_dk, da[kk],
                      desc_mnmajor(q_tile + kk * 2048, kM * 128));
     }
     wgmma_commit();
@@ -1670,12 +1664,12 @@ ring_dkv_wgmma_kernel(const __grid_constant__ DkvWgParams prm, int Sq,
 
 // the dq step: csrc/dq_wgmma.cuh's template over the slots of a ring step,
 // adding into each slot's f32 accumulator
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(dq_wgmma::Cfg<D>::kThreads,
                                   dq_wgmma::Cfg<D>::kMinBlocks)
 ring_dq_wgmma_kernel(const __grid_constant__ DqWgParams prm, int Sq, int Sk,
                      int causal, float scale) {
-  dq_wgmma::run<D, true>(prm.maps[blockIdx.z], prm.s[blockIdx.z], Sq, Sk,
+  dq_wgmma::run<T, D, true>(prm.maps[blockIdx.z], prm.s[blockIdx.z], Sq, Sk,
                          causal, scale);
 }
 
@@ -1693,133 +1687,146 @@ cudaError_t prepare(Kernel kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-template <int D>
-cudaError_t launch_fwd_step(const FwdTable& tab, const StepArgs& a,
-                            int is_bf16) {
+// bf16 / fp16 (T): the wgmma kernel, or the mma.sync one at D = 256
+template <typename T, int D>
+cudaError_t launch_fwd_step_16(const FwdTable& tab, const StepArgs& a) {
   const float scale = 1.0f / sqrtf((float)D);
-  if (is_bf16) {
-    if constexpr (D != 256) {
-      using C = WgFwdCfg<D>;
-      FwdWgParams prm;
-      for (int i = 0; i < a.n; ++i) {
-        const FwdSlot& sl = tab.s[i];
-        if (encode_bhsd_map(&prm.maps[i].q, sl.q, a.bh, a.Sq, D, C::kM) ||
-            encode_bhsd_map(&prm.maps[i].k, sl.k, a.bh, a.Sk, D, C::kN) ||
-            encode_bhsd_map(&prm.maps[i].v, sl.v, a.bh, a.Sk, D, C::kN))
-          return cudaErrorInvalidValue;
-        prm.s[i] = sl;
-      }
-      auto kernel = ring_fwd_wgmma_kernel<D>;
-      cudaError_t err = prepare(kernel, C::kSmem);
-      if (err != cudaSuccess) return err;
-      dim3 grid(a.bh, (a.Sq + C::kM - 1) / C::kM, a.n);
-      kernel<<<grid, C::kThreads, C::kSmem, a.stream>>>(
-          prm, a.Sq, a.Sk, a.causal, a.first, a.last, kLog2e * scale);
-    } else {
-      const int smem = fwd_bf16_smem_bytes<D>();
-      auto kernel = ring_fwd_bf16_kernel<D>;
-      cudaError_t err = prepare(kernel, smem);
-      if (err != cudaSuccess) return err;
-      dim3 grid((a.Sq + kB - 1) / kB, a.bh, a.n);
-      kernel<<<grid, kFwdThreads, smem, a.stream>>>(
-          tab, a.Sq, a.Sk, a.causal, a.first, a.last, scale);
+  if constexpr (D != 256) {
+    using C = WgFwdCfg<D>;
+    FwdWgParams prm;
+    for (int i = 0; i < a.n; ++i) {
+      const FwdSlot& sl = tab.s[i];
+      if (encode_bhsd_map<T>(&prm.maps[i].q, sl.q, a.bh, a.Sq, D, C::kM) ||
+          encode_bhsd_map<T>(&prm.maps[i].k, sl.k, a.bh, a.Sk, D, C::kN) ||
+          encode_bhsd_map<T>(&prm.maps[i].v, sl.v, a.bh, a.Sk, D, C::kN))
+        return cudaErrorInvalidValue;
+      prm.s[i] = sl;
     }
+    auto kernel = ring_fwd_wgmma_kernel<T, D>;
+    cudaError_t err = prepare(kernel, C::kSmem);
+    if (err != cudaSuccess) return err;
+    dim3 grid(a.bh, (a.Sq + C::kM - 1) / C::kM, a.n);
+    kernel<<<grid, C::kThreads, C::kSmem, a.stream>>>(
+        prm, a.Sq, a.Sk, a.causal, a.first, a.last, kLog2e * scale);
   } else {
-    const int smem = fwd_f32_smem_bytes<D>();
-    auto kernel = ring_fwd_f32_kernel<D>;
+    const int smem = fwd_mma_smem_bytes<D>();
+    auto kernel = ring_fwd_mma_kernel<T, D>;
     cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return err;
-    dim3 grid((a.Sq + kFB - 1) / kFB, a.bh, a.n);
-    kernel<<<grid, kFThreads, smem, a.stream>>>(tab, a.Sq, a.Sk, a.causal,
-                                                a.first, a.last, scale);
+    dim3 grid((a.Sq + kB - 1) / kB, a.bh, a.n);
+    kernel<<<grid, kFwdThreads, smem, a.stream>>>(
+        tab, a.Sq, a.Sk, a.causal, a.first, a.last, scale);
+  }
+  return cudaGetLastError();
+}
+
+// dtype: 0 fp32, 1 bf16, 2 fp16
+template <int D>
+cudaError_t launch_fwd_step(const FwdTable& tab, const StepArgs& a,
+                            int dtype) {
+  if (dtype == 1) return launch_fwd_step_16<__nv_bfloat16, D>(tab, a);
+  if (dtype == 2) return launch_fwd_step_16<__half, D>(tab, a);
+  if (dtype != 0) return cudaErrorInvalidValue;
+  const int smem = fwd_f32_smem_bytes<D>();
+  auto kernel = ring_fwd_f32_kernel<D>;
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.Sq + kFB - 1) / kFB, a.bh, a.n);
+  kernel<<<grid, kFThreads, smem, a.stream>>>(tab, a.Sq, a.Sk, a.causal,
+                                              a.first, a.last,
+                                              1.0f / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv_step_16(const DkvTable& tab, const StepArgs& a) {
+  const float scale = 1.0f / sqrtf((float)D);
+  if constexpr (D != 256) {
+    using C = WgDkvCfg<D>;
+    DkvWgParams prm;
+    for (int i = 0; i < a.n; ++i) {
+      const DkvSlot& sl = tab.s[i];
+      if (encode_bhsd_map<T>(&prm.maps[i].q, sl.q, a.bh, a.Sq, D, C::kM) ||
+          encode_bhsd_map<T>(&prm.maps[i].k, sl.k, a.bh, a.Sk, D, C::kN) ||
+          encode_bhsd_map<T>(&prm.maps[i].v, sl.v, a.bh, a.Sk, D, C::kN) ||
+          encode_bhsd_map<T>(&prm.maps[i].dout, sl.dout, a.bh, a.Sq, D,
+                             C::kM))
+        return cudaErrorInvalidValue;
+      prm.s[i] = sl;
+    }
+    auto kernel = ring_dkv_wgmma_kernel<T, D>;
+    cudaError_t err = prepare(kernel, C::kSmem);
+    if (err != cudaSuccess) return err;
+    dim3 grid(a.bh, (a.Sk + C::kN - 1) / C::kN, a.n);
+    kernel<<<grid, C::kThreads, C::kSmem, a.stream>>>(
+        prm, a.Sq, a.Sk, a.causal, a.first, scale);
+  } else {
+    const int smem = bwd_mma_smem_bytes<D>();
+    auto kernel = ring_dkv_mma_kernel<T, D>;
+    cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((a.Sk + kB - 1) / kB, a.bh, a.n);
+    kernel<<<grid, MmaCfg<D>::kThreads, smem, a.stream>>>(
+        tab, a.Sq, a.Sk, a.causal, a.first, scale);
   }
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dkv_step(const DkvTable& tab, const StepArgs& a,
-                            int is_bf16) {
-  const float scale = 1.0f / sqrtf((float)D);
-  if (is_bf16) {
-    if constexpr (D != 256) {
-      using C = WgDkvCfg<D>;
-      DkvWgParams prm;
-      for (int i = 0; i < a.n; ++i) {
-        const DkvSlot& sl = tab.s[i];
-        if (encode_bhsd_map(&prm.maps[i].q, sl.q, a.bh, a.Sq, D, C::kM) ||
-            encode_bhsd_map(&prm.maps[i].k, sl.k, a.bh, a.Sk, D, C::kN) ||
-            encode_bhsd_map(&prm.maps[i].v, sl.v, a.bh, a.Sk, D, C::kN) ||
-            encode_bhsd_map(&prm.maps[i].dout, sl.dout, a.bh, a.Sq, D,
-                            C::kM))
-          return cudaErrorInvalidValue;
-        prm.s[i] = sl;
-      }
-      auto kernel = ring_dkv_wgmma_kernel<D>;
-      cudaError_t err = prepare(kernel, C::kSmem);
-      if (err != cudaSuccess) return err;
-      dim3 grid(a.bh, (a.Sk + C::kN - 1) / C::kN, a.n);
-      kernel<<<grid, C::kThreads, C::kSmem, a.stream>>>(
-          prm, a.Sq, a.Sk, a.causal, a.first, scale);
-    } else {
-      const int smem = bwd_bf16_smem_bytes<D>();
-      auto kernel = ring_dkv_bf16_kernel<D>;
-      cudaError_t err = prepare(kernel, smem);
-      if (err != cudaSuccess) return err;
-      dim3 grid((a.Sk + kB - 1) / kB, a.bh, a.n);
-      kernel<<<grid, Bf16Cfg<D>::kThreads, smem, a.stream>>>(
-          tab, a.Sq, a.Sk, a.causal, a.first, scale);
-    }
-  } else {
-    const int smem = dkv_f32_smem_bytes<D>();
-    auto kernel = ring_dkv_f32_kernel<D>;
-    cudaError_t err = prepare(kernel, smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((a.Sk + kFB - 1) / kFB, a.bh, a.n);
-    kernel<<<grid, kFThreads, smem, a.stream>>>(tab, a.Sq, a.Sk, a.causal,
-                                                a.first, scale);
-  }
+                            int dtype) {
+  if (dtype == 1) return launch_dkv_step_16<__nv_bfloat16, D>(tab, a);
+  if (dtype == 2) return launch_dkv_step_16<__half, D>(tab, a);
+  if (dtype != 0) return cudaErrorInvalidValue;
+  const int smem = dkv_f32_smem_bytes<D>();
+  auto kernel = ring_dkv_f32_kernel<D>;
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.Sk + kFB - 1) / kFB, a.bh, a.n);
+  kernel<<<grid, kFThreads, smem, a.stream>>>(tab, a.Sq, a.Sk, a.causal,
+                                              a.first,
+                                              1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dq_wgmma(const DqTable& tab, const StepArgs& a) {
-  DqWgParams prm;
-  for (int i = 0; i < a.n; ++i) {
-    const DqSlot& sl = tab.s[i];
-    if (dq_wgmma::encode_maps<D>(&prm.maps[i], sl.q, sl.k, sl.v, sl.dout,
-                                 a.bh, a.Sq, a.Sk))
-      return cudaErrorInvalidValue;
-    prm.s[i] = dq_wgmma::Slot{sl.lse, sl.delta, sl.dq, sl.q_off, sl.k_off};
+template <typename T, int D>
+cudaError_t launch_dq_step_16(const DqTable& tab, const StepArgs& a) {
+  if constexpr (D != 256) {
+    DqWgParams prm;
+    for (int i = 0; i < a.n; ++i) {
+      const DqSlot& sl = tab.s[i];
+      if (dq_wgmma::encode_maps<T, D>(&prm.maps[i], sl.q, sl.k, sl.v,
+                                      sl.dout, a.bh, a.Sq, a.Sk))
+        return cudaErrorInvalidValue;
+      prm.s[i] = dq_wgmma::Slot{sl.lse, sl.delta, sl.dq, sl.q_off, sl.k_off};
+    }
+    return dq_wgmma::launch<D>(ring_dq_wgmma_kernel<T, D>, prm, a.n, a.bh,
+                               a.Sq, a.Sk, a.causal, a.stream);
+  } else {
+    const int smem = bwd_mma_smem_bytes<D>();
+    auto kernel = ring_dq_mma_kernel<T, D>;
+    cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((a.Sq + kB - 1) / kB, a.bh, a.n);
+    kernel<<<grid, MmaCfg<D>::kThreads, smem, a.stream>>>(
+        tab, a.Sq, a.Sk, a.causal, 1.0f / sqrtf((float)D));
+    return cudaGetLastError();
   }
-  return dq_wgmma::launch<D>(ring_dq_wgmma_kernel<D>, prm, a.n, a.bh, a.Sq,
-                             a.Sk, a.causal, a.stream);
 }
 
 template <int D>
 cudaError_t launch_dq_step(const DqTable& tab, const StepArgs& a,
-                           int is_bf16) {
-  const float scale = 1.0f / sqrtf((float)D);
-  if (is_bf16) {
-    if constexpr (D != 256) {
-      return launch_dq_wgmma<D>(tab, a);
-    } else {
-      const int smem = bwd_bf16_smem_bytes<D>();
-      auto kernel = ring_dq_bf16_kernel<D>;
-      cudaError_t err = prepare(kernel, smem);
-      if (err != cudaSuccess) return err;
-      dim3 grid((a.Sq + kB - 1) / kB, a.bh, a.n);
-      kernel<<<grid, Bf16Cfg<D>::kThreads, smem, a.stream>>>(
-          tab, a.Sq, a.Sk, a.causal, scale);
-    }
-  } else {
-    const int smem = dq_f32_smem_bytes<D>();
-    auto kernel = ring_dq_f32_kernel<D>;
-    cudaError_t err = prepare(kernel, smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((a.Sq + kFB - 1) / kFB, a.bh, a.n);
-    kernel<<<grid, kFThreads, smem, a.stream>>>(tab, a.Sq, a.Sk, a.causal,
-                                                scale);
-  }
+                           int dtype) {
+  if (dtype == 1) return launch_dq_step_16<__nv_bfloat16, D>(tab, a);
+  if (dtype == 2) return launch_dq_step_16<__half, D>(tab, a);
+  if (dtype != 0) return cudaErrorInvalidValue;
+  const int smem = dq_f32_smem_bytes<D>();
+  auto kernel = ring_dq_f32_kernel<D>;
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.Sq + kFB - 1) / kFB, a.bh, a.n);
+  kernel<<<grid, kFThreads, smem, a.stream>>>(tab, a.Sq, a.Sk, a.causal,
+                                              1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
@@ -1830,7 +1837,7 @@ bool bad_shape(int n, int bh, int Sq, int Sk) {
 }  // namespace
 
 // q, dout: [bh, Sq, D]; k, v: [bh, Sk, D]; contiguous, 16-byte aligned, one
-// dtype (is_bf16: 1 for bf16, 0 for fp32). lse, delta: [bh, Sq] f32.
+// dtype (dtype: 0 fp32, 1 bf16, 2 fp16). lse, delta: [bh, Sq] f32.
 // q_off, k_off: global positions of the first q row and the first key.
 // Each entry launches on `stream` and returns a cudaError_t.
 
@@ -1839,7 +1846,7 @@ bool bad_shape(int n, int bh, int Sq, int Sk) {
 // [bh, Sq]), out ([bh, Sq, D] in the input dtype, written when last);
 // offs holds q_off, k_off per slot.
 extern "C" int ring_fwd_step(const void* const* ptrs, const int* offs, int n,
-                             int bh, int Sq, int Sk, int D, int is_bf16,
+                             int bh, int Sq, int Sk, int D, int dtype,
                              int causal, int first, int last, void* stream) {
   if (bad_shape(n, bh, Sq, Sk)) return (int)cudaErrorInvalidValue;
   FwdTable tab{};
@@ -1854,11 +1861,11 @@ extern "C" int ring_fwd_step(const void* const* ptrs, const int* offs, int n,
                    static_cast<cudaStream_t>(stream)};
   switch (D) {
     case 64:
-      return (int)launch_fwd_step<64>(tab, a, is_bf16);
+      return (int)launch_fwd_step<64>(tab, a, dtype);
     case 128:
-      return (int)launch_fwd_step<128>(tab, a, is_bf16);
+      return (int)launch_fwd_step<128>(tab, a, dtype);
     case 256:
-      return (int)launch_fwd_step<256>(tab, a, is_bf16);
+      return (int)launch_fwd_step<256>(tab, a, dtype);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1868,7 +1875,7 @@ extern "C" int ring_fwd_step(const void* const* ptrs, const int* offs, int n,
 // k, v, dout, lse, delta, dk, dv (f32 [bh, Sk, D], stored when first, else
 // added to); offs holds q_off, k_off per slot.
 extern "C" int ring_dkv_step(const void* const* ptrs, const int* offs, int n,
-                             int bh, int Sq, int Sk, int D, int is_bf16,
+                             int bh, int Sq, int Sk, int D, int dtype,
                              int causal, int first, void* stream) {
   if (bad_shape(n, bh, Sq, Sk)) return (int)cudaErrorInvalidValue;
   DkvTable tab{};
@@ -1885,11 +1892,11 @@ extern "C" int ring_dkv_step(const void* const* ptrs, const int* offs, int n,
                    static_cast<cudaStream_t>(stream)};
   switch (D) {
     case 64:
-      return (int)launch_dkv_step<64>(tab, a, is_bf16);
+      return (int)launch_dkv_step<64>(tab, a, dtype);
     case 128:
-      return (int)launch_dkv_step<128>(tab, a, is_bf16);
+      return (int)launch_dkv_step<128>(tab, a, dtype);
     case 256:
-      return (int)launch_dkv_step<256>(tab, a, is_bf16);
+      return (int)launch_dkv_step<256>(tab, a, dtype);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1899,7 +1906,7 @@ extern "C" int ring_dkv_step(const void* const* ptrs, const int* offs, int n,
 // v, dout, lse, delta, dq (the f32 accumulator [bh, Sq, D], added to);
 // offs holds q_off, k_off per slot.
 extern "C" int ring_dq_step(const void* const* ptrs, const int* offs, int n,
-                            int bh, int Sq, int Sk, int D, int is_bf16,
+                            int bh, int Sq, int Sk, int D, int dtype,
                             int causal, void* stream) {
   if (bad_shape(n, bh, Sq, Sk)) return (int)cudaErrorInvalidValue;
   DqTable tab{};
@@ -1915,11 +1922,11 @@ extern "C" int ring_dq_step(const void* const* ptrs, const int* offs, int n,
                    static_cast<cudaStream_t>(stream)};
   switch (D) {
     case 64:
-      return (int)launch_dq_step<64>(tab, a, is_bf16);
+      return (int)launch_dq_step<64>(tab, a, dtype);
     case 128:
-      return (int)launch_dq_step<128>(tab, a, is_bf16);
+      return (int)launch_dq_step<128>(tab, a, dtype);
     case 256:
-      return (int)launch_dq_step<256>(tab, a, is_bf16);
+      return (int)launch_dq_step<256>(tab, a, dtype);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -28,13 +28,16 @@ same source that also zeroes the fused form's dq workspace, and another
 scales and casts that workspace after the kernel; `_delta` is their plain
 version.
 
-Kernels are built with nvcc at first use and called through ctypes; their
-bounds on the H100 and their designs are noted in the sources. On a CUDA
-tensor a wrapper launches its kernel or raises; only a tensor on the CPU
-takes the plain PyTorch version, which the CPU tests hold against the
-Pallas kernels in interpret mode. Ragged lengths are masked inside the
-kernels, so a CUDA tensor never reaches a plain version. Each wrapper
-counts its launches in `<wrapper>.launches`.
+The kernels take fp32, bf16 and fp16 (`KERNEL_DTYPES`, every dtype the
+reference's dispatch sends to its Pallas kernels, whose dots run in the
+input dtype): the bf16 and fp16 forms are one template over the element
+type. Kernels are built with nvcc at first use and called through
+ctypes; their bounds on the H100 and their designs are noted in the
+sources. On a CUDA tensor a wrapper launches its kernel or raises; only a
+tensor on the CPU takes the plain PyTorch version, which the CPU tests
+hold against the Pallas kernels in interpret mode. Ragged lengths are
+masked inside the kernels, so a CUDA tensor never reaches a plain
+version. Each wrapper counts its launches in `<wrapper>.launches`.
 """
 from __future__ import annotations
 
@@ -50,13 +53,14 @@ from . import _build
 
 _FWD, _BWD = "flash_fwd", "flash_bwd"
 _HEAD_DIMS = (64, 128, 256)
-# the dtypes the kernels take: the dispatch of `nn.functional` and of the
-# sp ring sends every other dtype to its plain path
-KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+# the dtypes the kernels take, by the code their C entries take for them
+# (every dtype the reference's dispatch sends to its Pallas kernels)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+KERNEL_DTYPES = tuple(DTYPE_CODES)
 _count_lock = threading.Lock()
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C signatures: pointers, then ints ((bh, S, D, is_bf16, causal) for the
-# attention kernels, (bh, S, D, is_bf16) for the passes around the
+# C signatures: pointers, then ints ((bh, S, D, dtype code, causal) for the
+# attention kernels, (bh, S, D, dtype code) for the passes around the
 # backward), then the stream
 _SIGNATURES = {"flash_fwd": (5, 5), "flash_bwd_fused": (9, 5),
                "flash_bwd_dkv": (8, 5), "flash_bwd_dq": (7, 5),
@@ -91,10 +95,10 @@ def _count(wrapper) -> None:
 
 def _launch(lib, fn_name, tensors, q, causal=None):
     """Launch a C entry on q's device and current stream: the tensors'
-    pointers (None passes a null pointer), then BH, S, D, is_bf16 and,
-    for the attention kernels, causal."""
+    pointers (None passes a null pointer), then BH, S, D, the dtype code
+    and, for the attention kernels, causal."""
     bh, s, d = q.shape
-    ints = [bh, s, d, int(q.dtype == torch.bfloat16)]
+    ints = [bh, s, d, DTYPE_CODES[q.dtype]]
     if causal is not None:
         ints.append(int(bool(causal)))
     ptrs = [None if x is None else x.data_ptr() for x in tensors]
@@ -160,8 +164,8 @@ def _check(name, *tensors):
                          f"got {[tuple(x.shape) for x in tensors]}")
     if q.dtype not in KERNEL_DTYPES or \
             any(x.dtype != q.dtype for x in tensors[1:]):
-        raise TypeError(f"{name}: bf16 or fp32 q/k/v of one dtype, got "
-                        f"{[x.dtype for x in tensors]}")
+        raise TypeError(f"{name}: fp32, bf16 or fp16 q/k/v of one dtype, "
+                        f"got {[x.dtype for x in tensors]}")
     if q.shape[-1] not in _HEAD_DIMS:
         raise ValueError(f"{name}: head_dim {q.shape[-1]} not in "
                          f"{_HEAD_DIMS}")
@@ -387,4 +391,5 @@ __all__ = ["build", "build_bwd", "flash_attention", "flash_attention_arrays",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_bwd_fused", "flash_attention_bwd_two_pass",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "flash_bwd_prep", "flash_fwd_op", "flash_bwd_op", "KERNEL_DTYPES"]
+           "flash_bwd_prep", "flash_fwd_op", "flash_bwd_op", "DTYPE_CODES",
+           "KERNEL_DTYPES"]

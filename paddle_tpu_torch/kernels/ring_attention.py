@@ -59,11 +59,12 @@ import math
 import torch
 
 from . import _build
-from .flash_attention import KERNEL_DTYPES, _HEAD_DIMS, _count_lock, _on_cuda
+from .flash_attention import (DTYPE_CODES, KERNEL_DTYPES, _HEAD_DIMS,
+                              _count_lock, _on_cuda)
 
 _SRC = "ring_attention"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C signatures: ptrs, offs, then n, bh, Sq, Sk, D, is_bf16, causal [, first
+# C signatures: ptrs, offs, then n, bh, Sq, Sk, D, dtype code, causal [, first
 # [, last]] (first for dk/dv, first and last for the forward); the stream
 # last
 _SIGNATURES = {"ring_fwd_step": [_P, _P] + [_I] * 9,
@@ -128,8 +129,8 @@ def _check(name, q, k, v, do=None, lse=None, delta=None):
     mats = (*rows, k, v)
     if q.dtype not in KERNEL_DTYPES or \
             any(x.dtype != q.dtype for x in mats):
-        raise TypeError(f"{name}: bf16 or fp32 inputs of one dtype, got "
-                        f"{[x.dtype for x in mats]}")
+        raise TypeError(f"{name}: fp32, bf16 or fp16 inputs of one dtype, "
+                        f"got {[x.dtype for x in mats]}")
     if q.shape[-1] not in _HEAD_DIMS:
         raise ValueError(f"{name}: head_dim {q.shape[-1]} not in "
                          f"{_HEAD_DIMS}")
@@ -330,7 +331,7 @@ def ring_fwd_step(qs, ks, vs, offs, o, lse, causal=False, first=False,
                  None if outs[i] is None else outs[i].data_ptr()]
     _call("ring_fwd_step",
           [len(qs), bh, sq, ks[0].shape[1], d,
-           int(q0.dtype == torch.bfloat16), int(bool(causal)),
+           DTYPE_CODES[q0.dtype], int(bool(causal)),
            int(bool(first)), int(bool(last))], q0, ptrs=ptrs,
           offs=_flat_offsets(offs))
     _count_step(ring_fwd_step, len(qs))
@@ -359,7 +360,7 @@ def ring_dkv_step(qs, ks, vs, dos, lses, deltas, offs, dks, dvs,
                                         lses[i], deltas[i], dks[i], dvs[i])]
     bh, sq, d = q0.shape
     _call("ring_dkv_step",
-          [len(qs), bh, sq, k0.shape[1], d, int(q0.dtype == torch.bfloat16),
+          [len(qs), bh, sq, k0.shape[1], d, DTYPE_CODES[q0.dtype],
            int(bool(causal)), int(bool(first))], q0, ptrs=ptrs,
           offs=_flat_offsets(offs))
     _count_step(ring_dkv_step, len(qs))
@@ -384,7 +385,7 @@ def ring_dq_step(qs, ks, vs, dos, lses, deltas, offs, dqs, causal=False):
                                         lses[i], deltas[i], dqs[i])]
     bh, sq, d = q0.shape
     _call("ring_dq_step",
-          [len(qs), bh, sq, ks[0].shape[1], d, int(q0.dtype == torch.bfloat16),
+          [len(qs), bh, sq, ks[0].shape[1], d, DTYPE_CODES[q0.dtype],
            int(bool(causal))], q0, ptrs,
           _flat_offsets(offs))
     _count_step(ring_dq_step, len(qs))

@@ -6,11 +6,12 @@ tensors lie on a CUDA device" in place of "a TPU is present": no mask, no
 dropout, head_dim 64/128/256, q/k/v of one length, and a sequence of at
 least 1024 (bf16 after promotion) or 4096 (otherwise) go to the
 hand-written flash-attention kernel. It adds one condition, because the
-port's kernels are built for bf16 and fp32 only while the reference's
-Pallas kernels take any dtype: the promoted dtype is bf16 or fp32. So an
-fp16 call (`amp.auto_cast(dtype="float16")`) takes the einsum path on the
-card. Everything else takes the einsum path below, with the causal mask at
--1e9.
+port's kernels are built for fp32, bf16 and fp16 while the reference's
+Pallas kernels take any dtype: the promoted dtype is one of those
+(`KERNEL_DTYPES`; float64 is the one float it leaves out). So an fp16 call
+(`amp.auto_cast(dtype="float16")`) reaches the kernel at S >= 4096, as
+in the reference. Everything else takes the einsum path below, with the
+causal mask at -1e9.
 """
 from __future__ import annotations
 
@@ -28,8 +29,9 @@ def _promoted(q, k, v) -> torch.dtype:
 
 def _flash_eligible(q, k, v, attn_mask=None, dropout_p=0.0) -> bool:
     """Every kernel condition except the device one (:40-44), and the
-    kernels' dtypes: the promoted dtype is bf16 or fp32. The length
-    threshold is keyed on the promoted dtype, as in the reference."""
+    kernels' dtypes: the promoted dtype is fp32, bf16 or fp16. The length
+    threshold is keyed on the promoted dtype, as in the reference: 1024
+    for bf16, 4096 for the rest."""
     seq_len, head_dim = q.shape[1], q.shape[-1]
     promoted = _promoted(q, k, v)
     min_seq = 1024 if promoted == torch.bfloat16 else 4096

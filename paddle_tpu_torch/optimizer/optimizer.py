@@ -12,6 +12,18 @@ Where the reference donates the parameter and slot buffers to its jitted
 update, the port updates them in place: `functional_update` writes the
 new values into the `values` and `slots` tensors it is given and returns
 them.
+
+`step(inv_scale)` is the reference's fused loss-scaler step (:140-305),
+which `amp.GradScaler.step` takes under FLAGS_amp_fused_update: the
+gradients are unscaled in place and one device found_inf is reduced over
+them (`torch._amp_foreach_non_finite_check_and_unscale_`, where the
+reference fuses the same into its XLA update), the update runs, and a
+gate keeps each parameter, its slots and the device step count
+bit-unchanged when found_inf is set. The host reads found_inf only in
+`_resolve_pending()`, after the update is queued. Unlike the reference,
+whose update is functional, `p.grad` holds the unscaled gradient
+afterwards (as after `GradScaler.unscale_`): an unscaled copy of every
+gradient would cost a model's worth of memory.
 """
 from __future__ import annotations
 
@@ -42,6 +54,16 @@ class Optimizer:
             self._weight_decay = float(getattr(weight_decay, "_coeff", 0.0))
         self._accumulators: Dict[int, Dict[str, torch.Tensor]] = {}
         self._step_count = 0
+        # the lr and the step count t as device scalars (`_lr_scalar` /
+        # `_t_scalar`), read by the scaler-gated step and by TrainStep:
+        # each written in place, lr when its value changes, t when
+        # `_step_count` moved other than by a step on the device (the host
+        # mirror `_t_host` holds what the device t is known to be);
+        # `_pending` holds (the step's t, its device found_inf) until the
+        # host reads it
+        self._lr_arr = self._lr_host = None
+        self._t_arr = self._t_host = None
+        self._pending = None
 
     # ---- lr ----
     def get_lr(self) -> float:
@@ -76,21 +98,91 @@ class Optimizer:
             return 0.0
         return self._weight_decay
 
+    # ---- per-step device scalars (the reference's :103-121) ----
+    def _lr_scalar(self, device):
+        """The learning rate as a 0-d f32 tensor on `device`, filled in
+        place only when its value changes (a scheduler step), so a step
+        captured in a CUDA graph reads the current lr."""
+        if self._lr_arr is None or self._lr_arr.device != device:
+            self._lr_arr = torch.zeros((), dtype=torch.float32,
+                                       device=device)
+            self._lr_host = None
+        lr = self.get_lr()
+        if lr != self._lr_host:
+            self._lr_arr.fill_(lr)
+            self._lr_host = lr
+        return self._lr_arr
+
+    def _t_scalar(self, device):
+        """The step count t = `_step_count` + 1 as a 0-d f32 tensor on
+        `device`. A step advances it there in place (the gated step only
+        where found_inf is clear) and tells `_count_steps`; it is filled
+        from the host only when `_step_count` moved by another way."""
+        if self._t_arr is None or self._t_arr.device != device:
+            self._t_arr = torch.zeros((), dtype=torch.float32, device=device)
+            self._t_host = None
+        expected = float(self._step_count + 1)
+        if self._t_host != expected:
+            self._t_arr.fill_(expected)
+            self._t_host = expected
+        return self._t_arr
+
+    def _count_steps(self, n):
+        """Count n steps whose `t += 1` ran on the device."""
+        self._step_count += n
+        self._t_host += n
+
+    def _resolve_pending(self):
+        """Commit a scaler-gated step once its found_inf is read on the
+        host (the one host sync of that path). Returns found_inf (True:
+        the update was gated away) or None when nothing is pending."""
+        if self._pending is None:
+            return None
+        expected, found_arr = self._pending
+        self._pending = None
+        found = bool(found_arr)
+        if not found:
+            self._step_count += 1
+            self._t_host = expected + 1.0
+        # gated: the device t stayed at `expected`, which `_t_host` holds
+        return found
+
     # ---- eager step ----
     @torch.no_grad()
-    def step(self):
-        """One update of every parameter that has a gradient (`p.grad`)."""
+    def step(self, inv_scale=None):
+        """One update of every parameter that has a gradient (`p.grad`).
+
+        `inv_scale` (set by `amp.GradScaler.step` under
+        FLAGS_amp_fused_update): a 0-d f32 tensor, 1 / the loss scale. The
+        gradients are unscaled in place, the update is gated on their
+        found_inf, and the device found_inf is returned; the step count is
+        committed by `_resolve_pending()`."""
+        self._resolve_pending()
         params = [p for p in (self._parameter_list or [])
                   if p.requires_grad and p.grad is not None]
         for p in params:
             if id(p) not in self._accumulators:
                 self._accumulators[id(p)] = self._create_slots(p)
-        if params:
-            self.functional_update(
-                [p.data for p in params], [p.grad for p in params],
-                [self._accumulators[id(p)] for p in params], self.get_lr(),
-                float(self._step_count + 1), params_meta=params)
-        self._step_count += 1
+        if not params:
+            self._step_count += 1
+            return None
+        values, grads = [p.data for p in params], [p.grad for p in params]
+        slots = [self._accumulators[id(p)] for p in params]
+        if inv_scale is None:
+            self.functional_update(values, grads, slots, self.get_lr(),
+                                   float(self._step_count + 1),
+                                   params_meta=params)
+            self._step_count += 1
+            return None
+        device = values[0].device
+        found = unscale_grads_(grads, inv_scale).to(device)
+        t = self._t_scalar(device)
+        self.functional_update(values, grads, slots,
+                               self._lr_scalar(device), t,
+                               params_meta=params, found_inf=found)
+        t.add_(1.0 - found)
+        self._pending = (self._t_host, found)
+        return found
 
     def clear_grad(self, set_to_zero=True):
         for p in (self._parameter_list or []):
@@ -98,6 +190,7 @@ class Optimizer:
 
     # ---- state dict ----
     def state_dict(self):
+        self._resolve_pending()
         sd = {"step_count": self._step_count, "accumulators": {}}
         for i, p in enumerate(self._parameter_list or []):
             acc = self._accumulators.get(id(p))
@@ -107,6 +200,7 @@ class Optimizer:
         return sd
 
     def set_state_dict(self, state_dict):
+        self._resolve_pending()
         self._step_count = state_dict.get("step_count", 0)
         accs = state_dict.get("accumulators", {})
         for i, p in enumerate(self._parameter_list or []):
@@ -122,7 +216,8 @@ class Optimizer:
 
     @torch.no_grad()
     def functional_update(self, values, grads, slots, lr, t,
-                          params_meta=None, grad_clip="default"):
+                          params_meta=None, grad_clip="default",
+                          found_inf=None):
         """The update over value tensors, in place: returns (values, slots)
         holding the new values.
 
@@ -136,7 +231,13 @@ class Optimizer:
         lr scaling run on the device, so a step captured in a CUDA graph
         reads the current values at every replay. Both forms run the same
         operations on the same values; no value is read back from the
-        device."""
+        device.
+
+        `found_inf` (a 0-d tensor on the values' device, non-zero when a
+        gradient is not finite) gates the update: it runs one parameter at
+        a time, and a parameter and its slots keep their old values bit for
+        bit where found_inf is set. One parameter's copy is the most it
+        holds at once."""
         params = list(params_meta) if params_meta is not None \
             else (self._parameter_list or [])
         if params and len(params) != len(values):
@@ -161,9 +262,40 @@ class Optimizer:
             group_lr = lr if plr == 1.0 else lr * plr
             if not isinstance(group_lr, torch.Tensor):
                 group_lr, t = float(group_lr), float(t)
-            self._apply([values[i] for i in idx], [grads[i] for i in idx],
-                        [slots[i] for i in idx], lr=group_lr, t=t, wd=wd)
+            if found_inf is None:
+                self._apply([values[i] for i in idx],
+                            [grads[i] for i in idx], [slots[i] for i in idx],
+                            lr=group_lr, t=t, wd=wd)
+                continue
+            skip = found_inf > 0
+            for i in idx:
+                state = [values[i], *slots[i].values()]
+                old = [x.clone() for x in state]
+                self._apply([values[i]], [grads[i]], [slots[i]],
+                            lr=group_lr, t=t, wd=wd)
+                for was, now in zip(old, state):
+                    torch.where(skip, was, now, out=now)
         return values, slots
+
+
+@torch.no_grad()
+def unscale_grads_(grads, inv_scale):
+    """Multiply every gradient by `inv_scale` in place and return found_inf,
+    a 0-d f32 tensor on `inv_scale`'s device: 1.0 when any of them holds
+    an inf or a NaN (the reference's `_fused_unscale`,
+    amp/grad_scaler.py:37-44). One multi-tensor pass per device and dtype."""
+    found = torch.zeros((), dtype=torch.float32, device=inv_scale.device)
+    groups: Dict[tuple, List[torch.Tensor]] = {}
+    for g in grads:
+        groups.setdefault((g.device, g.dtype), []).append(g)
+    for (device, _), gs in groups.items():
+        f = found if device == found.device else \
+            torch.zeros((), dtype=torch.float32, device=device)
+        torch._amp_foreach_non_finite_check_and_unscale_(
+            gs, f, inv_scale.to(device))
+        if f is not found:
+            found = torch.maximum(found, f.to(found.device))
+    return found
 
 
 def _clip_fn(clip, grads, need_clip):
@@ -193,4 +325,4 @@ class SGD(Optimizer):
         torch._foreach_add_(values, torch._foreach_mul(grads, -lr))
 
 
-__all__ = ["Optimizer", "SGD"]
+__all__ = ["Optimizer", "SGD", "unscale_grads_"]

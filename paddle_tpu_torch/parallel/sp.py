@@ -24,9 +24,9 @@ return those per-slot lists of shards.
   128 long and a multiple of min(512, shard), else the dense einsum ring
   `ring_attention_local` (:50). The port's kernels tile on their own, so
   only that rule reads the 512. It adds one condition, for what the
-  port's kernels are built for: q/k/v of one dtype, bf16 or fp32, and a
-  head_dim of 64, 128 or 256 (the reference's Pallas kernels take any);
-  other shards take the dense ring too.
+  port's kernels are built for: q/k/v of one dtype, fp32, bf16 or fp16,
+  and a head_dim of 64, 128 or 256 (the reference's Pallas kernels take
+  any); other shards take the dense ring too.
 - Ulysses (`ulysses_attention_local`): regroups the shards from sequence
   to heads, runs dense attention over the whole sequence with H/n heads
   per slot, and regroups back. It runs no kernel.
@@ -282,8 +282,8 @@ class _RingFlash(torch.autograd.Function):
 
 
 def _kernels_take(q, k, v):
-    """Whether the ring kernels take these shards: one dtype, bf16 or
-    fp32, and a head_dim they are built for."""
+    """Whether the ring kernels take these shards: one dtype, fp32, bf16
+    or fp16, and a head_dim they are built for."""
     dtype = q[0].dtype
     return (dtype in KERNEL_DTYPES and k[0].dtype == v[0].dtype == dtype
             and q[0].shape[-1] in _HEAD_DIMS)
@@ -295,8 +295,8 @@ def ring_flash_attention_local(q, k, v, causal=False, block_q=None,
     shards; the dense einsum ring when the local sequence is too short for
     the reference's flash blocks (its rule, sp.py:288-293), or when the
     kernels do not take the shards' dtype or head_dim (the reference's
-    Pallas kernels take any: fp16 and odd head dims compute there, so they
-    compute here, on the dense ring)."""
+    Pallas kernels take any: odd head dims and float64 compute there, so
+    they compute here, on the dense ring)."""
     s_loc = q[0].shape[1]
     bq = min(block_q or DEFAULT_BLOCK_Q, s_loc)
     bk = min(block_k or DEFAULT_BLOCK_K, s_loc)

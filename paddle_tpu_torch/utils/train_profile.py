@@ -12,7 +12,13 @@ through `jit.TrainStep` + `AdamW(1e-4)`:
 - `--model ernie`: the flagship of `utils/bench.py`, ERNIE-base without sp
   on 32 x 128 tokens;
 - `--model titan`: the titan arm of `utils/bench.py`, four layers of
-  `ErnieScanStack(4096, 64, 16384, remat="dots")` on 2 x 2048.
+  `ErnieScanStack(4096, 64, 16384, remat="dots")` on 2 x 2048;
+- `--model titan_fp16` / `ernie_sp_fp16`: the titan stack / the sp
+  ERNIE in fp16 AMP, eager (`TrainStep` takes no loss scaler):
+  `auto_cast(dtype="float16")`, the scaled backward and
+  `GradScaler().step(AdamW(1e-4))`. These have no `run()` span; they are
+  also timed with FLAGS_amp_fused_update off (the legacy unscale_, a
+  host read of found_inf, then the ungated update).
 
 It warms up, times a few steps without the profiler (host clock, synced),
 then traces as many with CUPTI and prints the device time per step by
@@ -24,7 +30,8 @@ same for a `run()` span of as many steps (one CUDA-graph replay per step,
 after a first span that captures). Run on a machine with a CUDA device:
 
     python -m paddle_tpu_torch.utils.train_profile
-        [--model gpt2|ernie_sp|ernie|titan] [--steps 3] [--top 20]
+        [--model gpt2|ernie_sp|ernie|titan|titan_fp16|ernie_sp_fp16]
+        [--steps 3] [--top 20]
 
 Prints one line per kernel group and per top kernel, and a JSON object as
 its last line.
@@ -44,6 +51,9 @@ import torch
 GROUPS = (("ring_attention", ("ring_fwd", "ring_dq", "ring_dkv")),
           ("attention", ("flash_fwd", "flash_bwd")),
           ("optimizer", ("foreach", "multi_tensor")),
+          # the scaler-gated update's copies of each parameter and its
+          # slots and the selects that restore them on found_inf
+          ("selects_and_device_copies", ("where_kernel", "memcpy dtod")),
           ("products", ("gemm", "cutlass", "sm90_xmma", "nvjet", "cublas",
                         "gemv", "splitk")),
           ("elementwise_and_reductions", ("",)))
@@ -56,7 +66,7 @@ KERNEL_SYMBOLS = (
     ("flash_fwd", re.compile(r"\bflash_fwd_\w+_kernel\b")),
     ("flash_bwd_fused", re.compile(r"\bflash_bwd_kv_\w+_kernel<[^>]*true>")),
     ("flash_bwd_dkv", re.compile(r"\bflash_bwd_kv_\w+_kernel<[^>]*false>")),
-    ("flash_bwd_dq", re.compile(r"\bflash_bwd_dq_(wgmma|bf16|f32)_kernel\b")),
+    ("flash_bwd_dq", re.compile(r"\bflash_bwd_dq_(wgmma|mma|f32)_kernel\b")),
     ("ring_fwd", re.compile(r"\bring_fwd_\w+_kernel\b")),
     ("ring_dq_step", re.compile(r"\bring_dq_\w+_kernel\b")),
     ("ring_dkv", re.compile(r"\bring_dkv_\w+_kernel\b")),
@@ -107,9 +117,9 @@ def _gpt2(pt, rng):
     return step, (ids, ids)
 
 
-def _ernie_sp(pt, rng, sp=4):
-    """ERNIE-base pretraining over the sp ring: its TrainStep and one batch
-    of 8 x 512 token ids with NSP labels."""
+def _sp_ernie(pt, sp):
+    """ERNIE-base with use_sp=True over an sp mesh of four cards, or of
+    four slots of `cuda:0` on one card; its vocabulary size."""
     n = torch.cuda.device_count()
     devices = [torch.device("cuda", i) for i in range(sp)] if n >= sp \
         else [torch.device("cuda", 0)] * sp
@@ -117,7 +127,13 @@ def _ernie_sp(pt, rng, sp=4):
                                        devices=devices)
     net = pt.models.ErnieForPretraining(
         pt.models.ernie_base(hidden_dropout_prob=0.0, use_sp=True))
-    vocab = net.ernie.embeddings.word_embeddings.weight.shape[0]
+    return net, net.ernie.embeddings.word_embeddings.weight.shape[0]
+
+
+def _ernie_sp(pt, rng, sp=4):
+    """ERNIE-base pretraining over the sp ring: its TrainStep and one batch
+    of 8 x 512 token ids with NSP labels."""
+    net, vocab = _sp_ernie(pt, sp)
     ce = pt.nn.CrossEntropyLoss()
 
     def loss_fn(logits, nsp_logits, ids, nsp):
@@ -149,8 +165,53 @@ def _titan(pt, rng):
     return titan_step(pt), (x.cuda(),)
 
 
+def _titan_fp16(pt, rng):
+    """The titan stack's eager fp16 AMP step with a GradScaler and one
+    batch of 2 x 2048 x 4096 inputs."""
+    net = pt.models.ErnieScanStack(4096, 64, 16384, 4, remat="dots")
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, parameters=net.parameters())
+    scaler = pt.amp.GradScaler()
+
+    def step(x):
+        with pt.amp.auto_cast(dtype="float16"):
+            loss = (net(x) ** 2).mean()
+        scaler.scale(loss).backward()
+        scaler.step(opt)             # also updates the scale
+        opt.clear_grad()
+        return loss.detach()
+
+    x = torch.from_numpy(rng.random((2, 2048, 4096), np.float32) * 0.02)
+    return step, (x.cuda(),)
+
+
+def _ernie_sp_fp16(pt, rng, sp=4):
+    """The sp ERNIE's eager fp16 AMP step: the MLM + NSP loss in f32 on
+    the fp16 logits, AdamW(1e-4), and a GradScaler started at 2^11, the
+    scale at which the default one (2^15) settles on this model, so that
+    no timed step is skipped on overflow; one batch of 8 x 512."""
+    net, vocab = _sp_ernie(pt, sp)
+    ce = pt.nn.CrossEntropyLoss()
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, parameters=net.parameters())
+    scaler = pt.amp.GradScaler(init_loss_scaling=2.0 ** 11)
+
+    def step(ids, nsp):
+        with pt.amp.auto_cast(dtype="float16"):
+            logits, nsp_logits = net(ids)
+            loss = ce(logits.float().reshape(-1, vocab), ids.reshape(-1)) \
+                + ce(nsp_logits.float(), nsp)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        opt.clear_grad()
+        return loss.detach()
+
+    ids = torch.from_numpy(rng.integers(0, vocab, (8, 512))).cuda()
+    nsp = torch.from_numpy(rng.integers(0, 2, (8,))).cuda()
+    return step, (ids, nsp)
+
+
 MODELS = {"gpt2": _gpt2, "ernie_sp": _ernie_sp, "ernie": _ernie,
-          "titan": _titan}
+          "titan": _titan, "titan_fp16": _titan_fp16,
+          "ernie_sp_fp16": _ernie_sp_fp16}
 
 
 def _trace(fn, steps):
@@ -203,45 +264,55 @@ def profile(steps=3, top=20, model="gpt2", seed=0):
         for _ in range(steps):
             step(*batch)
 
+    plain_ms = _timed_ms(calls, steps)
+    wall_ms, busy, launches, kernels, host, ours = _trace(calls, steps)
+    groups = {}
+    for ms, _, name in kernels:
+        g = _group(name)
+        groups[g] = groups.get(g, 0.0) + ms
+    r = {"card": _card(), "model": model, "steps": steps,
+         "tokens": batch[0].numel(),
+         "wall_ms_per_step": wall_ms,
+         "unprofiled_ms_per_step": plain_ms,
+         "device_busy_ms_per_step": busy,
+         "idle_share": 1.0 - busy / wall_ms,
+         "idle_share_unprofiled": 1.0 - busy / plain_ms,
+         "kernel_launches_per_step": launches,
+         "port_kernels_per_step": ours,
+         "groups_ms_per_step": groups,
+         "top": [{"ms_per_step": ms, "launches_per_step": n,
+                  "kernel": name[:120]} for ms, n, name in kernels[:top]],
+         "host_top": [{"self_ms_per_step": ms, "calls_per_step": n,
+                       "op": name[:80]} for ms, n, name in host[:top]],
+         "run": None, "legacy_unprofiled_ms_per_step": None}
+    if not hasattr(step, "run"):     # the eager fp16 step with a scaler
+        pt.set_flags({"amp_fused_update": False})
+        try:
+            calls()
+            r["legacy_unprofiled_ms_per_step"] = _timed_ms(calls, steps)
+        finally:
+            pt.set_flags({"amp_fused_update": True})
+        return r
     stacked = [x.expand(steps, *x.shape) for x in batch]
 
     def span():
         step.run(*stacked)
 
-    plain_ms = _timed_ms(calls, steps)
-    wall_ms, busy, launches, kernels, host, ours = _trace(calls, steps)
     span()                           # the first span captures the graph
     run_plain_ms = _timed_ms(span, steps)
     run_wall_ms, run_busy, run_launches, _, run_host, run_ours = \
         _trace(span, steps)
-    groups = {}
-    for ms, _, name in kernels:
-        g = _group(name)
-        groups[g] = groups.get(g, 0.0) + ms
-    return {"card": _card(), "model": model, "steps": steps,
-            "tokens": batch[0].numel(),
-            "wall_ms_per_step": wall_ms,
-            "unprofiled_ms_per_step": plain_ms,
-            "device_busy_ms_per_step": busy,
-            "idle_share": 1.0 - busy / wall_ms,
-            "idle_share_unprofiled": 1.0 - busy / plain_ms,
-            "kernel_launches_per_step": launches,
-            "port_kernels_per_step": ours,
-            "run": {"wall_ms_per_step": run_wall_ms,
-                    "unprofiled_ms_per_step": run_plain_ms,
-                    "device_busy_ms_per_step": run_busy,
-                    "idle_share": 1.0 - run_busy / run_wall_ms,
-                    "idle_share_unprofiled": 1.0 - run_busy / run_plain_ms,
-                    "kernel_launches_per_step": run_launches,
-                    "port_kernels_per_step": run_ours,
-                    "host_top": [{"self_ms_per_step": ms, "calls_per_step": n,
-                                  "op": name[:80]}
-                                 for ms, n, name in run_host[:5]]},
-            "groups_ms_per_step": groups,
-            "top": [{"ms_per_step": ms, "launches_per_step": n,
-                     "kernel": name[:120]} for ms, n, name in kernels[:top]],
-            "host_top": [{"self_ms_per_step": ms, "calls_per_step": n,
-                          "op": name[:80]} for ms, n, name in host[:top]]}
+    r["run"] = {"wall_ms_per_step": run_wall_ms,
+                "unprofiled_ms_per_step": run_plain_ms,
+                "device_busy_ms_per_step": run_busy,
+                "idle_share": 1.0 - run_busy / run_wall_ms,
+                "idle_share_unprofiled": 1.0 - run_busy / run_plain_ms,
+                "kernel_launches_per_step": run_launches,
+                "port_kernels_per_step": run_ours,
+                "host_top": [{"self_ms_per_step": ms, "calls_per_step": n,
+                              "op": name[:80]}
+                             for ms, n, name in run_host[:5]]}
+    return r
 
 
 def main():
@@ -266,15 +337,22 @@ def main():
     print(f"train_profile: {r['kernel_launches_per_step']} kernel launches "
           f"per step [{card}]", flush=True)
     run = r["run"]
-    print(f"train_profile: run() span of {r['steps']} (one graph replay per "
-          f"step): wall {run['wall_ms_per_step']:.3f} ms per step (profiler "
-          f"on), device busy {run['device_busy_ms_per_step']:.3f} ms, idle "
-          f"share {run['idle_share']:.3f}; without the profiler "
-          f"{run['unprofiled_ms_per_step']:.3f} ms per step, idle share "
-          f"{run['idle_share_unprofiled']:.3f}; "
-          f"{run['kernel_launches_per_step']} kernel launches per step; "
-          f"port kernels per step {run['port_kernels_per_step']} [{card}]",
-          flush=True)
+    if run is None:
+        print(f"train_profile: the same steps with FLAGS_amp_fused_update "
+              f"off (unscale_, a host read of found_inf, the ungated "
+              f"update): {r['legacy_unprofiled_ms_per_step']:.3f} ms per "
+              f"step without the profiler [{card}]", flush=True)
+    else:
+        print(f"train_profile: run() span of {r['steps']} (one graph "
+              f"replay per step): wall {run['wall_ms_per_step']:.3f} ms per "
+              f"step (profiler on), device busy "
+              f"{run['device_busy_ms_per_step']:.3f} ms, idle share "
+              f"{run['idle_share']:.3f}; without the profiler "
+              f"{run['unprofiled_ms_per_step']:.3f} ms per step, idle share "
+              f"{run['idle_share_unprofiled']:.3f}; "
+              f"{run['kernel_launches_per_step']} kernel launches per step; "
+              f"port kernels per step {run['port_kernels_per_step']} "
+              f"[{card}]", flush=True)
     for row in r["top"]:
         print(f"train_profile: {row['ms_per_step']:.3f} ms "
               f"x{row['launches_per_step']} {row['kernel']}", flush=True)

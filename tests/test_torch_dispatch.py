@@ -1,12 +1,13 @@
 """Which path an attention call takes: the dispatch predicates of the
 port's `nn.functional.scaled_dot_product_attention` and of its sp ring.
 
-The port's kernels are built for bf16 and fp32 and for head_dim 64, 128
-and 256; the reference's Pallas kernels take any dtype. So both
+The port's kernels are built for fp32, bf16 and fp16 and for head_dim 64,
+128 and 256; the reference's Pallas kernels take any dtype. So both
 dispatches add one condition to the reference's: what the kernels cannot
-take (fp16, and on the ring an odd head_dim) goes to the plain path
+take (float64, and on the ring an odd head_dim) goes to the plain path
 (the einsum attention, the dense einsum ring), never to a kernel that
-would raise. The length thresholds stay the reference's
+would raise. fp16 reaches the kernels, at the reference's threshold for
+it (S >= 4096). The length thresholds stay the reference's
 (`tests/test_torch_layers.py` holds them against the JAX package).
 """
 import numpy as np
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 import paddle_tpu_torch as pt
+from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.kernels import ring_attention as tra
 from paddle_tpu_torch.nn.functional.attention import _flash_eligible
 from paddle_tpu_torch.parallel import sp as tsp
@@ -25,13 +27,14 @@ def _meta(dtype, s, d):
 
 
 @pytest.mark.parametrize("q_dtype,kv_dtype,s,d,want", [
-    (torch.float16, torch.float16, 4096, 64, False),   # fp16: no kernel
-    (torch.float16, torch.float16, 8192, 128, False),
+    (torch.float16, torch.float16, 4096, 64, True),    # fp16 from 4096
+    (torch.float16, torch.float16, 8192, 128, True),
     (torch.bfloat16, torch.bfloat16, 1024, 64, True),  # bf16 from 1024
     (torch.float32, torch.float32, 4096, 64, True),    # fp32 from 4096
     (torch.float16, torch.float32, 4096, 64, True),    # promoted to fp32
     (torch.bfloat16, torch.float16, 4096, 64, True),   # promoted to fp32
-    (torch.float64, torch.float64, 4096, 64, False)])
+    (torch.float64, torch.float64, 4096, 64, False),
+    (torch.float16, torch.float16, 2048, 64, False)])  # fp16 below 4096
 def test_flash_eligible_takes_only_the_kernels_dtypes(q_dtype, kv_dtype, s, d,
                                                       want):
     q, kv = _meta(q_dtype, s, d), _meta(kv_dtype, s, d)
@@ -40,7 +43,7 @@ def test_flash_eligible_takes_only_the_kernels_dtypes(q_dtype, kv_dtype, s, d,
 
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, True), (torch.float32, 128, True),
-    (torch.bfloat16, 256, True), (torch.float16, 64, False),
+    (torch.bfloat16, 256, True), (torch.float16, 64, True),
     (torch.bfloat16, 96, False), (torch.float32, 32, False),
     (torch.float64, 64, False)])
 def test_the_ring_kernels_take_bf16_and_fp32_at_their_head_dims(dtype, d,
@@ -63,13 +66,13 @@ def cpu_mesh():
     ttopo._GLOBAL_MESH[0], ttopo._GLOBAL_HCG[0] = saved
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.float16, 64),
+@pytest.mark.parametrize("dtype,d", [(torch.float16, 96),
                                      (torch.bfloat16, 96),
                                      (torch.float32, 32)])
 def test_the_ring_sends_what_the_kernels_do_not_take_to_the_dense_ring(
         monkeypatch, cpu_mesh, dtype, d):
-    # s_loc = 128 passes the reference's length rule; the dtype or the
-    # head_dim sends the shards to the dense ring: no step kernel is called
+    # s_loc = 128 passes the reference's length rule; the head_dim sends
+    # the shards to the dense ring, in fp16 too: no step kernel is called
     calls = []
     for name in ("ring_fwd_step", "ring_dq_step", "ring_dkv_step"):
         real = getattr(tra, name)
@@ -85,3 +88,17 @@ def test_the_ring_sends_what_the_kernels_do_not_take_to_the_dense_ring(
     want = tsp.sequence_parallel_attention(q, k, v, impl="ring_dense",
                                            causal=True)
     assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
+                                   torch.float32])
+def test_the_flash_kernels_check_takes_fp16(dtype):
+    # `_check` refused fp16 q/k/v, so ErnieScanStack under
+    # auto_cast(dtype="float16") raised TypeError on the card; float64
+    # is still refused
+    q = torch.empty(2, 128, 64, dtype=dtype, device="meta")
+    tfa._check("flash_fwd", q, q, q)
+    tra._check("ring_fwd_step", q, q, q)
+    f64 = q.to(torch.float64)
+    with pytest.raises(TypeError, match="fp32, bf16 or fp16"):
+        tfa._check("flash_fwd", f64, f64, f64)

@@ -24,20 +24,42 @@ def _inputs(seed, *shape, dtype=np.float32):
     return [rng.randn(*shape).astype(dtype) for _ in range(3)]
 
 
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("causal", [False, True])
-def test_plain_forward_matches_pallas_interpret(d, causal):
-    q, k, v = _inputs(d + causal, 2, 256, d)
+# fp16 on both sides: the Pallas kernel runs its dots in fp16 and rounds
+# p to fp16 before the PV product, the plain version computes in f32; both
+# store out in fp16 (2^-11 relative). Held to max |err| <= 5e-3 (1 + |ref|)
+TOL_FP16 = 5e-3
+
+
+def _forward_pair(d, causal, dtype):
+    q, k, v = _inputs(d + causal, 2, 256, d, dtype=dtype)
     j_out, j_lse = _flash_fwd_bhsd(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
         block_q=128, block_k=128, interpret=True)
     t_out, t_lse = tfa.flash_attention_fwd_plain(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal)
-    assert t_out.dtype == torch.float32 and t_lse.shape == (2, 1, 256)
-    np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out),
-                               rtol=TOL, atol=TOL)
-    np.testing.assert_allclose(t_lse.numpy(), np.asarray(j_lse),
-                               rtol=TOL, atol=TOL)
+    assert t_lse.dtype == torch.float32 and t_lse.shape == (2, 1, 256)
+    return (t_out, t_lse), (np.asarray(j_out), np.asarray(j_lse))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_forward_matches_pallas_interpret(d, causal):
+    (t_out, t_lse), (j_out, j_lse) = _forward_pair(d, causal, np.float32)
+    assert t_out.dtype == torch.float32
+    np.testing.assert_allclose(t_out.numpy(), j_out, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(t_lse.numpy(), j_lse, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_forward_matches_pallas_interpret_in_fp16(d, causal):
+    (t_out, t_lse), (j_out, j_lse) = _forward_pair(d, causal, np.float16)
+    assert t_out.dtype == torch.float16 and j_out.dtype == np.float16
+    for name, got, want in (("out", t_out, j_out), ("lse", t_lse, j_lse)):
+        want = want.astype(np.float32)
+        err = np.abs(got.float().numpy() - want)
+        assert (err <= TOL_FP16 * (1 + np.abs(want))).all(), \
+            f"{name}: max abs err {err.max()}"
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -1,12 +1,12 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card.
 
 Every test here is marked `cuda` and skips without a CUDA device (the
-kernels have no CPU mode). The bf16 kernels at D 64 and 128 are the
-wgmma/TMA designs: besides the shapes of the main paths they are held at
-the edges of their tiles (ragged S inside a TMA box at a head boundary,
-S below one tile, BH = 1, D = 128, non-causal). This file imports
-neither jax nor the JAX package, so it also runs on a machine that has
-only torch:
+kernels have no CPU mode). The bf16 and fp16 kernels at D 64 and 128 are
+the wgmma/TMA designs: besides the shapes of the main paths they are held
+at the edges of their tiles (ragged S inside a TMA box at a head boundary,
+S below one tile, BH = 1, D = 128, non-causal), in both element types.
+This file imports neither jax nor the JAX package, so it also runs on a
+machine that has only torch:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 """
@@ -22,6 +22,15 @@ from paddle_tpu_torch.parallel import sp as tsp
 RING_WRAPPERS = (tra.ring_fwd_step, tra.ring_dq_step, tra.ring_dkv_step)
 
 
+# tolerances against the plain versions (f32 throughout), as max |got -
+# want| <= tol (1 + |want|): bf16 rounds p and ds to bf16 before the
+# products (as the Pallas kernels do) and stores bf16 (2^-8 relative);
+# fp16 does the same at 2^-11, held to 5e-3 forward and 1e-2 for the
+# gradients; fp32 sums in another order
+FWD_TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 1e-4}
+GRAD_TOL = {torch.bfloat16: 2e-2, torch.float16: 1e-2, torch.float32: 1e-4}
+
+
 @pytest.fixture()
 def cuda_device():
     if not torch.cuda.is_available():
@@ -34,7 +43,10 @@ def cuda_device():
 @pytest.mark.parametrize("dtype,d,s,causal", [
     (torch.bfloat16, 64, 1024, True), (torch.bfloat16, 128, 1000, True),
     (torch.bfloat16, 256, 512, False), (torch.bfloat16, 64, 17, True),
-    (torch.float32, 64, 300, True), (torch.float32, 256, 129, False)])
+    (torch.float32, 64, 300, True), (torch.float32, 256, 129, False),
+    (torch.float16, 64, 1024, True), (torch.float16, 128, 1000, True),
+    (torch.float16, 256, 512, False), (torch.float16, 64, 17, True),
+    (torch.float16, 64, 2048, False)])
 def test_flash_fwd_matches_plain(cuda_device, dtype, d, s, causal):
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = (torch.randn(6, s, d, generator=gen, device=cuda_device)
@@ -44,9 +56,9 @@ def test_flash_fwd_matches_plain(cuda_device, dtype, d, s, causal):
     torch.cuda.synchronize()
     assert tfa.flash_attention_fwd.launches == before + 1
     ref_out, ref_lse = tfa.flash_attention_fwd_plain(q, k, v, causal)
-    # bf16: p is rounded to bf16 before the PV product and out is stored
-    # in bf16 (2^-8 relative); fp32 sums in another order. lse is f32.
-    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    # FWD_TOL for out; lse is f32
+    tol = FWD_TOL[dtype]
+    assert out.dtype == dtype
     torch.testing.assert_close(out.float(), ref_out.float(), rtol=tol,
                                atol=tol)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-3, atol=1e-3)
@@ -71,8 +83,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     q = torch.zeros(2, 64, 32, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         tfa.flash_attention_fwd(q, q, q)
-    q = torch.zeros(2, 64, 64, device=cuda_device, dtype=torch.float16)
-    with pytest.raises(TypeError, match="bf16 or fp32"):
+    q = torch.zeros(2, 64, 64, device=cuda_device, dtype=torch.float64)
+    with pytest.raises(TypeError, match="bf16 or fp16"):
         tfa.flash_attention_fwd(q, q, q)
     q = torch.zeros(2, 64, 128, device=cuda_device,
                     dtype=torch.bfloat16)[..., :64]
@@ -86,7 +98,12 @@ BWD_SHAPES = [(8, 1024, 12, 64, torch.bfloat16, True),
               (8, 1024, 6, 128, torch.bfloat16, True),
               (8, 1024, 3, 256, torch.bfloat16, True),
               (1, 4096, 12, 64, torch.float32, False),
-              (8, 1000, 12, 64, torch.bfloat16, True)]
+              (8, 1000, 12, 64, torch.bfloat16, True),
+              (8, 1024, 12, 64, torch.float16, True),
+              (8, 1024, 6, 128, torch.float16, True),
+              (8, 1024, 3, 256, torch.float16, True),
+              (8, 1000, 12, 64, torch.float16, True),
+              (2, 2048, 64, 64, torch.float16, False)]
 
 
 def _bwd_inputs(b, s, h, d, dtype, causal):
@@ -100,8 +117,11 @@ def _bwd_inputs(b, s, h, d, dtype, causal):
 def _bwd_tol(dtype):
     # bf16: the kernels round p and ds to bf16 before the products (as the
     # Pallas kernels do) and store bf16 gradients of magnitude <~8; the
-    # plain version keeps f32. fp32: sums in another order.
-    return (6e-2, 2e-2) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+    # plain version keeps f32. fp16: the same at 2^-11, GRAD_TOL. fp32:
+    # sums in another order.
+    if dtype == torch.bfloat16:
+        return 6e-2, 2e-2
+    return GRAD_TOL[dtype], GRAD_TOL[dtype]
 
 
 @pytest.mark.cuda
@@ -138,12 +158,13 @@ WGMMA_CASES = [(2, 1000, 64, True), (3, 100, 64, False), (2, 100, 128, True),
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("case", WGMMA_CASES, ids=str)
-def test_wgmma_kernels_match_plain_at_tile_edges(cuda_device, case):
+def test_wgmma_kernels_match_plain_at_tile_edges(cuda_device, case, dtype):
     bh, s, d, causal = case
     gen = torch.Generator(device="cuda").manual_seed(bh * s + d)
     q, k, v, do = (torch.randn(bh, s, d, generator=gen, device="cuda")
-                   .bfloat16() for _ in range(4))
+                   .to(dtype) for _ in range(4))
     out, lse = tfa.flash_attention_fwd(q, k, v, causal)
     args = (q, k, v, out, lse, do, causal)
     fused = tfa.flash_attention_bwd_fused(*args)
@@ -153,17 +174,18 @@ def test_wgmma_kernels_match_plain_at_tile_edges(cuda_device, case):
                                        workspace=True)
     torch.cuda.synchronize()
     ref_out, ref_lse = tfa.flash_attention_fwd_plain(q, k, v, causal)
-    torch.testing.assert_close(out.float(), ref_out.float(), rtol=2e-2,
-                               atol=2e-2)
+    tol = FWD_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=tol,
+                               atol=tol)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-3, atol=1e-3)
     ref = tfa.flash_attention_bwd_plain(*args)
-    atol, rtol = _bwd_tol(torch.bfloat16)
+    atol, rtol = _bwd_tol(dtype)
     for name, g, r in zip(("dq", "dk", "dv"), fused, ref):
-        assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())
+        assert g.dtype == dtype and bool(torch.isfinite(g).all())
         torch.testing.assert_close(g.float(), r.float(), atol=atol,
                                    rtol=rtol, msg=name)
     # the fused and the two-pass dk/dv run one template: bit-equal; dq
-    # differs in the order of its f32 sums, then one bf16 rounding
+    # differs in the order of its f32 sums, then one rounding to the dtype
     assert torch.equal(fused[1], dk) and torch.equal(fused[2], dv)
     torch.testing.assert_close(fused[0].float(), dq.float(), atol=1.6e-2,
                                rtol=8e-3)
@@ -237,7 +259,14 @@ RING_CASES = [(96, 128, 128, 64, torch.bfloat16, False, (128, 256)),
               (6, 512, 512, 128, torch.bfloat16, True, (512, 512)),
               (3, 512, 512, 256, torch.bfloat16, True, (512, 512)),
               (12, 256, 256, 64, torch.float32, True, (256, 128)),
-              (12, 100, 200, 64, torch.bfloat16, True, (150, 0))]
+              (12, 100, 200, 64, torch.bfloat16, True, (150, 0)),
+              (96, 128, 128, 64, torch.float16, False, (128, 256)),
+              (12, 1024, 1024, 64, torch.float16, True, (1024, 1024)),
+              (12, 1024, 1024, 64, torch.float16, True, (0, 1024)),
+              (12, 128, 128, 64, torch.float16, True, (96, 0)),
+              (6, 512, 512, 128, torch.float16, True, (512, 512)),
+              (3, 512, 512, 256, torch.float16, True, (512, 512)),
+              (12, 100, 200, 64, torch.float16, True, (150, 0))]
 
 
 def _ring_inputs(bh, sq, sk, d, dtype, causal, offs):
@@ -252,10 +281,10 @@ def _ring_inputs(bh, sq, sk, d, dtype, causal, offs):
 
 
 def _ring_close(got, want, dtype, name):
-    # bf16: p and ds are rounded to bf16 before the products (as the Pallas
-    # kernels do), out is stored in bf16; the plain version keeps f32.
-    # fp32: sums in another order.
-    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    # FWD_TOL for out and lse, GRAD_TOL for dq, dk, dv (f32 sums of
+    # products of p and ds rounded to the input dtype)
+    grad = name.split("[")[0] in ("dq", "dk", "dv")
+    tol = (GRAD_TOL if grad else FWD_TOL)[dtype]
     got, want = got.float(), want.float()
     assert bool(torch.isfinite(got).all()), name
     err = (got - want).abs()
@@ -410,8 +439,8 @@ def test_ring_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros(2, 64, 32, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         tra.ring_block_fwd(q, q, q, (0, 0))
-    q = torch.zeros(2, 64, 64, device=cuda_device, dtype=torch.float16)
-    with pytest.raises(TypeError, match="bf16 or fp32"):
+    q = torch.zeros(2, 64, 64, device=cuda_device, dtype=torch.float64)
+    with pytest.raises(TypeError, match="bf16 or fp16"):
         tra.ring_block_fwd(q, q, q, (0, 0))
     q = torch.zeros(2, 64, 64, device=cuda_device, dtype=torch.bfloat16)
     lse = torch.zeros(2, 1, 64, device=cuda_device, dtype=torch.bfloat16)
@@ -420,8 +449,9 @@ def test_ring_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("causal", [False, True])
-def test_sequence_parallel_attention_on_the_card(cuda_device, causal):
+def test_sequence_parallel_attention_on_the_card(cuda_device, causal, dtype):
     # four ring slots on one card: the flash ring records one autograd node
     # per slot, launches each of the forward, dq and dk/dv step kernels
     # once per ring step (4 launches of 16 slot-hops), and its output and
@@ -430,14 +460,14 @@ def test_sequence_parallel_attention_on_the_card(cuda_device, causal):
     prev = topology.get_mesh()
     gen = torch.Generator(device="cuda").manual_seed(5)
     q, k, v = (torch.randn(1, 512, 2, 64, generator=gen, device="cuda")
-               .bfloat16().requires_grad_() for _ in range(3))
+               .to(dtype).requires_grad_() for _ in range(3))
     w = torch.randn(1, 512, 2, 64, generator=gen, device="cuda")
     try:
         mesh = create_mesh({"sp": 4}, devices=["cuda:0"] * 4)
         counts = [f.launches for f in RING_WRAPPERS]
         hops = [f.hops for f in RING_WRAPPERS]
         out = tsp.sequence_parallel_attention(q, k, v, causal=causal)
-        assert out.grad_fn is not None and out.dtype == torch.bfloat16
+        assert out.grad_fn is not None and out.dtype == dtype
         (out.float() * w).sum().backward()
         torch.cuda.synchronize()
         assert [f.launches - c for f, c in zip(RING_WRAPPERS, counts)] == \
@@ -464,8 +494,8 @@ def test_sequence_parallel_attention_on_the_card(cuda_device, causal):
 def test_sequence_parallel_attention_takes_the_dense_ring_for_a_head_dim_off_the_kernels(
         cuda_device):
     # the ring kernels' wrappers raise for a head_dim they are not built
-    # for; sequence_parallel_attention sends such shards to the dense ring
-    # (as fp16 ones), which computes them without a kernel
+    # for; sequence_parallel_attention sends such shards to the dense ring,
+    # which computes them without a kernel
     from paddle_tpu_torch.parallel import create_mesh, topology
     prev = topology.get_mesh()
     q = torch.zeros(1, 512, 2, 32, device=cuda_device, dtype=torch.bfloat16)
@@ -505,7 +535,15 @@ DQ_STEP_CASES = [
     (3, 512, 512, 256, torch.bfloat16, True,
      [(512 * i, 512 * i) for i in range(4)]),
     (12, 256, 256, 64, torch.float32, True,
-     [(256, 128), (0, 0), (512, 0), (0, 256)])]
+     [(256, 128), (0, 0), (512, 0), (0, 256)]),
+    (96, 128, 128, 64, torch.float16, False, SP_HOP),
+    (96, 128, 128, 64, torch.float16, True, SP_HOP),
+    (12, 1024, 1024, 64, torch.float16, True,
+     [(1024 * i, 1024 * i) for i in range(4)]),
+    (6, 1024, 1024, 128, torch.float16, True,
+     [(1024 * i, 1024 * i) for i in range(4)]),
+    (3, 512, 512, 256, torch.float16, True,
+     [(512 * i, 512 * i) for i in range(4)])]
 
 
 @pytest.mark.cuda
@@ -536,19 +574,20 @@ def test_ring_dq_step_matches_plain(cuda_device, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("case", WGMMA_CASES + [(8, 1024, 64, True)],
                          ids=str)
-def test_flash_bwd_dq_is_bitwise_reproducible(cuda_device, case):
+def test_flash_bwd_dq_is_bitwise_reproducible(cuda_device, case, dtype):
     # one CTA per q tile, no atomics: a second run repeats the bits, and
     # both match the plain backward
     bh, s, d, causal = case
     gen = torch.Generator(device="cuda").manual_seed(bh + s + d)
     q, k, v, do = (torch.randn(bh, s, d, generator=gen, device="cuda")
-                   .bfloat16() for _ in range(4))
+                   .to(dtype) for _ in range(4))
     out, lse = tfa.flash_attention_fwd(q, k, v, causal)
     args = (q, k, v, out, lse, do, causal)
     ref = tfa.flash_attention_bwd_plain(*args)[0]
-    atol, rtol = _bwd_tol(torch.bfloat16)
+    atol, rtol = _bwd_tol(dtype)
     first = tfa.flash_attention_bwd_dq(*args)
     again = tfa.flash_attention_bwd_dq(*args)
     torch.cuda.synchronize()
@@ -558,10 +597,11 @@ def test_flash_bwd_dq_is_bitwise_reproducible(cuda_device, case):
 
 
 @pytest.mark.cuda
-def test_fp16_attention_takes_the_plain_paths_on_the_card(cuda_device):
-    # the kernels are bf16 and fp32: an fp16 call that the reference's
-    # rule sends to its kernel (S = 4096, D = 64, no mask) takes the einsum
-    # path here, and the fp16 sp ring the dense ring; no kernel launches
+def test_fp16_attention_takes_the_kernels_on_the_card(cuda_device):
+    # an fp16 call that the reference's rule sends to its kernel (S = 4096,
+    # D = 64, no mask) launches the flash kernel here, the fp16 sp ring the
+    # ring kernels, and both agree with the fp32 einsum path; a head_dim
+    # the kernels are not built for (96) still takes the dense ring
     from paddle_tpu_torch.nn.functional.attention import (
         _einsum_attention, scaled_dot_product_attention)
     from paddle_tpu_torch.parallel import create_mesh, topology
@@ -577,14 +617,23 @@ def test_fp16_attention_takes_the_plain_paths_on_the_card(cuda_device):
     try:
         mesh = create_mesh({"sp": 4}, devices=["cuda:0"] * 4)
         ring = tsp.sequence_parallel_attention(*h16, causal=True, mesh=mesh)
+        torch.cuda.synchronize()
+        assert [f.launches - c for f, c in zip(counted, counts)] == \
+            [1, 4, 0, 0]
+        odd = [torch.randn(1, 512, 2, 96, generator=gen, device="cuda")
+               .half() for _ in range(3)]
+        counts = [f.launches for f in counted]
+        dense = tsp.sequence_parallel_attention(*odd, causal=True, mesh=mesh)
+        want = _einsum_attention(*(x.float() for x in odd), is_causal=True)
+        torch.cuda.synchronize()
+        assert [f.launches for f in counted] == counts
     finally:
         topology.set_mesh(prev)
-    torch.cuda.synchronize()
-    assert [f.launches for f in counted] == counts
-    # fp16 inputs, products and outputs (2^-11 relative) against fp32
-    for got in (out, ring):
+    # fp16 inputs and outputs (2^-11 relative), p rounded to fp16 before
+    # the PV product, against fp32
+    for got, r in ((out, ref), (ring, ref), (dense, want)):
         assert got.dtype == torch.float16
-        torch.testing.assert_close(got.float(), ref, atol=1e-2, rtol=1e-2)
+        torch.testing.assert_close(got.float(), r, atol=1e-2, rtol=1e-2)
 
 
 # ---- TrainStep.run() as one CUDA-graph replay per step ----
@@ -617,11 +666,12 @@ def test_run_graph_equals_the_loop_of_calls(cuda_device):
     assert len(b._graphs) == 1
     torch.testing.assert_close(span.float(), loop.float(), rtol=1e-4,
                                atol=0)
-    assert b.optimizer._step_count == 6 and float(b._t) == 7.0
+    opt = b.optimizer
+    assert opt._step_count == 6 and float(opt._t_arr) == 7.0
     for p, q in zip(a._ptensors, b._ptensors):
         torch.testing.assert_close(p, q, rtol=1e-4, atol=1e-6)
     again = b.run(*batch)                # all six steps replayed
-    assert len(b._graphs) == 1 and float(b._t) == 13.0
+    assert len(b._graphs) == 1 and float(opt._t_arr) == 13.0
     assert again[-1] < span[0]
 
 
@@ -661,7 +711,8 @@ def test_run_graph_capture_failure_raises(cuda_device):
     with pytest.raises(RuntimeError, match="CUDA graph"):
         step.run(*_ernie_batches(3))
     # the eager first step was taken and counted; nothing else ran
-    assert step.optimizer._step_count == 1 and float(step._t) == 2.0
+    opt = step.optimizer
+    assert opt._step_count == 1 and float(opt._t_arr) == 2.0
 
 
 @pytest.mark.cuda

@@ -108,15 +108,22 @@ def _run_in(arrs, impl, causal, jdt, tdt):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-def test_fp16_ring_matches_the_jax_flash_ring(causal):
-    # s_loc = 128 at fp16: the reference runs its flash ring (the Pallas
-    # kernels take fp16), the port its dense ring (its kernels are bf16 and
-    # fp32). fp16 inputs; the reference rounds p and ds to fp16 before the
-    # products and each hop's out to fp16, the dense ring keeps f32, and
-    # both round out and the gradients to fp16 (2^-11 relative, 1e-3 at
-    # the largest values here, |x| < 2)
+def test_fp16_ring_matches_the_jax_flash_ring(monkeypatch, causal):
+    # s_loc = 128 at fp16: both packages run their flash ring (the kernels
+    # take fp16; here the step kernels' plain versions, 4 ring steps of 4
+    # slots each way). fp16 inputs; the reference rounds p and ds to fp16
+    # before the products and each hop's out to fp16, the plain versions
+    # keep f32, and both round out and the gradients to fp16 (2^-11
+    # relative, 1e-3 at the largest values here, |x| < 2)
+    calls = []
+    for name in ("ring_fwd_step", "ring_dq_step", "ring_dkv_step"):
+        real = getattr(tra, name)
+        monkeypatch.setattr(tra, name, lambda *a, _r=real, _n=name, **k:
+                            calls.append(_n) or _r(*a, **k))
     want, got = _run_in(_qkvw(1, 512, 2, 64, 7), "ring", causal,
                         jnp.float16, torch.float16)
+    assert sorted(calls) == sorted(["ring_fwd_step", "ring_dq_step",
+                                    "ring_dkv_step"] * 4)
     for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(g, w, rtol=1e-2, atol=1e-3, err_msg=name)
 

@@ -238,7 +238,7 @@ def test_set_state_dict_keeps_the_slot_tensors():
         for k in before:
             assert after[k] is before[k]
             np.testing.assert_array_equal(after[k].numpy(), want[k])
-    assert float(step._t) == float(saved["t"]) == 2.0
+    assert float(step.optimizer._t_arr) == float(saved["t"]) == 2.0
 
 
 def test_run_reads_the_lr_once_per_span():
@@ -264,10 +264,33 @@ def test_run_reads_the_lr_once_per_span():
         step_b.optimizer._learning_rate.step()
     np.testing.assert_array_equal(torch.cat(got).numpy(),
                                   torch.stack(want).numpy())
-    assert float(step_b._t) == 5.0 and step_b.optimizer._step_count == 4
+    opt_b = step_b.optimizer
+    assert float(opt_b._t_arr) == 5.0 and opt_b._step_count == 4
     for (k, a), b in zip(tm_a.state_dict().items(),
                          tm_b.state_dict().values()):
         np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=k)
+
+
+def test_train_step_steps_the_optimizers_own_device_lr_and_t():
+    """One owner of the device step state: TrainStep advances the
+    optimizer's t in place (the tensor its gated step reads too), a step
+    count set on the host refills that tensor, and a new lr is filled into
+    the same lr tensor."""
+    state = _jax_pair(None)[2]
+    _, step = _torch_step(state, None)
+    opt = step.optimizer
+    ids = torch.from_numpy(_ids())
+    step(ids, ids)
+    t, lr = opt._t_arr, opt._lr_arr
+    stacked = ids.expand(2, *ids.shape)
+    step.run(stacked, stacked)
+    assert opt._t_arr is t and float(t) == 4.0 and opt._step_count == 3
+    assert float(lr) == float(np.float32(LR))
+    opt._step_count = 7
+    opt.set_lr(LR / 2)
+    step(ids, ids)
+    assert opt._t_arr is t and float(t) == 9.0 and opt._step_count == 8
+    assert opt._lr_arr is lr and float(lr) == float(np.float32(LR / 2))
 
 
 def test_memory_report_on_the_cpu():
