@@ -126,7 +126,30 @@ last line is printed):
                overflow fp16, so the first steps are skipped while the
                scale halves), the loss falling over the 8, 48 launches of
                each ring step kernel per step (host counts) and in fp16 in
-               the device trace.
+               the device trace;
+ 13. llm     - GPTForCausalLM(gpt2_small(dropout=0.0)) at full width and
+               depth, fp32 weights from a seed, served through
+               serving.LLMEngine (16 slots, max_len 1022: a page of 1024
+               rows, the position table's length): 32 requests of 16-896
+               prompt tokens (a seeded default_rng) and 64 new tokens from
+               4 submitting threads, in the fp32 arm and then the int8 arm
+               (quant="int8", kv_int8=True). Each engine must capture its
+               decode step once, at warm-up, and never while serving; no
+               flash or ring kernel may launch (cached attention is masked
+               einsums, as in the reference); every stream ends "done"
+               with 64 tokens; kv_pool_bytes must equal LLMConfig's
+               formula, the int8 pool under half the fp32 one. From an
+               idle engine: a graph replay against the eager step from one
+               pool state (the same tokens, logits and pools within 1e-4
+               (1 + |ref|)), the replay's device ms beside its bytes bound
+               and the host ms of an eager step and a replay. The fp32
+               arm's tokens of requests 0-2 must each be the full
+               forward's argmax (a full-recompute greedy decode), and one
+               decode step's logits within 1e-4 (1 + |ref|) of the full
+               forward's last position. Prints decode and prefill tokens/s,
+               TTFT and inter-token p50 / p99, peak memory, and the int8
+               arm's decode speedup and its token agreement with fp32
+               (reported, not gated).
 
 Each fp16 step drives `scaler.step(opt)` after the scaled backward and no
 `scaler.update()`: the reference's step() already updates the scale once
@@ -174,6 +197,17 @@ SP_RUN = 15
 FLAGSHIP_RUN, TITAN_RUN, GRAPH_RUN = 20, 10, 12
 TITAN_B, TITAN_S = 2, 2048      # the titan arm's batch (bench.py:702)
 FLAGSHIP_B, FLAGSHIP_S = 32, 128
+# the llm phase: 16 slots of a 1024-row page (max_len 1022 + the decode
+# block of 2), the length of gpt2_small's position table, so no row of a
+# page has a position past the table. A decode step at position
+# max_seq_len - 1 would embed its junk row one past it: a NaN row, as in
+# the reference (forward_cached); the engine's token budget stops each
+# sequence before that step
+LLM_SLOTS, LLM_MAX_LEN, LLM_NEW = 16, 1022, 64
+LLM_REQUESTS, LLM_CLIENTS, LLM_PROMPTS = 32, 4, (16, 896)
+# fp32 logits of a decode step against the full forward's (a different
+# summation order over the masked page)
+LLM_TOL = 1e-4
 RING_SRC = "paddle_tpu_torch/kernels/csrc/ring_attention.cu"
 SOURCES = {"flash_fwd": "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
            "flash_bwd_fused": "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
@@ -2084,6 +2118,234 @@ def graph_phase(pt, torch, np, card):
     return out
 
 
+def llm_bound(eng, n_tokens, vocab):
+    """(ms, "bytes" | "operations") of one decode step of the whole pool:
+    the model's parameters and buffers, the pool and the [S, V] f32 logits
+    moved once over 3.35 TB/s, against its products (2 x the matmul
+    weights per token row, plus q k^T and p v over every page) over the
+    fp32 peak: the products run in fp32 in both arms."""
+    lm = eng.lm
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*lm.parameters(), *lm.buffers())) + \
+        eng.kv_pool_bytes() + eng.config.num_slots * vocab * 4
+    mat = sum(t.numel() for t in (*lm.parameters(), *lm.buffers())
+              if t.dim() == 2)
+    pos_table = lm.gpt.embeddings.position_embeddings.weight.numel()
+    flops = 2 * (mat - pos_table) * n_tokens + \
+        2 * 2 * n_tokens * eng._page_len * eng._heads * eng._head_dim * \
+        eng._n_layers
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FP32
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def llm_probe(torch, np, eng, prompt, reps=20):
+    """On an idle engine: prefill `prompt` into slot 0, then one decode
+    step of the pool by a graph replay and, from the same pool state, by
+    the eager step. Returns the replay's and the eager step's (next
+    tokens, logits), the largest difference of the pools the two left, the
+    replay's device ms (CUDA events over `reps` replays) and the host ms of an
+    eager step and of a replay (median, each with its copies in and its
+    read-back of the next tokens, as the scheduler runs it)."""
+    s = eng.config.num_slots
+    toks, pos = np.zeros(s, np.int32), np.zeros(s, np.int32)
+    first, _ = eng._prefill_slot(np.asarray(prompt, np.int32), 0)
+    toks[0], pos[0] = first, len(prompt)
+    state = [*eng._pool, *eng._scales]
+    saved = [t.clone() for t in state]
+    graph = [x.clone() for x in eng._decode_step(toks, pos)]
+    after_graph = [t.clone() for t in state]
+    for t, v in zip(state, saved):
+        t.copy_(v)
+    eager = eng._decode_step(toks, pos, replay=False)
+    pool_err = max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(after_graph, state))
+    del saved, after_graph
+
+    def host_ms(replay):
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            eng._decode_step(toks, pos, replay)[0].cpu()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times[2:])
+
+    host = {"eager": host_ms(False), "replay": host_ms(True)}
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    e0.record()
+    for _ in range(reps):
+        eng._graph.replay()
+    e1.record()
+    e1.synchronize()
+    return {"first": first, "graph": graph, "eager": eager,
+            "pool_err": pool_err, "device_ms": e0.elapsed_time(e1) / reps,
+            "host_ms": host}
+
+
+def llm_phase(pt, fa, tra, torch, np, card):
+    """gpt2_small at full width and depth, fp32 weights from a seed, served
+    through LLMEngine: 32 requests of 16-896 prompt tokens and 64 new
+    tokens from 4 threads, in the fp32 arm and in the int8 arm (weight-only
+    int8 + int8 KV). Each decode step must be one replay of the one graph
+    captured at warm-up, no attention kernel may launch (the path is
+    masked einsums, as in the reference), and the fp32 arm's tokens and
+    logits must agree with the full forward of the same model."""
+    from paddle_tpu_torch.utils.bench import serve_llm
+    pt.set_device("gpu")
+    pt.seed(SEED)
+    model = pt.models.GPTForCausalLM(pt.models.gpt2_small(dropout=0.0))
+    model.eval()
+    model8 = copy.deepcopy(model)            # quantized in place by its arm
+    gpt = model.gpt
+    attn = gpt.layers[0].attention
+    n_layers = len(gpt.layers)
+    vocab = gpt.embeddings.word_embeddings.weight.shape[0]
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(LLM_PROMPTS[0], LLM_PROMPTS[1] + 1,
+                        size=LLM_REQUESTS)
+    prompts = [rng.integers(0, vocab, size=int(n)).tolist() for n in lens]
+    counted = (fa.flash_attention_fwd, fa.flash_attention_bwd_fused,
+               fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
+               *ring_wrappers(tra).values())
+    before = [c.launches for c in counted]
+    arms = {}
+    t_phase = time.perf_counter()
+    for arm, lm in (("fp32", model), ("int8", model8)):
+        int8 = arm == "int8"
+        cfg = pt.serving.LLMConfig(
+            num_slots=LLM_SLOTS, max_len=LLM_MAX_LEN, max_new_tokens=LLM_NEW,
+            quant="int8" if int8 else "off", kv_int8=int8)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eng, results, m = serve_llm(lm, cfg, prompts, clients=LLM_CLIENTS)
+        try:
+            m["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+            for i, (status, toks) in enumerate(results):
+                check(status == "done" and len(toks) == LLM_NEW,
+                      f"llm {arm}: request {i} ended {status} with "
+                      f"{len(toks)} tokens")
+            m["tokens"] = [t for _, t in results]
+            page = LLM_MAX_LEN + cfg.decode_block
+            want = 2 * n_layers * LLM_SLOTS * page * attn.num_heads * \
+                attn.head_dim * (1 if int8 else 4) + \
+                (2 * n_layers * LLM_SLOTS * 4 if int8 else 0)
+            check(m["kv_pool_bytes"] == want, f"llm {arm}: kv_pool_bytes "
+                  f"{m['kv_pool_bytes']} against the formula's {want}")
+            probe = llm_probe(torch, np, eng, prompts[0])
+            check(eng.stats()["counters"]["graph_captures"] == 1 and
+                  m["steady_state_captures"] == 0,
+                  f"llm {arm}: {eng.stats()['counters']['graph_captures']} "
+                  f"captures, {m['steady_state_captures']} after warm-up")
+            (g_tok, g_lg), (e_tok, e_lg) = probe["graph"], probe["eager"]
+            g_err = float((g_lg - e_lg).abs().max())
+            tol = LLM_TOL * (1 + float(e_lg.abs().max()))
+            check(torch.equal(g_tok, e_tok) and g_err <= tol and
+                  probe["pool_err"] <= tol,
+                  f"llm {arm}: a replay against the eager step: tokens "
+                  f"equal {torch.equal(g_tok, e_tok)}, logits max abs err "
+                  f"{g_err}, pools max abs err {probe['pool_err']} (tol "
+                  f"{tol})")
+            m.update(probe_device_ms=probe["device_ms"],
+                     probe_host_ms=probe["host_ms"], graph_vs_eager=g_err,
+                     graph_vs_eager_bit_equal=bool(torch.equal(g_lg, e_lg)),
+                     pool_err=probe["pool_err"])
+            m["bound_ms"], m["bound_by"] = llm_bound(
+                eng, LLM_SLOTS * cfg.decode_block, vocab)
+            if not int8:
+                m.update(llm_full_checks(torch, model, prompts, results,
+                                         probe, e_lg))
+        finally:
+            eng.stop()
+        arms[arm] = m
+        del eng, results
+        torch.cuda.empty_cache()
+    after = [c.launches for c in counted]
+    check(after == before, f"llm: attention kernels launched: {before} -> "
+          f"{after}")
+    f32, i8 = arms["fp32"], arms["int8"]
+    check(i8["kv_pool_bytes"] < f32["kv_pool_bytes"] / 2,
+          f"llm: int8 pool {i8['kv_pool_bytes']} not under half the fp32 "
+          f"{f32['kv_pool_bytes']}")
+    first_agree = sum(a[0] == b[0] for a, b in zip(i8["tokens"],
+                                                   f32["tokens"]))
+    pos_agree = sum(x == y for a, b in zip(i8["tokens"], f32["tokens"])
+                    for x, y in zip(a, b))
+    for arm, m in arms.items():
+        print(f"llm: {arm} gpt2_small ({n_layers} x "
+              f"{attn.num_heads * attn.head_dim}, vocab {vocab}) through "
+              f"LLMEngine, {LLM_SLOTS} slots x page "
+              f"{LLM_MAX_LEN + 2}, {LLM_REQUESTS} requests of "
+              f"{LLM_PROMPTS[0]}-{LLM_PROMPTS[1]} prompt tokens + {LLM_NEW} "
+              f"new from {LLM_CLIENTS} threads: {m['wall_s']:.3f} s, decode "
+              f"tokens/s {m['decode_tokens_per_s']:.1f}, prefill tokens/s "
+              f"{m['prefill_tokens_per_s']:.1f}, TTFT ms p50 "
+              f"{m['ttft_ms']['p50']:.2f} p99 {m['ttft_ms']['p99']:.2f}, "
+              f"inter-token ms p50 {m['inter_token_ms']['p50']:.3f} p99 "
+              f"{m['inter_token_ms']['p99']:.3f}, {m['decode_steps']} decode "
+              f"steps, captures {m['graph_captures']} (after warm-up "
+              f"{m['steady_state_captures']}), warm start "
+              f"{m['warm_start_ms']:.1f} ms, kv pool {m['kv_pool_bytes']} B, "
+              f"peak {m['peak_mib']:.0f} MiB [{card}]", flush=True)
+        print(f"llm: {arm} one decode step of {LLM_SLOTS} slots: device "
+              f"{m['probe_device_ms']:.4f} ms per replay (CUDA events) "
+              f"against a bound of {m['bound_ms']:.4f} ms "
+              f"({m['bound_by']}); host ms with copies in and read-back: "
+              f"eager {m['probe_host_ms']['eager']:.3f}, replay "
+              f"{m['probe_host_ms']['replay']:.3f}; replay vs eager logits "
+              f"max abs err {m['graph_vs_eager']:.3g} (bit-equal "
+              f"{m['graph_vs_eager_bit_equal']}), pools "
+              f"{m['pool_err']:.3g} [{card}]", flush=True)
+    print(f"llm: full-forward checks (fp32): requests 0-2 "
+          f"{f32['argmax_equal']} of {3 * LLM_NEW} tokens the full "
+          f"forward's argmax, {f32['ties']} near-ties within "
+          f"{LLM_TOL}(1+|ref|); one decode step's logits vs the full "
+          f"forward's last position max abs err {f32['decode_vs_full']:.3g} "
+          f"(tol {LLM_TOL}(1+|ref|)) [{card}]", flush=True)
+    print(f"llm: int8 arm (weight-only int8 + int8 KV) decode speedup "
+          f"{i8['decode_tokens_per_s'] / f32['decode_tokens_per_s']:.3f}, "
+          f"first tokens equal to fp32's {first_agree} of {LLM_REQUESTS}, "
+          f"tokens equal position by position {pos_agree} of "
+          f"{LLM_REQUESTS * LLM_NEW} (reported, not gated); pool "
+          f"{i8['kv_pool_bytes']} / {f32['kv_pool_bytes']} B; phase "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return arms
+
+
+def llm_full_checks(torch, model, prompts, results, probe, decode_logits):
+    """The fp32 arm against the full forward of the same model: requests
+    0-2 token by token (each generated token is the full forward's argmax
+    over the prompt and the tokens before it, so a full-recompute greedy
+    decode gives the same tokens, up to logits tied within the tolerance),
+    and the probe's decode step against the last position."""
+    equal = ties = 0
+    dev = next(model.parameters()).device
+    with torch.no_grad():
+        for i in range(3):
+            seq = prompts[i] + results[i][1]
+            full = model(torch.tensor([seq[:-1]], device=dev))[0]
+            pred = full[len(prompts[i]) - 1:]
+            for j, tok in enumerate(results[i][1]):
+                am = int(pred[j].argmax())
+                if am == tok:
+                    equal += 1
+                    continue
+                top = float(pred[j, am])
+                check(top - float(pred[j, tok]) <= LLM_TOL * (1 + abs(top)),
+                      f"llm fp32: request {i} token {j}: {tok}, the full "
+                      f"forward's argmax {am} ({top} vs "
+                      f"{float(pred[j, tok])})")
+                ties += 1
+        ref = model(torch.tensor([prompts[0] + [probe["first"]]],
+                                 device=dev))[0, -1]
+    got = decode_logits[0]
+    err = float((got - ref).abs().max())
+    check(bool(((got - ref).abs() <= LLM_TOL * (1 + ref.abs())).all()),
+          f"llm fp32: decode step logits vs the full forward: max abs err "
+          f"{err}")
+    return {"argmax_equal": equal, "ties": ties, "decode_vs_full": err}
+
+
 def ptxas(path):
     """{kernel symbol: {"registers": N, "spill": [stores, loads]}} from a
     built library's `-Xptxas -v` log."""
@@ -2380,6 +2642,7 @@ def main() -> int:
     graph_phase(pt, torch, np, card)
     fp16_flash = fp16_titan_phase(pt, fa, torch, np, card)
     fp16_ring = fp16_sp_phase(pt, tra, torch, np, card, ring_devices)
+    llm_phase(pt, fa, tra, torch, np, card)
 
     summary = {"flash_fwd": dict(serving_row,
                                  launches=train_launches["flash_fwd"]

@@ -11,8 +11,8 @@ Entry points run on `cuda` unless the caller asks for the CPU
 request they raise. Every Pallas kernel on a ported path is a hand-written
 Hopper kernel under `kernels/`.
 """
-from . import (amp, inference, io, jit, models, nn,  # noqa: F401
-               optimizer, parallel, serving, utils)
+from . import (amp, inference, io, jit, models, monitor, nn,  # noqa: F401
+               optimizer, parallel, quantization, serving, utils)
 from .core.flags import set_flags  # noqa: F401
 from .core.place import (CPUPlace, CUDAPlace, get_device,  # noqa: F401
                          set_device)
@@ -23,4 +23,5 @@ from .jit import InputSpec  # noqa: F401
 __all__ = ["set_device", "get_device", "seed", "get_rng_state",
            "set_rng_state", "set_flags", "save", "load",
            "CPUPlace", "CUDAPlace", "InputSpec", "amp", "inference", "io", "jit",
-           "models", "nn", "optimizer", "parallel", "serving", "utils"]
+           "models", "monitor", "nn", "optimizer", "parallel", "quantization",
+           "serving", "utils"]

@@ -20,8 +20,8 @@ does the flag off.
 Per-optimizer states (READY, UNSCALED, STEPPED; the reference's
 OptimizerState) make sure the gradients are unscaled exactly once, and
 raise on `unscale_` or `step` out of order. The reference also counts
-`amp.skipped_steps` and `amp.scale_updates` on its monitor; the port has
-no monitor yet and counts nothing.
+`amp.skipped_steps` and `amp.scale_updates` on its monitor; the port's
+scaler counts nothing there yet.
 """
 from __future__ import annotations
 

@@ -10,8 +10,13 @@ parameter names and layouts, so a JAX state dict loads by name.
 With `use_sp`, attention is `parallel.sequence_parallel_attention(impl=
 "ring")` over the current mesh's 'sp' axis, and the attention mask and
 dropout are ignored, as in the reference (:92-94). Tensor parallelism
-(`use_mp=True`) raises: it comes with the distributed slice. The cached
-decode path (`forward_cached`) is not ported yet.
+(`use_mp=True`) raises: it comes with the distributed slice.
+
+`forward_cached` (:103-229), the cached-attention step of LLM serving,
+keeps the reference's arithmetic (masked einsums over the whole page, the
+validity mask at -1e9, per-row int8 scales) but writes the block's K/V
+into the given pages in place, where the reference returns new pages: a
+CUDA graph of the decode step reads and writes one pool that never moves.
 
 `ErnieScanStack` (:321-466) keeps its layer weights stacked on a leading
 [L] axis and always runs attention through the flash kernels; where the
@@ -111,6 +116,65 @@ class ErnieSelfAttention(nn.Layer):
         ctx = ctx.reshape(b, s, self.num_heads * self.head_dim)
         return self.out(ctx)
 
+    def forward_cached(self, x, k_cache, v_cache, positions,
+                       k_scale=None, v_scale=None):
+        """Cached-attention step over a fixed-shape KV cache (decode path).
+
+        x: [B, T, H] current block (T = prompt bucket at prefill, the
+        decode block at decode). k_cache/v_cache: [B, L, nh, hd] pages
+        with L fixed (the slot page), fp32, or int8 for the quantized-KV
+        arm. positions: [B] int32, tokens already cached per row. The
+        block's K/V are written into the pages IN PLACE at rows
+        positions[b] .. positions[b]+T-1 (the start clamped so the block
+        fits, as `dynamic_update_slice` clamps it), and attention runs
+        over the whole page under a validity mask: key j is visible to
+        query i iff j <= positions[b] + i.
+
+        int8 pages: symmetric quantization with one scale per row. With
+        k_scale/v_scale None the scales are computed fresh from this
+        block's K/V, max|x| / 127 floored at 1e-6 (the prefill step);
+        otherwise the given [B] scales are reused and new entries clip into
+        their grid (the decode steps). Reads dequantize cache * scale.
+
+        Inference-only: no dropout inside the attention. Returns (out,
+        k_cache, v_cache, k_scale, v_scale); the caches are the given
+        tensors, the scales None for fp32 pages."""
+        b, t = x.shape[0], x.shape[1]
+        nh, hd = self.num_heads, self.head_dim
+        qkv = self.qkv(x).reshape(b, t, 3, nh, hd)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if k_cache.dtype == torch.int8:
+            if k_scale is None:
+                k_scale = k.abs().amax(dim=(1, 2, 3)).clamp_min(1e-6) / 127.0
+                v_scale = v.abs().amax(dim=(1, 2, 3)).clamp_min(1e-6) / 127.0
+            k = _quantize(k, k_scale)
+            v = _quantize(v, v_scale)
+        page = k_cache.shape[1]
+        start = positions.long().clamp(0, page - t)
+        rows = start[:, None] + torch.arange(t, device=x.device)
+        bidx = torch.arange(b, device=x.device)[:, None].expand(b, t)
+        k_cache.index_put_((bidx, rows), k)
+        v_cache.index_put_((bidx, rows), v)
+        kr, vr = k_cache, v_cache
+        if k_cache.dtype == torch.int8:
+            kr = k_cache.to(q.dtype) * k_scale[:, None, None, None]
+            vr = v_cache.to(q.dtype) * v_scale[:, None, None, None]
+        logits = torch.einsum("bhsd,bhtd->bhst", q.transpose(1, 2),
+                              kr.transpose(1, 2)) * (1.0 / math.sqrt(hd))
+        qpos = positions[:, None] + torch.arange(t, device=x.device)
+        span = torch.arange(page, device=x.device)
+        hidden = span[None, None, None, :] > qpos[:, None, :, None]
+        probs = torch.softmax(logits.masked_fill(hidden, -1e9), dim=-1)
+        ctx = torch.einsum("bhst,bhtd->bhsd", probs, vr.transpose(1, 2))
+        ctx = ctx.transpose(1, 2).reshape(b, t, nh * hd)
+        return self.out(ctx), k_cache, v_cache, k_scale, v_scale
+
+
+def _quantize(x, scale):
+    """[B, T, nh, hd] onto the int8 grid of its row's scale [B]."""
+    return torch.round(x / scale[:, None, None, None]).clamp(
+        -127, 127).to(torch.int8)
+
 
 class ErnieLayer(nn.Layer):
     def __init__(self, hidden_size, num_heads, intermediate_size, dropout=0.1,
@@ -127,6 +191,18 @@ class ErnieLayer(nn.Layer):
         x = self.norm1(x + self.dropout(self.attention(x, attn_mask)))
         x = self.norm2(x + self.mlp(x))
         return x
+
+    def forward_cached(self, x, k_cache, v_cache, positions,
+                       k_scale=None, v_scale=None):
+        """One block through the cached-attention path, with forward's
+        post-LN residual wiring. Returns (x, k_cache, v_cache, k_scale,
+        v_scale)."""
+        attn, k_cache, v_cache, k_scale, v_scale = \
+            self.attention.forward_cached(x, k_cache, v_cache, positions,
+                                          k_scale, v_scale)
+        x = self.norm1(x + self.dropout(attn))
+        x = self.norm2(x + self.mlp(x))
+        return x, k_cache, v_cache, k_scale, v_scale
 
 
 class ErnieModel(nn.Layer):

@@ -3,15 +3,20 @@
 Counterpart of `paddle_tpu/models/gpt.py`: `GPTEmbeddings`, `GPTModel`,
 `GPTForCausalLM` with the head tied to the word embeddings (:96-100), the
 shifted-LM `GPTPretrainingCriterion` (:113-132) and the
-`gpt2_small`/`gpt2_medium` configs. Tensor, sequence and pipeline
-parallelism (and the vocab-parallel loss) come with the distributed slice.
+`gpt2_small`/`gpt2_medium` configs. The cached decode path
+(`init_kv_cache`, `forward_cached`, :58-110) writes each block's K/V into
+the given pages in place: a CUDA graph of the decode step replays over the
+same pool. Tensor, sequence and pipeline parallelism (and the
+vocab-parallel loss) come with the distributed slice.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as TF
 
 from .. import nn
 from ..amp.state import maybe_cast
+from ..core.dtype import convert_dtype
 from .ernie import ErnieLayer
 
 
@@ -22,11 +27,27 @@ class GPTEmbeddings(nn.Layer):
         self.position_embeddings = nn.Embedding(max_seq_len, hidden_size)
         self.dropout = nn.Dropout(dropout)
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, position_offset=None):
         pos = torch.arange(input_ids.shape[1], dtype=torch.int32,
                            device=input_ids.device).unsqueeze(0)
-        return self.dropout(self.word_embeddings(input_ids)
-                            + self.position_embeddings(pos))
+        if position_offset is None:
+            pe = self.position_embeddings(pos)
+        else:
+            # cached decode: [B] tokens-already-seen offsets the block's
+            # position ids so step N embeds position N, not 0
+            pe = self._positions(pos + position_offset.reshape(-1, 1))
+        return self.dropout(self.word_embeddings(input_ids) + pe)
+
+    def _positions(self, pos):
+        """Rows of the position table at `pos`, NaN where `pos` is past its
+        end, as the reference's `jnp.take` fills them (nn/functional/
+        common.py:104). The gather reads a clamped index: on CUDA an index
+        out of range is a device-side assert, not a NaN."""
+        table = self.position_embeddings.weight
+        n = table.shape[0]
+        rows = TF.embedding(pos.clamp(0, n - 1).long(), table)
+        return rows.masked_fill(((pos < 0) | (pos >= n)).unsqueeze(-1),
+                                float("nan"))
 
 
 class GPTModel(nn.Layer):
@@ -49,6 +70,36 @@ class GPTModel(nn.Layer):
             x = layer(x)
         return self.final_norm(x)
 
+    def init_kv_cache(self, batch_size, max_len, dtype="float32"):
+        """Fresh zero KV pages for forward_cached: one (k, v) pair per
+        layer, each [batch, max_len, num_heads, head_dim], on the model's
+        device. dtype "int8" builds the quantized-KV pages (scales start
+        as None and are computed by the first forward_cached call)."""
+        attn = self.layers[0].attention
+        shape = (batch_size, max_len, attn.num_heads, attn.head_dim)
+        kw = dict(dtype=convert_dtype(dtype),
+                  device=self.final_norm.weight.device)
+        return [(torch.zeros(shape, **kw), torch.zeros(shape, **kw))
+                for _ in self.layers]
+
+    def forward_cached(self, input_ids, past_kv, positions, kv_scales=None):
+        """Prefill/decode step over explicit KV-cache pages.
+
+        input_ids [B, T]; past_kv: list over layers of (k, v) fixed-shape
+        pages [B, L, nh, hd], written in place; positions [B] int32
+        tokens-already-cached per row (also the position-embedding
+        offset). kv_scales: list of (k_scale, v_scale) [B] pairs for int8
+        pages, or None. Returns (hidden, past_kv, new_kv_scales)."""
+        x = self.embeddings(input_ids, position_offset=positions)
+        new_scales = []
+        for i, layer in enumerate(self.layers):
+            ks, vs = (None, None) if kv_scales is None else kv_scales[i]
+            k, v = past_kv[i]
+            x, _, _, ks, vs = layer.forward_cached(x, k, v, positions, ks,
+                                                   vs)
+            new_scales.append((ks, vs))
+        return self.final_norm(x), past_kv, new_scales
+
 
 class GPTForCausalLM(nn.Layer):
     def __init__(self, gpt: GPTModel):
@@ -60,6 +111,15 @@ class GPTForCausalLM(nn.Layer):
         # the tied head is an AMP white-list matmul (ops/math.py:139-140)
         h, w = maybe_cast(h, self.gpt.embeddings.word_embeddings.weight)
         return torch.matmul(h, w.t())
+
+    def forward_cached(self, input_ids, past_kv, positions, kv_scales=None):
+        """Cached-attention LM step: (logits, past_kv, new_kv_scales), the
+        pages written in place. Weight-tied head over
+        GPTModel.forward_cached."""
+        h, kv, scales = self.gpt.forward_cached(input_ids, past_kv,
+                                                positions, kv_scales)
+        w = self.gpt.embeddings.word_embeddings.weight
+        return torch.matmul(h, w.t()), kv, scales
 
 
 class GPTPretrainingCriterion(nn.Layer):

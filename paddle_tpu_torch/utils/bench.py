@@ -1,4 +1,5 @@
-"""The port's counterpart of `bench.py`'s two ERNIE training arms.
+"""The port's counterpart of `bench.py`'s two ERNIE training arms and its
+LLM serving arm.
 
 - `--arm ernie_train` (`bench_ernie_train`, bench.py:188-276): the
   flagship, `ErnieForPretraining(ernie_base(hidden_dropout_prob=0.0))`
@@ -14,21 +15,35 @@
   2 x 2048 on `(out ** 2).mean()`, 10 stacked steps from
   `np.random.rand * 0.02`, 3 reps. Reports ms per layer-sample and MFU.
 
+- `--arm llm` (`bench_llm`, bench.py:1559-1636): continuous-batching
+  serving through `serving.LLMEngine`, the fp32 arm and the int8 arm
+  (`quant="int8"`, `kv_int8=True`), on the same GPT built from one seed.
+  On the card at bench.py's `backend == "tpu"` sizes (vocab 8192, hidden
+  256, 4 layers, 8 heads, `max_seq_len` 512; 32 requests with prompt
+  lengths from `default_rng(0)`, 48 new tokens; 8 slots, `max_len` 256),
+  on the CPU at its other sizes (hidden 64, 2 layers, 4 heads; 8 requests,
+  16 new tokens, `max_len` 64). Reports prefill and decode tokens/s, TTFT
+  and inter-token p50/p95/p99, the KV pool, the warm start and
+  `steady_state_captures` (CUDA-graph captures after warm-up, the
+  counterpart of `steady_state_compiles`), and `int8_decode_speedup`.
+
 Each arm prints one JSON line under `bench.py`'s keys where they exist.
 MFU is over the H100's 989 TFLOP/s dense bf16 peak. Run on a machine with
 a CUDA device:
 
-    python -m paddle_tpu_torch.utils.bench --arm ernie_train|ernie10b_layer
+    python -m paddle_tpu_torch.utils.bench --arm ernie_train|ernie10b_layer|llm
 
-The arms are functions too (`ernie_train`, `ernie10b_layer`) whose sizes
-are arguments; `chip_smoke.py` calls them with shorter spans. This module
-defines no benchmark cell.
+`--device cpu` runs the arms on the CPU instead. The arms are functions
+too (`ernie_train`, `ernie10b_layer`, `llm`) whose sizes are arguments;
+`chip_smoke.py` calls them with shorter spans (and `serve_llm` at GPT-2
+small). This module defines no benchmark cell.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import statistics
+import threading
 import time
 
 import numpy as np
@@ -252,27 +267,127 @@ def ernie10b_layer(h=4096, ffn=16384, heads=64, seq=2048, batch=2,
             "n_steps": n_steps, "reps": reps}
 
 
-ARMS = {"ernie_train": ernie_train, "ernie10b_layer": ernie10b_layer}
+def _quantiles(hist):
+    return {k: hist.get(k, 0.0) for k in ("p50", "p95", "p99")}
 
 
-def main():
+def serve_llm(lm, cfg, prompts, clients=1):
+    """Serve `prompts` through an `LLMEngine(lm, cfg)` on the current
+    device, submitted from `clients` threads (each submits its share, then
+    waits for it), with the monitor on. Returns (the engine, running and
+    idle: the caller stops it; [(status, tokens)] per prompt; the metrics
+    of bench.py's llm arm from the monitor and the engine's counters)."""
+    from .. import monitor
+    from ..core import flags
+    from ..serving import LLMEngine
+    was_on = flags.flag("monitor")
+    flags.set_flags({"monitor": True})
+    monitor.reset()
+    try:
+        eng = LLMEngine(lm, cfg).start()   # warm-up captures the step
+        captures0 = eng.stats()["counters"]["graph_captures"]
+        results = [None] * len(prompts)
+        errors = []
+
+        def client(idxs):
+            try:
+                streams = [(i, eng.submit(prompts[i])) for i in idxs]
+                for i, st in streams:
+                    results[i] = st.result(timeout=600.0)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=client,
+                                    args=(range(j, len(prompts), clients),))
+                   for j in range(clients)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        wall = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads):
+            eng.stop(drain=False)
+            raise RuntimeError(f"llm arm: requests failed {errors}")
+        snap = monitor.snapshot()
+    finally:
+        flags.set_flags({"monitor": was_on})
+    hist, counters = snap["histograms"], eng.stats()["counters"]
+    decode_toks = sum(len(t) for _, t in results)
+    return eng, results, {
+        "requests": len(prompts), "clients": clients, "wall_s": wall,
+        "prefill_tokens_per_s": sum(len(p) for p in prompts) / wall,
+        "decode_tokens_per_s": decode_toks / wall,
+        "ttft_ms": _quantiles(hist.get("llm.ttft_ms", {})),
+        "inter_token_ms": _quantiles(hist.get("llm.inter_token_ms", {})),
+        "decode_steps": snap["counters"].get("llm.decode.steps", 0),
+        "graph_captures": counters["graph_captures"],
+        "steady_state_captures": counters["graph_captures"] - captures0,
+        "kv_pool_bytes": eng.kv_pool_bytes(),
+        "kv_pool_mb": eng.kv_pool_bytes() / 2 ** 20,
+        "warm_start_ms": eng.stats()["warm_start_ms"]}
+
+
+def llm(big=True, seed=0):
+    """bench.py's llm arm (bench.py:1559-1636), both arms; `big` takes its
+    `backend == "tpu"` sizes, else its smaller ones. Returns the JSON-able
+    result: {"fp32": ..., "int8": ..., "int8_decode_speedup": ...}."""
+    import paddle_tpu_torch as pt
+    from ..serving import LLMConfig
+    vocab, n_req = 8192, (32 if big else 8)
+    max_new = 48 if big else 16
+    out = {}
+    for arm, quant in (("fp32", "off"), ("int8", "int8")):
+        pt.seed(seed)                  # the same weights in both arms
+        lm = pt.models.GPTForCausalLM(pt.models.GPTModel(
+            vocab_size=vocab, hidden_size=256 if big else 64,
+            num_layers=4 if big else 2, num_heads=8 if big else 4,
+            max_seq_len=512, dropout=0.0))
+        cfg = LLMConfig(num_slots=8, max_len=256 if big else 64,
+                        max_new_tokens=max_new, quant=quant,
+                        kv_int8=(quant == "int8"))
+        rng = np.random.default_rng(0)
+        lens = rng.integers(4, cfg.max_len - max_new, size=n_req)
+        prompts = [rng.integers(0, vocab, size=int(n)).tolist()
+                   for n in lens]
+        eng, _, out[arm] = serve_llm(lm, cfg, prompts)
+        eng.stop()
+    out["int8_decode_speedup"] = out["int8"]["decode_tokens_per_s"] / \
+        out["fp32"]["decode_tokens_per_s"]
+    return out
+
+
+ARMS = {"ernie_train": ernie_train, "ernie10b_layer": ernie10b_layer,
+        "llm": llm}
+
+
+def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arm", choices=sorted(ARMS), action="append",
                     required=True)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("paddle_tpu_torch.utils.bench measures the card: "
-                         "no CUDA device")
+    ap.add_argument("--device", choices=("gpu", "cpu"), default="gpu",
+                    help="run on the card (default) or on the CPU")
+    args = ap.parse_args(argv)
     import paddle_tpu_torch as pt
-    from .train_profile import _card
-    torch.backends.cuda.matmul.allow_tf32 = False
-    pt.set_device("gpu")
-    card = _card()
+    if args.device == "cpu":
+        pt.set_device("cpu")
+        card = device = "cpu"
+    else:
+        if not torch.cuda.is_available():
+            raise SystemExit("paddle_tpu_torch.utils.bench measures the "
+                             "card: no CUDA device (--device cpu runs on "
+                             "the CPU)")
+        from .train_profile import _card
+        torch.backends.cuda.matmul.allow_tf32 = False
+        pt.set_device("gpu")
+        card, device = _card(), torch.cuda.get_device_name(0)
     for arm in args.arm:
-        r = ARMS[arm]()
-        r.update(arm=arm, card=card, device=torch.cuda.get_device_name(0))
+        r = ARMS[arm](big=args.device == "gpu") if arm == "llm" \
+            else ARMS[arm]()
+        r.update(arm=arm, card=card, device=device)
         print(json.dumps(r), flush=True)
-        torch.cuda.empty_cache()
+        if args.device == "gpu":
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""Where a training step's device time goes, from a torch.profiler trace.
+"""Where a training (or decode) step's device time goes, from a
+torch.profiler trace.
 
 Trains one of the training paths that chip_smoke.py drives, in bf16 AMP
 through `jit.TrainStep` + `AdamW(1e-4)`:
@@ -18,7 +19,13 @@ through `jit.TrainStep` + `AdamW(1e-4)`:
   `auto_cast(dtype="float16")`, the scaled backward and
   `GradScaler().step(AdamW(1e-4))`. These have no `run()` span; they are
   also timed with FLAGS_amp_fused_update off (the legacy unscale_, a
-  host read of found_inf, then the ungated update).
+  host read of found_inf, then the ungated update);
+- `--model llm_decode` / `llm_decode_int8`: not a training step but one
+  decode step of `serving.LLMEngine`'s whole pool, as chip_smoke.py's llm
+  phase configures it (gpt2_small, 16 slots, max_len 1022, every slot
+  prefilled with 16-896 prompt tokens; fp32, or int8 weights + int8 KV):
+  a call is the eager step, `run()` one replay of the captured graph per
+  step.
 
 It warms up, times a few steps without the profiler (host clock, synced),
 then traces as many with CUPTI and prints the device time per step by
@@ -30,7 +37,8 @@ same for a `run()` span of as many steps (one CUDA-graph replay per step,
 after a first span that captures). Run on a machine with a CUDA device:
 
     python -m paddle_tpu_torch.utils.train_profile
-        [--model gpt2|ernie_sp|ernie|titan|titan_fp16|ernie_sp_fp16]
+        [--model gpt2|ernie_sp|ernie|titan|titan_fp16|ernie_sp_fp16|
+                 llm_decode|llm_decode_int8]
         [--steps 3] [--top 20]
 
 Prints one line per kernel group and per top kernel, and a JSON object as
@@ -209,9 +217,46 @@ def _ernie_sp_fp16(pt, rng, sp=4):
     return step, (ids, nsp)
 
 
+class _DecodeSteps:
+    """An LLMEngine's decode step of the whole pool, driven as profile()
+    drives a training step: a call is one eager step, `run(stacked)` one
+    graph replay per row of `stacked`. Every step decodes the same tokens
+    at the same positions (each rewrites the same pool rows)."""
+
+    def __init__(self, eng, toks, pos):
+        self.eng, self._toks, self._pos = eng, toks, pos
+
+    def __call__(self, tokens):
+        self.eng._decode_step(self._toks, self._pos, replay=False)
+
+    def run(self, stacked):
+        for _ in range(stacked.shape[0]):
+            self.eng._decode_step(self._toks, self._pos)
+
+
+def _llm_decode(pt, rng, int8=False):
+    """gpt2_small behind an LLMEngine (16 slots, max_len 1022), warmed up
+    (the decode step captured), every slot prefilled with a prompt of
+    16-896 tokens; the step is one decode step of the pool."""
+    from ..serving import LLMConfig, LLMEngine
+    lm = pt.models.GPTForCausalLM(pt.models.gpt2_small(dropout=0.0))
+    eng = LLMEngine(lm, LLMConfig(num_slots=16, max_len=1022,
+                                  quant="int8" if int8 else "off",
+                                  kv_int8=int8))
+    eng._warmup()
+    vocab = lm.gpt.embeddings.word_embeddings.weight.shape[0]
+    toks, pos = np.zeros(16, np.int32), np.zeros(16, np.int32)
+    for slot in range(16):
+        prompt = rng.integers(0, vocab, size=int(rng.integers(16, 897)))
+        toks[slot], _ = eng._prefill_slot(prompt.astype(np.int32), slot)
+        pos[slot] = prompt.size
+    return _DecodeSteps(eng, toks, pos), (torch.from_numpy(toks).cuda(),)
+
+
 MODELS = {"gpt2": _gpt2, "ernie_sp": _ernie_sp, "ernie": _ernie,
           "titan": _titan, "titan_fp16": _titan_fp16,
-          "ernie_sp_fp16": _ernie_sp_fp16}
+          "ernie_sp_fp16": _ernie_sp_fp16, "llm_decode": _llm_decode,
+          "llm_decode_int8": lambda pt, rng: _llm_decode(pt, rng, True)}
 
 
 def _trace(fn, steps):

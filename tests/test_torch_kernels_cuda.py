@@ -764,3 +764,51 @@ def test_prefetcher_on_a_side_stream_yields_the_source(cuda_device):
         assert torch.equal(y.cpu(), torch.from_numpy(sy))
     assert feed.stats()["consumed"] == 9
     feed.close()
+
+
+@pytest.mark.cuda
+def test_llm_decode_replays_one_graph_equal_to_the_eager_step(cuda_device):
+    """LLMEngine on the card: one CUDA-graph capture at warm-up and none
+    while serving; a replay's next tokens and logits equal the eager
+    step's from one pool state (within 1e-5 (1 + |ref|)). No attention
+    kernel launches: cached attention is masked einsums."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.serving import LLMConfig, LLMEngine
+    pt.set_device("gpu")
+    pt.seed(7)
+    lm = pt.models.GPTForCausalLM(pt.models.GPTModel(
+        vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
+        max_seq_len=128, dropout=0.0))
+    before = tfa.flash_attention_fwd.launches
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 64, size=int(n)).tolist()
+               for n in rng.integers(2, 14, size=4)]
+    for quant in ("off", "int8"):
+        eng = LLMEngine(lm if quant == "off" else copy_of(lm), LLMConfig(
+            num_slots=4, max_len=32, max_new_tokens=8, quant=quant,
+            kv_int8=quant == "int8")).start()
+        try:
+            assert eng.stats()["counters"]["graph_captures"] == 1
+            res = [s.result(60.0) for s in [eng.submit(p) for p in prompts]]
+            assert all(st == "done" and len(t) == 8 for st, t in res)
+            assert eng.stats()["counters"]["graph_captures"] == 1
+            toks, pos = np.zeros(4, np.int32), np.zeros(4, np.int32)
+            toks[0], _ = eng._prefill_slot(np.asarray([5, 17, 3], np.int32),
+                                           0)
+            pos[0] = 3
+            state = [t.clone() for t in (*eng._pool, *eng._scales)]
+            g_tok, g_lg = (x.clone() for x in eng._decode_step(toks, pos))
+            for t, v in zip((*eng._pool, *eng._scales), state):
+                t.copy_(v)
+            e_tok, e_lg = eng._decode_step(toks, pos, replay=False)
+            assert torch.equal(g_tok, e_tok)
+            torch.testing.assert_close(g_lg, e_lg, rtol=1e-5, atol=1e-5)
+        finally:
+            eng.stop()
+    assert tfa.flash_attention_fwd.launches == before
+
+
+def copy_of(module):
+    import copy
+    return copy.deepcopy(module)
