@@ -98,12 +98,15 @@ last line is printed):
                titan under torch.use_deterministic_algorithms, since the
                fused backward's dq atomics do not repeat bitwise): per-step
                losses within 1e-4 relative, parameter cosine >= 0.9999;
-               the replayed span's kernels counted by symbol in the
-               torch.profiler device trace: GPT-2 12 flash forward and 12
-               fused backward launches per step, titan 4 and 4 under
-               "dots" (8 forwards under remat=True, and fewer GEMMs), the
-               sp train 48 of each ring step kernel on one card, the
-               flagship none;
+               the kernels of one replay counted by symbol over the
+               kernel nodes of the captured step (a replay runs every
+               node of its graph): GPT-2 12 flash forward and 12 fused
+               backward launches per step, titan 4 and 4 under "dots" (8
+               forwards under remat=True, and fewer GEMMs), the sp train
+               48 of each ring step kernel on one card, the flagship
+               none; the torch.profiler trace of a replayed span printed
+               beside them, and never more than the graph's count per
+               replay;
  11. fp16 titan - path A: the same four titan layers in fp16 AMP, eager,
                AdamW(1e-4) + amp.GradScaler() at its defaults: the step-1
                loss and unscaled gradients against fp32 on the card (fused
@@ -149,14 +152,35 @@ last line is printed):
                forward's last position. Prints decode and prefill tokens/s,
                TTFT and inter-token p50 / p99, peak memory, and the int8
                arm's decode speedup and its token agreement with fp32
-               (reported, not gated).
+               (reported, not gated);
+ 14. dygraph - the paddle user's dygraph loop on the Tensor API:
+               GPTForCausalLM(gpt2_small(dropout=0.0)) at full width and
+               depth, ids from a seeded default_rng through pt.to_tensor
+               (a pt.Tensor, int32, on CUDAPlace(0)), 12 steps of
+               auto_cast(bf16) forward, cross_entropy on Tensor methods
+               (slicing, reshape, astype), backward(), AdamW(1e-4) step()
+               and clear_grad(): logits and loss are pt.Tensor, 12 flash
+               forward and 12 fused backward launches per step (host
+               counts), the loss falls; the same loop on plain torch ids
+               in turns (ms per step: the Tensor layer's host cost); both
+               from one saved state under torch.use_deterministic_
+               algorithms: losses within 1e-4 relative, lowest parameter
+               cosine >= 0.9999;
+ 15. ops     - each op family of the Tensor API (creation, math,
+               manipulation, logic, search, linalg) on CUDA pt.Tensors
+               against the same call on CPU pt.Tensors, forward and the
+               gradients of the sum where differentiable, within the
+               family's tolerance (OP_TOL); numpy() of a CUDA bf16 tensor
+               (exact f32); the 15 random ops drawn twice on the card under
+               one seed, bit-equal; the host cost of one op, Tensor vs
+               plain.
 
 Each fp16 step drives `scaler.step(opt)` after the scaled backward and no
 `scaler.update()`: the reference's step() already updates the scale once
 every optimizer has stepped, and an update() after it counts the step a
 second time, as a good one. The last two lines are a JSON summary of the
-kernels, one entry per kernel and dtype (bf16 from the bf16 paths, fp16
-from paths A and B), and `{"ok": true, "device": {...}}`. Imports nothing
+kernels, one entry per kernel and dtype (bf16 from the bf16 paths, the
+dygraph phase's launches in rows 1-2, fp16 from paths A and B), and `{"ok": true, "device": {...}}`. Imports nothing
 of JAX.
 
     python3 chip_smoke.py --rows [ROOT] [DTYPE]
@@ -1967,6 +1991,26 @@ def determinism(torch, on):
             torch.use_deterministic_algorithms(False)
 
 
+@contextlib.contextmanager
+def kept_graphs(torch):
+    """torch.cuda.CUDAGraph made with keep_graph=True for the block (so a
+    captured graph's nodes can be read): yields the class."""
+    real = torch.cuda.CUDAGraph
+
+    class Kept(real):
+        def __new__(cls, keep_graph=False):
+            return super().__new__(cls, True)
+
+        def __init__(self, keep_graph=False):
+            super().__init__(True)
+
+    torch.cuda.CUDAGraph = Kept
+    try:
+        yield Kept
+    finally:
+        torch.cuda.CUDAGraph = real
+
+
 def graph_run_vs_loop(pt, torch, name, step, batch, n, card, want=None,
                       deterministic=False):
     """From one saved state, run() over n distinct steps (every step one
@@ -1979,7 +2023,9 @@ def graph_run_vs_loop(pt, torch, name, step, batch, n, card, want=None,
     the default form, the per-step times of run() and of the loop (host
     clock) and the port's kernels in the device trace of one replayed
     span, against `want` per step."""
-    from paddle_tpu_torch.utils.train_profile import kernel_launches
+    from paddle_tpu_torch.utils.train_profile import (graph_kernel_names,
+                                                      kernel_counts,
+                                                      kernel_launches)
     saved = step.state_dict()
     with determinism(torch, deterministic):
         step.run(*batch)                   # capture (its first step eager)
@@ -1994,8 +2040,18 @@ def graph_run_vs_loop(pt, torch, name, step, batch, n, card, want=None,
     low = min((cosine(a.float(), b.float()), pname) for a, b, pname in
               zip(graph_params, step._ptensors, step._pnames))
     del graph_params
-    # the default form: capture, then time a replayed span and the loop
-    step.run(*batch)
+    # the default form: capture anew (keeping the graph to read its
+    # kernel nodes), then time a replayed span and the loop
+    step._graphs.clear()
+    with kept_graphs(torch) as kept:
+        step.run(*batch)
+    caps = [c for c in step._graphs.values() if isinstance(c.graph, kept)]
+    check(len(caps) == 1, f"graph {name}: {len(caps)} kept captures")
+    names = graph_kernel_names(caps[0].graph)
+    per_step = kernel_counts(names)
+    ours = sorted({n.split("(")[0] for n in names
+                   if "flash" in n or "ring" in n})
+    del caps
     step.set_state_dict(saved)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2016,22 +2072,30 @@ def graph_run_vs_loop(pt, torch, name, step, batch, n, card, want=None,
         step.run(*batch)
         torch.cuda.synchronize()
     counts = kernel_launches(prof)
+    del prof
     form = "deterministic backward" if deterministic else "default form"
     print(f"graph: {name}: run() of {n} distinct steps (one graph replay "
           f"each) vs the eager loop of __call__ from one saved state "
           f"({form}): max rel loss diff {rel:.3g} (tol 1e-4), bit-equal "
           f"{bit}, lowest parameter cosine {low[0]:.8f} ({low[1]}, tol "
           f"0.9999); default form per step {graph_ms:.3f} ms run() vs "
-          f"{loop_ms:.3f} ms loop (host clock); device trace of one "
-          f"replayed span: {counts} [{card}]", flush=True)
+          f"{loop_ms:.3f} ms loop (host clock); kernel nodes of the "
+          f"captured step (each replay runs every node): {per_step}; "
+          f"device trace of one replayed span of {n}: {counts} [{card}]",
+          flush=True)
     check(rel <= 1e-4, f"graph {name}: run() vs loop losses {graph} {loop}")
     check(low[0] >= 0.9999, f"graph {name}: parameter cosine {low}")
-    for kname, per_step in (want or {}).items():
-        check(counts[kname] == per_step * n, f"graph {name}: {kname} "
-              f"launched {counts[kname]} times in a replayed span of {n} "
-              f"(want {per_step} per step)")
+    for kname, want_step in (want or {}).items():
+        check(per_step[kname] == want_step, f"graph {name}: the captured "
+              f"step holds {per_step[kname]} {kname} kernel nodes (want "
+              f"{want_step}); its attention kernels: {ours}")
+    for kname, c in counts.items():
+        check(c <= per_step[kname] * n, f"graph {name}: the trace of a "
+              f"replayed span of {n} shows {c} {kname} launches, more than "
+              f"the graph's {per_step[kname]} per replay")
     return {"rel": rel, "bit_equal": bit, "cosine": low[0],
-            "graph_ms": graph_ms, "loop_ms": loop_ms, "counts": counts}
+            "graph_ms": graph_ms, "loop_ms": loop_ms, "counts": counts,
+            "per_step": per_step}
 
 
 def graph_phase(pt, torch, np, card):
@@ -2091,8 +2155,8 @@ def graph_phase(pt, torch, np, card):
     out["titan_remat"] = graph_run_vs_loop(
         pt, torch, "titan remat=True", step, (x[:2],), 2, card,
         {"flash_fwd": 8, "flash_bwd_fused": 4}, deterministic=True)
-    gemms = (out["titan"]["counts"]["gemm"] / n,
-             out["titan_remat"]["counts"]["gemm"] / 2)
+    gemms = (out["titan"]["per_step"]["gemm"],
+             out["titan_remat"]["per_step"]["gemm"])
     print(f"graph: titan GEMM launches per step, dots {gemms[0]:.0f} vs "
           f"remat=True {gemms[1]:.0f} (the recompute's products) [{card}]",
           flush=True)
@@ -2344,6 +2408,417 @@ def llm_full_checks(torch, model, prompts, results, probe, decode_logits):
           f"llm fp32: decode step logits vs the full forward: max abs err "
           f"{err}")
     return {"argmax_equal": equal, "ties": ties, "decode_vs_full": err}
+
+
+# the dygraph phase's steps: at gpt2_small's initial loss (~116: its
+# N(0, 1) embeddings, tied to the head, give logits of std ~28) AdamW(1e-4)
+# on the repeated batch lifts the loss again at steps 4-6 before it falls
+# (on an H100: 116.2, 115.9, 107.4, 116.9, 117.0, 117.0, 111.9, ..., 98.1
+# at step 10), so the run goes past that before "the loss fell" is read
+DYGRAPH_STEPS = 12
+
+
+def dygraph_loop(pt, torch, model, ids, vocab, wrapped, n=DYGRAPH_STEPS):
+    """n steps of the paddle user's dygraph loop (forward under
+    auto_cast bf16, the loss in f32, backward, AdamW step, clear_grad)
+    from the model's current state, on `Tensor` ids (wrapped) or on plain
+    torch ids: the losses (device) and each step's host ms (synced)."""
+    F = pt.nn.functional
+    opt = pt.optimizer.AdamW(1e-4, parameters=model.parameters())
+    losses, ms = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        with pt.amp.auto_cast(dtype="bfloat16"):
+            logits = model(ids)
+        if wrapped:
+            loss = F.cross_entropy(
+                logits[:, :-1].reshape([-1, vocab]).astype("float32"),
+                ids[:, 1:].reshape([-1])).mean()
+        else:
+            loss = F.cross_entropy(
+                logits[:, :-1].reshape(-1, vocab).float(),
+                ids[:, 1:].reshape(-1)).mean()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.detach())
+        del logits, loss
+    return torch.stack([torch.as_tensor(v).float() for v in losses]), ms
+
+
+def dygraph_phase(pt, fa, torch, np, card):
+    """GPT-2 small at full width and depth, 8 x 1024, trained by the paddle
+    user's dygraph loop on `Tensor`s (to_tensor, Tensor methods,
+    backward(), step(), clear_grad()) under auto_cast(bf16): attention
+    reaches the flash kernels (S >= 1024 in bf16), 12 + 12 launches per
+    step. Then the same loop on plain torch ids (ms per step: the Tensor
+    layer's host cost), and both from one saved state under
+    torch.use_deterministic_algorithms (the same kernels without the fused
+    backward's dq atomics) for the parity check."""
+    pt.set_device("gpu")
+    pt.seed(SEED)
+    model = pt.models.GPTForCausalLM(pt.models.gpt2_small(dropout=0.0))
+    vocab = model.gpt.embeddings.word_embeddings.weight.shape[0]
+    n_layers = len(model.gpt.layers)
+    saved = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    ids_np = np.random.default_rng(SEED).integers(0, vocab,
+                                                   (TRAIN_B, TRAIN_S))
+    ids = pt.to_tensor(ids_np)
+    check(isinstance(ids, pt.Tensor) and ids.place == pt.CUDAPlace(0)
+          and ids.dtype == pt.int32,
+          f"dygraph: ids {type(ids)} {ids.place} {ids.dtype}")
+    with pt.amp.auto_cast(dtype="bfloat16"):
+        logits = model(ids)
+    loss = pt.nn.functional.cross_entropy(
+        logits[:, :-1].reshape([-1, vocab]).astype("float32"),
+        ids[:, 1:].reshape([-1])).mean()
+    check(isinstance(logits, pt.Tensor) and isinstance(loss, pt.Tensor),
+          f"dygraph: logits {type(logits)}, loss {type(loss)}")
+    check(logits.shape == [TRAIN_B, TRAIN_S, vocab] and
+          math.isfinite(loss.item()),
+          f"dygraph: logits {logits.shape}, loss {loss.item()}")
+    del logits, loss
+
+    # ---- the main path: counts set to 0 just before, read just after ----
+    counters = {"flash_fwd": fa.flash_attention_fwd,
+                "flash_bwd_fused": fa.flash_attention_bwd_fused,
+                "flash_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_bwd_dkv": fa.flash_attention_bwd_dkv}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    tensor_losses, tensor_ms = dygraph_loop(pt, torch, model, ids, vocab,
+                                            True)
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(launches["flash_fwd"] == n_layers * DYGRAPH_STEPS and
+          launches["flash_bwd_fused"] == n_layers * DYGRAPH_STEPS and
+          launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0,
+          f"dygraph: launches {launches} (want {n_layers} forward and "
+          f"{n_layers} fused backward per step)")
+    lo = tensor_losses.tolist()
+    check(all(math.isfinite(v) for v in lo) and lo[-1] < lo[0],
+          f"dygraph: losses {lo} do not fall")
+
+    # ---- the same loop on plain torch ids: the Tensor layer's host cost,
+    # in turns (Tensor, plain, plain, Tensor) from the saved state; each
+    # loop's first step is its warm-up ----
+    plain_ids = torch.from_numpy(ids_np).to(ids.device)
+    timed = {True: [tensor_ms[1:]], False: []}
+    for wrapped in (False, False, True):
+        model.load_state_dict(saved)
+        losses, ms = dygraph_loop(pt, torch, model,
+                                  ids if wrapped else plain_ids, vocab,
+                                  wrapped)
+        timed[wrapped].append(ms[1:])
+        if not wrapped:
+            plain_losses = losses
+    default_rel = ((tensor_losses - plain_losses).abs() /
+                   plain_losses.abs()).max().item()
+
+    # ---- parity: both loops from one state, deterministic backward ----
+    finals, det = [], []
+    for wrapped, x in ((True, ids), (False, plain_ids)):
+        model.load_state_dict(saved)
+        with determinism(torch, True):
+            losses, _ = dygraph_loop(pt, torch, model, x, vocab, wrapped)
+        det.append(losses)
+        finals.append([p.detach().float().clone()
+                       for p in model.parameters()])
+    rel = ((det[0] - det[1]).abs() / det[1].abs()).max().item()
+    names = [n for n, _ in model.named_parameters()]
+    low = min((cosine(a, b), n) for a, b, n in zip(*finals, names))
+    bit = torch.equal(det[0], det[1])
+    del finals, saved
+    t_ms = statistics.median([v for ms in timed[True] for v in ms])
+    p_ms = statistics.median([v for ms in timed[False] for v in ms])
+    print(f"dygraph: GPT-2 small 8 x {TRAIN_S}, {DYGRAPH_STEPS} steps of "
+          f"to_tensor / auto_cast(bf16) / backward() / AdamW step() / "
+          f"clear_grad() on Tensor ids (int32, {ids.place}): losses "
+          f"{[round(v, 4) for v in lo]}; launches {launches} "
+          f"({n_layers} + {n_layers} per step); ms per step, median over "
+          f"two loops of each in turns, each after its warm-up step (host "
+          f"clock, synced): Tensor loop {t_ms:.3f} vs plain torch loop "
+          f"{p_ms:.3f}, Tensor layer {t_ms - p_ms:+.3f} ms per step "
+          f"(Tensor {[[round(v, 2) for v in ms] for ms in timed[True]]}, "
+          f"plain {[[round(v, 2) for v in ms] for ms in timed[False]]}); "
+          f"default form max rel loss diff "
+          f"{default_rel:.3g}; deterministic backward: max rel loss diff "
+          f"{rel:.3g} (tol 1e-4), bit-equal {bit}, lowest parameter cosine "
+          f"{low[0]:.8f} ({low[1]}, tol 0.9999); peak memory {peak:.2f} GiB "
+          f"[{card}]", flush=True)
+    check(rel <= 1e-4, f"dygraph: Tensor vs plain losses {det}")
+    check(low[0] >= 0.9999, f"dygraph: parameter cosine {low}")
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "tensor_ms": t_ms, "plain_ms": p_ms}
+
+
+# ---- the op phase: every op family on the card against the CPU ----------
+OP_TOL = {"creation": 0.0, "math": 1e-4, "manipulation": 0.0,
+          "logic": 0.0, "search": 0.0, "linalg": 1e-3}
+
+
+def _op_cases(pt, np):
+    """(family, name, call, differentiable): call(T) builds its tensors
+    with T(array, grad=False) on the current device."""
+    rng = np.random.default_rng(SEED + 21)
+    x = rng.standard_normal((64, 96)).astype(np.float32)
+    y = rng.standard_normal((64, 96)).astype(np.float32)
+    pos = rng.uniform(0.5, 2.0, (64, 96)).astype(np.float32)
+    sq = rng.standard_normal((32, 32)).astype(np.float32)
+    spd = (sq @ sq.T + 32 * np.eye(32)).astype(np.float32)
+    idx = rng.integers(0, 64, (40,)).astype(np.int32)
+    ints = rng.integers(0, 50, (64, 96)).astype(np.int32)
+
+    def recon_svd(o):
+        u, s, v = (a.numpy() for a in o)
+        return u @ np.diag(s) @ v.T
+
+    def recon_eigh(o):
+        w, v = (a.numpy() for a in o)
+        return v @ np.diag(w) @ v.T
+
+    def recon_qr(o):
+        q, r = (a.numpy() for a in o)
+        return q @ r
+
+    cases = [
+        ("creation", "to_tensor", lambda T: pt.to_tensor(x), False),
+        ("creation", "zeros/ones/full", lambda T: pt.concat(
+            [pt.zeros([4, 96]), pt.ones([4, 96]), pt.full([4, 96], 2.5)]),
+         False),
+        ("creation", "arange", lambda T: pt.arange(0, 100, 3), False),
+        ("creation", "linspace", lambda T: pt.linspace(0.0, 1.0, 33), False),
+        ("creation", "eye", lambda T: pt.eye(16, 24), False),
+        ("creation", "tril/triu", lambda T: pt.tril(T(sq, True)) +
+         pt.triu(T(sq, True), 1), True),
+        ("creation", "diag", lambda T: pt.diag(T(sq, True)), True),
+        ("creation", "full_like", lambda T: pt.full_like(T(x), 3.0), False),
+        ("creation", "meshgrid", lambda T: pt.meshgrid(
+            T(x[0]), T(y[0, :8])), False),
+        ("math", "unary", lambda T: [getattr(pt, n)(T(pos, True)) for n in (
+            "sqrt", "rsqrt", "exp", "log", "log1p", "sin", "cos", "tanh",
+            "erf", "lgamma", "reciprocal", "square", "abs", "floor")], True),
+        ("math", "binary", lambda T: [getattr(pt, n)(T(x, True), T(pos)) for
+                                      n in ("add", "subtract", "multiply",
+                                            "divide", "pow", "maximum",
+                                            "minimum", "atan2", "remainder")],
+         True),
+        ("math", "dunders", lambda T: (T(x, True) * 2 + 1) / (T(pos) ** 2)
+         - T(y), True),
+        ("math", "reductions", lambda T: [
+            T(x, True).sum(axis=1), T(x, True).mean(axis=0),
+            T(x, True).max(axis=1), T(x, True).std(axis=1),
+            T(x, True).logsumexp(axis=1), T(pos, True).prod(axis=1),
+            T(x, True).median(axis=1)], True),
+        ("math", "cumulative", lambda T: [pt.cumsum(T(x, True), 1),
+                                          pt.cumprod(T(pos, True), 1),
+                                          pt.cummax(T(x, True), 1)[0]],
+         True),
+        ("math", "matmul", lambda T: pt.matmul(T(x, True), T(y, True),
+                                               transpose_y=True), True),
+        ("math", "scale/clip", lambda T: pt.clip(pt.scale(T(x, True), 2.0,
+                                                          0.5), -1, 1), True),
+        ("math", "int sum", lambda T: T(ints).sum(axis=0), False),
+        ("manipulation", "reshape/transpose", lambda T: T(x, True).reshape(
+            [8, 8, 96]).transpose([2, 0, 1]), True),
+        ("manipulation", "split/concat", lambda T: pt.concat(
+            pt.split(T(x, True), 3, axis=1)[::-1], axis=1), True),
+        ("manipulation", "gather", lambda T: pt.gather(T(x, True), T(idx)),
+         True),
+        ("manipulation", "gather_nd", lambda T: pt.gather_nd(
+            T(x, True), T(np.stack([idx, idx % 96], 1))), True),
+        ("manipulation", "scatter", lambda T: pt.scatter(
+            T(x, True), T(np.unique(idx)), T(y[:len(np.unique(idx))], True)),
+         True),
+        ("manipulation", "take_along_axis", lambda T: pt.take_along_axis(
+            T(x, True), T(ints % 96), 1), True),
+        ("manipulation", "tile/expand/flip/roll", lambda T: [
+            pt.tile(T(x[:2], True), [2, 1]), T(x[:1], True).expand([3, 96]),
+            pt.flip(T(x, True), [0]), pt.roll(T(x, True), 5, 1)], True),
+        ("manipulation", "pad", lambda T: pt.pad(T(x[None, None], True),
+                                                 [1, 2, 3, 4]), True),
+        ("manipulation", "getitem", lambda T: T(x, True)[3:40:2, ::-1], True),
+        ("manipulation", "masked_fill/where", lambda T: pt.where(
+            T(x) > 0, pt.masked_fill(T(x, True), T(y) > 1, 0.0), T(y, True)),
+         True),
+        ("manipulation", "unique", lambda T: pt.unique(T(ints), True, True,
+                                                       True), False),
+        ("logic", "compare", lambda T: [T(x) > T(y), T(x) == T(x),
+                                        pt.isclose(T(x), T(y))], False),
+        ("logic", "logical/bitwise", lambda T: [
+            pt.logical_and(T(x) > 0, T(y) > 0), pt.bitwise_xor(T(ints), 7),
+            pt.all(T(x) > -10, axis=1), pt.any(T(x) > 2)], False),
+        ("search", "argmax/argsort", lambda T: [
+            pt.argmax(T(x), axis=1), pt.argsort(T(x), axis=1)], False),
+        ("search", "sort/topk", lambda T: [pt.sort(T(x, True), axis=1),
+                                           pt.topk(T(x, True), 5)[0]], True),
+        ("search", "nonzero/masked_select", lambda T: [
+            pt.nonzero(T(x) > 1), pt.masked_select(T(x, True), T(x) > 1)],
+         True),
+        ("search", "searchsorted", lambda T: pt.searchsorted(
+            T(np.sort(x[0])), T(y[0])), False),
+        ("linalg", "norm/dist", lambda T: [pt.norm(T(x, True)),
+                                           pt.norm(T(x, True), 2, 1),
+                                           pt.dist(T(x, True), T(y))], True),
+        ("linalg", "inv/solve/det", lambda T: [
+            pt.inv(T(spd, True)), pt.solve(T(spd, True), T(x[:32, :4])),
+            pt.slogdet(T(spd, True))[1]], True),
+        ("linalg", "cholesky", lambda T: pt.cholesky(T(spd, True)), True),
+        ("linalg", "einsum", lambda T: pt.einsum("ij,kj->ik", T(x, True),
+                                                 T(y, True)), True),
+        ("linalg", "svd", lambda T: recon_svd(pt.svd(T(x[:32, :16]))),
+         False),
+        ("linalg", "eigh", lambda T: recon_eigh(pt.eigh(T(spd))), False),
+        ("linalg", "qr", lambda T: recon_qr(pt.qr(T(x[:32, :16]))), False),
+    ]
+    return cases
+
+
+def _flat_out(o):
+    if isinstance(o, (list, tuple)):
+        return [v for e in o for v in _flat_out(e)]
+    return [o]
+
+
+def _np_of(torch, np, o):
+    return o.numpy() if isinstance(o, torch.Tensor) else np.asarray(o)
+
+
+def _max_err(np, got, want, tol):
+    """The largest |got - want| / (1 + |want|), NaN where both are NaN
+    counted as equal; checks the shapes and dtypes."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"ops: {got.shape} {got.dtype} vs {want.shape} {want.dtype}")
+    if got.dtype.kind not in "fc":
+        return 0.0 if np.array_equal(got, want) else float("inf")
+    both_nan = np.isnan(got) & np.isnan(want)
+    err = np.where(both_nan, 0.0, np.abs(got.astype(np.float64) -
+                                         want) / (1 + np.abs(want)))
+    return float(np.nan_to_num(err, nan=np.inf).max()) if err.size else 0.0
+
+
+def _random_draws(pt):
+    return {
+        "uniform": lambda: pt.uniform([1 << 16], min=-2.0, max=3.0),
+        "uniform_": lambda: pt.uniform_(pt.zeros([1 << 16]), 0.0, 2.0),
+        "normal": lambda: pt.normal(1.0, 2.0, [1 << 16]),
+        "gaussian": lambda: pt.gaussian([1 << 16], 0.5, 0.5),
+        "standard_normal": lambda: pt.standard_normal([1 << 16]),
+        "randn": lambda: pt.randn([1 << 16]),
+        "rand": lambda: pt.rand([1 << 16]),
+        "randint": lambda: pt.randint(2, 9, [1 << 16]),
+        "randint_like": lambda: pt.randint_like(pt.zeros([1 << 16]), 0, 4),
+        "randperm": lambda: pt.randperm(4096),
+        "bernoulli": lambda: pt.bernoulli(pt.full([1 << 16], 0.3)),
+        "multinomial": lambda: pt.multinomial(pt.full([64, 128], 1.0), 4),
+        "poisson": lambda: pt.poisson(pt.full([1 << 16], 3.0)),
+        "exponential_": lambda: pt.exponential_(pt.zeros([1 << 16]), 2.0),
+        "shuffle": lambda: pt.shuffle(pt.arange(4096)),
+    }
+
+
+def op_phase(pt, torch, np, card):
+    """Every op family of the Tensor API on CUDA `Tensor`s against the same
+    call on CPU `Tensor`s (outputs, shapes, dtypes; for a differentiable
+    call the gradients of the sum of its float outputs), within each
+    family's tolerance (relative to 1 + |ref|); numpy() of a CUDA bf16
+    tensor; each random op drawn twice on the card under one seed, bit
+    for bit; the host cost of one op through the Tensor layer."""
+    worst = {}
+    for family, name, call, diff in _op_cases(pt, np):
+        res = {}
+        for dev in ("cpu", "gpu"):
+            pt.set_device(dev)
+            leaves = []
+
+            def T(a, grad=False):
+                t = pt.to_tensor(a, stop_gradient=not grad)
+                if grad:
+                    leaves.append(t)
+                return t
+
+            flat = _flat_out(call(T))
+            for o in flat:
+                if isinstance(o, torch.Tensor):
+                    check(isinstance(o, pt.Tensor) and
+                          o.place.device_type == dev,
+                          f"ops {name} on {dev}: {type(o)} "
+                          f"{getattr(o, 'place', None)}")
+            grads = []
+            if diff:
+                total = sum(o.astype("float32").sum() for o in flat
+                            if isinstance(o, torch.Tensor) and
+                            o.is_floating_point() and not o.stop_gradient)
+                total.backward()
+                grads = [leaf.gradient() for leaf in leaves]
+            res[dev] = ([_np_of(torch, np, o) for o in flat], grads)
+        tol = OP_TOL[family]
+        (got, ggot), (want, gwant) = res["gpu"], res["cpu"]
+        check(len(got) == len(want) and len(ggot) == len(gwant),
+              f"ops {name}: output counts")
+        err = max([_max_err(np, g, w, tol) for g, w in zip(got, want)] +
+                  [_max_err(np, g, w, tol) for g, w in zip(ggot, gwant)
+                   if w is not None or g is not None] + [0.0])
+        check(err <= tol, f"ops {family} {name}: max err {err} (tol {tol})")
+        prev = worst.get(family, (0, 0.0))
+        worst[family] = (prev[0] + 1, max(prev[1], err))
+    pt.set_device("gpu")
+    for family, (count, err) in worst.items():
+        print(f"ops: {family}: {count} calls on CUDA Tensors vs CPU Tensors "
+              f"(forward and, where differentiable, the gradients of the "
+              f"sum): max err {err:.3g} relative to 1 + |ref| (tol "
+              f"{OP_TOL[family]}) [{card}]", flush=True)
+    # numpy() of a CUDA bf16 tensor: exact f32
+    x = np.random.default_rng(SEED + 22).standard_normal(
+        (64, 96)).astype(np.float32)
+    t = pt.to_tensor(x, dtype="bfloat16")
+    host = t.numpy()
+    check(t.place == pt.CUDAPlace(0) and host.dtype == np.float32 and
+          np.array_equal(host, torch.from_numpy(x).bfloat16().float()
+                         .numpy()), "ops: numpy() of a CUDA bf16 tensor")
+    # the random ops: two seeded draws on the card, bit for bit
+    draws = _random_draws(pt)
+    for name, draw in draws.items():
+        pt.seed(SEED + 23)
+        a = draw()
+        pt.seed(SEED + 23)
+        b = draw()
+        check(a.place == pt.CUDAPlace(0) and torch.equal(a, b),
+              f"ops: {name} does not repeat under one seed on the card")
+    u = draws["uniform"]().numpy()
+    r = draws["randint"]().numpy()
+    check(u.min() >= -2.0 and u.max() <= 3.0 and abs(u.mean() - 0.5) < 0.05
+          and r.min() >= 2 and r.max() <= 8, "ops: random supports")
+    print(f"ops: numpy() of a CUDA bf16 tensor is its exact f32; "
+          f"{len(draws)} random ops each drawn twice on the card under one "
+          f"seed: bit-equal [{card}]", flush=True)
+    # the host cost of the Tensor layer per op (small tensors: launch-bound)
+    a, b = pt.to_tensor(x), pt.to_tensor(x)
+    ap, bp = pt.core.tensor.to_torch(a), pt.core.tensor.to_torch(b)
+    costs = {}
+    for label, fn in (("pt.add(Tensor, Tensor)", lambda: pt.add(a, b)),
+                      ("Tensor + Tensor", lambda: a + b),
+                      ("Tensor.sum(axis=1)", lambda: a.sum(axis=1)),
+                      ("torch.add(plain, plain)", lambda: torch.add(ap, bp)),
+                      ("plain.sum(1)", lambda: ap.sum(1))):
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn()
+        torch.cuda.synchronize()
+        costs[label] = (time.perf_counter() - t0) / 2000 * 1e6
+    print(f"ops: host us per call on a 64 x 96 CUDA tensor (2000 calls, "
+          f"synced at the end): "
+          f"{ {k: round(v, 2) for k, v in costs.items()} } [{card}]",
+          flush=True)
+    return costs
 
 
 def ptxas(path):
@@ -2643,14 +3118,18 @@ def main() -> int:
     fp16_flash = fp16_titan_phase(pt, fa, torch, np, card)
     fp16_ring = fp16_sp_phase(pt, tra, torch, np, card, ring_devices)
     llm_phase(pt, fa, tra, torch, np, card)
+    dygraph = dygraph_phase(pt, fa, torch, np, card)
+    op_phase(pt, torch, np, card)
 
     summary = {"flash_fwd": dict(serving_row,
                                  launches=train_launches["flash_fwd"]
-                                 + serve_launches + titan["launches"][0])}
+                                 + serve_launches + titan["launches"][0]
+                                 + dygraph["launches"]["flash_fwd"])}
     for kname in ("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"):
         summary[kname] = dict(train_rows[kname],
                               launches=train_launches[kname] + (
                                   titan["launches"][1]
+                                  + dygraph["launches"][kname]
                                   if kname == "flash_bwd_fused" else 0))
     # the ring kernels at the sp train's hop, launches from the sp train:
     # the step kernels over the 4 slots of a ring step
@@ -2667,8 +3146,8 @@ def main() -> int:
         summary16[kname] = dict(fp16_steps[kname], launches=fp16_ring[kname])
     paths16 = {k: "fp16 titan" for k in fp16_flash}
     paths16.update({k: "fp16 sp" for k in RING_KERNELS})
-    entries = [(k, r, "train + serve + titan" if k == "flash_fwd" else
-                "train + titan" if k == "flash_bwd_fused" else
+    entries = [(k, r, "train + serve + titan + dygraph" if k == "flash_fwd"
+                else "train + titan + dygraph" if k == "flash_bwd_fused" else
                 "sp train" if k.startswith("ring") else "train")
                for k, r in summary.items()] + \
         [(k, r, paths16[k]) for k, r in summary16.items()]

@@ -10,9 +10,24 @@ Entry points run on `cuda` unless the caller asks for the CPU
 (`set_device('cpu')` or `device='cpu'`); with no CUDA device and no such
 request they raise. Every Pallas kernel on a ported path is a hand-written
 Hopper kernel under `kernels/`.
+
+The paddle Tensor API: `to_tensor`, `Tensor` (a `torch.Tensor` subclass,
+`core/tensor.py`), every op of `paddle_tpu.ops` but the sequence and lazy
+ones at top level and as Tensor methods, `grad`, `no_grad` and the
+`autograd` package (PyLayer, jacobian, hessian, vjp, jvp).
 """
-from . import (amp, inference, io, jit, models, monitor, nn,  # noqa: F401
-               optimizer, parallel, quantization, serving, utils)
+from .core.tensor import Tensor  # noqa: F401
+from .core.dtype import (  # noqa: F401
+    bool_ as bool,  # noqa: A001
+    uint8, int8, int16, int32, int64, float16, bfloat16, float32, float64,
+    complex64, complex128, set_default_dtype, get_default_dtype, finfo,
+    iinfo)
+from .core.autograd import (enable_grad, grad, is_grad_enabled,  # noqa: F401
+                            no_grad, set_grad_enabled)
+from . import ops  # noqa: F401  (binds the Tensor methods)
+from .ops import *  # noqa: F401,F403
+from . import (amp, autograd, inference, io, jit, models,  # noqa: F401
+               monitor, nn, optimizer, parallel, quantization, serving, utils)
 from .core.flags import set_flags  # noqa: F401
 from .core.place import (CPUPlace, CUDAPlace, get_device,  # noqa: F401
                          set_device)
@@ -22,6 +37,10 @@ from .jit import InputSpec  # noqa: F401
 
 __all__ = ["set_device", "get_device", "seed", "get_rng_state",
            "set_rng_state", "set_flags", "save", "load",
-           "CPUPlace", "CUDAPlace", "InputSpec", "amp", "inference", "io", "jit",
-           "models", "monitor", "nn", "optimizer", "parallel", "quantization",
-           "serving", "utils"]
+           "CPUPlace", "CUDAPlace", "InputSpec", "amp", "autograd",
+           "inference", "io", "jit", "models", "monitor", "nn", "optimizer",
+           "parallel", "quantization", "serving", "utils", "Tensor", "grad",
+           "no_grad", "enable_grad", "set_grad_enabled", "is_grad_enabled",
+           "set_default_dtype", "get_default_dtype", "finfo", "iinfo", "bool",
+           "uint8", "int8", "int16", "int32", "int64", "float16", "bfloat16",
+           "float32", "float64", "complex64", "complex128"] + ops.__all__

@@ -18,6 +18,7 @@ import torch
 from ..core.dtype import dtype_name
 from ..core.enforce import UnimplementedError
 from ..core.place import resolve_device
+from ..core.tensor import api
 
 _NOT_PORTED = ("artifact loading is not ported yet: the .pdmodel artifact "
                "is StableHLO, which paddle_tpu_torch cannot load\n"
@@ -98,6 +99,7 @@ class Predictor:
             out = self._layer(*ins)
         return list(out) if isinstance(out, (list, tuple)) else [out]
 
+    @api
     def run(self, inputs=None):
         """With `inputs`: returns the outputs as tensors on the predictor's
         device (bf16 read back as float32). Without: runs the fed input

@@ -20,6 +20,11 @@ Usage:
     loss = step(x, y)          # x to model.forward, y to loss_fn
     losses = step.run(xs, ys)  # xs/ys stacked along a leading n_steps axis
 
+`__call__` and `run()` take `Tensor` batches too (the Tensor API's
+boundary): they unwrap them at entry, so the step and its CUDA graphs'
+static buffers stay plain, and return the loss(es) as `Tensor` exactly when
+a batch entry was one.
+
 The monitor, timeline, compile-cache and executable hooks of the
 reference are not ported.
 """
@@ -36,6 +41,7 @@ from ..core import flags as _flags
 from ..core.enforce import UnimplementedError
 from ..core.place import resolve_device
 from ..core.random import get_rng_state, set_rng_state
+from ..core.tensor import api
 from ..parallel.topology import get_mesh
 from .functional import amp_functional_call, split_state
 
@@ -167,6 +173,7 @@ class TrainStep:
         opt._t_arr.add_(1.0)
         return loss, bad
 
+    @api
     def __call__(self, *batch):
         """batch: input tensors consumed by model.forward; loss_fn receives
         the model output(s) and the remaining tensors. Runs eagerly and
@@ -178,6 +185,7 @@ class TrainStep:
         raise_nonfinite(bad, self._pnames, "train step")
         return loss
 
+    @api
     def run(self, *batch):
         """Every tensor in `batch` is stacked along a leading n_steps axis;
         runs the n optimizer steps and returns the [n] losses.

@@ -12,7 +12,10 @@ sites check the module attribute `_ENABLED`, one attribute load on the
 disabled path. `core.flags.watch_flag` keeps `_ENABLED` in sync with
 `set_flags({"FLAGS_monitor": ...})`.
 
-Not ported yet: the event ring, the op / collective / retrace recorders,
+`record_op` books the Tensor API's eager ops (`dispatch.op_count`,
+`dispatch.op.<name>`, `dispatch.dur.<name>`).
+
+Not ported yet: the event ring, the collective / retrace recorders,
 the Profiler hook of `span()`, `report()` / `render_snapshot`, the JSON and
 Prometheus exporters and the mergeable snapshots.
 """
@@ -26,7 +29,7 @@ from typing import Any, Dict, Tuple
 from .core import flags as _flags
 
 __all__ = ["Counter", "Gauge", "Histogram", "StatRegistry", "count",
-           "gauge_set", "observe", "span", "snapshot", "reset"]
+           "gauge_set", "observe", "record_op", "span", "snapshot", "reset"]
 
 # Hot-path gate: instrumented sites read this module attribute directly.
 _ENABLED: bool = bool(_flags.flag("monitor"))
@@ -224,6 +227,13 @@ def gauge_set(name: str, value) -> None:
 
 def observe(name: str, value: float) -> None:
     _REGISTRY.histogram(name).observe(value)
+
+
+def record_op(name: str, dur: float) -> None:
+    """One eager op of the Tensor API (`ops._dispatch.op`)."""
+    _REGISTRY.counter("dispatch.op_count").add(1)
+    _REGISTRY.counter(f"dispatch.op.{name}").add(1)
+    _REGISTRY.histogram(f"dispatch.dur.{name}").observe(dur)
 
 
 class _NullSpan:

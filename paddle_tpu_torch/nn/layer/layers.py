@@ -5,6 +5,11 @@ names, shapes and layouts are the JAX package's, so a state dict moves
 between the two packages by name with no renaming: `create_parameter`,
 `state_dict`/`set_state_dict` with paddle names, `eval()`, and
 `to(dtype=)`/`bfloat16()`.
+
+`__call__` is the Tensor API's boundary: called with a `Tensor` argument
+(`paddle_tpu_torch.to_tensor`), the layer runs on plain aliases of its
+arguments and its tensor outputs come back as `Tensor`; called with plain
+torch tensors, as every layer calls its sublayers, it pays one type scan.
 """
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ import torch
 
 from ...core.dtype import convert_dtype, get_default_dtype
 from ...core.place import resolve_device
+from ...core.tensor import has_tensor, unwrap_tree, wrap_tree
 
 __all__ = ["Layer"]
 
@@ -21,6 +27,12 @@ class Layer(torch.nn.Module):
     def __init__(self, name_scope=None, dtype="float32"):
         super().__init__()
         self._dtype = convert_dtype(dtype) or get_default_dtype()
+
+    def __call__(self, *args, **kwargs):
+        if has_tensor(args, kwargs):
+            return wrap_tree(torch.nn.Module.__call__(
+                self, *unwrap_tree(args), **unwrap_tree(kwargs)))
+        return torch.nn.Module.__call__(self, *args, **kwargs)
 
     def create_parameter(self, shape, attr=None, dtype=None, is_bias=False,
                          default_initializer=None) -> torch.nn.Parameter:

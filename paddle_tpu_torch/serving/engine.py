@@ -254,7 +254,8 @@ class ServingEngine:
     def submit(self, inputs: Sequence[np.ndarray],
                deadline_ms: Optional[float] = None) -> ResponseFuture:
         """Enqueue one request (arrays share a leading batch dim, usually
-        1). Raises ServerOverloadedError / EngineStoppedError /
+        1; a `Tensor` is read through its `numpy()`, the Tensor API's
+        boundary here). Raises ServerOverloadedError / EngineStoppedError /
         NoBucketError / ValueError synchronously; everything later lands
         on the returned future."""
         arrays = [np.ascontiguousarray(a) for a in inputs]

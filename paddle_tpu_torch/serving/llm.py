@@ -393,7 +393,8 @@ class LLMEngine:
                on_token: Optional[Callable] = None) -> LLMStream:
         """Queue one generation; returns its LLMStream immediately. Sheds
         with ServerOverloadedError on queue depth, like
-        ServingEngine.submit."""
+        ServingEngine.submit. A `Tensor` prompt is read through its
+        `numpy()`."""
         prompt = np.asarray(prompt_ids, dtype=np.int32).reshape(-1)
         if prompt.size == 0:
             raise ServingError("empty prompt")

@@ -43,11 +43,20 @@ after a first span that captures). Run on a machine with a CUDA device:
 
 Prints one line per kernel group and per top kernel, and a JSON object as
 its last line.
+
+`kernel_counts(graph_kernel_names(graph))` counts the port's kernels
+among the kernel nodes of a captured `torch.cuda.CUDAGraph` (made with
+keep_graph=True): a replay runs every node of its graph, so these are
+exactly the launches of one replay, which a profiler trace of a replay
+can undercount.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
+import os
+import shutil
 import re
 import subprocess
 import time
@@ -67,13 +76,16 @@ GROUPS = (("ring_attention", ("ring_fwd", "ring_dq", "ring_dkv")),
           ("elementwise_and_reductions", ("",)))
 
 
-# the port's kernels by their symbols in a device trace (the C entries
-# launch these; a template's arguments tell the fused backward from the
-# dk/dv pass)
+# the port's kernels by their symbols in a device trace or a graph's nodes
+# (the C entries launch these; a template's arguments tell the fused
+# backward from the dk/dv pass: `true` in a trace, `(bool)1` from
+# cu++filt)
 KERNEL_SYMBOLS = (
     ("flash_fwd", re.compile(r"\bflash_fwd_\w+_kernel\b")),
-    ("flash_bwd_fused", re.compile(r"\bflash_bwd_kv_\w+_kernel<[^>]*true>")),
-    ("flash_bwd_dkv", re.compile(r"\bflash_bwd_kv_\w+_kernel<[^>]*false>")),
+    ("flash_bwd_fused",
+     re.compile(r"\bflash_bwd_kv_\w+_kernel<[^>]*(true|\(bool\)1)>")),
+    ("flash_bwd_dkv",
+     re.compile(r"\bflash_bwd_kv_\w+_kernel<[^>]*(false|\(bool\)0)>")),
     ("flash_bwd_dq", re.compile(r"\bflash_bwd_dq_(wgmma|mma|f32)_kernel\b")),
     ("ring_fwd", re.compile(r"\bring_fwd_\w+_kernel\b")),
     ("ring_dq_step", re.compile(r"\bring_dq_\w+_kernel\b")),
@@ -86,15 +98,97 @@ def kernel_launches(prof) -> dict:
     `torch.profiler` trace, counted from its CUDA kernel events by
     symbol: the count a CUDA graph's replays run, which the wrappers'
     `.launches` (host calls) do not see."""
+    return kernel_counts(
+        e.name for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def kernel_counts(names) -> dict:
+    """Launches of the port's kernels (and of the GEMMs) among kernel
+    names, by symbol."""
     counts = {name: 0 for name, _ in KERNEL_SYMBOLS}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for n in names:
         for name, pattern in KERNEL_SYMBOLS:
-            if pattern.search(e.name):
+            if pattern.search(n):
                 counts[name] += 1
                 break
     return counts
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 of cuda.h (CUDA 12)."""
+    _fields_ = [("func", ctypes.c_void_p),
+                ("grid", ctypes.c_uint * 3), ("block", ctypes.c_uint * 3),
+                ("shared_mem_bytes", ctypes.c_uint),
+                ("kernel_params", ctypes.c_void_p),
+                ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+_CU_GRAPH_NODE_TYPE_KERNEL = 0
+
+
+def _libcuda():
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp, ref = ctypes.c_void_p, ctypes.POINTER
+    sigs = {"cuGraphGetNodes": [vp, vp, ref(ctypes.c_size_t)],
+            "cuGraphNodeGetType": [vp, ref(ctypes.c_int)],
+            "cuGraphKernelNodeGetParams_v2": [vp, ref(_KernelNodeParams)],
+            "cuFuncGetName": [ref(ctypes.c_char_p), vp],
+            "cuKernelGetName": [ref(ctypes.c_char_p), vp]}
+    for fn, args in sigs.items():
+        getattr(cu, fn).argtypes = args
+        getattr(cu, fn).restype = ctypes.c_int
+    return cu
+
+
+def _demangle(names):
+    cuda_tool = "/usr/local/cuda/bin/cu++filt"
+    tool = shutil.which("cu++filt") or shutil.which("c++filt") or \
+        (cuda_tool if os.path.exists(cuda_tool) else None)
+    if tool is None or not names:
+        return list(names)
+    res = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60, check=True)
+    out = res.stdout.splitlines()
+    return out if len(out) == len(names) else list(names)
+
+
+def graph_kernel_names(graph) -> list:
+    """The (demangled) kernel names of every kernel node of a captured
+    `torch.cuda.CUDAGraph` made with keep_graph=True, read through libcuda
+    (`cuGraphGetNodes`, `cuGraphKernelNodeGetParams`, `cuFuncGetName` /
+    `cuKernelGetName`)."""
+    cu = _libcuda()
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+
+    def ok(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} failed with CUresult {rc}")
+
+    ok(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    ok(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        ok(cu.cuGraphNodeGetType(node, ctypes.byref(kind)),
+           "cuGraphNodeGetType")
+        if kind.value != _CU_GRAPH_NODE_TYPE_KERNEL:
+            continue
+        prm = _KernelNodeParams()
+        ok(cu.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(prm)),
+           "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if prm.func:
+            ok(cu.cuFuncGetName(ctypes.byref(name), prm.func),
+               "cuFuncGetName")
+        else:
+            ok(cu.cuKernelGetName(ctypes.byref(name), prm.kern),
+               "cuKernelGetName")
+        names.append(name.value.decode())
+    return _demangle(names)
 
 
 def _group(name: str) -> str:

@@ -812,3 +812,36 @@ def test_llm_decode_replays_one_graph_equal_to_the_eager_step(cuda_device):
 def copy_of(module):
     import copy
     return copy.deepcopy(module)
+
+
+@pytest.mark.cuda
+def test_dygraph_step_on_tensors_reaches_the_flash_kernels(cuda_device):
+    """A paddle user's dygraph step (`to_tensor`, Tensor methods,
+    backward(), step(), clear_grad()) on a small GPT at S = 1024 under
+    auto_cast(bf16) sends each layer's attention through the flash
+    forward and the fused backward, and its loss is a finite Tensor."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+    pt.set_device("gpu")
+    pt.seed(0)
+    model = pt.models.GPTForCausalLM(pt.models.GPTModel(
+        vocab_size=512, hidden_size=128, num_layers=2, num_heads=2,
+        max_seq_len=1024, dropout=0.0))
+    opt = pt.optimizer.AdamW(1e-4, parameters=model.parameters())
+    ids = pt.to_tensor(np.random.default_rng(0).integers(0, 512, (2, 1024)))
+    assert ids.place == pt.CUDAPlace(0) and ids.dtype == pt.int32
+    fwd, bwd = tfa.flash_attention_fwd, tfa.flash_attention_bwd_fused
+    before = (fwd.launches, bwd.launches)
+    with pt.amp.auto_cast(dtype="bfloat16"):
+        logits = model(ids)
+    loss = pt.nn.functional.cross_entropy(
+        logits[:, :-1].reshape([-1, 512]).astype("float32"),
+        ids[:, 1:].reshape([-1])).mean()
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    torch.cuda.synchronize()
+    assert isinstance(logits, pt.Tensor) and isinstance(loss, pt.Tensor)
+    assert np.isfinite(loss.item())
+    assert (fwd.launches - before[0], bwd.launches - before[1]) == (2, 2)
+    assert all(p.grad is None for p in model.parameters())
