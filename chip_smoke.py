@@ -173,7 +173,28 @@ last line is printed):
                family's tolerance (OP_TOL); numpy() of a CUDA bf16 tensor
                (exact f32); the 15 random ops drawn twice on the card under
                one seed, bit-equal; the host cost of one op, Tensor vs
-               plain.
+               plain;
+ 16. conv    - slice 11, the convolutional nn library: LeNet through
+               bench.py's lenet_dispatch loop (utils/bench.py lenet_loop:
+               seed 0, batch 32, SGD(0.01), CrossEntropyLoss, on Tensors):
+               the step-1 loss and every gradient on the card against the
+               same weights and batch on the CPU (fp32, TF32 off, within
+               LENET_TOL (1 + |ref|)); 6 warm-up steps, then eager spans
+               and TrainStep.run() spans of 20 steps in turns (medians;
+               run() one capture, then replays, its kernel nodes counted
+               from the captured graph), the loss falling; the ten
+               optimizers (Momentum with Nesterov, RMSProp centred with
+               momentum, Lamb and LARS with exclusions), 3 LeNet steps on
+               the card against the CPU with one ParamAttr(learning_rate=
+               0.5) weight and one frozen bias, and their rules alone on
+               the CPU's gradients; ResNet-50's stem (Conv2D 7x7 stride 2,
+               BatchNorm2D, ReLU, MaxPool2D 3/2/1) at batch 8 against the
+               CPU in fp32 and bf16 auto_cast (output, gradients, running
+               statistics), NHWC against NCHW, then forward + backward at
+               bench.py's resnet50_infer batch of 128 x 224 x 224 in NCHW
+               and NHWC, fp32 and bf16 (CUDA events, peak memory); dropout
+               on the card (eval downscale_in_infer exact, the kept
+               fraction, the kept values, one draw per row with axis).
 
 Each fp16 step drives `scaler.step(opt)` after the scaled backward and no
 `scaler.update()`: the reference's step() already updates the scale once
@@ -2821,6 +2842,366 @@ def op_phase(pt, torch, np, card):
     return costs
 
 
+# ---- the conv phase: LeNet, the optimizer zoo, ResNet-50's stem ---------
+LENET_B, LENET_WARMUP, LENET_SPAN, LENET_TURNS = 32, 6, 20, 3
+STEM_CHECK_B, STEM_B, STEM_HW = 8, 128, 224
+# LeNet's step-1 loss and gradients, card vs CPU: fp32 throughout (TF32
+# off), cuDNN's and the CPU's convolutions sum in other orders
+LENET_TOL = 1e-4
+# the stem, card vs CPU: relative L2 error of the output and each
+# gradient; bf16 rounds at 2^-8 per op through conv, batch norm and pool
+STEM_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# the zoo's 3 LeNet steps, card vs CPU: the parameters within
+# ZOO_TOL (1 + |ref|); with the CPU's gradients fed to both, the rules
+# alone (multi-tensor-apply vs a loop) within ZOO_RULE_TOL (1 + |ref|)
+ZOO_TOL, ZOO_RULE_TOL = 1e-4, 1e-6
+
+
+def rel_l2(got, want):
+    g, w = got.detach().double().cpu(), want.detach().double().cpu()
+    return ((g - w).norm() / max(w.norm().item(), 1e-30)).item()
+
+
+def zoo_optimizer(pt, name, params):
+    """The ten optimizers of paddle.optimizer at the settings the smoke
+    holds to the CPU (Momentum with Nesterov, RMSProp centred with
+    momentum, Lamb and LARS leaving the biases out of their decay)."""
+    o = pt.optimizer
+    return {
+        "SGD": lambda: o.SGD(0.01, params, weight_decay=0.01),
+        "Momentum": lambda: o.Momentum(0.01, 0.9, params, use_nesterov=True,
+                                       weight_decay=o.L2Decay(0.01)),
+        "Adam": lambda: o.Adam(1e-3, parameters=params, weight_decay=0.01),
+        "AdamW": lambda: o.AdamW(1e-3, parameters=params),
+        "Adamax": lambda: o.Adamax(1e-3, parameters=params),
+        "Lamb": lambda: o.Lamb(1e-3, 0.01, parameters=params,
+                               exclude_from_weight_decay_fn=lambda p:
+                               p.ndim == 1),
+        "Adagrad": lambda: o.Adagrad(1e-2, parameters=params),
+        "RMSProp": lambda: o.RMSProp(1e-3, 0.9, 1e-6, 0.5, True, params),
+        "Adadelta": lambda: o.Adadelta(1.0, parameters=params),
+        "LarsMomentum": lambda: o.LarsMomentum(
+            0.01, 0.9, parameters=params,
+            exclude_from_weight_decay=["bias"]),
+    }[name]()
+
+
+def zoo_lenet(pt, device):
+    """LeNet from the smoke's seed on `device`, its head a Linear whose
+    weight has ParamAttr(learning_rate=0.5) and whose bias is frozen
+    (ParamAttr(trainable=False)); every parameter named by its path (the
+    name LARS's exclusion reads)."""
+    pt.set_device(device)
+    pt.seed(SEED)
+    net = pt.models.LeNet(num_classes=10)
+    setattr(net.fc, "2", pt.nn.Linear(
+        84, 10, weight_attr=pt.ParamAttr(learning_rate=0.5),
+        bias_attr=pt.ParamAttr(trainable=False)))
+    for n, p in net.named_parameters():
+        p.name = n
+    return net
+
+
+def conv_phase(pt, torch, np, card):
+    """Slice 11 on the card: LeNet through bench.py's lenet_dispatch loop
+    (the step-1 loss and gradients against the CPU; the eager loop and
+    TrainStep.run() spans in turns, one capture then replays), the ten
+    optimizers against the CPU, ResNet-50's stem (bench.py's
+    resnet50_infer shape) in NCHW and NHWC, fp32 and bf16, against the
+    CPU and timed, and dropout's modes on the card."""
+    from paddle_tpu_torch.utils import bench
+    from paddle_tpu_torch.utils.train_profile import (graph_kernel_names,
+                                                      kernel_counts)
+    F = pt.nn.functional
+
+    # ---- LeNet: step 1 on the card against the CPU ----
+    nets = {}
+    for dev in ("cpu", "gpu"):
+        pt.set_device(dev)
+        nets[dev] = bench.lenet_loop(pt, SEED, LENET_B)
+    for (k, a), b in zip(nets["cpu"][0].state_dict().items(),
+                         nets["gpu"][0].state_dict().values()):
+        check(torch.equal(a, b.cpu()), f"conv: LeNet {k} differs between "
+              "the devices at one seed")
+    step1 = {}
+    for dev, (net, _, ce, x, y, _) in nets.items():
+        loss = ce(net(x), y)
+        loss.backward()
+        step1[dev] = (loss.detach().cpu(),
+                      {n: p.grad.detach().cpu().clone()
+                       for n, p in net.named_parameters()})
+        for p in net.parameters():
+            p.grad = None
+        # a live graph would keep the parameters' gradient-accumulation
+        # nodes on the default stream, which run()'s capture cannot join
+        del loss
+    (lc, gc), (lg, gg) = step1["cpu"], step1["gpu"]
+    loss_rel = abs(lg.item() - lc.item()) / abs(lc.item())
+    grad_err = max((g - gc[n]).abs().max().item() /
+                   (1 + gc[n].abs().max().item()) for n, g in gg.items())
+    print(f"conv: LeNet step 1 on the card vs the CPU (batch {LENET_B}, "
+          f"fp32, TF32 off): loss {lg.item():.6f} vs {lc.item():.6f}, rel "
+          f"{loss_rel:.3g}; max gradient error {grad_err:.3g} (1 + |ref|) "
+          f"over {len(gg)} parameters (tol {LENET_TOL}) [{card}]",
+          flush=True)
+    check(loss_rel <= LENET_TOL and grad_err <= LENET_TOL,
+          f"conv: LeNet step 1 loss rel {loss_rel}, grads {grad_err}")
+
+    # ---- the bench loop: warm-up, then eager spans and run() spans in
+    # turns ----
+    pt.set_device("gpu")
+    net, _, ce, x, y, one = nets["gpu"]
+    del nets["cpu"]
+    losses = [float(one()) for _ in range(LENET_WARMUP)]
+    step = pt.jit.TrainStep(net, ce, pt.optimizer.SGD(
+        parameters=net.parameters(), learning_rate=0.01))
+    captures = [0]
+    capture = step._capture
+
+    def counted(*a, **kw):
+        captures[0] += 1
+        return capture(*a, **kw)
+
+    step._capture = counted
+    xs = x.expand([LENET_SPAN] + x.shape)
+    ys = y.expand([LENET_SPAN] + y.shape)
+    with kept_graphs(torch) as kept:
+        span_losses = step.run(xs, ys)       # capture + 19 replays
+    caps = [c for c in step._graphs.values() if isinstance(c.graph, kept)]
+    check(len(caps) == 1, f"conv: {len(caps)} kept LeNet captures")
+    nodes = graph_kernel_names(caps[0].graph)
+    del caps
+    eager_ms, graph_ms = [], []
+    for _ in range(LENET_TURNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LENET_SPAN):
+            loss = one()
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) * 1e3 / LENET_SPAN)
+        t0 = time.perf_counter()
+        span_losses = step.run(xs, ys)
+        torch.cuda.synchronize()
+        graph_ms.append((time.perf_counter() - t0) * 1e3 / LENET_SPAN)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step.run(xs, ys)
+        torch.cuda.synchronize()
+    device_events = [e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+    # copies and memsets (a graph's memset node traces as "memset32") are
+    # not kernel nodes
+    kernels = [n for n in device_events
+               if not n.lower().startswith(("memcpy", "memset"))]
+    traced, copies = len(kernels), len(device_events) - len(kernels)
+    del prof
+    losses += [float(loss), float(span_losses[-1])]
+    conv_nodes = sum(1 for n in nodes if "conv" in n.lower()
+                     or "cudnn" in n.lower() or "implicit" in n.lower())
+    print(f"conv: LeNet bench loop (batch {LENET_B}, SGD(0.01)): "
+          f"{LENET_WARMUP} warm-up steps, then {LENET_TURNS} turns of an "
+          f"eager span and a run() span of {LENET_SPAN} steps each: eager "
+          f"step median {statistics.median(eager_ms):.4f} ms "
+          f"({[round(v, 4) for v in eager_ms]}), run() step median "
+          f"{statistics.median(graph_ms):.4f} ms "
+          f"({[round(v, 4) for v in graph_ms]}) (host clock, synced); "
+          f"captures {captures[0]}, the captured step {len(nodes)} kernel "
+          f"nodes ({conv_nodes} of them convolution kernels; "
+          f"{kernel_counts(nodes)['gemm']} GEMMs), device trace of one "
+          f"replayed span {traced} kernels ({LENET_SPAN} x {len(nodes)} = "
+          f"{LENET_SPAN * len(nodes)}, and the span's reset of its step "
+          f"index) and {copies} copies and memsets (the batch into the "
+          f"static inputs, a memset node per replay, the losses out); losses "
+          f"{[round(v, 4) for v in losses]} [{card}]", flush=True)
+    check(captures[0] == 1, f"conv: run() captured {captures[0]} times")
+    check(len(nodes) > 0 and traced <= LENET_SPAN * len(nodes) + 1,
+          f"conv: {len(nodes)} graph nodes, {traced} traced kernels")
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"conv: LeNet losses {losses} do not fall")
+    lenet = {"eager_ms": statistics.median(eager_ms),
+             "graph_ms": statistics.median(graph_ms),
+             "nodes": len(nodes)}
+    del step, net, nets, xs, ys
+
+    # ---- the optimizer zoo: 3 LeNet steps on the card against the CPU,
+    # and the rules alone on the CPU's gradients ----
+    pt.set_device("cpu")
+    np.random.seed(SEED)
+    xz = np.random.rand(LENET_B, 1, 28, 28).astype("float32")
+    yz = np.random.randint(0, 10, (LENET_B,))
+    zoo = {}
+    for name in ("SGD", "Momentum", "Adam", "AdamW", "Adamax", "Lamb",
+                 "Adagrad", "RMSProp", "Adadelta", "LarsMomentum"):
+        runs = {}
+        for dev in ("cpu", "gpu"):
+            net = zoo_lenet(pt, dev)
+            opt = zoo_optimizer(pt, name, net.parameters())
+            ce = pt.nn.CrossEntropyLoss()
+            xt, yt = pt.to_tensor(xz), pt.to_tensor(yz)
+            grads = []
+            for _ in range(3):
+                loss = ce(net(xt), yt)
+                loss.backward()
+                grads.append([None if p.grad is None else
+                              p.grad.detach().cpu().clone()
+                              for p in net.parameters()])
+                opt.step()
+                opt.clear_grad()
+            runs[dev] = (net, grads)
+        full = max((a.detach().cpu() - b.detach()).abs().max().item() /
+                   (1 + b.detach().abs().max().item())
+                   for a, b in zip(runs["gpu"][0].parameters(),
+                                   runs["cpu"][0].parameters()))
+        # the rules alone: the CPU's gradients into a fresh card optimizer
+        net = zoo_lenet(pt, "gpu")
+        opt = zoo_optimizer(pt, name, net.parameters())
+        for gs in runs["cpu"][1]:
+            for p, g in zip(net.parameters(), gs):
+                p.grad = None if g is None else g.cuda()
+            opt.step()
+            opt.clear_grad()
+        rule = max((a.detach().cpu() - b.detach()).abs().max().item() /
+                   (1 + b.detach().abs().max().item())
+                   for a, b in zip(net.parameters(),
+                                   runs["cpu"][0].parameters()))
+        head = runs["gpu"][0].fc[2]
+        check(head.bias.stop_gradient and
+              torch.equal(head.bias.detach().cpu(),
+                          zoo_lenet(pt, "cpu").fc[2].bias.detach()),
+              f"conv: {name} moved the frozen bias")
+        zoo[name] = (full, rule)
+        check(full <= ZOO_TOL and rule <= ZOO_RULE_TOL,
+              f"conv: {name} card vs CPU after 3 steps {full}, rule {rule}")
+    print(f"conv: the ten optimizers, 3 LeNet steps on the card vs the "
+          f"CPU (one ParamAttr(learning_rate=0.5) weight, one frozen bias; "
+          f"max parameter error (1 + |ref|), tol {ZOO_TOL}) and the rules "
+          f"alone on the CPU's gradients (tol {ZOO_RULE_TOL}): "
+          + ", ".join(f"{k} {a:.3g} / {b:.3g}" for k, (a, b) in zoo.items())
+          + f" [{card}]", flush=True)
+
+    # ---- ResNet-50's stem: checks at batch 8, times at batch 128 ----
+    def stem(fmt):
+        nn = pt.nn
+        return nn.Sequential(
+            nn.Conv2D(3, 64, 7, stride=2, padding=3, bias_attr=False,
+                      data_format=fmt),
+            nn.BatchNorm2D(64, data_format=fmt), nn.ReLU(),
+            nn.MaxPool2D(3, 2, 1, data_format=fmt))
+
+    rng = np.random.default_rng(SEED + 21)
+    xs_np = rng.standard_normal((STEM_CHECK_B, 3, STEM_HW, STEM_HW),
+                                dtype=np.float32)
+    worst = {}
+    for dtype in ("float32", "bfloat16"):
+        res = {}
+        for dev in ("cpu", "gpu"):
+            pt.set_device(dev)
+            pt.seed(SEED)
+            m = stem("NCHW")
+            xt = pt.to_tensor(xs_np, stop_gradient=False)
+            with pt.amp.auto_cast(enable=dtype == "bfloat16",
+                                  dtype="bfloat16"):
+                out = m(xt)
+            g = pt.to_tensor(np.random.default_rng(SEED + 22)
+                             .standard_normal(out.shape, dtype=np.float32))
+            (out.astype("float32") * g).sum().backward()
+            res[dev] = [out, xt.grad, m[0].weight.grad, m[1].weight.grad,
+                        m[1].bias.grad, m[1]._mean, m[1]._variance]
+        errs = [rel_l2(a, b) for a, b in zip(res["gpu"], res["cpu"])]
+        worst[dtype] = max(errs)
+        print(f"conv: stem {dtype} at batch {STEM_CHECK_B}, card vs CPU: "
+              f"relative L2 error of the output {errs[0]:.3g}, input grad "
+              f"{errs[1]:.3g}, conv weight grad {errs[2]:.3g}, BN weight / "
+              f"bias grads {errs[3]:.3g} / {errs[4]:.3g}, running mean / "
+              f"variance after one training call {errs[5]:.3g} / "
+              f"{errs[6]:.3g} (tol {STEM_TOL[dtype]}) [{card}]", flush=True)
+        check(worst[dtype] <= STEM_TOL[dtype],
+              f"conv: stem {dtype} card vs CPU {errs}")
+    pt.set_device("gpu")
+    pt.seed(SEED)
+    a, b = stem("NCHW"), stem("NHWC")
+    b.set_state_dict(a.state_dict())
+    xg = torch.from_numpy(xs_np).cuda()
+    nhwc_err = rel_l2(b(xg.permute(0, 2, 3, 1).contiguous()).permute(
+        0, 3, 1, 2), a(xg))
+    check(nhwc_err <= STEM_TOL["float32"],
+          f"conv: stem NHWC vs NCHW {nhwc_err}")
+    del a, b, xg, res
+    times = {}
+    big = torch.randn(STEM_B, 3, STEM_HW, STEM_HW, device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(SEED))
+    for fmt in ("NCHW", "NHWC"):
+        x_in = big if fmt == "NCHW" else big.permute(0, 2, 3, 1).contiguous()
+        for dtype in ("float32", "bfloat16"):
+            pt.seed(SEED)
+            m = stem(fmt)
+            amp = pt.amp.auto_cast(enable=dtype == "bfloat16",
+                                   dtype="bfloat16")
+
+            def fwd_bwd():
+                with amp:
+                    out = m(x_in)
+                out.backward(torch.ones_like(out))
+                for p in m.parameters():
+                    p.grad = None
+
+            for _ in range(3):
+                fwd_bwd()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = []
+            for _ in range(10):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                fwd_bwd()
+                ev[1].record()
+                torch.cuda.synchronize()
+                ms.append(ev[0].elapsed_time(ev[1]))
+            times[(fmt, dtype)] = (statistics.median(ms),
+                                   torch.cuda.max_memory_allocated() / 2 ** 30)
+            del m
+    best = {dt: min(("NCHW", "NHWC"), key=lambda f: times[(f, dt)][0])
+            for dt in ("float32", "bfloat16")}
+    print(f"conv: ResNet-50 stem (Conv2D(3, 64, 7, stride 2, padding 3, no "
+          f"bias) + BatchNorm2D(64) + ReLU + MaxPool2D(3, 2, 1)) forward + "
+          f"backward at {STEM_B} x 3 x {STEM_HW} x {STEM_HW}, ms (CUDA "
+          f"events, median of 10) and peak GiB: "
+          + ", ".join(f"{f} {dt} {t:.3f} ms {g:.2f} GiB"
+                      for (f, dt), (t, g) in times.items())
+          + f"; NHWC vs NCHW output rel err {nhwc_err:.3g}; faster layout: "
+          f"fp32 {best['float32']}, bf16 {best['bfloat16']} [{card}]",
+          flush=True)
+    del big
+    torch.cuda.empty_cache()
+
+    # ---- dropout on the card ----
+    x = torch.rand(512, 256, device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(SEED)) + 0.5
+    ev = F.dropout(x, 0.3, training=False, mode="downscale_in_infer")
+    exact = torch.equal(ev.cpu(), x.cpu() * 0.7)
+    pt.seed(SEED)
+    tr = F.dropout(x, 0.3)
+    kept = tr != 0
+    n, p_keep = x.numel(), 0.7
+    band = 5 * math.sqrt(n * p_keep * (1 - p_keep))
+    frac_ok = abs(kept.sum().item() - n * p_keep) <= band
+    vals_ok = torch.equal(tr[kept], (x / torch.tensor(
+        0.7, device="cuda"))[kept])
+    down = F.dropout(x, 0.3, mode="downscale_in_infer")
+    down_ok = torch.equal(down[down != 0], x[down != 0])
+    ax = F.dropout(x, 0.5, axis=0) != 0
+    axis_ok = bool((ax == ax[:, :1]).all())
+    print(f"conv: dropout on the card: eval downscale_in_infer bit-equal to "
+          f"x * 0.7 {exact}; training kept {kept.sum().item()} of {n} (band "
+          f"{n * p_keep:.0f} +- {band:.0f}) {frac_ok}, kept values x / 0.7 "
+          f"{vals_ok}, downscale_in_infer keeps x {down_ok}, axis=0 one "
+          f"draw per row {axis_ok} [{card}]", flush=True)
+    check(exact and frac_ok and vals_ok and down_ok and axis_ok,
+          "conv: dropout on the card")
+    return {"lenet": lenet, "zoo": zoo, "stem": times}
+
+
 def ptxas(path):
     """{kernel symbol: {"registers": N, "spill": [stores, loads]}} from a
     built library's `-Xptxas -v` log."""
@@ -3120,6 +3501,7 @@ def main() -> int:
     llm_phase(pt, fa, tra, torch, np, card)
     dygraph = dygraph_phase(pt, fa, torch, np, card)
     op_phase(pt, torch, np, card)
+    conv_phase(pt, torch, np, card)
 
     summary = {"flash_fwd": dict(serving_row,
                                  launches=train_launches["flash_fwd"]

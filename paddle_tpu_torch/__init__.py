@@ -33,10 +33,13 @@ from .core.place import (CPUPlace, CUDAPlace, get_device,  # noqa: F401
                          set_device)
 from .core.random import get_rng_state, seed, set_rng_state  # noqa: F401
 from .framework.io import load, save  # noqa: F401
+from .framework.param_attr import ParamAttr  # noqa: F401
+from .core.tensor import Parameter  # noqa: F401
 from .jit import InputSpec  # noqa: F401
 
 __all__ = ["set_device", "get_device", "seed", "get_rng_state",
-           "set_rng_state", "set_flags", "save", "load",
+           "set_rng_state", "set_flags", "save", "load", "ParamAttr",
+           "Parameter",
            "CPUPlace", "CUDAPlace", "InputSpec", "amp", "autograd",
            "inference", "io", "jit", "models", "monitor", "nn", "optimizer",
            "parallel", "quantization", "serving", "utils", "Tensor", "grad",

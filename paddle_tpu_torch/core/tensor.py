@@ -34,8 +34,16 @@ has paddle's meaning only.
 `dtype` stays torch's `torch.dtype` (overriding it would break torch's
 internals); `paddle_tpu_torch.float32` and the other dtype names are
 aliases of torch's, and `core.dtype.dtype_name` gives the paddle name.
-Parameters stay `torch.nn.Parameter`: the optimizer, TrainStep and the
-CUDA graphs rely on them.
+
+`Parameter` (the reference's :285-297) is a subclass of
+`torch.nn.Parameter`, not of `Tensor`: the optimizer's `_foreach` rules,
+TrainStep's `split_state` and the CUDA graphs rely on parameters being
+`torch.nn.Parameter`s, and it keeps that class's disabled
+`__torch_function__`, so torch's own code (and paddle's `split` / `max`
+nowhere) sees it as a plain tensor. It adds paddle's surface: `name`,
+`stop_gradient` (read and written as `not requires_grad`), `trainable`,
+`optimize_attr` (the learning-rate scale), `regularizer`, `need_clip`,
+`persistable` and `gradient()`.
 """
 from __future__ import annotations
 
@@ -83,7 +91,7 @@ def wrap_tree(x):
     """`wrap` through lists, tuples (named and struct-sequence ones too)
     and dicts."""
     t = type(x)
-    if t is _PLAIN or t is torch.nn.Parameter:
+    if t is _PLAIN or t is torch.nn.Parameter or t is Parameter:
         return x.as_subclass(Tensor)
     if t is list:
         return [wrap_tree(v) for v in x]
@@ -386,5 +394,82 @@ class Tensor(torch.Tensor):
     __str__ = __repr__
 
 
-__all__ = ["Tensor", "to_torch", "unwrap_tree", "wrap_tree", "has_tensor",
-           "api"]
+def _rebuild_parameter(data, requires_grad, state):
+    p = Parameter(data, requires_grad)
+    p.__dict__.update(state)
+    return p
+
+
+class Parameter(torch.nn.Parameter):
+    """A trainable tensor with paddle's parameter surface. `Parameter(data,
+    requires_grad=True)` is `torch.nn.Parameter`'s call; `name` and
+    `trainable` are the reference's keywords (`trainable=False` gives
+    `stop_gradient=True`)."""
+
+    def __new__(cls, data=None, requires_grad=True, name=None,
+                trainable=None):
+        if data is None:
+            data = torch.empty(0)
+        if trainable is not None:
+            requires_grad = bool(trainable)
+        p = torch.Tensor._make_subclass(cls, to_torch(data).detach(),
+                                        requires_grad)
+        p._pname = name
+        p.trainable = requires_grad
+        p.optimize_attr = {"learning_rate": 1.0}
+        p.regularizer = None
+        p.need_clip = True
+        p.persistable = True
+        return p
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    @property
+    def name(self):
+        return self.__dict__.get("_pname")
+
+    @name.setter
+    def name(self, value):
+        self._pname = value
+
+    @property
+    def stop_gradient(self) -> bool:
+        return not self.requires_grad
+
+    @stop_gradient.setter
+    def stop_gradient(self, value):
+        self.requires_grad_(not value)
+
+    def gradient(self):
+        """The gradient as a host numpy array (bf16 widened to f32), or
+        None."""
+        g = self.grad
+        if g is None:
+            return None
+        g = g.detach()
+        return (g.float() if g.dtype == torch.bfloat16 else g).cpu().numpy()
+
+    def clear_grad(self):
+        self.grad = None
+
+    clear_gradient = clear_grad
+
+    def __deepcopy__(self, memo):
+        if id(self) in memo:
+            return memo[id(self)]
+        import copy
+        result = type(self)(self.data.clone(memory_format=torch.
+                                            preserve_format),
+                            self.requires_grad)
+        memo[id(self)] = result
+        result.__dict__.update(copy.deepcopy(self.__dict__, memo))
+        return result
+
+    def __reduce_ex__(self, proto):
+        return (_rebuild_parameter,
+                (self.data, self.requires_grad, dict(self.__dict__)))
+
+
+__all__ = ["Tensor", "Parameter", "to_torch", "unwrap_tree", "wrap_tree",
+           "has_tensor", "api"]

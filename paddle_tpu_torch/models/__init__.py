@@ -5,3 +5,4 @@ from .ernie import (ErnieEmbeddings, ErnieForPretraining,  # noqa: F401
                     ernie_titan_10b)
 from .gpt import (GPTEmbeddings, GPTForCausalLM, GPTModel,  # noqa: F401
                   GPTPretrainingCriterion, gpt2_medium, gpt2_small)
+from .lenet import LeNet  # noqa: F401

@@ -1,7 +1,9 @@
-"""paddle.nn counterpart: the layers of the serving and training paths."""
+"""paddle.nn counterpart: every name of the reference's `paddle.nn` but
+the RNN, transformer and decode families and CTCLoss."""
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
                    ClipGradByValue)
-from .layer import (GELU, CrossEntropyLoss, Dropout, Embedding,  # noqa: F401
-                    Layer, LayerList, LayerNorm, Linear, Tanh)
+from .layer import *  # noqa: F401,F403
+from .layer.layers import Layer  # noqa: F401
+from . import utils  # noqa: F401

@@ -62,4 +62,25 @@ class ClipGradByGlobalNorm(ClipGradBase):
                 else (p, g * factor.to(g.dtype)) for p, g in params_grads]
 
 
-__all__ = ["ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm"]
+@torch.no_grad()
+def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
+                    error_if_nonfinite=False):
+    """Scale every `.grad` by min(max_norm / max(total, 1e-6), 1), total the
+    norm_type-norm over all of them in f32 (the reference's :64-77);
+    returns total (0.0 when no parameter has a gradient)."""
+    params = [p for p in parameters if p.grad is not None]
+    if not params:
+        return 0.0
+    if norm_type == float("inf"):
+        total = torch.stack([p.grad.abs().max().float() for p in params]).max()
+    else:
+        total = torch.pow(sum(torch.sum(p.grad.float().abs() ** norm_type)
+                              for p in params), 1.0 / norm_type)
+    factor = torch.clamp(max_norm / torch.clamp(total, min=1e-6), max=1.0)
+    for p in params:
+        p.grad = p.grad * factor.to(p.grad.dtype)
+    return total
+
+
+__all__ = ["ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm",
+           "clip_grad_norm_"]

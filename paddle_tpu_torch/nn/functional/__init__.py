@@ -1,21 +1,20 @@
-"""paddle.nn.functional counterpart: the functionals of the serving and
-training paths.
+"""paddle.nn.functional counterpart: every functional of the reference's
+namespace but `ctc_loss`.
 
 The public names are the Tensor API's boundary (`core.tensor.api`): with a
 `Tensor` argument a functional runs on plain aliases and returns `Tensor`;
 with plain torch tensors it is the module's function, called as it is.
 """
 from ...core.tensor import api
-from . import activation, attention, common, loss, norm
+from . import (activation, attention, common, conv, loss, norm, pooling,
+               vision)
 
-gelu = api(activation.gelu)
-tanh = api(activation.tanh)
+_MODULES = (activation, common, conv, pooling, norm, loss, vision)
+
+__all__ = [n for m in _MODULES for n in m.__all__] + \
+    ["scaled_dot_product_attention"]
+for _m in _MODULES:
+    for _n in _m.__all__:
+        globals()[_n] = api(getattr(_m, _n))
 scaled_dot_product_attention = api(attention.scaled_dot_product_attention)
-dropout = api(common.dropout)
-embedding = api(common.embedding)
-linear = api(common.linear)
-layer_norm = api(norm.layer_norm)
-cross_entropy = api(loss.cross_entropy)
-
-__all__ = ["gelu", "tanh", "scaled_dot_product_attention", "dropout",
-           "embedding", "linear", "layer_norm", "cross_entropy"]
+del _m, _n

@@ -1,16 +1,20 @@
-"""Loss functionals: cross_entropy.
+"""Loss functionals.
 
-Counterpart of `paddle_tpu/nn/functional/loss.py` (`cross_entropy`
-:25-92): hard labels (`[N]` or `[N, 1]`) with `ignore_index`, per-class
-`weight` and `label_smoothing`, or soft labels; reductions mean, sum and
-none. With hard labels and softmax the loss is taken as
-`logsumexp(logits) - logits[target]`, never materialising the log-probs.
-The arithmetic runs in the logits' dtype (bf16 under AMP), as in the
-reference.
+Counterpart of `paddle_tpu/nn/functional/loss.py`: every loss of the
+reference but `ctc_loss`, with its formulas, reductions and clamps.
+`cross_entropy` (:25-92): hard labels (`[N]` or `[N, 1]`) with
+`ignore_index`, per-class `weight` and `label_smoothing`, or soft labels;
+reductions mean, sum and none. With hard labels and softmax the loss is
+taken as `logsumexp(logits) - logits[target]`, never materialising the
+log-probs. The arithmetic runs in the logits' dtype (bf16 under AMP), as
+in the reference. `margin_cross_entropy` is the single-card form (the
+reference's model-parallel form runs inside its `mp` shard_map, which
+comes with the distributed slice).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as TF
 
 
 def _reduce(v, reduction):
@@ -80,4 +84,240 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     return per
 
 
-__all__ = ["cross_entropy"]
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1):
+    loss = cross_entropy(logits, label, soft_label=soft_label,
+                         ignore_index=ignore_index, reduction="none",
+                         axis=axis).unsqueeze(axis)
+    if return_softmax:
+        return loss, torch.softmax(logits, dim=axis)
+    return loss
+
+
+def mse_loss(input, label, reduction="mean", name=None):
+    return _reduce(torch.square(input - label), reduction)
+
+
+def l1_loss(input, label, reduction="mean", name=None):
+    return _reduce(torch.abs(input - label), reduction)
+
+
+def smooth_l1_loss(input, label, reduction="mean", delta=1.0, name=None):
+    d = input - label
+    ad = torch.abs(d)
+    return _reduce(torch.where(ad < delta, 0.5 * d * d / delta,
+                               ad - 0.5 * delta), reduction)
+
+
+def nll_loss(input, label, weight=None, ignore_index=-100, reduction="mean",
+             name=None):
+    """input: log-probs [N, C, ...]; label [N, ...]. The label takes no
+    gradient. Mean with `weight` divides by the picked weights' sum."""
+    ids = label.detach().long()
+    mask = ids != ignore_index
+    safe = torch.where(mask, ids, torch.zeros_like(ids))
+    per = -torch.gather(input, 1, safe.unsqueeze(1)).squeeze(1)
+    if weight is not None:
+        per = per * weight[safe]
+    per = torch.where(mask, per, torch.zeros_like(per))
+    if reduction == "mean":
+        denom = (weight[safe] * mask).sum() if weight is not None else \
+            torch.clamp(mask.to(per.dtype).sum(), min=1.0)
+        return per.sum() / denom
+    return _reduce(per, reduction)
+
+
+def binary_cross_entropy(input, label, weight=None, reduction="mean",
+                         name=None):
+    eps = 1e-12
+    v = -(label * torch.log(torch.clamp(input, min=eps))
+          + (1 - label) * torch.log(torch.clamp(1 - input, min=eps)))
+    if weight is not None:
+        v = v * weight
+    return _reduce(v, reduction)
+
+
+def _softplus(z):
+    """log(1 + exp(z)) without overflow (jax.nn.softplus)."""
+    return torch.logaddexp(z, torch.zeros((), dtype=z.dtype,
+                                          device=z.device))
+
+
+def binary_cross_entropy_with_logits(logit, label, weight=None,
+                                     reduction="mean", pos_weight=None,
+                                     name=None):
+    z, y = logit, label
+    if pos_weight is None:
+        base = torch.clamp(z, min=0) - z * y + \
+            torch.log1p(torch.exp(-torch.abs(z)))
+    else:
+        base = -(pos_weight * y * -_softplus(-z) + (1 - y) * -_softplus(z))
+    if weight is not None:
+        base = base * weight
+    return _reduce(base, reduction)
+
+
+def kl_div(input, label, reduction="mean", name=None):
+    v = label * (torch.log(torch.clamp(label, min=1e-12)) - input)
+    if reduction == "batchmean":
+        return v.sum() / input.shape[0]
+    return _reduce(v, reduction)
+
+
+def margin_ranking_loss(input, other, label, margin=0.0, reduction="mean",
+                        name=None):
+    return _reduce(torch.clamp(-label * (input - other) + margin, min=0.0),
+                   reduction)
+
+
+def hinge_embedding_loss(input, label, margin=1.0, reduction="mean",
+                         name=None):
+    return _reduce(torch.where(label == 1, input,
+                               torch.clamp(margin - input, min=0.0)),
+                   reduction)
+
+
+def cosine_embedding_loss(input1, input2, label, margin=0.0,
+                          reduction="mean", name=None):
+    cos = (input1 * input2).sum(-1) / torch.clamp(
+        torch.linalg.norm(input1, dim=-1) * torch.linalg.norm(input2, dim=-1),
+        min=1e-12)
+    return _reduce(torch.where(label == 1, 1 - cos,
+                               torch.clamp(cos - margin, min=0.0)),
+                   reduction)
+
+
+def triplet_margin_loss(input, positive, negative, margin=1.0, p=2.0,
+                        epsilon=1e-6, swap=False, reduction="mean",
+                        name=None):
+    def dist(a, b):
+        return torch.pow(torch.pow(torch.abs(a - b) + epsilon, p).sum(-1),
+                         1 / p)
+
+    dp, dn = dist(input, positive), dist(input, negative)
+    if swap:
+        dn = torch.minimum(dn, dist(positive, negative))
+    return _reduce(torch.clamp(dp - dn + margin, min=0.0), reduction)
+
+
+def square_error_cost(input, label):
+    return torch.square(input - label)
+
+
+def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25, gamma=2.0,
+                       reduction="sum", name=None):
+    z, y = logit, label
+    p = torch.sigmoid(z)
+    ce = torch.clamp(z, min=0) - z * y + torch.log1p(torch.exp(-torch.abs(z)))
+    p_t = p * y + (1 - p) * (1 - y)
+    a_t = alpha * y + (1 - alpha) * (1 - y)
+    v = a_t * torch.pow(1 - p_t, gamma) * ce
+    if normalizer is not None:
+        v = v / normalizer
+    return _reduce(v, reduction)
+
+
+def margin_cross_entropy(logits, label, margin1=1.0, margin2=0.5,
+                         margin3=0.0, scale=64.0, group=None,
+                         return_softmax=False, reduction="mean"):
+    """ArcFace-family margin softmax CE on cosine logits [N, C]: the target
+    logit becomes cos(m1 * theta + m2) - m3, everything is scaled by
+    `scale`, then softmax CE (:359-433, outside mp)."""
+    ids = label.long()
+    if ids.dim() == logits.dim():
+        ids = ids.squeeze(-1)
+    per = logits.shape[-1]
+    in_shard = (ids >= 0) & (ids < per)
+    safe = torch.where(in_shard, ids, torch.zeros_like(ids))
+    target = torch.gather(logits, -1, safe[:, None])[:, 0]
+    theta = torch.arccos(torch.clamp(target.float(), -1.0 + 1e-6,
+                                     1.0 - 1e-6))
+    mod = (torch.cos(margin1 * theta + margin2) - margin3).to(logits.dtype)
+    col = torch.arange(per, device=logits.device)[None, :]
+    is_target = (col == safe[:, None]) & in_shard[:, None]
+    lg2 = torch.where(is_target, mod[:, None], logits) * scale
+    vmax = torch.amax(lg2.detach(), -1, keepdim=True)
+    ex = torch.exp(lg2 - vmax)
+    denom = ex.sum(-1, keepdim=True)
+    sm = ex / denom
+    picked = torch.where(in_shard[:, None],
+                         torch.gather(lg2 - vmax, -1, safe[:, None]),
+                         torch.zeros((), dtype=lg2.dtype,
+                                     device=lg2.device))
+    loss = torch.log(denom) - picked
+    if reduction == "mean":
+        loss = loss.mean()
+    elif reduction == "sum":
+        loss = loss.sum()
+    return (loss, sm) if return_softmax else loss
+
+
+def dice_loss(input, label, epsilon=1e-5, name=None):
+    """1 - 2 |X ∩ Y| / (|X| + |Y|) per sample, meaned; label holds class
+    ids [..., 1]."""
+    ids = label.long()
+    if ids.shape[-1] == 1:
+        ids = ids[..., 0]
+    oh = TF.one_hot(ids, input.shape[-1]).to(input.dtype)
+    axes = tuple(range(1, input.ndim))
+    inse = (input * oh).sum(axes)
+    denom = input.sum(axes) + oh.sum(axes)
+    return (1 - inse * 2 / (denom + epsilon)).mean()
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    return -label * torch.log(input + epsilon) - \
+        (1.0 - label) * torch.log(1.0 - input + epsilon)
+
+
+def npair_loss(anchor, positive, labels, l2_reg=0.002, name=None):
+    """Soft-label CE over the anchor-positive similarities plus an L2 term
+    on the embeddings."""
+    eq = (labels[:, None] == labels[None, :]).to(anchor.dtype)
+    soft = eq / eq.sum(1, keepdim=True)
+    l2 = ((anchor * anchor).sum(1).mean() + (positive * positive).sum(1)
+          .mean()) * 0.25 * l2_reg
+    logp = torch.log_softmax(anchor @ positive.T, dim=-1)
+    return l2 + (-(soft * logp).sum(-1)).mean()
+
+
+def hsigmoid_loss(input, label, num_classes, weight, bias=None,
+                  path_table=None, path_code=None, is_sparse=False,
+                  name=None):
+    """Hierarchical sigmoid loss [N, 1] over the default complete binary
+    tree (node(bit) = (c >> (bit + 1)) - 1, branch(bit) = (c >> bit) & 1,
+    c = label + num_classes), or a custom tree of `path_table` /
+    `path_code` [N, L] (negative entries are padding)."""
+    ids = label.long()
+    if ids.dim() == 2:
+        ids = ids[:, 0]
+    if path_table is not None:
+        nodes = path_table.long()
+        bits = path_code.to(input.dtype)
+        live = nodes >= 0
+        nodes_safe = torch.clamp(nodes, min=0)
+    else:
+        c = ids + num_classes
+        n_bits = int(2 * num_classes - 1).bit_length() - 1
+        js = torch.arange(n_bits, device=input.device)
+        nodes = (c[:, None] >> (js[None, :] + 1)) - 1
+        bits = ((c[:, None] >> js[None, :]) & 1).to(input.dtype)
+        length = torch.floor(torch.log2(c.float())).long()
+        live = js[None, :] < length[:, None]
+        nodes_safe = torch.clamp(nodes, 0, num_classes - 2)
+    pre = torch.einsum("nd,nld->nl", input, weight[nodes_safe])
+    if bias is not None:
+        pre = pre + bias.reshape(-1)[nodes_safe]
+    term = _softplus(pre) - bits * pre
+    return torch.where(live, term, torch.zeros_like(term)).sum(
+        1, keepdim=True)
+
+
+__all__ = ["cross_entropy", "softmax_with_cross_entropy", "mse_loss",
+           "l1_loss", "smooth_l1_loss", "nll_loss", "binary_cross_entropy",
+           "binary_cross_entropy_with_logits", "kl_div",
+           "margin_ranking_loss", "hinge_embedding_loss",
+           "cosine_embedding_loss", "triplet_margin_loss",
+           "square_error_cost", "sigmoid_focal_loss", "margin_cross_entropy",
+           "dice_loss", "log_loss", "npair_loss", "hsigmoid_loss"]

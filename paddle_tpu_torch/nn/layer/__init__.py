@@ -1,6 +1,8 @@
-from .activation import GELU, Tanh  # noqa: F401
-from .common import Dropout, Embedding, Linear  # noqa: F401
-from .container import LayerList  # noqa: F401
+from .activation import *  # noqa: F401,F403
+from .common import *  # noqa: F401,F403
+from .container import *  # noqa: F401,F403
+from .conv import *  # noqa: F401,F403
 from .layers import Layer  # noqa: F401
-from .loss import CrossEntropyLoss  # noqa: F401
-from .norm import LayerNorm  # noqa: F401
+from .loss import *  # noqa: F401,F403
+from .norm import *  # noqa: F401,F403
+from .pooling import *  # noqa: F401,F403

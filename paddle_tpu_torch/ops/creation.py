@@ -198,13 +198,15 @@ def numel(x, name=None):
 
 def create_parameter(shape, dtype=None, name=None, default_initializer=None,
                      attr=None):
-    """A `torch.nn.Parameter` on the current device: zeros, or drawn by
-    `default_initializer` (a `nn.initializer`)."""
+    """A `Parameter` named `name` on the current device: zeros, or drawn
+    by `default_initializer` (a `nn.initializer`); `attr` is not read, as
+    in the reference."""
+    from ..core.tensor import Parameter
     dt = _float(dtype)
     shp = int_list(shape)
     data = torch.zeros(shp, dtype=dt) if default_initializer is None \
         else default_initializer(shp, dt)
-    return torch.nn.Parameter(data.to(resolve_device()))
+    return Parameter(data.to(resolve_device()), name=name)
 
 
 @op

@@ -1,11 +1,11 @@
-"""Optimizer base + SGD.
+"""Optimizer base, SGD and Momentum.
 
 Counterpart of `paddle_tpu/optimizer/optimizer.py` (:32-419, `_clip_fn`
-:421). The update rules are elementwise, so they stay PyTorch ops, as the
-reference leaves them to XLA: each rule is written here over a list of
-parameters with `torch._foreach_*` ops, so one step launches a few kernels
-for every group of parameters that share a learning rate and a weight
-decay, not ~10 for each parameter. The rule, the slot names and the
+:421, Momentum :461). The update rules are elementwise, so they stay
+PyTorch ops, as the reference leaves them to XLA: each rule is written
+here over a list of parameters with `torch._foreach_*` ops, so one step
+launches a few kernels for every group of parameters that share a
+learning rate and a weight decay, not ~10 for each parameter. The rule, the slot names and the
 `state_dict` keys are the reference's.
 
 Where the reference donates the parameter and slot buffers to its jitted
@@ -317,6 +317,28 @@ def _clip_fn(clip, grads, need_clip):
     return grads
 
 
+def bias_correction(beta, t):
+    """1 - beta ** t: on the host for a host t; for a 0-d device t on the
+    device in f64 (as Python computes it on the host), then rounded to
+    f32 (an f32 scalar keeps the `_foreach` ops on their fused path)."""
+    if isinstance(t, torch.Tensor):
+        return (1 - torch.pow(beta, t.double())).float()
+    return 1 - beta ** t
+
+
+def f32_views(values, grads):
+    """(the values in f32 — the values themselves when f32 — and the
+    gradients in f32), for the rules that update in f32."""
+    return [v.float() for v in values], [g.float() for g in grads]
+
+
+def write_back(values, p32):
+    """Copy f32 results into values of another dtype."""
+    for val, new in zip(values, p32):
+        if new is not val:
+            val.copy_(new)
+
+
 class SGD(Optimizer):
     def _apply(self, values, grads, slots, *, lr, t, wd):
         if wd:
@@ -325,4 +347,31 @@ class SGD(Optimizer):
         torch._foreach_add_(values, torch._foreach_mul(grads, -lr))
 
 
-__all__ = ["Optimizer", "SGD", "unscale_grads_"]
+class Momentum(Optimizer):
+    """v = momentum * v + g (g with the L2 decay added); p -= lr * v, or
+    with `use_nesterov` p -= lr * (g + momentum * v). The velocity slot
+    has the parameter's dtype."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 name=None, multi_precision=False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_slots(self, p):
+        return {"velocity": torch.zeros_like(p)}
+
+    def _apply(self, values, grads, slots, *, lr, t, wd):
+        if wd:
+            grads = torch._foreach_add(grads, values, alpha=wd)
+        vel = [s["velocity"] for s in slots]
+        torch._foreach_mul_(vel, self._momentum)
+        torch._foreach_add_(vel, grads)
+        upd = torch._foreach_add(grads, vel, alpha=self._momentum) \
+            if self._use_nesterov else vel
+        torch._foreach_add_(values, torch._foreach_mul(upd, -lr))
+
+
+__all__ = ["Optimizer", "SGD", "Momentum", "unscale_grads_"]

@@ -1,5 +1,5 @@
-"""The port's counterpart of `bench.py`'s two ERNIE training arms and its
-LLM serving arm.
+"""The port's counterpart of `bench.py`'s two ERNIE training arms, its
+LLM serving arm and its LeNet dispatch arm.
 
 - `--arm ernie_train` (`bench_ernie_train`, bench.py:188-276): the
   flagship, `ErnieForPretraining(ernie_base(hidden_dropout_prob=0.0))`
@@ -15,6 +15,20 @@ LLM serving arm.
   2 x 2048 on `(out ** 2).mean()`, 10 stacked steps from
   `np.random.rand * 0.02`, 3 reps. Reports ms per layer-sample and MFU.
 
+- `--arm lenet_dispatch` (`bench_lenet_dispatch`, bench.py:369-411): the
+  imperative hot loop, step for step: `seed(0)`, `LeNet(num_classes=10)`,
+  `SGD(0.01)`, `CrossEntropyLoss`, x = `rand(32, 1, 28, 28)` f32 and y =
+  `randint(0, 10, (32,))` from `np.random` seeded 0 through `to_tensor`;
+  a step is `loss = ce(net(x), y); loss.backward(); opt.step();
+  opt.clear_grad()`, 6 warm-up steps, then 7 reps of 20 steps timed to a
+  synchronise (on the CPU 2 reps of 5, as bench.py). Reports
+  `step_latency_ms` (median) and `spread`. The reference's number comes
+  from its step-chain capture (FLAGS_eager_auto_jit), which the port
+  does not have; beside the eager number it reports
+  `graph_step_latency_ms` (median) and `graph_spread`: the same model,
+  loss and SGD through `jit.TrainStep(...).run()` spans of 20 steps on
+  the same batch, one CUDA-graph replay per step on the card (a loop on
+  the CPU).
 - `--arm llm` (`bench_llm`, bench.py:1559-1636): continuous-batching
   serving through `serving.LLMEngine`, the fp32 arm and the int8 arm
   (`quant="int8"`, `kv_int8=True`), on the same GPT built from one seed.
@@ -31,7 +45,12 @@ Each arm prints one JSON line under `bench.py`'s keys where they exist.
 MFU is over the H100's 989 TFLOP/s dense bf16 peak. Run on a machine with
 a CUDA device:
 
-    python -m paddle_tpu_torch.utils.bench --arm ernie_train|ernie10b_layer|llm
+    python -m paddle_tpu_torch.utils.bench \
+        --arm ernie_train|ernie10b_layer|llm|lenet_dispatch
+
+On the card both TF32 switches are off (`torch.backends.cuda.matmul` and
+`torch.backends.cudnn`), as in `chip_smoke.py`: fp32 products and
+convolutions run in fp32.
 
 `--device cpu` runs the arms on the CPU instead. The arms are functions
 too (`ernie_train`, `ernie10b_layer`, `llm`) whose sizes are arguments;
@@ -357,8 +376,84 @@ def llm(big=True, seed=0):
     return out
 
 
+def lenet_loop(pt, seed=0, batch=32):
+    """bench.py's LeNet loop (:369-388): (net, optimizer, loss, x, y, one
+    step, which returns the loss detached). x and y are `Tensor`s on the
+    current device. The returned loss holds no autograd graph: a graph
+    kept alive keeps the parameters' gradient-accumulation nodes on the
+    stream they were made on, and a later CUDA-graph capture of the same
+    parameters (TrainStep.run) would then sync with that stream."""
+    pt.seed(seed)
+    net = pt.models.LeNet(num_classes=10)
+    opt = pt.optimizer.SGD(parameters=net.parameters(), learning_rate=0.01)
+    ce = pt.nn.CrossEntropyLoss()
+    np.random.seed(seed)
+    x = pt.to_tensor(np.random.rand(batch, 1, 28, 28).astype("float32"))
+    y = pt.to_tensor(np.random.randint(0, 10, (batch,)))
+
+    def one():
+        loss = ce(net(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    return net, opt, ce, x, y, one
+
+
+def _ms_per_step(fn, steps, reps, device):
+    """(median, spread, last result) of `reps` runs of fn, in ms per step
+    (host clock up to a synchronise)."""
+    times, out = [], None
+    for _ in range(reps):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(device)
+        times.append((time.perf_counter() - t0) * 1e3 / steps)
+    med = statistics.median(times)
+    return med, (max(times) - min(times)) / med, out
+
+
+def lenet_dispatch(big=True, seed=0, batch=32, warmup=6):
+    """The lenet_dispatch arm; returns its JSON-able result."""
+    import paddle_tpu_torch as pt
+    net, opt, ce, x, y, one = lenet_loop(pt, seed, batch)
+    device = next(net.parameters()).device
+    n, reps = (20, 7) if big else (5, 2)
+    loss = None
+    for _ in range(warmup):
+        loss = one()
+    first = float(loss.detach())
+
+    def span():
+        out = None
+        for _ in range(n):
+            out = one()
+        return out
+
+    ms, spread, loss = _ms_per_step(span, n, reps, device)
+    eager_last = float(loss.detach())
+    step = pt.jit.TrainStep(net, ce, pt.optimizer.SGD(
+        parameters=net.parameters(), learning_rate=0.01))
+    xs = x.expand([n] + x.shape)
+    ys = y.expand([n] + y.shape)
+    step.run(xs, ys)               # the first span captures the graph
+    graph_ms, graph_spread, losses = _ms_per_step(
+        lambda: step.run(xs, ys), n, reps, device)
+    return {"step_latency_ms": ms, "spread": spread,
+            "graph_step_latency_ms": graph_ms, "graph_spread": graph_spread,
+            "loss_after_warmup": first, "loss_eager_last": eager_last,
+            "loss_graph_last": float(losses[-1]), "batch": batch,
+            "steps_per_rep": n, "reps": reps, "warmup": warmup,
+            "note": "eager: the paddle dygraph loop on Tensors (one host "
+                    "launch per op; the reference's step-chain capture is "
+                    "not ported); graph: jit.TrainStep.run, one CUDA-graph "
+                    "replay per step on the card"}
+
+
 ARMS = {"ernie_train": ernie_train, "ernie10b_layer": ernie10b_layer,
-        "llm": llm}
+        "llm": llm, "lenet_dispatch": lenet_dispatch}
 
 
 def main(argv=None):
@@ -379,11 +474,12 @@ def main(argv=None):
                              "the CPU)")
         from .train_profile import _card
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
         pt.set_device("gpu")
         card, device = _card(), torch.cuda.get_device_name(0)
     for arm in args.arm:
-        r = ARMS[arm](big=args.device == "gpu") if arm == "llm" \
-            else ARMS[arm]()
+        r = ARMS[arm](big=args.device == "gpu") \
+            if arm in ("llm", "lenet_dispatch") else ARMS[arm]()
         r.update(arm=arm, card=card, device=device)
         print(json.dumps(r), flush=True)
         if args.device == "gpu":

@@ -20,6 +20,22 @@ through `jit.TrainStep` + `AdamW(1e-4)`:
   `GradScaler().step(AdamW(1e-4))`. These have no `run()` span; they are
   also timed with FLAGS_amp_fused_update off (the legacy unscale_, a
   host read of found_inf, then the ungated update);
+- `--model gpt2_dygraph`: the same GPT-2 small batch through the paddle
+  user's dygraph loop of chip_smoke.py's dygraph phase (`Tensor` ids,
+  eager `auto_cast(bf16)` (O1) forward, the loss in f32, `backward()`,
+  AdamW's `step()`, `clear_grad()`): where its time goes beside
+  `--model gpt2`'s TrainStep `__call__`; no `run()` span;
+- `--model lenet`: bench.py's `lenet_dispatch` loop (`utils/bench.py
+  lenet_loop`): a call is one eager dygraph step of LeNet on 32 x 1 x 28 x
+  28 (`ce(net(x), y)`, `backward()`, SGD's `step()`, `clear_grad()`), and
+  `run()` a `jit.TrainStep(...).run()` span of the same model, loss and
+  SGD (fp32, one CUDA-graph replay per step);
+- `--model stem` / `stem_nhwc` / `stem_bf16` / `stem_nhwc_bf16`:
+  ResNet-50's stem (`Conv2D(3, 64, 7, stride=2, padding=3,
+  bias_attr=False)`, `BatchNorm2D(64)`, `ReLU`, `MaxPool2D(3, 2, 1)`) at
+  bench.py's `resnet50_infer` batch, 128 x 3 x 224 x 224, forward +
+  backward (no input gradient), NCHW or NHWC, fp32 or bf16 `auto_cast`;
+  no `run()` span;
 - `--model llm_decode` / `llm_decode_int8`: not a training step but one
   decode step of `serving.LLMEngine`'s whole pool, as chip_smoke.py's llm
   phase configures it (gpt2_small, 16 slots, max_len 1022, every slot
@@ -37,7 +53,8 @@ same for a `run()` span of as many steps (one CUDA-graph replay per step,
 after a first span that captures). Run on a machine with a CUDA device:
 
     python -m paddle_tpu_torch.utils.train_profile
-        [--model gpt2|ernie_sp|ernie|titan|titan_fp16|ernie_sp_fp16|
+        [--model gpt2|gpt2_dygraph|ernie_sp|ernie|titan|titan_fp16|
+                 ernie_sp_fp16|lenet|stem|stem_nhwc|stem_bf16|stem_nhwc_bf16|
                  llm_decode|llm_decode_int8]
         [--steps 3] [--top 20]
 
@@ -126,6 +143,7 @@ class _KernelNodeParams(ctypes.Structure):
 
 
 _CU_GRAPH_NODE_TYPE_KERNEL = 0
+_CU_GRAPH_NODE_TYPE_GRAPH = 4      # a child graph (cuDNN may capture one)
 
 
 def _libcuda():
@@ -133,6 +151,7 @@ def _libcuda():
     vp, ref = ctypes.c_void_p, ctypes.POINTER
     sigs = {"cuGraphGetNodes": [vp, vp, ref(ctypes.c_size_t)],
             "cuGraphNodeGetType": [vp, ref(ctypes.c_int)],
+            "cuGraphChildGraphNodeGetGraph": [vp, ref(vp)],
             "cuGraphKernelNodeGetParams_v2": [vp, ref(_KernelNodeParams)],
             "cuFuncGetName": [ref(ctypes.c_char_p), vp],
             "cuKernelGetName": [ref(ctypes.c_char_p), vp]}
@@ -154,39 +173,50 @@ def _demangle(names):
     return out if len(out) == len(names) else list(names)
 
 
-def graph_kernel_names(graph) -> list:
-    """The (demangled) kernel names of every kernel node of a captured
-    `torch.cuda.CUDAGraph` made with keep_graph=True, read through libcuda
-    (`cuGraphGetNodes`, `cuGraphKernelNodeGetParams`, `cuFuncGetName` /
-    `cuKernelGetName`)."""
-    cu = _libcuda()
-    g = ctypes.c_void_p(graph.raw_cuda_graph())
+def _ok(rc, what):
+    if rc != 0:
+        raise RuntimeError(f"{what} failed with CUresult {rc}")
+
+
+def _kernel_nodes(cu, g):
+    """The kernel nodes of the CUDA graph `g` and of its child graphs."""
     n = ctypes.c_size_t(0)
-
-    def ok(rc, what):
-        if rc != 0:
-            raise RuntimeError(f"{what} failed with CUresult {rc}")
-
-    ok(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+    _ok(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
     nodes = (ctypes.c_void_p * n.value)()
-    ok(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
-    names = []
+    _ok(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    out = []
     for node in nodes:
         kind = ctypes.c_int(-1)
-        ok(cu.cuGraphNodeGetType(node, ctypes.byref(kind)),
-           "cuGraphNodeGetType")
-        if kind.value != _CU_GRAPH_NODE_TYPE_KERNEL:
-            continue
+        _ok(cu.cuGraphNodeGetType(node, ctypes.byref(kind)),
+            "cuGraphNodeGetType")
+        if kind.value == _CU_GRAPH_NODE_TYPE_KERNEL:
+            out.append(node)
+        elif kind.value == _CU_GRAPH_NODE_TYPE_GRAPH:
+            child = ctypes.c_void_p()
+            _ok(cu.cuGraphChildGraphNodeGetGraph(node, ctypes.byref(child)),
+                "cuGraphChildGraphNodeGetGraph")
+            out += _kernel_nodes(cu, child)
+    return out
+
+
+def graph_kernel_names(graph) -> list:
+    """The (demangled) kernel names of every kernel node of a captured
+    `torch.cuda.CUDAGraph` made with keep_graph=True, child graphs
+    included, read through libcuda (`cuGraphGetNodes`,
+    `cuGraphKernelNodeGetParams`, `cuFuncGetName` / `cuKernelGetName`)."""
+    cu = _libcuda()
+    names = []
+    for node in _kernel_nodes(cu, ctypes.c_void_p(graph.raw_cuda_graph())):
         prm = _KernelNodeParams()
-        ok(cu.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(prm)),
-           "cuGraphKernelNodeGetParams")
+        _ok(cu.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(prm)),
+            "cuGraphKernelNodeGetParams")
         name = ctypes.c_char_p()
         if prm.func:
-            ok(cu.cuFuncGetName(ctypes.byref(name), prm.func),
-               "cuFuncGetName")
+            _ok(cu.cuFuncGetName(ctypes.byref(name), prm.func),
+                "cuFuncGetName")
         else:
-            ok(cu.cuKernelGetName(ctypes.byref(name), prm.kern),
-               "cuKernelGetName")
+            _ok(cu.cuKernelGetName(ctypes.byref(name), prm.kern),
+                "cuKernelGetName")
         names.append(name.value.decode())
     return _demangle(names)
 
@@ -217,6 +247,26 @@ def _gpt2(pt, rng):
                             amp_dtype="bfloat16")
     ids = torch.from_numpy(rng.integers(0, vocab, (8, 1024))).cuda()
     return step, (ids, ids)
+
+
+def _gpt2_dygraph(pt, rng):
+    """gpt2_small's dygraph O1 step on Tensor ids of 8 x 1024."""
+    model = pt.models.GPTForCausalLM(pt.models.gpt2_small(dropout=0.0))
+    vocab = model.gpt.embeddings.word_embeddings.weight.shape[0]
+    opt = pt.optimizer.AdamW(1e-4, parameters=model.parameters())
+    F = pt.nn.functional
+
+    def step(ids):
+        with pt.amp.auto_cast(dtype="bfloat16"):
+            logits = model(ids)
+        loss = F.cross_entropy(
+            logits[:, :-1].reshape([-1, vocab]).astype("float32"),
+            ids[:, 1:].reshape([-1])).mean()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+
+    return step, (pt.to_tensor(rng.integers(0, vocab, (8, 1024))),)
 
 
 def _sp_ernie(pt, sp):
@@ -347,7 +397,60 @@ def _llm_decode(pt, rng, int8=False):
     return _DecodeSteps(eng, toks, pos), (torch.from_numpy(toks).cuda(),)
 
 
-MODELS = {"gpt2": _gpt2, "ernie_sp": _ernie_sp, "ernie": _ernie,
+class _LenetSteps:
+    """bench.py's LeNet loop driven as profile() drives a training step: a
+    call is one eager dygraph step on the bench's batch, `run(xs, ys)` a
+    TrainStep span (one graph replay per step)."""
+
+    def __init__(self, pt):
+        from .bench import lenet_loop
+        net, _, ce, self.x, self.y, self._one = lenet_loop(pt)
+        self.train_step = pt.jit.TrainStep(net, ce, pt.optimizer.SGD(
+            parameters=net.parameters(), learning_rate=0.01))
+
+    def __call__(self, x, y):
+        self._one()
+
+    def run(self, xs, ys):
+        return self.train_step.run(xs, ys)
+
+
+def _lenet(pt, rng):
+    steps = _LenetSteps(pt)
+    return steps, (steps.x, steps.y)
+
+
+def _stem(pt, rng, fmt="NCHW", dtype="float32"):
+    """ResNet-50's stem, forward + backward at 128 x 3 x 224 x 224."""
+    nn = pt.nn
+    m = nn.Sequential(
+        nn.Conv2D(3, 64, 7, stride=2, padding=3, bias_attr=False,
+                  data_format=fmt),
+        nn.BatchNorm2D(64, data_format=fmt), nn.ReLU(),
+        nn.MaxPool2D(3, 2, 1, data_format=fmt))
+    x = torch.from_numpy(rng.standard_normal((128, 3, 224, 224),
+                                             dtype=np.float32)).cuda()
+    if fmt == "NHWC":
+        x = x.permute(0, 2, 3, 1).contiguous()
+
+    def step(x):
+        with pt.amp.auto_cast(enable=dtype == "bfloat16", dtype=dtype):
+            out = m(x)
+        out.backward(torch.ones_like(out))
+        for p in m.parameters():
+            p.grad = None
+
+    return step, (x,)
+
+
+MODELS = {"gpt2": _gpt2, "gpt2_dygraph": _gpt2_dygraph,
+          "ernie_sp": _ernie_sp, "ernie": _ernie,
+          "lenet": _lenet,
+          "stem": _stem,
+          "stem_nhwc": lambda pt, rng: _stem(pt, rng, "NHWC"),
+          "stem_bf16": lambda pt, rng: _stem(pt, rng, "NCHW", "bfloat16"),
+          "stem_nhwc_bf16": lambda pt, rng: _stem(pt, rng, "NHWC",
+                                                  "bfloat16"),
           "titan": _titan, "titan_fp16": _titan_fp16,
           "ernie_sp_fp16": _ernie_sp_fp16, "llm_decode": _llm_decode,
           "llm_decode_int8": lambda pt, rng: _llm_decode(pt, rng, True)}
@@ -393,6 +496,7 @@ def profile(steps=3, top=20, model="gpt2", seed=0):
     if not torch.cuda.is_available():
         raise RuntimeError("train_profile measures the card: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     pt.set_device("gpu")
     pt.seed(seed)
     step, batch = MODELS[model](pt, np.random.default_rng(seed))
@@ -424,6 +528,8 @@ def profile(steps=3, top=20, model="gpt2", seed=0):
          "host_top": [{"self_ms_per_step": ms, "calls_per_step": n,
                        "op": name[:80]} for ms, n, name in host[:top]],
          "run": None, "legacy_unprofiled_ms_per_step": None}
+    if not hasattr(step, "run") and not model.endswith("_fp16"):
+        return r
     if not hasattr(step, "run"):     # the eager fp16 step with a scaler
         pt.set_flags({"amp_fused_update": False})
         try:
@@ -476,12 +582,12 @@ def main():
     print(f"train_profile: {r['kernel_launches_per_step']} kernel launches "
           f"per step [{card}]", flush=True)
     run = r["run"]
-    if run is None:
+    if run is None and r["legacy_unprofiled_ms_per_step"] is not None:
         print(f"train_profile: the same steps with FLAGS_amp_fused_update "
               f"off (unscale_, a host read of found_inf, the ungated "
               f"update): {r['legacy_unprofiled_ms_per_step']:.3f} ms per "
               f"step without the profiler [{card}]", flush=True)
-    else:
+    elif run is not None:
         print(f"train_profile: run() span of {r['steps']} (one graph "
               f"replay per step): wall {run['wall_ms_per_step']:.3f} ms per "
               f"step (profiler on), device busy "
