@@ -194,14 +194,39 @@ last line is printed):
                bench.py's resnet50_infer batch of 128 x 224 x 224 in NCHW
                and NHWC, fp32 and bf16 (CUDA events, peak memory); dropout
                on the card (eval downscale_in_infer exact, the kept
-               fraction, the kept values, one draw per row with axis).
+               fraction, the kept values, one draw per row with axis);
+ 17. deploy  - slice 12, the deploy path: ResNet-50 NHWC (seed 0) through
+               jit.save -> inference.Config -> create_predictor on the
+               card: the fp32 artifact at batch 8 against the live layer
+               on the CPU (relative L2 <= 1e-5, TF32 off); fp32, bf16 and
+               weight-only int8 artifacts at bench.py's resnet50_infer
+               batch of 128 x 224 x 224 x 3, bf16 and int8 against fp32
+               (max|got - ref| / max|ref| < 0.08), every quantized weight
+               int8 in the loaded artifact, the int8 .pdiparams.npz under
+               0.45x the fp32 one; imgs/s with spread in bench.py's
+               scaffold beside the live layer's eager forward at the same
+               batch and dtype, the loaded program's device busy time per
+               batch within 10% of the live layer's, MFU, peak memory and
+               the idle share over 20 run()s; GPT-2 small's bf16 artifact
+               at 4 x 1024 (exported on the card: 12 flash_fwd nodes), 8
+               requests through ServingEngine over the loaded Predictor
+               (each input signature one CUDA graph: 2 x 12 host launches
+               for the warm-up's eager run and capture, 12 flash nodes in
+               the graph, 12 in the device trace of a replay) against the
+               live-layer Predictor (relative mean-abs error <= 2e-2);
+               ResNet-50 NHWC bf16 at batch 32 through TrainStep, run()
+               against __call__ from one state (losses within 1e-4
+               relative, parameter cosine >= 0.9999) with every running
+               statistic bit-unchanged, as in the reference; and a run()
+               capture after an eager LeNet loop whose loss kept its graph.
 
 Each fp16 step drives `scaler.step(opt)` after the scaled backward and no
 `scaler.update()`: the reference's step() already updates the scale once
 every optimizer has stepped, and an update() after it counts the step a
 second time, as a good one. The last two lines are a JSON summary of the
 kernels, one entry per kernel and dtype (bf16 from the bf16 paths, the
-dygraph phase's launches in rows 1-2, fp16 from paths A and B), and `{"ok": true, "device": {...}}`. Imports nothing
+dygraph phase's launches in rows 1-2 and the deploy phase's in row 1, fp16
+from paths A and B), and `{"ok": true, "device": {...}}`. Imports nothing
 of JAX.
 
     python3 chip_smoke.py --rows [ROOT] [DTYPE]
@@ -3202,6 +3227,310 @@ def conv_phase(pt, torch, np, card):
     return {"lenet": lenet, "zoo": zoo, "stem": times}
 
 
+# the deploy phase: ResNet-50 at bench.py's resnet50_infer size, the
+# card-vs-CPU check at a small batch, the runs of each rate span, the
+# repairs' TrainStep batch and steps
+DEPLOY_B, DEPLOY_CHECK_B, DEPLOY_TRAIN_B = 128, 8, 32
+DEPLOY_RUNS, DEPLOY_REPS, DEPLOY_TRAIN_STEPS = 20, 3, 3
+# relative L2 of the fp32 artifact on the card against the live layer on
+# the CPU (TF32 off), and bf16 / int8 against fp32 by the reference's
+# measure, max|got - ref| / max|ref| (tests/test_quant_asp.py:278-280)
+DEPLOY_TOL, DEPLOY_QUANT_TOL = 1e-5, 0.08
+# the int8 weights' share of the fp32 ones (tests/test_quant_asp.py:263)
+DEPLOY_INT8_SHARE = 0.45
+# the loaded program's device time per batch against the live layer's
+DEPLOY_DEVICE_SHARE = 0.10
+
+
+def deploy_saved(pt, net, path, shape, dtype, precision):
+    """jit.save -> Config -> create_predictor on the card: (predictor,
+    seconds to export, bytes of the .pdiparams.npz)."""
+    t0 = time.perf_counter()
+    pt.jit.save(net, path, input_spec=[pt.InputSpec(list(shape), dtype)],
+                precision=precision)
+    export_s = time.perf_counter() - t0
+    cfg = pt.inference.Config(path)
+    cfg.enable_use_gpu(device_id=0)
+    return (pt.inference.create_predictor(cfg), export_s,
+            os.path.getsize(path + ".pdiparams.npz"))
+
+
+def busy_ms(torch, fn, runs):
+    """(device busy ms per call, idle share, wall ms per call) of `runs`
+    calls of fn under torch.profiler."""
+    from paddle_tpu_torch.utils.train_profile import _trace
+
+    def calls():
+        for _ in range(runs):
+            fn()
+
+    wall, busy = _trace(calls, runs)[:2]
+    return busy, 1.0 - busy / wall, wall
+
+
+def deploy_phase(pt, fa, torch, np, card):
+    """Slice 12 on the card: ResNet-50 NHWC through jit.save -> Config ->
+    create_predictor in fp32 (against the live layer on the CPU), bf16 and
+    int8 (against fp32), their rates, device time against the live
+    layer's, MFU and memory; GPT-2 small's bf16 artifact through the
+    flash kernel and ServingEngine; BN's running statistics under
+    TrainStep and a run() capture after an eager loop that kept its
+    loss's graph. Returns the flash forward's host launches of the
+    artifact's main path."""
+    import tempfile
+    from paddle_tpu_torch.utils import bench
+    from paddle_tpu_torch.utils.train_profile import _trace
+    pt.set_device("gpu")
+    pt.seed(SEED)
+    net = pt.models.resnet50(data_format="NHWC")
+    net.eval()
+    rng = np.random.default_rng(SEED)
+    x = rng.random((DEPLOY_B, 224, 224, 3), dtype=np.float32)
+    work = tempfile.TemporaryDirectory(prefix="deploy_")
+    try:
+        # ---- fp32 at a small batch against the live layer on the CPU ----
+        pred, export_s, _ = deploy_saved(
+            pt, net, os.path.join(work.name, "r50_check"),
+            (DEPLOY_CHECK_B, 224, 224, 3), "float32", None)
+        x8 = x[:DEPLOY_CHECK_B]
+        got = pred.run([x8])[0]
+        with torch.inference_mode():
+            ref = copy.deepcopy(net).cpu()(torch.from_numpy(x8))
+        err = rel_l2(got, ref)
+        print(f"deploy: ResNet-50 NHWC fp32 artifact (exported on the card "
+              f"in {export_s:.1f} s) at batch {DEPLOY_CHECK_B} vs the live "
+              f"layer on the CPU: relative L2 {err:.3g} (tol {DEPLOY_TOL}, "
+              f"TF32 off) [{card}]", flush=True)
+        check(err <= DEPLOY_TOL, f"deploy: fp32 artifact vs CPU {err}")
+        del pred, got, ref
+
+        # ---- fp32, bf16 and int8 at bench.py's batch ----
+        flops_img = bench.forward_flops(
+            net, torch.zeros((1, 224, 224, 3), device="cuda"))
+        outs, sizes, rows = {}, {}, {}
+        live16 = copy.deepcopy(net).to(torch.bfloat16)
+        xd = torch.from_numpy(x).cuda()
+        lives = {"float32": (net, xd), "bfloat16": (live16, xd.bfloat16())}
+        for prec in ("float32", "bfloat16", "int8"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            pred, export_s, sizes[prec] = deploy_saved(
+                pt, net, os.path.join(work.name, f"r50_{prec}"),
+                (DEPLOY_B, 224, 224, 3), "float32", prec)
+            if prec == "int8":
+                meta = pred._translated._meta
+                q = dict(zip(meta["param_names"], pred._translated._params))
+                n_2d = sum(1 for p in net.parameters() if p.dim() >= 2)
+                check(len(meta["quantized"]) == n_2d and all(
+                    q[n].dtype == torch.int8 for n in meta["quantized"]),
+                    f"deploy: int8 artifact quantized "
+                    f"{len(meta['quantized'])} of {n_2d} weights")
+            rate, spread = bench.predictor_rate(pred, x, DEPLOY_RUNS,
+                                                DEPLOY_REPS)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            outs[prec] = pred.get_output_handle("output_0").copy_to_cpu()
+            busy, idle, wall = busy_ms(torch, pred.run, DEPLOY_RUNS)
+            row = {"rate": rate, "spread": spread, "busy": busy,
+                   "idle": idle, "wall": wall, "peak": peak,
+                   "export_s": export_s,
+                   "mfu": rate * flops_img / PEAK_BF16}
+            live = lives.get(prec)
+            if live is not None:
+                layer, xin = live
+
+                def eager(layer=layer, xin=xin):
+                    with torch.inference_mode():
+                        return layer(xin)
+
+                live_rate, live_spread, _ = bench._timed_rate(
+                    lambda: [eager() for _ in range(DEPLOY_RUNS)],
+                    DEPLOY_B * DEPLOY_RUNS, DEPLOY_REPS,
+                    torch.device("cuda"))
+                live_busy = busy_ms(torch, eager, DEPLOY_RUNS)[0]
+                row.update(live_rate=live_rate, live_spread=live_spread,
+                           live_busy=live_busy)
+            rows[prec] = row
+            del pred
+            torch.cuda.empty_cache()
+        for prec, row in rows.items():
+            vs = "" if "live_busy" not in row else (
+                f"; the live layer's eager forward {row['live_rate']:.1f} "
+                f"imgs/s (spread {row['live_spread']:.3f}), device busy "
+                f"{row['live_busy']:.3f} ms per batch (program / live "
+                f"{row['busy'] / row['live_busy']:.4f}, tol 1 +- "
+                f"{DEPLOY_DEVICE_SHARE})")
+            print(f"deploy: ResNet-50 NHWC {prec} artifact, batch "
+                  f"{DEPLOY_B}: {row['rate']:.1f} imgs/s (spread "
+                  f"{row['spread']:.3f}, {DEPLOY_RUNS} runs x "
+                  f"{DEPLOY_REPS}), MFU {row['mfu']:.4f} "
+                  f"({flops_img / 1e9:.3f} GFLOP per image), device busy "
+                  f"{row['busy']:.3f} ms per run, idle share "
+                  f"{row['idle']:.4f} over {DEPLOY_RUNS} run()s (profiled "
+                  f"wall {row['wall']:.3f} ms), peak {row['peak']:.2f} "
+                  f"GiB, export {row['export_s']:.1f} s{vs} [{card}]",
+                  flush=True)
+            if "live_busy" in row:
+                check(abs(row["busy"] / row["live_busy"] - 1)
+                      <= DEPLOY_DEVICE_SHARE,
+                      f"deploy: {prec} program {row['busy']} ms vs live "
+                      f"{row['live_busy']} ms per batch")
+        scale = float(np.abs(outs["float32"]).max())
+        for prec in ("bfloat16", "int8"):
+            e = float(np.abs(outs[prec] - outs["float32"]).max()) / scale
+            print(f"deploy: {prec} vs fp32 logits max|got - ref| / max|ref| "
+                  f"{e:.4g} (tol {DEPLOY_QUANT_TOL}) [{card}]", flush=True)
+            check(np.isfinite(outs[prec]).all() and
+                  outs[prec].shape == (DEPLOY_B, 1000) and
+                  e < DEPLOY_QUANT_TOL, f"deploy: {prec} vs fp32 {e}")
+        share = sizes["int8"] / sizes["float32"]
+        print(f"deploy: .pdiparams.npz int8 {sizes['int8']} bytes, fp32 "
+              f"{sizes['float32']} bytes: {share:.4f} (tol < "
+              f"{DEPLOY_INT8_SHARE}) [{card}]", flush=True)
+        check(share < DEPLOY_INT8_SHARE, f"deploy: int8 npz share {share}")
+        del live16, xd, lives, outs
+        launches = deploy_gpt2(pt, fa, torch, np, card, work.name)
+    finally:
+        work.cleanup()
+    deploy_repairs(pt, torch, np, card, net)
+    return launches
+
+
+def deploy_gpt2(pt, fa, torch, np, card, workdir):
+    """GPT-2 small's bf16 artifact: 12 flash forward nodes in the exported
+    program; 8 requests through ServingEngine over the loaded Predictor
+    (the engine's warm-up runs the program eagerly and captures it, each
+    batch is a replay: 2 x 12 host launches, 12 kernel nodes in the
+    captured graph, 12 flash forwards in the device trace of a replay),
+    against the live-layer Predictor."""
+    from paddle_tpu_torch.utils.train_profile import (graph_kernel_names,
+                                                      kernel_counts,
+                                                      kernel_launches)
+    pt.seed(SEED)
+    lm = pt.models.GPTForCausalLM(pt.models.gpt2_small(dropout=0.0))
+    lm.eval()
+    n_layers = len(lm.gpt.layers)
+    vocab = lm.gpt.embeddings.word_embeddings.weight.shape[0]
+    seq = 1024
+    pred, export_s, _ = deploy_saved(pt, lm, os.path.join(workdir, "gpt2"),
+                                     (4, seq), "int32", "bfloat16")
+    nodes = sum(str(n.target) == "paddle_tpu_torch.flash_fwd.default"
+                for n in pred._translated.program().graph.nodes)
+    check(nodes == n_layers, f"deploy: GPT-2's bf16 program holds {nodes} "
+          f"flash_fwd nodes, not {n_layers}: exported on the einsum path")
+    rng = np.random.default_rng(SEED)
+    requests = [rng.integers(0, vocab, (1, seq)).astype(np.int32)
+                for _ in range(8)]
+    engine = pt.serving.ServingEngine(pred, pt.serving.EngineConfig(
+        max_batch_size=4, batch_sizes=(1, 2, 4), batch_timeout_ms=20.0))
+    torch.cuda.synchronize()
+    fa.flash_attention_fwd.launches = 0
+    t0 = time.perf_counter()
+    with kept_graphs(torch):
+        engine.start()
+        futures = [engine.submit([r]) for r in requests]
+        results = [f.result(600)[0] for f in futures]
+    wall = time.perf_counter() - t0
+    engine.stop(drain=True)
+    launches = fa.flash_attention_fwd.launches
+    counts = engine.stats()["counters"]
+    graphs = list(pred._translated._graphs.values())
+    check(len(graphs) == 1, f"deploy: {len(graphs)} captures of GPT-2's "
+          "program for one signature")
+    per_run = kernel_counts(graph_kernel_names(graphs[0].graph))
+    check(counts["completed"] == len(requests) and
+          launches == 2 * n_layers and per_run["flash_fwd"] == n_layers,
+          f"deploy: engine over the artifact: {counts}, {launches} flash "
+          f"host launches (want {2 * n_layers}: the warm-up's eager run and "
+          f"capture), {per_run['flash_fwd']} flash nodes in the graph")
+    batch4 = np.concatenate(requests[:4])
+    pred.run_batch([batch4])
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        pred.run_batch([batch4])
+        torch.cuda.synchronize()
+    traced = kernel_launches(prof)["flash_fwd"]
+    del prof
+    # a trace can lose a kernel record (PERF.md: once 15 of 16), never
+    # show one the graph does not hold
+    check(n_layers - 1 <= traced <= n_layers, f"deploy: the device trace "
+          f"of one replayed run() shows {traced} flash forwards")
+    live = pt.inference.Predictor(copy.deepcopy(lm).to(torch.bfloat16),
+                                  input_spec=[pt.InputSpec([4, seq],
+                                                           "int32")])
+    worst = 0.0
+    for r, got in zip(requests, results):
+        ref = live.run_batch([r])[0]
+        check(got.shape == (1, seq, vocab) and np.isfinite(got).all(),
+              f"deploy: engine logits {got.shape}")
+        worst = max(worst, float(np.abs(got - ref).mean()
+                                 / np.abs(ref).mean()))
+    print(f"deploy: GPT-2 small bf16 artifact (export {export_s:.1f} s): "
+          f"{nodes} flash_fwd nodes; ServingEngine over the loaded "
+          f"Predictor: {len(requests)} requests in {wall:.3f} s (warm-up "
+          f"and capture included), {counts['batches']} batches at the "
+          f"exported batch 4 ({counts['padded_rows']} padded rows), "
+          f"{launches} flash host launches (the warm-up's eager run and "
+          f"capture), {per_run['flash_fwd']} flash nodes in the captured "
+          f"graph, {traced} flash forwards in the device trace of one "
+          f"replayed run(); vs the live-layer Predictor max relative "
+          f"mean-abs error {worst:.3g} (tol 2e-2) [{card}]", flush=True)
+    check(worst <= 2e-2, f"deploy: artifact vs live layer {worst}")
+    return launches
+
+
+def deploy_repairs(pt, torch, np, card, net):
+    """BN's running statistics under TrainStep (ResNet-50 NHWC, bf16 AMP):
+    __call__ and run() leave them bit-unchanged and agree step for step;
+    then a run() capture after an eager LeNet loop that kept its loss's
+    graph."""
+    from paddle_tpu_torch.utils import bench
+    net.train()
+    rng = np.random.default_rng(SEED)
+    n, b = DEPLOY_TRAIN_STEPS, DEPLOY_TRAIN_B
+    xs = torch.from_numpy(rng.random((n, b, 224, 224, 3),
+                                     dtype=np.float32)).cuda()
+    ys = torch.from_numpy(rng.integers(0, 1000, (n, b))).cuda()
+    stats = {k: v.clone() for k, v in net.named_buffers()}
+    step = pt.jit.TrainStep(net, pt.nn.CrossEntropyLoss(),
+                            pt.optimizer.Momentum(
+                                learning_rate=0.01, momentum=0.9,
+                                parameters=net.parameters()),
+                            amp_dtype="bfloat16")
+    r = graph_run_vs_loop(pt, torch, "ResNet-50 NHWC bf16 (batch "
+                          f"{b})", step, (xs, ys), n, card)
+    moved = [k for k, v in net.named_buffers()
+             if not torch.equal(v, stats[k])]
+    print(f"deploy: BN under TrainStep: {len(stats)} running statistics "
+          f"after the __call__ and run() spans: {len(moved)} moved "
+          f"(want 0, as in the reference); run() vs __call__ max rel loss "
+          f"diff {r['rel']:.3g}, cosine {r['cosine']:.8f} [{card}]",
+          flush=True)
+    check(not moved, f"deploy: BN statistics moved under TrainStep: "
+          f"{moved[:4]}")
+    del step, xs, ys, stats
+
+    lnet, opt, ce, x, y, _ = bench.lenet_loop(pt, SEED, LENET_B)
+    for _ in range(3):
+        kept = ce(lnet(x), y)        # kept with its graph
+        kept.backward()
+        opt.step()
+        opt.clear_grad()
+    step = pt.jit.TrainStep(lnet, ce, pt.optimizer.SGD(
+        parameters=lnet.parameters(), learning_rate=0.01))
+    losses = step.run(x.expand([LENET_SPAN] + x.shape),
+                      y.expand([LENET_SPAN] + y.shape))
+    ok = bool(torch.isfinite(losses).all()) and len(step._graphs) == 1 \
+        and kept.grad_fn is not None
+    print(f"deploy: TrainStep.run() after an eager LeNet loop whose loss "
+          f"kept its graph: {len(step._graphs)} capture, {LENET_SPAN} "
+          f"steps, loss {float(losses[0]):.4f} -> {float(losses[-1]):.4f} "
+          f"[{card}]", flush=True)
+    check(ok and float(losses[-1]) < float(losses[0]),
+          f"deploy: capture after a kept graph: {losses}")
+
+
 def ptxas(path):
     """{kernel symbol: {"registers": N, "spill": [stores, loads]}} from a
     built library's `-Xptxas -v` log."""
@@ -3502,11 +3831,13 @@ def main() -> int:
     dygraph = dygraph_phase(pt, fa, torch, np, card)
     op_phase(pt, torch, np, card)
     conv_phase(pt, torch, np, card)
+    deploy_launches = deploy_phase(pt, fa, torch, np, card)
 
     summary = {"flash_fwd": dict(serving_row,
                                  launches=train_launches["flash_fwd"]
                                  + serve_launches + titan["launches"][0]
-                                 + dygraph["launches"]["flash_fwd"])}
+                                 + dygraph["launches"]["flash_fwd"]
+                                 + deploy_launches)}
     for kname in ("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"):
         summary[kname] = dict(train_rows[kname],
                               launches=train_launches[kname] + (
@@ -3528,7 +3859,8 @@ def main() -> int:
         summary16[kname] = dict(fp16_steps[kname], launches=fp16_ring[kname])
     paths16 = {k: "fp16 titan" for k in fp16_flash}
     paths16.update({k: "fp16 sp" for k in RING_KERNELS})
-    entries = [(k, r, "train + serve + titan + dygraph" if k == "flash_fwd"
+    entries = [(k, r, "train + serve + titan + dygraph + deploy"
+                if k == "flash_fwd"
                 else "train + titan + dygraph" if k == "flash_bwd_fused" else
                 "sp train" if k.startswith("ring") else "train")
                for k, r in summary.items()] + \

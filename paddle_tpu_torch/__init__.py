@@ -27,7 +27,8 @@ from .core.autograd import (enable_grad, grad, is_grad_enabled,  # noqa: F401
 from . import ops  # noqa: F401  (binds the Tensor methods)
 from .ops import *  # noqa: F401,F403
 from . import (amp, autograd, inference, io, jit, models,  # noqa: F401
-               monitor, nn, optimizer, parallel, quantization, serving, utils)
+               monitor, nn, optimizer, parallel, quantization, serving, utils,
+               vision)
 from .core.flags import set_flags  # noqa: F401
 from .core.place import (CPUPlace, CUDAPlace, get_device,  # noqa: F401
                          set_device)
@@ -42,7 +43,8 @@ __all__ = ["set_device", "get_device", "seed", "get_rng_state",
            "Parameter",
            "CPUPlace", "CUDAPlace", "InputSpec", "amp", "autograd",
            "inference", "io", "jit", "models", "monitor", "nn", "optimizer",
-           "parallel", "quantization", "serving", "utils", "Tensor", "grad",
+           "parallel", "quantization", "serving", "utils", "vision",
+           "Tensor", "grad",
            "no_grad", "enable_grad", "set_grad_enabled", "is_grad_enabled",
            "set_default_dtype", "get_default_dtype", "finfo", "iinfo", "bool",
            "uint8", "int8", "int16", "int32", "int64", "float16", "bfloat16",

@@ -11,6 +11,10 @@ class InvalidArgumentError(ValueError):
     pass
 
 
+class NotFoundError(FileNotFoundError):
+    pass
+
+
 class UnimplementedError(NotImplementedError):
     pass
 
@@ -19,4 +23,5 @@ class UnavailableError(RuntimeError):
     pass
 
 
-__all__ = ["InvalidArgumentError", "UnimplementedError", "UnavailableError"]
+__all__ = ["InvalidArgumentError", "NotFoundError", "UnimplementedError",
+           "UnavailableError"]

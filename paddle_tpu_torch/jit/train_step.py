@@ -42,6 +42,7 @@ from ..core.enforce import UnimplementedError
 from ..core.place import resolve_device
 from ..core.random import get_rng_state, set_rng_state
 from ..core.tensor import api
+from ..nn.functional.norm import frozen_running_stats
 from ..parallel.topology import get_mesh
 from .functional import amp_functional_call, split_state
 
@@ -144,9 +145,18 @@ class TrainStep:
 
     def _loss_and_grads(self, inputs, labels):
         """Forward and backward at the current parameters: (loss, grads),
-        grads aligned with the trainable parameters. Updates nothing."""
-        ps = self._ptensors
-        with torch.enable_grad():
+        grads aligned with the trainable parameters. Updates nothing: as
+        in the reference's traced step, batch norm's running statistics
+        stay as they are.
+
+        The gradients are taken with respect to fresh leaf aliases of the
+        parameters (`p.detach().requires_grad_()`, sharing their storage),
+        so no Parameter's own autograd node is reached. A graph that an
+        eager loop left alive (a loss kept with its graph) holds those
+        nodes on the stream it ran on, and a CUDA-graph capture that
+        reached them would have to sync with that stream."""
+        ps = [p.detach().requires_grad_() for p in self._ptensors]
+        with torch.enable_grad(), frozen_running_stats():
             out = amp_functional_call(self.model, self._pnames, ps,
                                       self._bnames, self._btensors, inputs,
                                       self.amp_dtype)

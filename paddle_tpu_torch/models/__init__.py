@@ -6,3 +6,11 @@ from .ernie import (ErnieEmbeddings, ErnieForPretraining,  # noqa: F401
 from .gpt import (GPTEmbeddings, GPTForCausalLM, GPTModel,  # noqa: F401
                   GPTPretrainingCriterion, gpt2_medium, gpt2_small)
 from .lenet import LeNet  # noqa: F401
+from .mobilenet import (MobileNetV1, MobileNetV2, mobilenet_v1,  # noqa: F401
+                        mobilenet_v2)
+from .resnet import (BasicBlock, BottleneckBlock, ResNet,  # noqa: F401
+                     ResNeXt, resnet18, resnet34, resnet50, resnet101,
+                     resnet152, resnext50_32x4d, resnext50_64x4d,
+                     resnext101_32x4d, resnext101_64x4d, resnext152_32x4d,
+                     resnext152_64x4d, wide_resnet50_2, wide_resnet101_2)
+from .vgg import VGG, vgg11, vgg13, vgg16, vgg19  # noqa: F401

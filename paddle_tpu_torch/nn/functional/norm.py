@@ -21,11 +21,35 @@ and normalises in one fused pass (a deviation of rounding only: the
 normalised values are not rounded to bf16; ROADMAP Queue 3). Channel-last inputs
 (`data_format="NHWC"`, ...) are permuted to an NCHW view of their memory
 and back.
+
+Inside `frozen_running_stats()` a training-mode batch_norm normalises with
+the batch statistics and writes nothing: the reference writes the running
+statistics only when its input is not a jax Tracer (:33-42), so a traced
+step (`jit.TrainStep`) never updates them. `TrainStep` runs its forward
+inside; the eager dygraph path updates them, as in the reference.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn.functional as TF
+
+_STATS = threading.local()
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """batch_norm in training mode leaves the running statistics as they
+    are inside this block (this thread only): the counterpart of the
+    reference's traced forward."""
+    prev = getattr(_STATS, "frozen", False)
+    _STATS.frozen = True
+    try:
+        yield
+    finally:
+        _STATS.frozen = prev
 
 
 def _affine(out, weight, bias, shape):
@@ -48,7 +72,8 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     axes = [0] + list(range(2, x.ndim))
     shape = [1, x.shape[1]] + [1] * (x.ndim - 2)
     use_batch = training and not use_global_stats
-    if use_batch and running_mean is not None:
+    if use_batch and running_mean is not None and \
+            not getattr(_STATS, "frozen", False):
         with torch.no_grad():
             bv, bm = torch.var_mean(x, dim=axes, correction=0)
             running_mean.copy_(momentum * running_mean + (1 - momentum)

@@ -1,7 +1,11 @@
 """int8 weight-only quantization for inference.
 
-Counterpart of `channel_quant` (:183-197) and `quant_weight_only`
-(:220-283) of `paddle_tpu/quantization/__init__.py`, for `nn.Linear`:
+Counterpart of `channel_quant` (:183-197), `quantize_weights` /
+`dequantize_weights` (:200-217) and `quant_weight_only` (:220-283) of
+`paddle_tpu/quantization/__init__.py`. `jit.save(..., precision="int8")`
+quantizes every weight of 2 or more dims with `channel_quant`, the conv
+weights on axis 0 as well as the linears on axis 1. `quant_weight_only`
+converts `nn.Linear` in place:
 each 2-D weight becomes an int8 `wo_weight_q` buffer and a per-output-
 channel f32 `wo_weight_scale` buffer under the reference's names, so a
 state dict moves across, and the fp weight is dropped. The forward
@@ -9,11 +13,11 @@ dequantizes `q * scale` and runs the fp product, as the reference does
 before XLA fuses the two.
 
 Not ported yet: ColumnParallelLinear / RowParallelLinear (they come with
-the mp slice), fake-quant, QAT and PTQ calibration.
+the mp slice), QuantedConv2D, fake-quant, QAT and PTQ calibration.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -21,7 +25,8 @@ import torch
 from ..nn.functional import linear
 from ..nn.layer.common import Linear
 
-__all__ = ["channel_quant", "quant_weight_only", "WeightOnlyLinear"]
+__all__ = ["channel_quant", "quantize_weights", "dequantize_weights",
+           "quant_weight_only", "WeightOnlyLinear"]
 
 
 def _qrange(bits: int):
@@ -43,6 +48,28 @@ def channel_quant(w, bits: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
     scale = (w.abs().amax(dim=axes, keepdim=True) / qmax).clamp_min(1e-9)
     q = torch.round(w / scale).clamp(qmin, qmax).to(torch.int8)
     return q, scale
+
+
+def quantize_weights(model, bits: int = 8
+                     ) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+    """Per-channel symmetric int8 of every parameter of 2 or more dims:
+    name -> (q, scale) as host arrays, the artifact to ship. The weights
+    are replaced by their dequantized values in place, so the accuracy
+    cost shows at once."""
+    out = {}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() < 2:
+                continue
+            q, scale = channel_quant(p, bits)
+            out[name] = (q.cpu().numpy(), scale.cpu().numpy())
+            p.copy_(q.to(torch.float32) * scale)
+    return out
+
+
+def dequantize_weights(artifact: Dict[str, Tuple[np.ndarray, np.ndarray]]
+                       ) -> Dict[str, np.ndarray]:
+    return {k: q.astype(np.float32) * s for k, (q, s) in artifact.items()}
 
 
 class WeightOnlyLinear(Linear):

@@ -10,6 +10,10 @@ Concurrent requests are coalesced into padded shape-bucket batches:
   - shape buckets (declared or learned) warmed at start
   - graceful drain on shutdown; a stats snapshot for probes
 
+A Predictor declares its buckets (`serving_buckets`): a live layer's take
+the engine's batch ladder; a saved artifact's (`inference.create_predictor`)
+take only its exported batch, and shorter batches pad up to it.
+
 Thread model: `submit()` is called from any number of threads; worker
 loops assemble batches per bucket lane; the predictor call is serialized
 by a dispatch lock. On a CUDA machine each worker launches on its own

@@ -1,5 +1,6 @@
 """The port's counterpart of `bench.py`'s two ERNIE training arms, its
-LLM serving arm and its LeNet dispatch arm.
+LLM serving arm, its LeNet dispatch arm and its two ResNet-50 deploy
+arms.
 
 - `--arm ernie_train` (`bench_ernie_train`, bench.py:188-276): the
   flagship, `ErnieForPretraining(ernie_base(hidden_dropout_prob=0.0))`
@@ -41,12 +42,28 @@ LLM serving arm and its LeNet dispatch arm.
   `steady_state_captures` (CUDA-graph captures after warm-up, the
   counterpart of `steady_state_compiles`), and `int8_decode_speedup`.
 
+- `--arm resnet50_infer` / `resnet50_infer_int8` (`bench_resnet50_infer`
+  / `_int8`, bench.py:282-366): the deploy flow, `jit.save` ->
+  `inference.Config` -> `create_predictor` -> spans of `run()`, each
+  synced on the first output on the device (`device_value()`). On the
+  card at bench.py's TPU sizes: `resnet50(data_format="NHWC")` from seed
+  0, batch 128 x 224 x 224 x 3, exported bf16 (250 runs x 5 reps) or
+  weight-only int8 (200 x 3); with `--device cpu` its CPU fallback, LeNet
+  at batch 2, fp32, 3 x 2 runs (the int8 arm is skipped there). Reports
+  `imgs_per_sec`, `spread`, `mfu` (FLOPs per image from
+  `FlopCounterMode` over the port's model, over 989 TFLOP/s), `batch`,
+  `layout`, `precision`, peak memory and, in place of bench.py's TPU
+  figure, `hbm_roofline_frac`: the bytes the loaded program's op sequence
+  reads and writes (`op_traffic_bytes`) over 3.35 TB/s, against the
+  measured time per batch.
+
 Each arm prints one JSON line under `bench.py`'s keys where they exist.
 MFU is over the H100's 989 TFLOP/s dense bf16 peak. Run on a machine with
 a CUDA device:
 
     python -m paddle_tpu_torch.utils.bench \
-        --arm ernie_train|ernie10b_layer|llm|lenet_dispatch
+        --arm ernie_train|ernie10b_layer|llm|lenet_dispatch|
+              resnet50_infer|resnet50_infer_int8
 
 On the card both TF32 switches are off (`torch.backends.cuda.matmul` and
 `torch.backends.cudnn`), as in `chip_smoke.py`: fp32 products and
@@ -61,14 +78,19 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import threading
 import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+from torch.utils.flop_counter import FlopCounterMode
 
 PEAK_BF16 = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
+PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 
 
 def _sync(device):
@@ -110,6 +132,7 @@ def step_split_ms(step, *batch, reps=4):
     copies of the parameters and fresh slots: the step's state is
     untouched."""
     from ..jit.functional import amp_functional_call
+    from ..nn.functional.norm import frozen_running_stats
     inputs, labels = step._prepare(batch)
     ps, opt = step._ptensors, step.optimizer
     values = [p.detach().clone() for p in ps]
@@ -118,7 +141,7 @@ def step_split_ms(step, *batch, reps=4):
     for _ in range(reps):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
-        with torch.enable_grad():
+        with torch.enable_grad(), frozen_running_stats():
             out = amp_functional_call(step.model, step._pnames, ps,
                                       step._bnames, step._btensors, inputs,
                                       step.amp_dtype)
@@ -452,8 +475,142 @@ def lenet_dispatch(big=True, seed=0, batch=32, warmup=6):
                     "replay per step on the card"}
 
 
+class _Traffic(TorchDispatchMode):
+    """Bytes the op sequence moves: every tensor argument of each op read
+    once and every tensor result written once (views and metadata checks
+    move nothing and are skipped)."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not func.is_view and \
+                func is not torch.ops.aten._assert_tensor_metadata.default:
+            for t in tree_leaves((args, kwargs, out)):
+                if isinstance(t, torch.Tensor):
+                    self.bytes += t.numel() * t.element_size()
+        return out
+
+
+def op_traffic_bytes(fn) -> int:
+    """Bytes fn() moves by `_Traffic`'s count: the counterpart of bench.py's
+    HBM roofline figure for a program whose ops are not fused."""
+    with _Traffic() as traffic:
+        fn()
+    return traffic.bytes
+
+
+def forward_flops(net, x) -> float:
+    """FLOPs of one forward of `net` at x, by `FlopCounterMode` (2 per
+    multiply-add of the convolutions and products)."""
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        net(x)
+    return float(counter.get_total_flops())
+
+
+def deploy_predictor(pt, net, in_shape, precision=None, dtype="float32"):
+    """bench.py's deploy scaffold up to the predictor (:282-296):
+    `jit.save(net, input_spec=[InputSpec(in_shape, dtype)],
+    precision=...)` -> `Config(path)` -> `create_predictor`, on the current
+    place. The artifact lives in a temporary directory, removed once the
+    predictor has loaded it."""
+    import tempfile
+    net.eval()
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "model")
+        pt.jit.save(net, path,
+                    input_spec=[pt.InputSpec(list(in_shape), dtype)],
+                    precision=precision)
+        cfg = pt.inference.Config(path)
+        return pt.inference.create_predictor(cfg)
+
+
+def predictor_rate(pred, x, n_steps, reps):
+    """bench.py's `_predictor_rate` timing (:297-313): feed once, one run
+    and a full host readback, a full span as warm-up, then `reps` spans of
+    `n_steps` `run()`s, each synced on the first output on the device.
+    Returns (imgs/s median, spread)."""
+    batch = x.shape[0]
+    pred.get_input_handle(pred.get_input_names()[0]).copy_from_cpu(x)
+    pred.run()
+    out_h = pred.get_output_handle(pred.get_output_names()[0])
+    out_h.copy_to_cpu()
+    device = pred.device
+
+    def span():
+        for _ in range(n_steps):
+            pred.run()
+        return out_h.device_value()
+
+    span()
+    _sync(device)
+    med, spread, _ = _timed_rate(span, batch * n_steps, reps, device)
+    return med, spread
+
+
+def _resnet50_infer(big, precision, n_steps, reps, seed=0):
+    import paddle_tpu_torch as pt
+    pt.seed(seed)
+    if big:
+        batch, in_shape = 128, (128, 224, 224, 3)
+        net = pt.models.resnet50(data_format="NHWC")
+    else:
+        batch, in_shape = 2, (2, 1, 28, 28)
+        net = pt.models.LeNet(num_classes=10)
+        n_steps, reps = 3, 2
+    net.eval()
+    device = next(net.parameters()).device
+    flops_img = forward_flops(net, torch.zeros((1,) + in_shape[1:],
+                                               device=device))
+    _reset_peak(device)
+    pred = deploy_predictor(pt, net, in_shape, precision)
+    del net
+    x = np.random.rand(*in_shape).astype("float32")
+    med, spread = predictor_rate(pred, x, n_steps, reps)
+    ms_per_batch = 1e3 * batch / med
+    # the program's ops run eagerly (a replay dispatches none of them)
+    feeds = [pred._feeds[n] for n in pred.get_input_names()]
+    with torch.inference_mode():
+        traffic = op_traffic_bytes(lambda: pred._translated._run(feeds))
+    on_card = device.type == "cuda"
+    return {"imgs_per_sec": med, "spread": spread,
+            "mfu": med * flops_img / PEAK_BF16 if on_card else None,
+            "batch": batch, "layout": "NHWC" if big else "NCHW",
+            "precision": pred._translated._meta["precision"],
+            "flops_per_img": flops_img, "ms_per_batch": ms_per_batch,
+            "op_traffic_bytes_per_batch": traffic,
+            "hbm_roofline_frac": (traffic / PEAK_BYTES * 1e3) / ms_per_batch
+            if on_card else None,
+            "n_steps": n_steps, "reps": reps, **_peak(device),
+            "note": "MFU over 989 TFLOP/s from FlopCounterMode's count of "
+                    "the port's model; hbm_roofline_frac: the bytes its "
+                    "op sequence reads and writes over 3.35 TB/s, against "
+                    "the measured ms per batch"}
+
+
+def resnet50_infer(big=True, seed=0):
+    """bench.py's `bench_resnet50_infer` (:316-348): ResNet-50 NHWC, batch
+    128 x 224 x 224 x 3, bf16 export, 250 runs x 5 reps on the card; LeNet
+    at batch 2, 3 x 2 runs, fp32 on the CPU."""
+    return _resnet50_infer(big, "bfloat16" if big else None, 250, 5, seed)
+
+
+def resnet50_infer_int8(big=True, seed=0):
+    """bench.py's `bench_resnet50_infer_int8` (:351-366): the same model
+    exported weight-only int8, 200 runs x 3 reps; the card only."""
+    if not big:
+        return {"skipped": "needs the card"}
+    r = _resnet50_infer(big, "int8", 200, 3, seed)
+    r["precision"] = "int8-weight-only"
+    return r
+
+
 ARMS = {"ernie_train": ernie_train, "ernie10b_layer": ernie10b_layer,
-        "llm": llm, "lenet_dispatch": lenet_dispatch}
+        "llm": llm, "lenet_dispatch": lenet_dispatch,
+        "resnet50_infer": resnet50_infer,
+        "resnet50_infer_int8": resnet50_infer_int8}
 
 
 def main(argv=None):
@@ -479,7 +636,8 @@ def main(argv=None):
         card, device = _card(), torch.cuda.get_device_name(0)
     for arm in args.arm:
         r = ARMS[arm](big=args.device == "gpu") \
-            if arm in ("llm", "lenet_dispatch") else ARMS[arm]()
+            if arm in ("llm", "lenet_dispatch", "resnet50_infer",
+                       "resnet50_infer_int8") else ARMS[arm]()
         r.update(arm=arm, card=card, device=device)
         print(json.dumps(r), flush=True)
         if args.device == "gpu":

@@ -1,4 +1,4 @@
-"""Where a training (or decode) step's device time goes, from a
+"""Where a training (decode, inference) step's device time goes, from a
 torch.profiler trace.
 
 Trains one of the training paths that chip_smoke.py drives, in bf16 AMP
@@ -36,6 +36,11 @@ through `jit.TrainStep` + `AdamW(1e-4)`:
   bench.py's `resnet50_infer` batch, 128 x 3 x 224 x 224, forward +
   backward (no input gradient), NCHW or NHWC, fp32 or bf16 `auto_cast`;
   no `run()` span;
+- `--model resnet50_infer` / `resnet50_infer_int8` / `gpt2_deploy`: not
+  a training step but one `run()` of a loaded Predictor (`jit.save` ->
+  `Config` -> `create_predictor`): ResNet-50 NHWC at bench.py's 128 x 224
+  x 224 x 3, exported bf16 or weight-only int8, and GPT-2 small's bf16
+  artifact at 4 x 1024 ids (12 flash forwards per run); no `run()` span;
 - `--model llm_decode` / `llm_decode_int8`: not a training step but one
   decode step of `serving.LLMEngine`'s whole pool, as chip_smoke.py's llm
   phase configures it (gpt2_small, 16 slots, max_len 1022, every slot
@@ -55,7 +60,8 @@ after a first span that captures). Run on a machine with a CUDA device:
     python -m paddle_tpu_torch.utils.train_profile
         [--model gpt2|gpt2_dygraph|ernie_sp|ernie|titan|titan_fp16|
                  ernie_sp_fp16|lenet|stem|stem_nhwc|stem_bf16|stem_nhwc_bf16|
-                 llm_decode|llm_decode_int8]
+                 llm_decode|llm_decode_int8|resnet50_infer|
+                 resnet50_infer_int8|gpt2_deploy]
         [--steps 3] [--top 20]
 
 Prints one line per kernel group and per top kernel, and a JSON object as
@@ -443,6 +449,32 @@ def _stem(pt, rng, fmt="NCHW", dtype="float32"):
     return step, (x,)
 
 
+def _deploy(pt, rng, net, in_shape, precision, dtype="float32"):
+    """A loaded Predictor (`jit.save` -> `Config` -> `create_predictor`,
+    `utils/bench.py deploy_predictor`) with its input fed once; a call is
+    one `run()`, as bench.py's deploy spans drive it."""
+    from .bench import deploy_predictor
+    pred = deploy_predictor(pt, net, in_shape, precision, dtype)
+    if dtype == "int32":
+        x = rng.integers(0, 50304, size=in_shape).astype(np.int32)
+    else:
+        x = rng.random(in_shape, dtype=np.float32)
+    pred.get_input_handle(pred.get_input_names()[0]).copy_from_cpu(x)
+    return (lambda x: pred.run()), (torch.from_numpy(x),)
+
+
+def _resnet50_infer(pt, rng, precision="bfloat16"):
+    """bench.py's resnet50_infer: ResNet-50 NHWC, 128 x 224 x 224 x 3."""
+    return _deploy(pt, rng, pt.models.resnet50(data_format="NHWC"),
+                   (128, 224, 224, 3), precision)
+
+
+def _gpt2_deploy(pt, rng):
+    """GPT-2 small's bf16 artifact at the serve phase's 4 x 1024 ids."""
+    return _deploy(pt, rng, pt.models.GPTForCausalLM(
+        pt.models.gpt2_small(dropout=0.0)), (4, 1024), "bfloat16", "int32")
+
+
 MODELS = {"gpt2": _gpt2, "gpt2_dygraph": _gpt2_dygraph,
           "ernie_sp": _ernie_sp, "ernie": _ernie,
           "lenet": _lenet,
@@ -453,7 +485,11 @@ MODELS = {"gpt2": _gpt2, "gpt2_dygraph": _gpt2_dygraph,
                                                   "bfloat16"),
           "titan": _titan, "titan_fp16": _titan_fp16,
           "ernie_sp_fp16": _ernie_sp_fp16, "llm_decode": _llm_decode,
-          "llm_decode_int8": lambda pt, rng: _llm_decode(pt, rng, True)}
+          "llm_decode_int8": lambda pt, rng: _llm_decode(pt, rng, True),
+          "resnet50_infer": _resnet50_infer,
+          "resnet50_infer_int8": lambda pt, rng: _resnet50_infer(pt, rng,
+                                                                 "int8"),
+          "gpt2_deploy": _gpt2_deploy}
 
 
 def _trace(fn, steps):

@@ -188,3 +188,34 @@ def test_chip_smoke_refuses_to_run_without_the_repo_or_a_card(tmp_path,
                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert res.returncode != 0
     assert '"ok"' not in res.stdout and "FAILED" in res.stderr
+
+
+def test_deploy_flow_runs_with_jax_and_the_jax_package_blocked(tmp_path):
+    res = _run(f"""
+        import sys
+        for name in ("jax", "jaxlib", "paddle_tpu"):
+            sys.modules[name] = None          # any import of them fails
+        import numpy as np
+        import paddle_tpu_torch as pt
+        pt.set_device("cpu")
+        pt.seed(0)
+        net = pt.vision.models.resnet18(num_classes=10, data_format="NHWC")
+        path = {str(tmp_path / "r18")!r}
+        pt.jit.save(net, path, input_spec=[pt.InputSpec([2, 32, 32, 3])],
+                    precision="int8")
+        cfg = pt.inference.Config(path + ".pdmodel")
+        cfg.disable_gpu()
+        cfg.enable_quant()
+        pred = pt.inference.create_predictor(cfg)
+        h = pred.get_input_handle(pred.get_input_names()[0])
+        h.copy_from_cpu(np.ones((2, 32, 32, 3), np.float32))
+        pred.run()
+        out = pred.get_output_handle("output_0").copy_to_cpu()
+        assert out.shape == (2, 10) and np.isfinite(out).all()
+        loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                        and m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+        assert not loaded, loaded
+        print("ok")
+    """)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == "ok"

@@ -133,13 +133,6 @@ def test_bf16_outputs_come_back_as_float32(models):
     assert out.dtype == np.float32 and np.isfinite(out).all()
 
 
-def test_artifact_loading_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        pt.inference.Config("model.pdmodel")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        pt.inference.create_predictor(None)
-
-
 def test_overload_rejection_is_explicit():
     gate = threading.Event()
 
