@@ -218,14 +218,55 @@ last line is printed):
                against __call__ from one state (losses within 1e-4
                relative, parameter cosine >= 0.9999) with every running
                statistic bit-unchanged, as in the reference; and a run()
-               capture after an eager LeNet loop whose loss kept its graph.
+               capture after an eager LeNet loop whose loss kept its graph;
+ 18. seq     - slice 13, the sequence layers: nn.Transformer(512, 8, 6, 6,
+               2048, dropout=0.0) (the base model of Vaswani et al., the
+               reference's defaults) on src = tgt = 8 x 1024 x 512 with the
+               causal target mask, trained on mean((out - y) ** 2) through
+               jit.TrainStep(amp_dtype="bfloat16", n_model_inputs=2) +
+               AdamW(1e-4): step 1 in bf16 against fp32 on the card (loss
+               within 2e-2 relative; gradient cosine >= 0.999 whole, >= 0.99
+               for each parameter outside the q / k projections and for
+               those together; fp32 takes the einsum path), 3 __call__
+               steps, then run() from the same state (losses within 1e-4
+               relative; the pair again under deterministic algorithms,
+               parameter cosine >= 0.9999), the loss falling; 12 flash_fwd
+               and 12
+               fused backward launches per step in the device trace (6
+               encoder self-attentions, 6 cross-attentions; the masked
+               decoder self-attention none); BeamSearchDecoder(GRUCell(128,
+               256), 4 beams, Embedding(1000, 128), Linear(256, 1000))
+               through dynamic_decode(max_step_num=32) at batch 8, card vs
+               CPU: the same ids, parents and lengths; LSTM / GRU /
+               SimpleRNN, two bidirectional layers, with and without
+               sequence_length, card vs CPU: outputs within 1e-4, gradients
+               within 5e-4 (1 + |ref|), both beside float64;
+ 19. config4 - slice 13, BASELINE config 4 through the deploy path:
+               PP-OCRv3 rec (n_classes 6625, scale 0.5, hidden 48; 64 x 32
+               x 320 x 3) and PP-YOLOE-s NHWC (64 x 640 x 640 x 3), seed 0:
+               the fp32 artifact against the live layer on the CPU at batch
+               4 / 2 (relative L2 <= 1e-5 per output), fp32 and bf16
+               artifacts at bench.py's batch, bf16 against fp32 (< 0.08 of
+               max|ref| per output), the OCR program's two aten.lstm.input
+               nodes, imgs/s with spread, MFU, peak memory, idle share over
+               20 run()s and device busy against the live layer (the OCR
+               program run eagerly within 10%), and which recurrent
+               kernels the OCR trace shows; yolo_box on the detector's
+               three heads and nms of one image, card vs CPU; ctc_loss at
+               T 160, batch 64, 6625
+               classes forward and backward, and 3 SGD steps of
+               PPOCRRec.loss at batch 4, card vs CPU (1e-4 (1 + |ref|) and
+               1e-3 relative); every vision op but decode_jpeg, forward
+               (and backward where differentiable), and the six small-net
+               families in eval, card vs CPU within 1e-4 (1 + |ref|).
 
 Each fp16 step drives `scaler.step(opt)` after the scaled backward and no
 `scaler.update()`: the reference's step() already updates the scale once
 every optimizer has stepped, and an update() after it counts the step a
 second time, as a good one. The last two lines are a JSON summary of the
 kernels, one entry per kernel and dtype (bf16 from the bf16 paths, the
-dygraph phase's launches in rows 1-2 and the deploy phase's in row 1, fp16
+dygraph and seq phases' launches in rows 1-2 and the deploy phase's in
+row 1, fp16
 from paths A and B), and `{"ok": true, "device": {...}}`. Imports nothing
 of JAX.
 
@@ -3258,14 +3299,8 @@ def deploy_saved(pt, net, path, shape, dtype, precision):
 def busy_ms(torch, fn, runs):
     """(device busy ms per call, idle share, wall ms per call) of `runs`
     calls of fn under torch.profiler."""
-    from paddle_tpu_torch.utils.train_profile import _trace
-
-    def calls():
-        for _ in range(runs):
-            fn()
-
-    wall, busy = _trace(calls, runs)[:2]
-    return busy, 1.0 - busy / wall, wall
+    from paddle_tpu_torch.utils import bench
+    return bench.busy_ms(fn, runs, torch.device("cuda"))
 
 
 def deploy_phase(pt, fa, torch, np, card):
@@ -3529,6 +3564,636 @@ def deploy_repairs(pt, torch, np, card, net):
           f"[{card}]", flush=True)
     check(ok and float(losses[-1]) < float(losses[0]),
           f"deploy: capture after a kept graph: {losses}")
+
+
+# ---- slice 13: the sequence layers and BASELINE config 4 ----
+SEQ_B, SEQ_S, SEQ_STEPS = 8, 1024, 3
+# card against CPU for the RNN family and the CTC loss (fp32, TF32 off)
+SEQ_TOL = 1e-4
+# the RNN family's gradients, card against CPU: cuDNN's fp32 RNN is about
+# ten times less accurate than aten's CPU loop (the seq phase prints both
+# against float64 on the CPU)
+RNN_GRAD_TOL = 5e-4
+# the beam search of the seq phase: GRUCell(128, 256) over a 1000-token
+# vocabulary, 4 beams, 8 sequences, at most 32 steps
+BEAM_VOCAB, BEAM_EMB, BEAM_HIDDEN, BEAM_W, BEAM_B, BEAM_STEPS = \
+    1000, 128, 256, 4, 8, 32
+# config 4: the fp32 artifacts against the live layers on the CPU at these
+# batches; the rates over spans of C4_RUNS run()s
+OCR_CHECK_B, YOLOE_CHECK_B, OCR_TRAIN_B, C4_RUNS, C4_REPS = 4, 2, 4, 20, 3
+# the CTC loss at the OCR head's shapes: T 160 positions, batch 64,
+# 6625 classes, labels of 1-25 tokens
+CTC_T, CTC_B, CTC_C, CTC_L = 160, 64, 6625, 25
+OCR_TRAIN_TOL = 1e-3
+
+
+def seq_phase(pt, fa, torch, np, card):
+    """Slice 13, the sequence layers: the base Transformer (Vaswani et al.,
+    the reference's defaults) trained in bf16 AMP through TrainStep +
+    AdamW, whose encoder self-attention and equal-length cross-attention
+    reach kernel rows 1-2; beam search over a GRU cell, card against CPU;
+    the RNN family card against CPU. Returns the host launches of the
+    flash kernels over the main path's steps."""
+    from paddle_tpu_torch.jit import amp_functional_call, split_state
+    from paddle_tpu_torch.utils.train_profile import (kernel_launches,
+                                                      transformer_step)
+    t_phase = time.time()
+    pt.set_device("gpu")
+    pt.seed(SEED)
+    rng = np.random.default_rng(SEED)
+    step, (src, tgt, y) = transformer_step(pt, rng, SEQ_B, SEQ_S)
+    model, loss_fn = step.model, step.loss_fn
+    n_layers = 6
+    trainable, frozen = split_state(model)
+    pnames, ps = list(trainable), list(trainable.values())
+    bnames, bufs = list(frozen), list(frozen.values())
+
+    def grads_of(amp_dtype):
+        with torch.enable_grad():
+            out = amp_functional_call(model, pnames, ps, bnames, bufs,
+                                      [src, tgt], amp_dtype)
+            loss = loss_fn(out, y)
+            grads = torch.autograd.grad(loss, ps)
+        torch.cuda.synchronize()
+        return float(loss.detach()), [g.float() for g in grads]
+
+    # ---- step 1: the bf16 kernel path against fp32 (the einsum path at
+    # S = 1024) on the card ----
+    counters = {"flash_fwd": fa.flash_attention_fwd,
+                "flash_bwd_fused": fa.flash_attention_bwd_fused,
+                "flash_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_bwd_dkv": fa.flash_attention_bwd_dkv}
+    before = {k: c.launches for k, c in counters.items()}
+    loss32, g32 = grads_of(None)
+    fp32_launches = {k: c.launches - before[k] for k, c in counters.items()}
+    loss16, g16 = grads_of("bfloat16")
+    rel = abs(loss16 - loss32) / abs(loss32)
+    # the attention logits' projections (q_proj, k_proj) get the
+    # softmax's backward, dS = P * (dP - rowsum(P * dP)): at this
+    # initialisation the two terms nearly cancel and bf16 rounding (of P
+    # on the einsum path, of the output the kernel's rowsum(dO * O) reads)
+    # dominates their small gradients (1e-5 to 1e-4 of the largest); they
+    # are held together, as one vector, and each other parameter alone.
+    # The key bias's exact gradient is 0 (q . b_k shifts a whole softmax
+    # row): its computed norms are printed beside the query bias's
+    logit = [i for i, n in enumerate(pnames)
+             if ".q_proj." in n or ".k_proj." in n]
+    k_bias = [i for i in logit if pnames[i].endswith("k_proj.bias")]
+    q_bias = [i for i in logit if pnames[i].endswith("q_proj.bias")]
+    noise = max(float(g[i].norm()) / float(g[j].norm())
+                for g in (g32, g16) for i, j in zip(k_bias, q_bias))
+    cos = min((cosine(a, b), n) for i, (a, b, n) in
+              enumerate(zip(g16, g32, pnames)) if i not in logit)
+    qk = [i for i in logit if i not in k_bias]
+    cos_qk = cosine(torch.cat([g16[i].flatten() for i in qk]),
+                    torch.cat([g32[i].flatten() for i in qk]))
+    low_qk = sorted((cosine(g16[i], g32[i]), pnames[i]) for i in qk)[:3]
+    cos_all = cosine(torch.cat([g.flatten() for g in g16]),
+                     torch.cat([g.flatten() for g in g32]))
+    print(f"seq: Transformer(512, 8, 6 + 6, 2048) step 1 at {SEQ_B} x "
+          f"{SEQ_S}: loss fp32 {loss32:.6f} bf16 {loss16:.6f}, rel err "
+          f"{rel:.3g} (tol 2e-2); gradient cosine bf16 vs fp32: whole "
+          f"{cos_all:.6f} (tol 0.999), lowest per parameter outside the "
+          f"q / k projections {cos[0]:.6f} ({cos[1]}, tol 0.99), the "
+          f"{len(qk)} q / k projection tensors together {cos_qk:.6f} (tol "
+          f"0.99; lowest alone {[(round(c, 4), n) for c, n in low_qk]}); "
+          f"key-bias gradient norms at most {noise:.3g} of the query "
+          f"biases'; fp32 flash launches {sum(fp32_launches.values())} "
+          f"(want 0) [{card}]", flush=True)
+    check(rel <= 2e-2, f"seq: bf16 vs fp32 step-1 loss {rel}")
+    check(cos_all >= 0.999, f"seq: bf16 vs fp32 whole gradient {cos_all}")
+    check(cos[0] >= 0.99, f"seq: bf16 vs fp32 gradient cosine {cos}")
+    check(cos_qk >= 0.99, f"seq: bf16 vs fp32 q / k gradients {cos_qk}")
+    check(not any(fp32_launches.values()),
+          f"seq: fp32 reached the kernels: {fp32_launches}")
+    del g32, g16
+    torch.cuda.empty_cache()
+
+    # ---- the main path: SEQ_STEPS __call__ steps, then run() over as
+    # many from the same state ----
+    saved = step.state_dict()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(SEQ_STEPS + 1)]
+    events[0].record()
+    losses = []
+    for i in range(SEQ_STEPS):
+        losses.append(step(src, tgt, y))
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    call_ms = [events[i].elapsed_time(events[i + 1])
+               for i in range(SEQ_STEPS)]
+    call_params = [p.detach().clone() for p in step._ptensors]
+    step.set_state_dict(saved)
+    stacked = [t.expand(SEQ_STEPS, *t.shape) for t in (src, tgt, y)]
+    run_losses = step.run(*stacked)
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(x) for x in losses]
+    run_losses = [float(x) for x in run_losses]
+    run_rel = max(abs(a - b) / abs(b) for a, b in zip(run_losses, losses))
+    # the parameters after the two spans differ by the fused backward's dq
+    # atomics, which AdamW makes visible on the key biases (their exact
+    # gradient is 0, so their steps follow rounding noise): the same pair
+    # again from the saved state under torch.use_deterministic_algorithms
+    # (the two-pass backward) holds run() to __call__ parameter by
+    # parameter
+    with determinism(torch, True):
+        step.set_state_dict(saved)
+        for _ in range(SEQ_STEPS):
+            step(src, tgt, y)
+        det_params = [p.detach().clone() for p in step._ptensors]
+        step.set_state_dict(saved)
+        step.run(*stacked)
+    run_cos = min((cosine(a.float(), b.float()), n) for a, b, n in
+                  zip(step._ptensors, det_params, step._pnames))
+    del call_params, det_params
+    # the device trace of one more __call__ step: the kernels per step
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step(src, tgt, y)
+        torch.cuda.synchronize()
+    traced = kernel_launches(prof)
+    # host calls: SEQ_STEPS __call__ steps, then run()'s eager first step
+    # and one capture (the replays launch on the device alone)
+    n_host = SEQ_STEPS + 2
+    per_layer = 2 * n_layers            # encoder self + decoder cross
+    print(f"seq: losses __call__ {[round(x, 6) for x in losses]}, run() "
+          f"{[round(x, 6) for x in run_losses]}: max rel diff "
+          f"{run_rel:.3g} (tol 1e-4); lowest parameter cosine run() vs "
+          f"__call__ under deterministic algorithms {run_cos[0]:.8f} "
+          f"({run_cos[1]}, tol 0.9999); __call__ "
+          f"{[round(x, 3) for x in call_ms]} ms per step (CUDA events), "
+          f"peak {peak:.2f} GiB [{card}]", flush=True)
+    print(f"seq: flash launches (host calls) over {SEQ_STEPS} __call__ "
+          f"steps and run(): {launches}; in the device trace of one step: "
+          f"flash_fwd {traced['flash_fwd']}, flash_bwd_fused "
+          f"{traced['flash_bwd_fused']} (want {per_layer} each: 6 encoder "
+          f"self-attentions, 6 cross-attentions; the masked decoder "
+          f"self-attention takes the einsum path) [{card}]", flush=True)
+    check(all(math.isfinite(x) for x in losses + run_losses),
+          f"seq: non-finite loss {losses} {run_losses}")
+    check(losses[-1] < losses[0], f"seq: the loss did not fall {losses}")
+    check(run_rel <= 1e-4, f"seq: run() vs __call__ losses {run_rel}")
+    check(run_cos[0] >= 0.9999, f"seq: run() vs __call__ params {run_cos}")
+    check(traced["flash_fwd"] == per_layer and
+          traced["flash_bwd_fused"] == per_layer and
+          traced["flash_bwd_dq"] == 0 and traced["flash_bwd_dkv"] == 0,
+          f"seq: device trace of one step {traced}")
+    check(launches == {"flash_fwd": per_layer * n_host,
+                       "flash_bwd_fused": per_layer * n_host,
+                       "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+          f"seq: host launches {launches} over {n_host} host steps")
+    del step, model, saved, stacked, src, tgt, y
+    torch.cuda.empty_cache()
+    beam_check(pt, torch, np, card)
+    rnn_checks(pt, torch, np, card)
+    print(f"seq: phase wall {time.time() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return launches
+
+
+def beam_check(pt, torch, np, card):
+    """BeamSearchDecoder(GRUCell) through dynamic_decode on the card and
+    on the CPU from the same weights: the same ids, parents and lengths."""
+    pt.seed(SEED)
+    emb = pt.nn.Embedding(BEAM_VOCAB, BEAM_EMB)
+    cell = pt.nn.GRUCell(BEAM_EMB, BEAM_HIDDEN)
+    proj = pt.nn.Linear(BEAM_HIDDEN, BEAM_VOCAB)
+    h0 = np.random.default_rng(SEED).standard_normal(
+        (BEAM_B, BEAM_HIDDEN)).astype(np.float32)
+
+    class Recording(pt.nn.BeamSearchDecoder):
+        def step(self, *args, **kwargs):
+            res = super().step(*args, **kwargs)
+            self.parents.append(res[0].parent_ids)
+            return res
+
+    res = {}
+    for where in ("cuda", "cpu"):
+        mods = [copy.deepcopy(m).to(where) for m in (emb, cell, proj)]
+        dec = Recording(mods[1], start_token=0, end_token=1,
+                        beam_size=BEAM_W, embedding_fn=mods[0],
+                        output_fn=mods[2])
+        dec.parents = []
+        with torch.no_grad():
+            ids, _, lengths = pt.nn.dynamic_decode(
+                dec, inits=torch.from_numpy(h0).to(where),
+                max_step_num=BEAM_STEPS, return_length=True)
+        res[where] = (ids.cpu().numpy(), np.stack(dec.parents),
+                      lengths.cpu().numpy())
+    same = [bool(np.array_equal(a, b)) for a, b in zip(res["cuda"],
+                                                      res["cpu"])]
+    print(f"seq: beam search GRUCell({BEAM_EMB}, {BEAM_HIDDEN}), "
+          f"{BEAM_W} beams, batch {BEAM_B}, vocabulary {BEAM_VOCAB}: "
+          f"{res['cuda'][0].shape[1]} steps; card vs CPU ids, parents, "
+          f"lengths equal {same} [{card}]", flush=True)
+    check(all(same), f"seq: beam search card vs CPU {same}")
+
+
+def rnn_checks(pt, torch, np, card):
+    """nn.LSTM / GRU / SimpleRNN, two bidirectional layers, with and
+    without sequence_length, forward and the gradients of sum(out * g),
+    card against CPU from the same weights; each also against float64 on
+    the CPU, the accuracy of cuDNN's fp32 RNN beside aten's."""
+    rng = np.random.default_rng(SEED)
+    x_np = rng.standard_normal((8, 50, 64)).astype(np.float32)
+    g_np = rng.standard_normal((8, 50, 256)).astype(np.float32)
+    seq = np.array([50, 20, 35, 50, 7, 49, 1, 30])
+
+    def dev(got, want):
+        """(outputs, gradients) worst |got - want| / (1 + |want|)."""
+        e = [float(((a.double() - b.double()).abs()
+                    / (1 + b.double().abs())).max())
+             for a, b in zip(got, want)]
+        return e[0], max(e[1:])
+
+    worst, vs64 = [], {"card": (0.0, 0.0), "cpu": (0.0, 0.0)}
+    for cls in ("LSTM", "GRU", "SimpleRNN"):
+        pt.seed(SEED)
+        net = getattr(pt.nn, cls)(64, 128, num_layers=2,
+                                  direction="bidirect")
+        for lengths in (None, seq):
+            outs = {}
+            for where, dt in (("cuda", torch.float32),
+                              ("cpu", torch.float32),
+                              ("cpu", torch.float64)):
+                m = copy.deepcopy(net).to(where).to(dt)
+                x = torch.tensor(x_np, device=where, dtype=dt,
+                                 requires_grad=True)
+                sl = None if lengths is None else \
+                    torch.from_numpy(lengths).to(where)
+                out, _ = m(x, sequence_length=sl)
+                (out * torch.from_numpy(g_np).to(where, dt)).sum() \
+                    .backward()
+                outs[(where, dt)] = [out.detach().cpu(), x.grad.cpu()] + \
+                    [p.grad.cpu() for p in m.parameters()]
+            card32, cpu32, cpu64 = outs.values()
+            worst.append(dev(card32, cpu32) + (cls, lengths is not None))
+            for k, got in (("card", card32), ("cpu", cpu32)):
+                vs64[k] = tuple(map(max, vs64[k], dev(got, cpu64)))
+    out_w = max(worst)
+    grad_w = max(worst, key=lambda w: w[1])
+    print(f"seq: LSTM / GRU / SimpleRNN, 2 bidirectional layers, 8 x 50 x "
+          f"64 -> 128, with and without sequence_length, card vs CPU: "
+          f"outputs worst {out_w[0]:.3g} ({out_w[2]}, sequence_length="
+          f"{out_w[3]}; tol {SEQ_TOL} (1 + |ref|)), gradients worst "
+          f"{grad_w[1]:.3g} ({grad_w[2]}, sequence_length={grad_w[3]}; tol "
+          f"{RNN_GRAD_TOL} (1 + |ref|)); against float64 on the CPU, "
+          f"outputs / gradients worst: the card {vs64['card'][0]:.3g} / "
+          f"{vs64['card'][1]:.3g}, the CPU {vs64['cpu'][0]:.3g} / "
+          f"{vs64['cpu'][1]:.3g} [{card}]", flush=True)
+    check(out_w[0] <= SEQ_TOL and grad_w[1] <= RNN_GRAD_TOL,
+          f"seq: RNN card vs CPU {out_w} {grad_w}")
+
+
+def lstm_kernels(torch, fn):
+    """The recurrent kernels in the device trace of fn(): {name: (ms,
+    launches)} of the kernels whose names speak of an RNN or LSTM."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        low = e.key.lower()
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                ("rnn" in low or "lstm" in low):
+            out[e.key[:90]] = (e.self_device_time_total / 1e3, e.count)
+    return out
+
+
+def config4_phase(pt, torch, np, card):
+    """Slice 13, BASELINE config 4 through the deploy path on the card:
+    PP-OCRv3 rec and PP-YOLOE-s at bench.py's sizes, exported fp32 (against
+    the live layer on the CPU) and bf16 (against fp32), their rates, MFU,
+    memory, idle share and device time against the live layer; the CTC
+    loss and three OCR training steps card against CPU; yolo_box and nms on
+    the detector's heads; every vision op and the six small-net families
+    card against CPU."""
+    import tempfile
+    from paddle_tpu_torch.utils import bench
+    t_phase = time.time()
+    pt.set_device("gpu")
+    work = tempfile.TemporaryDirectory(prefix="config4_")
+    heads = None
+    try:
+        for name in ("ocr_rec_infer", "yoloe_infer"):
+            r = config4_arm(pt, torch, np, card, bench, name, work.name)
+            if name == "yoloe_infer":
+                heads = r
+    finally:
+        work.cleanup()
+    detection_ops(pt, torch, np, card, heads)
+    del heads
+    torch.cuda.empty_cache()
+    ctc_and_ocr_training(pt, torch, np, card)
+    vision_ops_checks(pt, torch, np, card)
+    small_net_checks(pt, torch, np, card)
+    print(f"config4: phase wall {time.time() - t_phase:.1f} s [{card}]",
+          flush=True)
+
+
+def config4_arm(pt, torch, np, card, bench, name, workdir):
+    """One config-4 model: the fp32 artifact at a small batch against the
+    live layer on the CPU; fp32 and bf16 artifacts at bench.py's batch,
+    bf16 against fp32; rates, MFU, peak memory, idle share and device busy
+    against the live layer. Returns the fp32 artifact's outputs at the
+    check batch (YOLOE's heads feed the detection ops)."""
+    pt.seed(SEED)
+    net, shape, precision, variant, _ = bench.config4_model(pt, name)
+    net.eval()
+    check_b = OCR_CHECK_B if name == "ocr_rec_infer" else YOLOE_CHECK_B
+    rng = np.random.default_rng(SEED)
+    x = rng.random(shape, dtype=np.float32)
+    xc = x[:check_b]
+    pred, export_s, _ = deploy_saved(
+        pt, net, os.path.join(workdir, f"{name}_check"),
+        (check_b,) + shape[1:], "float32", None)
+    got = [torch.as_tensor(o) for o in pred.run([xc])]
+    with torch.inference_mode():
+        ref = copy.deepcopy(net).cpu()(torch.from_numpy(xc))
+    ref = ref if isinstance(ref, list) else [ref]
+    errs = [rel_l2(g, r) for g, r in zip(got, ref)]
+    print(f"config4: {variant} fp32 artifact (exported on the card in "
+          f"{export_s:.1f} s) at batch {check_b} vs the live layer on the "
+          f"CPU: relative L2 {[f'{e:.3g}' for e in errs]} (tol "
+          f"{DEPLOY_TOL}, TF32 off) [{card}]", flush=True)
+    check(len(got) == len(ref) and max(errs) <= DEPLOY_TOL,
+          f"config4: {name} fp32 artifact vs CPU {errs}")
+    heads = got
+    del pred, ref
+
+    flops_img = bench.model_flops(net, (1,) + shape[1:])
+    live = {"float32": (net, torch.from_numpy(x).cuda())}
+    live["bfloat16"] = (copy.deepcopy(net).to(torch.bfloat16),
+                        live["float32"][1].bfloat16())
+    outs, rows = {}, {}
+    for prec in ("float32", "bfloat16"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pred, export_s, _ = deploy_saved(
+            pt, net, os.path.join(workdir, f"{name}_{prec}"), shape,
+            "float32", None if prec == "float32" else prec)
+        if name == "ocr_rec_infer":
+            nodes = [str(n.target) for n in
+                     pred._translated.program().graph.nodes]
+            n_lstm = nodes.count("aten.lstm.input")
+            check(n_lstm == 2, f"config4: {prec} OCR program holds "
+                  f"{n_lstm} aten.lstm.input nodes, want 2")
+        rate, spread = bench.predictor_rate(pred, x, C4_RUNS, C4_REPS)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        outs[prec] = [torch.as_tensor(o).float().cpu()
+                      for o in pred.run([x])]
+        busy, idle, wall = busy_ms(torch, pred.run, C4_RUNS)
+        layer, xin = live[prec]
+        feeds = [pred._feeds[n] for n in pred.get_input_names()]
+
+        def eager(layer=layer, xin=xin):
+            with torch.inference_mode():
+                return layer(xin)
+
+        def program(tl=pred._translated, feeds=feeds):
+            with torch.inference_mode():
+                return tl._run(feeds)
+
+        live_busy = busy_ms(torch, eager, C4_RUNS)[0]
+        # the loaded program run eagerly: the same op sequence as a
+        # replay, without the graph
+        prog_busy = busy_ms(torch, program, C4_RUNS)[0]
+        rnn = lstm_kernels(torch, pred.run) \
+            if name == "ocr_rec_infer" else {}
+        rows[prec] = dict(rate=rate, spread=spread, busy=busy, idle=idle,
+                          wall=wall, peak=peak, export_s=export_s,
+                          live_busy=live_busy, prog_busy=prog_busy, rnn=rnn,
+                          mfu=rate * flops_img / PEAK_BF16)
+        del pred
+        torch.cuda.empty_cache()
+    for prec, row in rows.items():
+        share = row["prog_busy"] / row["live_busy"]
+        rnn = "" if not row["rnn"] else \
+            f"; recurrent kernels per run {row['rnn']}"
+        print(f"config4: {variant} {prec} artifact, batch {shape[0]}: "
+              f"{row['rate']:.1f} imgs/s (spread {row['spread']:.3f}, "
+              f"{C4_RUNS} runs x {C4_REPS}), MFU {row['mfu']:.4f} "
+              f"({flops_img / 1e9:.4f} GFLOP per image), device busy per "
+              f"run: replay {row['busy']:.3f} ms, the program eagerly "
+              f"{row['prog_busy']:.3f}, the live layer "
+              f"{row['live_busy']:.3f} (program / live {share:.4f}, tol 1 "
+              f"+- {DEPLOY_DEVICE_SHARE}; replay / live "
+              f"{row['busy'] / row['live_busy']:.4f}), idle share "
+              f"{row['idle']:.4f} over {C4_RUNS} run()s, peak "
+              f"{row['peak']:.2f} GiB, export {row['export_s']:.1f} s"
+              f"{rnn} [{card}]", flush=True)
+        if name == "ocr_rec_infer":
+            check(abs(share - 1) <= DEPLOY_DEVICE_SHARE,
+                  f"config4: {prec} OCR program {row['prog_busy']} ms vs "
+                  f"live {row['live_busy']} ms per batch")
+    errs = [float((b - a).abs().max() / a.abs().max())
+            for a, b in zip(outs["float32"], outs["bfloat16"])]
+    print(f"config4: {variant} bf16 vs fp32 at batch {shape[0]}, per "
+          f"output max|got - ref| / max|ref| {[f'{e:.4g}' for e in errs]} "
+          f"(tol {DEPLOY_QUANT_TOL}) [{card}]", flush=True)
+    check(all(torch.isfinite(o).all() for o in outs["bfloat16"]) and
+          max(errs) < DEPLOY_QUANT_TOL, f"config4: {name} bf16 vs fp32 "
+          f"{errs}")
+    return heads
+
+
+def detection_ops(pt, torch, np, card, heads):
+    """yolo_box on the detector's three fp32 heads (NHWC -> NCHW) on the
+    card and on the CPU, then nms of one image's boxes: the same boxes and
+    the same kept indices."""
+    from paddle_tpu_torch.vision import ops
+    anchors = ([10, 13], [30, 61], [116, 90])
+    boxes, scores = {}, {}
+    for where in ("cuda", "cpu"):
+        bs, ss = [], []
+        for h, anc, ratio in zip(heads, anchors, (8, 16, 32)):
+            b, s = ops.yolo_box(h.to(where).permute(0, 3, 1, 2), None, anc,
+                                80, 0.01, ratio)
+            bs.append(b)
+            ss.append(s)
+        boxes[where] = torch.cat(bs, 1)
+        scores[where] = torch.cat(ss, 1)
+    err = max(float(((boxes["cuda"].cpu() - boxes["cpu"]).abs()
+                      / (1 + boxes["cpu"].abs())).max()),
+              float(((scores["cuda"].cpu() - scores["cpu"]).abs()
+                     / (1 + scores["cpu"].abs())).max()))
+    score0 = scores["cuda"][0].max(-1).values
+    keep = ops.nms(boxes["cuda"][0], 0.5, score0, top_k=100)
+    keep_cpu = ops.nms(boxes["cuda"][0].cpu(), 0.5, score0.cpu(), top_k=100)
+    same = torch.equal(keep.cpu(), keep_cpu)
+    print(f"config4: yolo_box on the three heads ({boxes['cuda'].shape[1]} "
+          f"boxes per image) card vs CPU {err:.3g} (tol {SEQ_TOL} "
+          f"(1 + |ref|)); nms of image 0 (IoU 0.5, top 100) on the card's "
+          f"tensors and on their CPU copies: {len(keep)} kept, the same "
+          f"indices {same} [{card}]", flush=True)
+    check(err <= SEQ_TOL and same and keep.device.type == "cuda",
+          f"config4: detection ops {err} {same}")
+
+
+def ctc_and_ocr_training(pt, torch, np, card):
+    """F.ctc_loss forward and backward at the OCR head's shapes, card
+    against CPU; three SGD steps of PPOCRRec.loss, card against CPU."""
+    F = pt.nn.functional
+    rng = np.random.default_rng(SEED)
+    logits = rng.standard_normal((CTC_T, CTC_B, CTC_C)).astype(np.float32)
+    lab_len = rng.integers(1, CTC_L + 1, CTC_B)
+    labels = rng.integers(1, CTC_C, (CTC_B, CTC_L)).astype(np.int32)
+    in_len = np.full(CTC_B, CTC_T)
+    in_len[::4] = rng.integers(2 * CTC_L + 1, CTC_T, len(in_len[::4]))
+    res = {}
+    for where in ("cuda", "cpu"):
+        x = torch.tensor(logits, device=where, requires_grad=True)
+        loss = F.ctc_loss(x, torch.from_numpy(labels).to(where), in_len,
+                          lab_len, reduction="none")
+        loss.sum().backward()
+        res[where] = (loss.detach().cpu(), x.grad.cpu())
+    errs = [float(((a.cpu() - b).abs() / (1 + b.abs())).max())
+            for a, b in zip(res["cuda"], res["cpu"])]
+    print(f"config4: ctc_loss T {CTC_T}, batch {CTC_B}, {CTC_C} classes, "
+          f"labels of 1-{CTC_L}, {int((in_len < CTC_T).sum())} shorter "
+          f"inputs: card vs CPU loss {errs[0]:.3g}, gradient {errs[1]:.3g} "
+          f"(tol {SEQ_TOL} (1 + |ref|)) [{card}]", flush=True)
+    check(max(errs) <= SEQ_TOL, f"config4: ctc card vs CPU {errs}")
+    del res
+
+    pt.seed(SEED)
+    net = pt.models.pp_ocrv3_rec(n_classes=6625, scale=0.5, hidden_size=48)
+    x = rng.random((OCR_TRAIN_B, 32, 320, 3), dtype=np.float32)
+    labels = rng.integers(1, 6625, (OCR_TRAIN_B, 12)).astype(np.int32)
+    lab_len = np.array([12, 5, 9, 1])
+    losses = {}
+    for where in ("cuda", "cpu"):
+        m = copy.deepcopy(net).to(where)
+        opt = pt.optimizer.SGD(learning_rate=0.05,
+                               parameters=m.parameters())
+        xs, ls = torch.from_numpy(x).to(where), \
+            torch.from_numpy(labels).to(where)
+        out = []
+        for _ in range(3):
+            loss = m.loss(m(xs), ls, lab_len)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            out.append(float(loss.detach()))
+        losses[where] = out
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"]))
+    print(f"config4: PPOCRRec.loss, 3 SGD steps at batch {OCR_TRAIN_B}: "
+          f"card {[round(v, 5) for v in losses['cuda']]}, CPU "
+          f"{[round(v, 5) for v in losses['cpu']]}, max rel diff {rel:.3g} "
+          f"(tol {OCR_TRAIN_TOL}) [{card}]", flush=True)
+    check(rel <= OCR_TRAIN_TOL, f"config4: OCR training card vs CPU {rel}")
+
+
+def _card_vs_cpu(torch, fn, arrays, grads=()):
+    """fn on the card and on the CPU from the same numpy arrays: the worst
+    (1 + |ref|) deviation over the outputs and the gradients of
+    sum(out * 1.5) for the arrays at `grads`."""
+    res = {}
+    for where in ("cuda", "cpu"):
+        ts = [torch.tensor(a, device=where,
+                           requires_grad=i in grads and a.dtype.kind == "f")
+              for i, a in enumerate(arrays)]
+        out = fn(*ts)
+        out = list(out) if isinstance(out, (tuple, list)) else [out]
+        if grads:
+            sum((o.float() * 1.5).sum() for o in out).backward()
+        res[where] = [o.detach().cpu() for o in out] + \
+            [ts[i].grad.cpu() for i in grads]
+    return max(float(((a.double() - b.double()).abs()
+                      / (1 + b.double().abs())).max())
+               for a, b in zip(res["cuda"], res["cpu"]))
+
+
+def vision_ops_checks(pt, torch, np, card):
+    """Every vision op but decode_jpeg (PIL is not on the card's machine)
+    on the card against the CPU at small sizes; the backward of
+    deform_conv2d, roi_align, roi_pool, psroi_pool and yolo_loss."""
+    from paddle_tpu_torch.vision import ops
+    rng = np.random.default_rng(SEED)
+
+    def n(*s):
+        return rng.standard_normal(s).astype(np.float32)
+
+    xy = rng.uniform(0, 8, (6, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(1, 6, (6, 2))], 1) \
+        .astype(np.float32)
+    bn = torch.tensor([2, 4])
+    scores = rng.uniform(size=6).astype(np.float32)
+    gt = np.concatenate([rng.uniform(0.1, 0.9, (2, 3, 2)),
+                         rng.uniform(0.05, 0.5, (2, 3, 2))], -1) \
+        .astype(np.float32)
+    labels = rng.integers(0, 3, (2, 3)).astype(np.int32)
+    import tempfile
+    with tempfile.NamedTemporaryFile(suffix=".bin") as f:
+        f.write(rng.integers(0, 255, 64, dtype=np.uint8).tobytes())
+        f.flush()
+        raw = ops.read_file(f.name)
+    cases = {
+        "nms": (lambda b, s: ops.nms(b, 0.3, s), [boxes, scores], ()),
+        "box_iou": (ops.box_iou, [boxes, boxes[::-1].copy()], ()),
+        "yolo_box": (lambda a: ops.yolo_box(a, None, [10, 13, 16, 30], 3,
+                                            0.5, 8), [n(2, 16, 4, 5)], ()),
+        "roi_align": (lambda a, b: ops.roi_align(a, b, bn, 3),
+                      [n(2, 3, 12, 12), boxes], (0,)),
+        "deform_conv2d": (lambda a, o, w, b, m: ops.deform_conv2d(
+            a, o, w, b, 1, 1, 1, 2, 1, m),
+            [n(2, 4, 7, 6), n(2, 36, 7, 6), n(6, 4, 3, 3), n(6),
+             rng.uniform(size=(2, 18, 7, 6)).astype(np.float32)],
+            (0, 1, 2, 3, 4)),
+        "roi_pool": (lambda a, b: ops.roi_pool(a, b, bn, (3, 2)),
+                     [n(2, 3, 12, 12), boxes], (0,)),
+        "psroi_pool": (lambda a, b: ops.psroi_pool(a, b, bn, 2),
+                       [n(2, 12, 12, 12), boxes], (0,)),
+        "yolo_loss": (lambda a, g, lab: ops.yolo_loss(
+            a, g, lab, [10, 13, 16, 30, 33, 23], [1, 2], 3, 0.5, 32),
+            [n(2, 16, 5, 6) * 0.5, gt, labels], (0,)),
+    }
+    errs = {k: _card_vs_cpu(torch, fn, arrays, grads)
+            for k, (fn, arrays, grads) in cases.items()}
+    check(raw.device.type == "cuda" and raw.numel() == 64 and
+          raw.dtype == torch.uint8, f"config4: read_file {raw}")
+    print(f"config4: vision.ops card vs CPU (forward; and backward for "
+          f"roi_align, deform_conv2d, roi_pool, psroi_pool, yolo_loss): "
+          f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (tol "
+          f"{SEQ_TOL} (1 + |ref|)); read_file onto the card [{card}]",
+          flush=True)
+    check(max(errs.values()) <= SEQ_TOL, f"config4: vision.ops {errs}")
+
+
+def small_net_checks(pt, torch, np, card):
+    """The six small-net families in eval mode at batch 2, card against
+    CPU from the same weights."""
+    cases = {"alexnet": 224, "squeezenet1_1": 64,
+             "shufflenet_v2_x0_25": 64, "densenet121": 64,
+             "googlenet": 64, "inception_v3": 107}
+    errs = {}
+    for name, size in cases.items():
+        pt.seed(SEED)
+        net = getattr(pt.vision.models, name)(num_classes=10)
+        net.eval()
+        x = np.random.default_rng(SEED).standard_normal(
+            (2, 3, size, size)).astype(np.float32)
+        with torch.inference_mode():
+            got = net(torch.from_numpy(x).cuda())
+            want = copy.deepcopy(net).cpu()(torch.from_numpy(x))
+        got = got if isinstance(got, list) else [got]
+        want = want if isinstance(want, list) else [want]
+        errs[name] = max(float(((g.cpu() - w).abs() / (1 + w.abs())).max())
+                         for g, w in zip(got, want))
+        del net
+    print(f"config4: small nets in eval at batch 2, card vs CPU: "
+          f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (tol "
+          f"{SEQ_TOL} (1 + |ref|)) [{card}]", flush=True)
+    check(max(errs.values()) <= SEQ_TOL, f"config4: small nets {errs}")
 
 
 def ptxas(path):
@@ -3832,17 +4497,21 @@ def main() -> int:
     op_phase(pt, torch, np, card)
     conv_phase(pt, torch, np, card)
     deploy_launches = deploy_phase(pt, fa, torch, np, card)
+    seq_launches = seq_phase(pt, fa, torch, np, card)
+    config4_phase(pt, torch, np, card)
 
     summary = {"flash_fwd": dict(serving_row,
                                  launches=train_launches["flash_fwd"]
                                  + serve_launches + titan["launches"][0]
                                  + dygraph["launches"]["flash_fwd"]
-                                 + deploy_launches)}
+                                 + deploy_launches
+                                 + seq_launches["flash_fwd"])}
     for kname in ("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"):
         summary[kname] = dict(train_rows[kname],
                               launches=train_launches[kname] + (
                                   titan["launches"][1]
                                   + dygraph["launches"][kname]
+                                  + seq_launches[kname]
                                   if kname == "flash_bwd_fused" else 0))
     # the ring kernels at the sp train's hop, launches from the sp train:
     # the step kernels over the 4 slots of a ring step
@@ -3859,9 +4528,10 @@ def main() -> int:
         summary16[kname] = dict(fp16_steps[kname], launches=fp16_ring[kname])
     paths16 = {k: "fp16 titan" for k in fp16_flash}
     paths16.update({k: "fp16 sp" for k in RING_KERNELS})
-    entries = [(k, r, "train + serve + titan + dygraph + deploy"
+    entries = [(k, r, "train + serve + titan + dygraph + deploy + seq"
                 if k == "flash_fwd"
-                else "train + titan + dygraph" if k == "flash_bwd_fused" else
+                else "train + titan + dygraph + seq"
+                if k == "flash_bwd_fused" else
                 "sp train" if k.startswith("ring") else "train")
                for k, r in summary.items()] + \
         [(k, r, paths16[k]) for k, r in summary16.items()]

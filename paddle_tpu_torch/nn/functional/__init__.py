@@ -1,5 +1,5 @@
 """paddle.nn.functional counterpart: every functional of the reference's
-namespace but `ctc_loss`.
+namespace.
 
 The public names are the Tensor API's boundary (`core.tensor.api`): with a
 `Tensor` argument a functional runs on plain aliases and returns `Tensor`;

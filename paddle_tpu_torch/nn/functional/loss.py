@@ -1,7 +1,7 @@
 """Loss functionals.
 
 Counterpart of `paddle_tpu/nn/functional/loss.py`: every loss of the
-reference but `ctc_loss`, with its formulas, reductions and clamps.
+reference, with its formulas, reductions and clamps.
 `cross_entropy` (:25-92): hard labels (`[N]` or `[N, 1]`) with
 `ignore_index`, per-class `weight` and `label_smoothing`, or soft labels;
 reductions mean, sum and none. With hard labels and softmax the loss is
@@ -13,6 +13,7 @@ comes with the distributed slice).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as TF
 
@@ -314,8 +315,113 @@ def hsigmoid_loss(input, label, num_classes, weight, bias=None,
         1, keepdim=True)
 
 
-__all__ = ["cross_entropy", "softmax_with_cross_entropy", "mse_loss",
-           "l1_loss", "smooth_l1_loss", "nll_loss", "binary_cross_entropy",
+def _logsumexp0(a):
+    """logsumexp over dim 0 as jax computes it: the max held constant, so
+    the gradient is softmax(a). torch's own takes exp(a - result), which
+    is not a distribution once the terms sit at -1e30 (a rounded
+    log-sum-exp equals its max there)."""
+    m = a.max(0).values.detach()
+    return torch.log(torch.exp(a - m).sum(0)) + m
+
+
+class _LogAddExp(torch.autograd.Function):
+    """jnp.logaddexp with its custom JVP: d/dx1 = exp(x1 - out) (torch's
+    gives 1 / (1 + exp(x2 - x1)): the same in real arithmetic, not at
+    -1e30)."""
+
+    @staticmethod
+    def forward(ctx, x1, x2):
+        amax = torch.maximum(x1, x2)
+        out = amax + torch.log1p(torch.exp(-(x1 - x2).abs()))
+        ctx.save_for_backward(x1, x2, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x1, x2, out = ctx.saved_tensors
+        return g * torch.exp(x1 - out), g * torch.exp(x2 - out)
+
+
+def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
+             reduction="mean", norm_by_times=False):
+    """Connectionist Temporal Classification loss (reference :254-354).
+
+    `log_probs` are UNSCALED logits [T, B, C] (a log-softmax in f32 runs
+    inside); `reduction='mean'` divides each sample's loss by
+    max(label_length, 1) first. The log-semiring alpha recursion runs on
+    tensors, one step per time index, and autograd differentiates it, as
+    the reference's scan and its VJP do. The alphas start at -1e30, not
+    -inf (:281), so an infeasible alignment gives a large finite loss
+    where torch's `F.ctc_loss` gives inf. Lengths given on the host are
+    checked (:333-352); tensors are trusted, as in the reference."""
+    if norm_by_times:
+        raise NotImplementedError(
+            "norm_by_times rescales gradients only (warpctc semantics); "
+            "use reduction='mean' instead")
+    logits = log_probs
+    device = logits.device
+    T_max = int(logits.shape[0])
+    lab = torch.as_tensor(labels, device=device).long()
+    L_max = int(lab.shape[1]) if lab.dim() > 1 else int(lab.shape[0])
+
+    def _host_max(v):
+        if isinstance(v, (int, list, tuple, np.ndarray, np.integer)):
+            return int(np.max(np.asarray(v)))
+        return None
+
+    im, lm = _host_max(input_lengths), _host_max(label_lengths)
+    if im is not None and im > T_max:
+        raise ValueError(
+            f"ctc_loss: input_lengths exceed max_logit_length {T_max}")
+    if lm is not None and lm > L_max:
+        raise ValueError(
+            f"ctc_loss: label_lengths exceed labels length {L_max}")
+
+    T, B, C = logits.shape
+    L = lab.shape[1]
+    S = 2 * L + 1
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    in_len = torch.as_tensor(input_lengths, device=device).long()
+    lab_len = torch.as_tensor(label_lengths, device=device).long()
+    neg_inf = -1e30
+
+    # extended label row per sample: blank, l1, blank, l2, ..., blank
+    ext = torch.full((B, S), blank, dtype=torch.long, device=device)
+    ext[:, 1::2] = lab
+    # skip transition allowed where ext[s] != blank and != ext[s-2]
+    ext_m2 = torch.cat([torch.full((B, 2), -1, dtype=torch.long,
+                                   device=device), ext[:, :-2]], 1)
+    can_skip = (ext != blank) & (ext != ext_m2)
+    emit = torch.gather(logp, 2, ext[None].expand(T, B, S))  # [T, B, S]
+
+    fill1 = logp.new_full((B, 1), neg_inf)
+    fill2 = logp.new_full((B, 2), neg_inf)
+    alpha = torch.cat([emit[0, :, :1],
+                       torch.where(lab_len[:, None] > 0, emit[0, :, 1:2],
+                                   fill1),
+                       logp.new_full((B, max(S - 2, 0)), neg_inf)], 1)
+    for t in range(1, T):
+        a_m1 = torch.cat([fill1, alpha[:, :-1]], 1)
+        a_m2 = torch.where(can_skip, torch.cat([fill2, alpha[:, :-2]], 1),
+                           neg_inf)
+        new = _logsumexp0(torch.stack([alpha, a_m1, a_m2], 0)) + emit[t]
+        # past this sample's input length the alphas freeze
+        alpha = torch.where((t < in_len)[:, None], new, alpha)
+
+    end = 2 * lab_len                # blank after the last label
+    a_last = alpha.gather(1, end[:, None])[:, 0]
+    a_prev = alpha.gather(1, (end[:, None] - 1).clamp(min=0))[:, 0]
+    a_prev = torch.where(lab_len > 0, a_prev, neg_inf)
+    loss = -_LogAddExp.apply(a_last, a_prev)
+    if reduction == "mean":
+        return (loss / lab_len.clamp(min=1).to(loss.dtype)).mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
+__all__ = ["ctc_loss", "cross_entropy", "softmax_with_cross_entropy",
+           "mse_loss", "l1_loss", "smooth_l1_loss", "nll_loss", "binary_cross_entropy",
            "binary_cross_entropy_with_logits", "kl_div",
            "margin_ranking_loss", "hinge_embedding_loss",
            "cosine_embedding_loss", "triplet_margin_loss",

@@ -1,5 +1,5 @@
 """Loss layers. Counterpart of `paddle_tpu/nn/layer/loss.py`: every loss
-layer of the reference but CTCLoss (Queue 1 item 3)."""
+layer of the reference."""
 from __future__ import annotations
 
 import math
@@ -136,6 +136,19 @@ class TripletMarginLoss(Layer):
         return F.triplet_margin_loss(input, positive, negative, *self.args)
 
 
+class CTCLoss(Layer):
+    """Reference parity: `nn/layer/loss.py:124-134`."""
+
+    def __init__(self, blank=0, reduction="mean"):
+        super().__init__()
+        self.blank, self.reduction = blank, reduction
+
+    def forward(self, log_probs, labels, input_lengths, label_lengths,
+                norm_by_times=False):
+        return F.ctc_loss(log_probs, labels, input_lengths, label_lengths,
+                          self.blank, self.reduction, norm_by_times)
+
+
 class HSigmoidLoss(Layer):
     """Hierarchical sigmoid head: weight [num_classes - 1, feature_size]
     and bias [num_classes - 1, 1], both Uniform(+-1/sqrt(feature_size))."""
@@ -163,4 +176,4 @@ class HSigmoidLoss(Layer):
 __all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "SmoothL1Loss",
            "NLLLoss", "BCELoss", "BCEWithLogitsLoss", "KLDivLoss",
            "MarginRankingLoss", "HingeEmbeddingLoss", "CosineEmbeddingLoss",
-           "TripletMarginLoss", "HSigmoidLoss"]
+           "TripletMarginLoss", "CTCLoss", "HSigmoidLoss"]

@@ -41,6 +41,13 @@ through `jit.TrainStep` + `AdamW(1e-4)`:
   `Config` -> `create_predictor`): ResNet-50 NHWC at bench.py's 128 x 224
   x 224 x 3, exported bf16 or weight-only int8, and GPT-2 small's bf16
   artifact at 4 x 1024 ids (12 flash forwards per run); no `run()` span;
+- `--model yoloe_infer` / `ocr_rec_infer`: one `run()` of bench.py's
+  config-4 artifacts (`utils/bench.py config4_model`): PP-YOLOE-s NHWC at
+  64 x 640 x 640 x 3 and PP-OCRv3 rec at 64 x 32 x 320 x 3, exported
+  bf16; no `run()` span;
+- `--model transformer`: the base Transformer (`transformer_step`: d_model
+  512, 6 + 6 layers, src = tgt = 8 x 1024, causal target mask) trained in
+  bf16 AMP through TrainStep + AdamW on mean((out - y) ** 2);
 - `--model llm_decode` / `llm_decode_int8`: not a training step but one
   decode step of `serving.LLMEngine`'s whole pool, as chip_smoke.py's llm
   phase configures it (gpt2_small, 16 slots, max_len 1022, every slot
@@ -61,7 +68,8 @@ after a first span that captures). Run on a machine with a CUDA device:
         [--model gpt2|gpt2_dygraph|ernie_sp|ernie|titan|titan_fp16|
                  ernie_sp_fp16|lenet|stem|stem_nhwc|stem_bf16|stem_nhwc_bf16|
                  llm_decode|llm_decode_int8|resnet50_infer|
-                 resnet50_infer_int8|gpt2_deploy]
+                 resnet50_infer_int8|gpt2_deploy|yoloe_infer|
+                 ocr_rec_infer|transformer]
         [--steps 3] [--top 20]
 
 Prints one line per kernel group and per top kernel, and a JSON object as
@@ -94,6 +102,10 @@ GROUPS = (("ring_attention", ("ring_fwd", "ring_dq", "ring_dkv")),
           # the scaler-gated update's copies of each parameter and its
           # slots and the selects that restore them on found_inf
           ("selects_and_device_copies", ("where_kernel", "memcpy dtod")),
+          # cuDNN's RNN kernels and aten's fused LSTM / GRU cells
+          ("recurrent", ("rnn", "lstm", "gru_cell")),
+          ("convolutions", ("conv2d", "conv_depthwise", "convolve",
+                            "implicit_gemm", "fprop", "dgrad", "wgrad")),
           ("products", ("gemm", "cutlass", "sm90_xmma", "nvjet", "cublas",
                         "gemv", "splitk")),
           ("elementwise_and_reductions", ("",)))
@@ -475,6 +487,58 @@ def _gpt2_deploy(pt, rng):
         pt.models.gpt2_small(dropout=0.0)), (4, 1024), "bfloat16", "int32")
 
 
+def _config4_infer(pt, rng, name):
+    """bench.py's yoloe_infer / ocr_rec_infer artifact (`utils/bench.py
+    config4_model`): PP-YOLOE-s NHWC at 64 x 640 x 640 x 3 or PP-OCRv3 rec
+    at 64 x 32 x 320 x 3, exported bf16."""
+    from .bench import config4_model
+    net, shape, precision = config4_model(pt, name)[:3]
+    return _deploy(pt, rng, net, shape, precision)
+
+
+class Seq2Seq(torch.nn.Module):
+    """nn.Transformer on (src, tgt) with a fixed causal `tgt_mask` (a
+    constant outside the state), the form `TrainStep(n_model_inputs=2)`
+    takes."""
+
+    def __init__(self, transformer, mask):
+        super().__init__()
+        self.t = transformer
+        self.register_buffer("mask", mask, persistent=False)
+
+    def forward(self, src, tgt):
+        return self.t(src, tgt, tgt_mask=self.mask)
+
+
+def transformer_step(pt, rng, batch=8, seq=1024, amp_dtype="bfloat16"):
+    """The base Transformer of Vaswani et al. (d_model 512, 8 heads, 6 + 6
+    layers, FFN 2048, dropout 0), its TrainStep with AdamW(1e-4) in bf16
+    AMP on mean((out - y) ** 2), and one seeded batch: src = tgt = [batch,
+    seq, 512] with the causal target mask, y the same shape. Encoder
+    self-attention and the equal-length cross-attention take the flash
+    kernels, the masked decoder self-attention the einsum path. (The
+    output is a LayerNorm's, whose rows have a fixed sum of squares, so
+    mean(out ** 2) alone would give every other parameter a zero gradient
+    at initialisation.)"""
+    t = pt.nn.Transformer(d_model=512, nhead=8, num_encoder_layers=6,
+                          num_decoder_layers=6, dim_feedforward=2048,
+                          dropout=0.0)
+    model = Seq2Seq(t, t.generate_square_subsequent_mask(seq))
+    opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                             parameters=model.parameters())
+    step = pt.jit.TrainStep(model, mse_loss, opt, amp_dtype=amp_dtype,
+                            n_model_inputs=2)
+    device = next(model.parameters()).device
+    src, tgt, y = (torch.from_numpy(rng.standard_normal(
+        (batch, seq, 512)).astype(np.float32)).to(device) for _ in range(3))
+    return step, (src, tgt, y)
+
+
+def mse_loss(out, y):
+    """mean((out - y) ** 2) in f32."""
+    return ((out.float() - y) ** 2).mean()
+
+
 MODELS = {"gpt2": _gpt2, "gpt2_dygraph": _gpt2_dygraph,
           "ernie_sp": _ernie_sp, "ernie": _ernie,
           "lenet": _lenet,
@@ -489,7 +553,12 @@ MODELS = {"gpt2": _gpt2, "gpt2_dygraph": _gpt2_dygraph,
           "resnet50_infer": _resnet50_infer,
           "resnet50_infer_int8": lambda pt, rng: _resnet50_infer(pt, rng,
                                                                  "int8"),
-          "gpt2_deploy": _gpt2_deploy}
+          "gpt2_deploy": _gpt2_deploy,
+          "yoloe_infer": lambda pt, rng: _config4_infer(pt, rng,
+                                                        "yoloe_infer"),
+          "ocr_rec_infer": lambda pt, rng: _config4_infer(pt, rng,
+                                                          "ocr_rec_infer"),
+          "transformer": transformer_step}
 
 
 def _trace(fn, steps):

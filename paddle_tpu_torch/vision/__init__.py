@@ -1,3 +1,5 @@
-"""paddle.vision counterpart: the model zoo (`vision.models`). The
-transforms, datasets and ops are not ported yet."""
+"""paddle.vision counterpart: the model zoo (`vision.models`) and the
+detection and image ops (`vision.ops`). The transforms and datasets are
+not ported yet."""
 from . import models  # noqa: F401
+from . import ops  # noqa: F401

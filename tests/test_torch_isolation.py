@@ -219,3 +219,47 @@ def test_deploy_flow_runs_with_jax_and_the_jax_package_blocked(tmp_path):
     """)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip() == "ok"
+
+
+def test_sequence_layers_and_config4_run_with_jax_and_the_jax_package_blocked(
+        tmp_path):
+    res = _run(f"""
+        import sys
+        for name in ("jax", "jaxlib", "paddle_tpu"):
+            sys.modules[name] = None          # any import of them fails
+        import numpy as np
+        import torch
+        import paddle_tpu_torch as pt
+        pt.set_device("cpu")
+        pt.seed(0)
+        net = pt.models.pp_ocrv3_rec(n_classes=20, scale=0.25,
+                                     hidden_size=16)
+        x = np.random.default_rng(0).random((2, 32, 48, 3),
+                                            dtype=np.float32)
+        loss = net.loss(net(torch.from_numpy(x)),
+                        torch.ones(2, 3, dtype=torch.int64), [3, 2])
+        loss.backward()
+        net.eval()
+        path = {str(tmp_path / "ocr")!r}
+        pt.jit.save(net, path, input_spec=[pt.InputSpec([2, 32, 48, 3])])
+        pred = pt.inference.create_predictor(pt.inference.Config(path))
+        assert pred.run([x])[0].shape == (2, 24, 20)
+        t = pt.nn.Transformer(16, 2, 1, 1, 32, dropout=0.0)
+        src = torch.randn(2, 5, 16)
+        t(src, src, tgt_mask=t.generate_square_subsequent_mask(5)).sum()
+        dec = pt.nn.BeamSearchDecoder(pt.nn.GRUCell(4, 8), 0, 1, 2,
+                                      embedding_fn=pt.nn.Embedding(6, 4),
+                                      output_fn=pt.nn.Linear(8, 6))
+        ids, _ = pt.nn.dynamic_decode(dec, inits=torch.zeros(2, 8),
+                                      max_step_num=3)
+        boxes, scores = pt.vision.ops.yolo_box(
+            torch.randn(1, 8, 3, 3), None, [10, 13], 3, 0.5, 8)
+        keep = pt.vision.ops.nms(boxes[0], 0.5, scores[0].max(-1).values)
+        pt.vision.models.squeezenet1_1(num_classes=3)
+        loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                        and m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+        assert not loaded, loaded
+        print("ok")
+    """)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == "ok"
