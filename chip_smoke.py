@@ -258,15 +258,41 @@ last line is printed):
                PPOCRRec.loss at batch 4, card vs CPU (1e-4 (1 + |ref|) and
                1e-3 relative); every vision op but decode_jpeg, forward
                (and backward where differentiable), and the six small-net
-               families in eval, card vs CPU within 1e-4 (1 + |ref|).
+               families in eval, card vs CPU within 1e-4 (1 + |ref|);
+ 20. server  - slice 14, the serving wire: the deploy phase's GPT-2 small
+               bf16 artifact behind PredictorServer (ServingEngine at the
+               artifact's batch of 4; LLMEngine over gpt2_small fp32, 16
+               slots x 1024 rows) with the monitor, tracing, the memory
+               census, the flight recorder and an SLO on; 4
+               PredictorClient threads x 2 traced 'PDRQ' requests of 1 x
+               1024 ids (206 MB of f32 logits each) within 2e-2 relative
+               mean-abs error of the live-layer Predictor; 24 flash host
+               launches at warm-up (eager run and capture) and 12 flash
+               nodes a replay; one complete trace per request; the C client
+               built from csrc/predict_capi.cpp byte-equal to
+               PredictorClient; a 'PDSQ' stream in order and equal to
+               LLMEngine.submit; an injected dispatch fault (status 1, then
+               0); an overload burst on a queue of depth 1 (status 2, one
+               serving_overload dump); 'PDHQ', one Prometheus sample per
+               counter and gauge, the census within memory_allocated;
+               'PDDR', then a refused connect; requests/s, p50 / p99 and
+               the span means printed;
+ 21. obs     - slice 14's plane in TrainStep: 5 __call__ steps of
+               gpt2_small at 8 x 1024 bf16 AMP and run() over 6 steps (the
+               capture, 5 replays) under FLAGS_obs_timeline and
+               FLAGS_mem_census: every steady step's phases within
+               [0.95, 1.05] of its wall, device_compute the largest; the
+               params, opt_slots and activations tags; the
+               jit.train_step.steps counter; 12 + 12 flash launches per
+               eager step and kernel nodes per replay.
 
 Each fp16 step drives `scaler.step(opt)` after the scaled backward and no
 `scaler.update()`: the reference's step() already updates the scale once
 every optimizer has stepped, and an update() after it counts the step a
 second time, as a good one. The last two lines are a JSON summary of the
 kernels, one entry per kernel and dtype (bf16 from the bf16 paths, the
-dygraph and seq phases' launches in rows 1-2 and the deploy phase's in
-row 1, fp16
+dygraph, seq and obs phases' launches in rows 1-2 and the deploy and
+server phases' in row 1, fp16
 from paths A and B), and `{"ok": true, "device": {...}}`. Imports nothing
 of JAX.
 
@@ -319,6 +345,12 @@ LLM_REQUESTS, LLM_CLIENTS, LLM_PROMPTS = 32, 4, (16, 896)
 # fp32 logits of a decode step against the full forward's (a different
 # summation order over the masked page)
 LLM_TOL = 1e-4
+# the server phase: client threads (2 requests each), the 'PDSQ' stream's
+# tokens, the overload burst's clients, the SLO's latency objective
+SERVER_THREADS, SERVER_NEW, SERVER_BURST = 4, 32, 6
+SERVER_SLO_MS = 30000.0
+# the obs phase's __call__ steps (run() then spans one more: its capture)
+OBS_STEPS = 5
 RING_SRC = "paddle_tpu_torch/kernels/csrc/ring_attention.cu"
 SOURCES = {"flash_fwd": "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
            "flash_bwd_fused": "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
@@ -3303,7 +3335,7 @@ def busy_ms(torch, fn, runs):
     return bench.busy_ms(fn, runs, torch.device("cuda"))
 
 
-def deploy_phase(pt, fa, torch, np, card):
+def deploy_phase(pt, fa, torch, np, card, gpt2_dir=None):
     """Slice 12 on the card: ResNet-50 NHWC through jit.save -> Config ->
     create_predictor in fp32 (against the live layer on the CPU), bf16 and
     int8 (against fp32), their rates, device time against the live
@@ -3311,7 +3343,8 @@ def deploy_phase(pt, fa, torch, np, card):
     flash kernel and ServingEngine; BN's running statistics under
     TrainStep and a run() capture after an eager loop that kept its
     loss's graph. Returns the flash forward's host launches of the
-    artifact's main path."""
+    artifact's main path. GPT-2's artifact is saved under `gpt2_dir` (which
+    outlives the phase: the server phase serves it) when given."""
     import tempfile
     from paddle_tpu_torch.utils import bench
     from paddle_tpu_torch.utils.train_profile import _trace
@@ -3423,7 +3456,8 @@ def deploy_phase(pt, fa, torch, np, card):
               f"{DEPLOY_INT8_SHARE}) [{card}]", flush=True)
         check(share < DEPLOY_INT8_SHARE, f"deploy: int8 npz share {share}")
         del live16, xd, lives, outs
-        launches = deploy_gpt2(pt, fa, torch, np, card, work.name)
+        launches = deploy_gpt2(pt, fa, torch, np, card,
+                               gpt2_dir or work.name)
     finally:
         work.cleanup()
     deploy_repairs(pt, torch, np, card, net)
@@ -4196,6 +4230,410 @@ def small_net_checks(pt, torch, np, card):
     check(max(errs.values()) <= SEQ_TOL, f"config4: small nets {errs}")
 
 
+def _span_means(docs):
+    """name -> mean seconds of the spans of that name over trace docs."""
+    acc = {}
+    for d in docs:
+        for s in d["spans"]:
+            acc.setdefault(s["name"], []).append(s["t1"] - s["t0"])
+    return {k: statistics.mean(v) for k, v in acc.items()}
+
+
+def server_phase(pt, fa, torch, np, card, gpt2_path):
+    """Slice 14 on the card: GPT-2 small's bf16 artifact (the deploy
+    phase's) behind PredictorServer, with the monitor, tracing, the memory
+    census, the flight recorder and an SLO on: 4 PredictorClient threads x
+    2 traced 'PDRQ' requests of 1 x 1024 ids (each reply 1 x 1024 x 50257
+    f32 logits) against the live-layer Predictor, one complete trace per
+    request, the C client (built from csrc/ by paddle_tpu_torch._native)
+    byte-equal to PredictorClient, a 'PDSQ' stream through LLMEngine
+    (gpt2_small fp32, 16 slots x 1024 rows), an injected dispatch fault,
+    an overload burst with its flight-recorder dump, the 'PDHQ' health
+    JSON, the Prometheus text, the census against memory_allocated, and
+    'PDDR'. Returns the flash forward's host launches."""
+    import gc
+    import socket
+    import tempfile
+    from paddle_tpu_torch import _native, monitor, obs
+    from paddle_tpu_torch.inference.server import (PredictorClient,
+                                                   PredictorServer)
+    from paddle_tpu_torch.obs import memory, trace
+    from paddle_tpu_torch.utils.train_profile import (graph_kernel_names,
+                                                      kernel_counts)
+    t_phase = time.perf_counter()
+    pt.set_device("gpu")
+    dumps = tempfile.TemporaryDirectory(prefix="flightrec_")
+    pt.set_flags({"FLAGS_monitor": True, "FLAGS_trace": True,
+                  "FLAGS_mem_census": True,
+                  "FLAGS_obs_flight_recorder": True,
+                  "FLAGS_obs_dump_dir": dumps.name,
+                  "FLAGS_slo_latency_ms": SERVER_SLO_MS,
+                  "FLAGS_slo_target": 0.99})
+    for plane in (monitor, trace, memory, obs):
+        plane.reset()
+    servers, clients = [], []
+    try:
+        pt.seed(SEED)
+        lm = pt.models.GPTForCausalLM(pt.models.gpt2_small(dropout=0.0))
+        lm.eval()
+        n_layers = len(lm.gpt.layers)
+        vocab = lm.gpt.embeddings.word_embeddings.weight.shape[0]
+        cfg = pt.inference.Config(gpt2_path)
+        cfg.enable_use_gpu(device_id=0)
+        pred = pt.inference.create_predictor(cfg)
+        llm = pt.serving.LLMEngine(copy.deepcopy(lm), pt.serving.LLMConfig(
+            num_slots=LLM_SLOTS, max_len=LLM_MAX_LEN,
+            max_new_tokens=SERVER_NEW))
+        engine = pt.serving.ServingEngine(pred, pt.serving.EngineConfig(
+            max_batch_size=4, batch_timeout_ms=20.0))
+        torch.cuda.synchronize()
+        fa.flash_attention_fwd.launches = 0
+        t0 = time.perf_counter()
+        with kept_graphs(torch):
+            srv = PredictorServer(pred, engine=engine, llm_engine=llm)
+            servers.append(srv)
+            srv.start()       # warm-up: the artifact's eager run + capture
+        start_s = time.perf_counter() - t0
+        launches = fa.flash_attention_fwd.launches
+        caps = pred._translated.captures()
+        check(len(caps) == 1, f"server: {len(caps)} captures of GPT-2's "
+              "program")
+        nodes = kernel_counts(graph_kernel_names(caps[0].graph))["flash_fwd"]
+        check(launches == 2 * n_layers and nodes == n_layers,
+              f"server: {launches} flash host launches at warm-up (want "
+              f"{2 * n_layers}: the eager run and the capture), {nodes} "
+              f"flash nodes in the captured graph (want {n_layers})")
+        cap_mem = obs.executable_memory(caps[0])
+
+        # ---- row 1 on the wire: 4 threads x 2 traced requests ----
+        rng = np.random.default_rng(SEED)
+        reqs = [[rng.integers(0, vocab, (1, 1024)).astype(np.int32)
+                 for _ in range(2)] for _ in range(SERVER_THREADS)]
+        results = [[None, None] for _ in range(SERVER_THREADS)]
+        walls, errors = [], []
+
+        def client(k):
+            try:
+                c = PredictorClient(srv.host, srv.port, timeout=300)
+                clients.append(c)
+                for j, ids in enumerate(reqs[k]):
+                    t = time.perf_counter()
+                    results[k][j] = c.run([ids])
+                    walls.append(time.perf_counter() - t)
+            except Exception as e:  # noqa: BLE001 — read after the join
+                errors.append(f"{type(e).__name__}: {e}")
+
+        batches0 = engine.stats()["counters"]["batches"]
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,), daemon=True)
+                   for k in range(SERVER_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wire_s = time.perf_counter() - t0
+        check(not errors and not any(t.is_alive() for t in threads),
+              f"server: client threads {errors}")
+        batches = engine.stats()["counters"]["batches"] - batches0
+        check(fa.flash_attention_fwd.launches == launches,
+              "server: a replay launched the flash kernel from the host")
+        live = pt.inference.Predictor(
+            copy.deepcopy(lm).to(torch.bfloat16),
+            input_spec=[pt.InputSpec([4, 1024], "int32")])
+        worst = 0.0
+        for k in range(SERVER_THREADS):
+            for j in range(2):
+                status, outs = results[k][j]
+                got = outs[0] if status == 0 else None
+                check(status == 0 and got.shape == (1, 1024, vocab) and
+                      got.dtype == np.float32 and np.isfinite(got).all(),
+                      f"server: request {k}.{j} status {status}")
+                ref = live.run_batch([reqs[k][j]])[0]
+                worst = max(worst, float(np.abs(got - ref).mean()
+                                         / np.abs(ref).mean()))
+        del live, results
+        check(worst <= 2e-2, f"server: replies vs the live layer {worst}")
+
+        # ---- one trace per request ----
+        docs = trace.traces()
+        roots = [d for d in docs if any(s["name"] == "client.send"
+                                        for s in d["spans"])]
+        check(len(roots) == 2 * SERVER_THREADS and trace.active_depth() == 0,
+              f"server: {len(roots)} traces for {2 * SERVER_THREADS} "
+              f"requests, {trace.active_depth()} spans open")
+        want = {"client.send", "serving.request", "serving.queue_wait",
+                "serving.dispatch", "serving.reply"}
+        n_batch_spans = 0
+        for d in roots:
+            names = [s["name"] for s in d["spans"]]
+            ids = {s["span_id"] for s in d["spans"]}
+            check(want <= set(names) and len(names) == len(set(names)) and
+                  all(s["t1"] is not None for s in d["spans"]) and
+                  all(s["parent_id"] in ids for s in d["spans"]
+                      if s["name"] != "client.send"),
+                  f"server: trace {d['trace_id']}: {names}")
+            n_batch_spans += names.count("serving.batch")
+        check(n_batch_spans == batches, f"server: {n_batch_spans} batch "
+              f"spans for {batches} batches")
+        means = _span_means(roots)
+
+        # ---- the C client, byte-equal to PredictorClient ----
+        one = reqs[0][0]
+        c = PredictorClient(srv.host, srv.port, timeout=300)
+        clients.append(c)
+        status, want_out = c.run([one])
+        rc, got = _native.run(srv.host, srv.port, [one])
+        rc2, got2 = _native.run(srv.host, srv.port, [one],
+                                deadline_ms=60000)
+        check(status == 0 and rc == 0 and rc2 == 0 and
+              got[0].tobytes() == want_out[0].tobytes() and
+              got2[0].tobytes() == want_out[0].tobytes(),
+              f"server: C client rc {rc} / {rc2} against PredictorClient "
+              f"{status}: bytes equal "
+              f"{rc == 0 and got[0].tobytes() == want_out[0].tobytes()}")
+        del got, got2, want_out
+
+        # ---- 'PDSQ' through LLMEngine ----
+        prompt = rng.integers(0, vocab, 64).tolist()
+        seen = []
+        status, toks = c.generate(prompt, SERVER_NEW,
+                                  on_token=lambda i, t: seen.append((i, t)))
+        direct = llm.submit(prompt, SERVER_NEW).result(300)
+        check(status == 0 and len(toks) == SERVER_NEW and
+              seen == list(enumerate(toks)) and direct == ("done", toks),
+              f"server: 'PDSQ' status {status}, {len(toks)} tokens, in "
+              f"order {seen == list(enumerate(toks))}, equal to the engine's "
+              f"{direct[1] == toks}")
+
+        # ---- an injected dispatch fault, then service as before ----
+        pt.set_flags({"FLAGS_fault_inject": "serving.dispatch:error:times=1"})
+        s1, msg = c.run([one])
+        s2, _ = c.run([one])
+        pt.set_flags({"FLAGS_fault_inject": ""})
+        check(s1 == 1 and "serving.dispatch" in msg and s2 == 0,
+              f"server: fault statuses {s1}, {s2}")
+
+        # ---- overload: a queue of depth 1 and a burst ----
+        burst = PredictorServer(pred, engine=pt.serving.ServingEngine(
+            pred, pt.serving.EngineConfig(max_batch_size=4, queue_depth=1,
+                                          warmup_on_start=False)))
+        servers.append(burst)
+        burst.start()
+        statuses = []
+
+        def burst_client():
+            try:
+                bc = PredictorClient(burst.host, burst.port, timeout=300)
+                clients.append(bc)
+                statuses.append(bc.run([one])[0])
+            except Exception as e:  # noqa: BLE001 — read after the join
+                errors.append(f"{type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=burst_client, daemon=True)
+                   for _ in range(SERVER_BURST)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        burst.drain()
+        files = [f for f in os.listdir(dumps.name) if f.endswith(".json")]
+        reason = json.load(open(os.path.join(dumps.name, files[0])))[
+            "reason"] if len(files) == 1 else None
+        check(not errors and 2 in statuses and set(statuses) <= {0, 2} and
+              reason == "serving_overload",
+              f"server: burst statuses {sorted(statuses)} {errors}, dumps "
+              f"{files} (reason {reason})")
+
+        # ---- health, Prometheus, the census ----
+        h = c.health()
+        check(h["counters"]["completed"] >= 2 * SERVER_THREADS + 3 and
+              set(h["slo"]["burn"]) == {"60", "300", "3600"} and
+              h["monitor"]["counters"]["serving.completed"] >=
+              h["counters"]["completed"] and h["llm"]["counters"][
+                  "completed"] == 2,
+              f"server: 'PDHQ' {sorted(h)}")
+        text = monitor.prometheus_text().splitlines()
+        fams = [ln.split()[2:4] for ln in text if ln.startswith("# TYPE")]
+        single = [n for n, kind in fams if kind in ("counter", "gauge")]
+        samples = {}
+        for ln in text:
+            if not ln.startswith("#"):
+                name = ln.split("{")[0].split()[0]
+                samples[name] = samples.get(name, 0) + 1
+        check(len({n for n, _ in fams}) == len(fams) and
+              all(samples.get(n) == 1 for n in single),
+              "server: a Prometheus family without exactly one sample")
+        gc.collect()
+        torch.cuda.synchronize()
+        rec = memory.census()
+        allocated = torch.cuda.memory_allocated()
+        pool = monitor.snapshot()["gauges"].get("mem.serving_bucket.bytes", 0)
+        check(pool > 0 and rec["tagged_bytes"] <= rec["total_bytes"] <=
+              allocated, f"server: census {rec['total_bytes']} (tagged "
+              f"{rec['tagged_bytes']}) vs memory_allocated {allocated}, "
+              f"mem.serving_bucket.bytes {pool}")
+
+        # ---- 'PDDR': drained, then refused ----
+        report = c.drain()
+        refused = False
+        try:
+            socket.create_connection((srv.host, srv.port), timeout=5).close()
+        except OSError:
+            refused = True
+        check(report.get("drained") and refused,
+              f"server: drain report {report}, connect refused {refused}")
+        walls.sort()
+        rps = 2 * SERVER_THREADS / wire_s
+        reply_mb = 1024 * vocab * 4 / 1e6
+        print(f"server: GPT-2 small bf16 artifact behind PredictorServer "
+              f"(start with warm-up and capture {start_s:.2f} s): "
+              f"{2 * SERVER_THREADS} traced 'PDRQ' requests of 1 x 1024 ids "
+              f"from {SERVER_THREADS} threads in {wire_s:.3f} s "
+              f"({rps:.2f} requests/s, {batches} batches), wall per request "
+              f"p50 {walls[len(walls) // 2] * 1e3:.1f} ms p99 (the max of "
+              f"{len(walls)}) {walls[-1] * 1e3:.1f} ms; span means ms: "
+              + ", ".join(f"{k.split('.')[-1]} {means[k] * 1e3:.2f}" for k in
+                          ("serving.queue_wait", "serving.batch",
+                           "serving.dispatch", "serving.reply",
+                           "client.send") if k in means)
+              + f"; the {reply_mb:.1f} MB reply write is "
+              f"{means['serving.reply'] / means['client.send']:.3f} of the "
+              f"client's wall; replies vs the live layer max relative "
+              f"mean-abs error {worst:.3g} (tol 2e-2); {launches} flash host "
+              f"launches at warm-up, {nodes} flash nodes a replay, so "
+              f"{nodes * batches} flash forwards for the {batches} batches; "
+              f"capture memory {cap_mem} [{card}]", flush=True)
+        print(f"server: C client (PD_PredictorRun, PD_PredictorRunWith"
+              f"Deadline) byte-equal to PredictorClient; 'PDSQ' "
+              f"{SERVER_NEW} tokens in order, equal to LLMEngine.submit; "
+              f"fault statuses {s1} then {s2}; burst statuses "
+              f"{sorted(statuses)} with one dump ({files[0]}); census "
+              f"{rec['total_bytes']} B of {allocated} B allocated, tagged "
+              f"{ {k: v['bytes'] for k, v in rec['tags'].items()} }; "
+              f"'PDDR' drained, connect refused; phase "
+              f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+        return launches
+    finally:
+        for c in clients:
+            c.close()
+        for s in servers:
+            s.stop(drain=False)
+        pt.set_flags({"FLAGS_monitor": False, "FLAGS_trace": False,
+                      "FLAGS_mem_census": False,
+                      "FLAGS_obs_flight_recorder": False,
+                      "FLAGS_obs_dump_dir": "flight_recorder",
+                      "FLAGS_slo_latency_ms": 0.0, "FLAGS_fault_inject": ""})
+        for plane in (monitor, trace, memory, obs):
+            plane.reset()
+        dumps.cleanup()
+        torch.cuda.empty_cache()
+
+
+def obs_phase(pt, fa, torch, np, card):
+    """Slice 14's plane in TrainStep: 5 __call__ steps of gpt2_small at
+    8 x 1024 in bf16 AMP under FLAGS_obs_timeline and FLAGS_mem_census,
+    then run() over 6 steps (the capture and 5 replays): every steady step's
+    phases cover its wall within [0.95, 1.05], device_compute the largest;
+    the census's params, opt_slots and activations; 12 + 12 flash launches
+    per eager step and 12 + 12 kernel nodes per replay. Returns the flash
+    host launches."""
+    from paddle_tpu_torch import monitor, obs
+    from paddle_tpu_torch.obs import memory
+    from paddle_tpu_torch.utils.train_profile import (graph_kernel_names,
+                                                      kernel_counts)
+    t_phase = time.perf_counter()
+    pt.set_device("gpu")
+    pt.set_flags({"FLAGS_monitor": True, "FLAGS_obs_timeline": True,
+                  "FLAGS_mem_census": True})
+    for plane in (monitor, memory, obs):
+        plane.reset()
+    counted = (fa.flash_attention_fwd, fa.flash_attention_bwd_fused)
+    try:
+        pt.seed(SEED)
+        model = pt.models.GPTForCausalLM(pt.models.gpt2_small(dropout=0.0))
+        n_layers = len(model.gpt.layers)
+        vocab = model.gpt.embeddings.word_embeddings.weight.shape[0]
+        opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=model.parameters())
+        step = pt.jit.TrainStep(model, pt.models.GPTPretrainingCriterion(),
+                                opt, amp_dtype="bfloat16")
+        ids = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, vocab, (TRAIN_B, TRAIN_S))).cuda()
+        torch.cuda.synchronize()
+        for c in counted:
+            c.launches = 0
+        for _ in range(OBS_STEPS):
+            step(ids, ids)
+        eager = [c.launches for c in counted]
+        steps = monitor.snapshot()["counters"].get("jit.train_step.steps")
+        rec = memory.census()
+        xs = ids.expand(OBS_STEPS + 1, TRAIN_B, TRAIN_S).contiguous()
+        n_before = len(obs.timeline().records())
+        with kept_graphs(torch):
+            losses = step.run(xs, xs)
+        torch.cuda.synchronize()
+        per_step = kernel_counts(graph_kernel_names(
+            next(iter(step._graphs.values())).graph))
+        launches = [c.launches for c in counted]
+        recs = obs.timeline().records()
+        calls, runs = recs[:OBS_STEPS], recs[n_before:]
+
+        def cov(r):
+            return sum(r["phases"].values()) / r["wall"]
+
+        steady = calls[1:] + runs[1:]
+        for r in steady:
+            top = max(r["phases"], key=r["phases"].get)
+            check(0.95 <= cov(r) <= 1.05 and top == "device_compute",
+                  f"obs: step {r['step']} phases {r['phases']} cover "
+                  f"{cov(r):.4f} of wall {r['wall']}")
+        check(len(calls) == OBS_STEPS and "trace_compile" in
+              calls[0]["phases"] and len(runs) == OBS_STEPS + 1 and
+              "trace_compile" in runs[0]["phases"],
+              f"obs: {len(calls)} __call__ records, {len(runs)} run() "
+              "records")
+        check(steps == OBS_STEPS and all(
+            rec["tags"].get(t, {}).get("bytes", 0) > 0
+            for t in ("params", "opt_slots", "activations")),
+            f"obs: steps counter {steps}, census tags "
+            f"{sorted(rec['tags'])}")
+        check(eager == [OBS_STEPS * n_layers] * 2 and
+              launches == [(OBS_STEPS + 2) * n_layers] * 2 and
+              per_step["flash_fwd"] == n_layers and
+              per_step["flash_bwd_fused"] == n_layers and
+              bool(torch.isfinite(losses).all()),
+              f"obs: flash launches {eager} after the eager steps, "
+              f"{launches} after run() (the capture's eager step and "
+              f"capture), graph nodes {per_step}")
+        phases = {}
+        for r in steady:
+            for k, v in r["phases"].items():
+                phases.setdefault(k, []).append(v * 1e3)
+        print(f"obs: gpt2_small {TRAIN_B}x{TRAIN_S} bf16 AMP, {OBS_STEPS} "
+              f"__call__ steps + run() of {OBS_STEPS + 1} (capture + "
+              f"{OBS_STEPS} replays) under FLAGS_obs_timeline: phase "
+              f"coverage of steady steps __call__ "
+              f"{[round(cov(r), 4) for r in calls[1:]]}, run() "
+              f"{[round(cov(r), 4) for r in runs[1:]]} (tol [0.95, 1.05]); "
+              f"mean ms per steady phase "
+              f"{ {k: round(statistics.mean(v), 3) for k, v in phases.items()} }"
+              f"; wall ms __call__ "
+              f"{statistics.mean(r['wall'] for r in calls[1:]) * 1e3:.2f}, "
+              f"replay {statistics.mean(r['wall'] for r in runs[1:]) * 1e3:.2f}"
+              f"; census tags (B) "
+              f"{ {k: v['bytes'] for k, v in rec['tags'].items()} }; flash "
+              f"host launches {launches}, kernel nodes a replay {per_step}; "
+              f"phase {time.perf_counter() - t_phase:.1f} s [{card}]",
+              flush=True)
+        return dict(zip(("flash_fwd", "flash_bwd_fused"), launches))
+    finally:
+        pt.set_flags({"FLAGS_monitor": False, "FLAGS_obs_timeline": False,
+                      "FLAGS_mem_census": False})
+        for plane in (monitor, memory, obs):
+            plane.reset()
+        torch.cuda.empty_cache()
+
+
 def ptxas(path):
     """{kernel symbol: {"registers": N, "spill": [stores, loads]}} from a
     built library's `-Xptxas -v` log."""
@@ -4496,22 +4934,34 @@ def main() -> int:
     dygraph = dygraph_phase(pt, fa, torch, np, card)
     op_phase(pt, torch, np, card)
     conv_phase(pt, torch, np, card)
-    deploy_launches = deploy_phase(pt, fa, torch, np, card)
-    seq_launches = seq_phase(pt, fa, torch, np, card)
-    config4_phase(pt, torch, np, card)
+    import tempfile
+    gpt2_dir = tempfile.TemporaryDirectory(prefix="gpt2_artifact_")
+    try:
+        deploy_launches = deploy_phase(pt, fa, torch, np, card,
+                                       gpt2_dir.name)
+        seq_launches = seq_phase(pt, fa, torch, np, card)
+        config4_phase(pt, torch, np, card)
+        server_launches = server_phase(pt, fa, torch, np, card,
+                                       os.path.join(gpt2_dir.name, "gpt2"))
+    finally:
+        gpt2_dir.cleanup()
+    obs_launches = obs_phase(pt, fa, torch, np, card)
 
     summary = {"flash_fwd": dict(serving_row,
                                  launches=train_launches["flash_fwd"]
                                  + serve_launches + titan["launches"][0]
                                  + dygraph["launches"]["flash_fwd"]
                                  + deploy_launches
-                                 + seq_launches["flash_fwd"])}
+                                 + seq_launches["flash_fwd"]
+                                 + server_launches
+                                 + obs_launches["flash_fwd"])}
     for kname in ("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"):
         summary[kname] = dict(train_rows[kname],
                               launches=train_launches[kname] + (
                                   titan["launches"][1]
                                   + dygraph["launches"][kname]
                                   + seq_launches[kname]
+                                  + obs_launches[kname]
                                   if kname == "flash_bwd_fused" else 0))
     # the ring kernels at the sp train's hop, launches from the sp train:
     # the step kernels over the 4 slots of a ring step
@@ -4528,9 +4978,9 @@ def main() -> int:
         summary16[kname] = dict(fp16_steps[kname], launches=fp16_ring[kname])
     paths16 = {k: "fp16 titan" for k in fp16_flash}
     paths16.update({k: "fp16 sp" for k in RING_KERNELS})
-    entries = [(k, r, "train + serve + titan + dygraph + deploy + seq"
-                if k == "flash_fwd"
-                else "train + titan + dygraph + seq"
+    entries = [(k, r, "train + serve + titan + dygraph + deploy + seq + "
+                "server + obs" if k == "flash_fwd"
+                else "train + titan + dygraph + seq + obs"
                 if k == "flash_bwd_fused" else
                 "sp train" if k.startswith("ring") else "train")
                for k, r in summary.items()] + \

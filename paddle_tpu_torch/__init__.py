@@ -26,9 +26,9 @@ from .core.autograd import (enable_grad, grad, is_grad_enabled,  # noqa: F401
                             no_grad, set_grad_enabled)
 from . import ops  # noqa: F401  (binds the Tensor methods)
 from .ops import *  # noqa: F401,F403
-from . import (amp, autograd, inference, io, jit, models,  # noqa: F401
-               monitor, nn, optimizer, parallel, quantization, serving, utils,
-               vision)
+from . import (amp, autograd, faults, inference, io, jit,  # noqa: F401
+               models, monitor, nn, obs, optimizer, parallel, quantization,
+               serving, utils, vision)
 from .core.flags import set_flags  # noqa: F401
 from .core.place import (CPUPlace, CUDAPlace, get_device,  # noqa: F401
                          set_device)
@@ -41,8 +41,9 @@ from .jit import InputSpec  # noqa: F401
 __all__ = ["set_device", "get_device", "seed", "get_rng_state",
            "set_rng_state", "set_flags", "save", "load", "ParamAttr",
            "Parameter",
-           "CPUPlace", "CUDAPlace", "InputSpec", "amp", "autograd",
-           "inference", "io", "jit", "models", "monitor", "nn", "optimizer",
+           "CPUPlace", "CUDAPlace", "InputSpec", "amp", "autograd", "faults",
+           "inference", "io", "jit", "models", "monitor", "nn", "obs",
+           "optimizer",
            "parallel", "quantization", "serving", "utils", "vision",
            "Tensor", "grad",
            "no_grad", "enable_grad", "set_grad_enabled", "is_grad_enabled",

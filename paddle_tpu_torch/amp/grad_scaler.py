@@ -19,14 +19,15 @@ does the flag off.
 
 Per-optimizer states (READY, UNSCALED, STEPPED; the reference's
 OptimizerState) make sure the gradients are unscaled exactly once, and
-raise on `unscale_` or `step` out of order. The reference also counts
-`amp.skipped_steps` and `amp.scale_updates` on its monitor; the port's
-scaler counts nothing there yet.
+raise on `unscale_` or `step` out of order. Skipped steps and scale
+changes are counted as `amp.skipped_steps` / `amp.scale_updates`
+(FLAGS_monitor), as in the reference.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import monitor as _monitor
 from ..core import flags as _flags
 from ..optimizer.optimizer import Optimizer, unscale_grads_
 
@@ -137,6 +138,8 @@ class GradScaler:
                 self.unscale_(optimizer)
             if not self._found_inf:
                 optimizer.step()
+            elif _monitor._ENABLED:
+                _monitor.count("amp.skipped_steps")
         self._opt_states[id(optimizer)] = self._STEPPED
         # the scale advances once every optimizer seen this round has
         # stepped: one still UNSCALED keeps its state (and the shared
@@ -155,6 +158,8 @@ class GradScaler:
         for opt in self._pending_found:
             if opt._resolve_pending():
                 self._found_inf = True
+                if _monitor._ENABLED:
+                    _monitor.count("amp.skipped_steps")
         self._pending_found = []
 
     def update(self):
@@ -169,12 +174,16 @@ class GradScaler:
             if self._bad_steps >= self._decr_every:
                 self._scale = max(self._scale * self._decr_ratio, 1.0)
                 self._bad_steps = 0
+                if _monitor._ENABLED:
+                    _monitor.count("amp.scale_updates")
         else:
             self._good_steps += 1
             self._bad_steps = 0
             if self._good_steps >= self._incr_every:
                 self._scale *= self._incr_ratio
                 self._good_steps = 0
+                if _monitor._ENABLED:
+                    _monitor.count("amp.scale_updates")
         self._found_inf = False
 
     def state_dict(self):

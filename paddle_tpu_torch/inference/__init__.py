@@ -259,6 +259,16 @@ class Predictor:
             sorted(set(ladder or [batch]) | {batch})
         return [([s[1:] for s in shapes], dtypes, sizes)]
 
+    def bucket_buffers(self):
+        """The device buffers this predictor keeps per served signature: a
+        loaded artifact's captured graphs' static inputs and outputs (on
+        the CPU, none). The serving engine tags them `serving_bucket` for
+        the memory census."""
+        if self._translated is None:
+            return []
+        return [t for rep in self._translated.captures()
+                for t in (*rep.inputs, *rep.outputs)]
+
     def run_batch(self, arrays):
         """Batched entry for the serving engine: numpy arrays (leading dim
         = batch) in, host numpy arrays out, bf16 read back as float32.

@@ -2,17 +2,24 @@
 
 Counterpart of `paddle_tpu/io/dataloader.py` (DataLoader :183,
 `default_collate_fn`, the thread prefetcher and the iterable-dataset
-iterator), copied without the reference's monitor, obs and syncwatch
-hooks. Worker processes are `io.worker`.
+iterator), with the reference's hooks in the thread prefetcher: the
+`io.dataloader.worker_batch` / `io.dataloader.queue_wait` histograms
+(FLAGS_monitor), the consumer's wait booked as the timeline's
+`data_wait` between steps (FLAGS_obs_timeline), and its threads as
+`syncwatch.Thread`s. Worker processes are `io.worker`.
 """
 from __future__ import annotations
 
 import queue
 import threading
+import time
 
 import numpy as np
 import torch
 
+from .. import monitor as _monitor
+from .. import obs as _obs
+from ..utils import syncwatch as _syncwatch
 from .dataset import IterableDataset
 from .sampler import BatchSampler
 
@@ -53,7 +60,7 @@ class _PrefetchIter:
         self._pending = {}
         self._emit = 0
         for _ in range(n_workers):
-            t = threading.Thread(target=self._worker, daemon=True)
+            t = _syncwatch.Thread(target=self._worker, daemon=True)
             t.start()
             self._threads.append(t)
 
@@ -75,7 +82,13 @@ class _PrefetchIter:
                 self.queue.put((None, None))
                 return
             try:
-                batch = collate([ds[i] for i in indices])
+                if _monitor._ENABLED:
+                    tb = time.time()
+                    batch = collate([ds[i] for i in indices])
+                    _monitor.observe("io.dataloader.worker_batch",
+                                     time.time() - tb)
+                else:
+                    batch = collate([ds[i] for i in indices])
                 self.queue.put((seq, batch))
             except Exception as e:  # propagate to consumer
                 self.queue.put((seq, e))
@@ -93,7 +106,19 @@ class _PrefetchIter:
             # all workers done: every produced batch is queued or pending
             if self._done_workers >= self._n_workers and self.queue.empty():
                 raise StopIteration
-            seq, batch = self.queue.get()
+            if _monitor._ENABLED or _obs._TL_ENABLED:
+                # how long the consumer stalls on the workers: the signal
+                # that the input pipeline, not the device, is the bottleneck
+                tw = time.time()
+                seq, batch = self.queue.get()
+                t1 = time.time()
+                if _monitor._ENABLED:
+                    _monitor.observe("io.dataloader.queue_wait", t1 - tw)
+                # between steps: folds into the next step record's
+                # `between` bucket (obs/timeline.py)
+                _obs.add_phase("data_wait", t1 - tw, tw, t1)
+            else:
+                seq, batch = self.queue.get()
             if seq is None:
                 self._done_workers += 1
                 continue

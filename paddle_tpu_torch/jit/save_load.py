@@ -191,12 +191,32 @@ def _program_device(exported) -> torch.device:
     return torch.device("cpu")
 
 
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 class _Replay:
     """The program captured in a CUDA graph for one input signature: its
-    static inputs and the outputs a replay writes."""
+    static inputs, the outputs a replay writes, the growth of
+    `torch.cuda.memory_reserved()` across the capture (the graph's private
+    pool) and the bytes of the parameters it reads."""
 
-    def __init__(self, graph, inputs, outputs):
+    def __init__(self, graph, inputs, outputs, reserved, param_bytes):
         self.graph, self.inputs, self.outputs = graph, inputs, outputs
+        self.reserved, self.param_bytes = reserved, param_bytes
+
+    def memory_analysis(self):
+        """The reference's `memory_analysis()` keys for this capture
+        (`obs.executable_memory` normalizes them): arguments = parameters
+        + static inputs, outputs = static outputs, temps = the rest of the
+        pool the capture reserved."""
+        out = _nbytes(self.outputs)
+        return {"argument_size_in_bytes":
+                self.param_bytes + _nbytes(self.inputs),
+                "output_size_in_bytes": out,
+                "temp_size_in_bytes": max(0, self.reserved - out),
+                "alias_size_in_bytes": 0,
+                "generated_code_size_in_bytes": 0}
 
 
 class TranslatedLayer:
@@ -269,6 +289,7 @@ class TranslatedLayer:
             outs = self._run(static)
         main.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        reserved = torch.cuda.memory_reserved(self._device)
         try:
             with torch.cuda.graph(graph):
                 captured = self._run(static)
@@ -276,7 +297,15 @@ class TranslatedLayer:
             raise RuntimeError(
                 "TranslatedLayer: capturing the loaded program in a CUDA "
                 "graph failed") from e
-        return outs, _Replay(graph, static, captured)
+        reserved = torch.cuda.memory_reserved(self._device) - reserved
+        return outs, _Replay(graph, static, captured, reserved,
+                             _nbytes(list(self._params) +
+                                     list(self._buffers)))
+
+    def captures(self):
+        """The CUDA-graph captures so far, one per input signature
+        (`obs.executable_memory` of each gives its memory breakdown)."""
+        return list(self._graphs.values())
 
     def eval(self):
         return self

@@ -25,20 +25,33 @@ boundary): they unwrap them at entry, so the step and its CUDA graphs'
 static buffers stay plain, and return the loss(es) as `Tensor` exactly when
 a batch entry was one.
 
-The monitor, timeline, compile-cache and executable hooks of the
-reference are not ported.
+The reference's plane, each behind its flag's one attribute check: the
+`jit.train_step.builds` / `.steps` / `.dur` counters and the signature
+ledger's retrace counters (FLAGS_monitor); one step record per step with
+the `build`, `h2d` and `device_compute` phases (`trace_compile` for a
+novel signature's first step and for a run() capture), device_compute
+fenced on the stream the step was launched on (FLAGS_obs_timeline,
+`run()` included: one record per step, replays too); the `params`,
+`opt_slots`, `step_state`, `model_buffers` and `activations` memory tags
+(FLAGS_mem_census); `dispatch_guard("TrainStep")` around every step. The
+reference's persistent compile cache waits for the `to_static` slice.
 """
 from __future__ import annotations
 
 import itertools
+import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+from .. import monitor as _monitor
+from .. import obs as _obs
+from ..core import executable as _exe
 from ..core import flags as _flags
 from ..core.enforce import UnimplementedError
+from ..obs import memory as _mem
 from ..core.place import resolve_device
 from ..core.random import get_rng_state, set_rng_state
 from ..core.tensor import api
@@ -105,8 +118,13 @@ class TrainStep:
         # step(x..., y...): first n go to model.forward, the rest to loss_fn
         self._n_model_inputs = n_model_inputs
         self._built = False
+        # signature ledger: novelty + retrace accounting (a novel signature
+        # is the step's first eager run, or a run() capture)
+        self._ledger = _exe.ExecutableLedger("train_step")
 
     def _build(self):
+        if _monitor._ENABLED:
+            _monitor.count("jit.train_step.builds")
         # FLAGS_check_nan_inf is read once, at the first step
         self._nan_check = bool(_flags.flag("check_nan_inf"))
         trainable, frozen = split_state(self.model)
@@ -125,16 +143,44 @@ class TrainStep:
         self._graphs = {}
         self._built = True
 
-    def _prepare(self, batch):
+    def _tag_state(self):
+        """Tag the loop state for the memory census. The port updates the
+        state in place (the reference's donated buffers are replaced and
+        re-tagged every step), so its storages keep their tags: the tags
+        are (re)made only when the census does not know them yet."""
+        if self._ptensors and \
+                _mem.tag_of(self._ptensors[0]) == ("params", "TrainStep"):
+            return
+        _mem.tag("params", self._ptensors, origin="TrainStep")
+        _mem.tag("opt_slots", self._slots, origin="TrainStep")
+        opt = self.optimizer
+        _mem.tag("step_state", [opt._t_arr, opt._lr_arr, self._i],
+                 origin="TrainStep")
+        _mem.tag("model_buffers", self._btensors, origin="TrainStep")
+
+    def _prepare(self, batch, steps_axis=False, note=True):
         """The batch on the parameters' device, split into model inputs and
-        labels."""
+        labels; and whether its signature is novel (`steps_axis`: per-step
+        shapes, behind run()'s leading n_steps axis; `note=False`: a query
+        that runs no step)."""
         if not self._built:
-            self._build()
-        arrs = [torch.as_tensor(b, device=self._device) for b in batch]
+            with _obs.phase("build"):
+                self._build()
+        with _obs.phase("h2d"):
+            arrs = [torch.as_tensor(b, device=self._device) for b in batch]
+            if _obs._TL_ENABLED:
+                _obs.fence(self._device)
+        if _mem._ENABLED:
+            _mem.tag("activations", arrs, origin="TrainStep.batch")
         n_mi = self._n_model_inputs
         if n_mi is None:
             n_mi = len(arrs) if len(arrs) <= 1 else len(arrs) - 1
-        return arrs[:n_mi], arrs[n_mi:]
+        novel = False
+        if note and (_monitor._ENABLED or _obs._TL_ENABLED):
+            sig = _monitor.arg_signature(
+                [a[0] for a in arrs] if steps_axis else arrs)
+            novel = self._ledger.note((steps_axis,) + sig, detail=sig)
+        return arrs[:n_mi], arrs[n_mi:], novel
 
     def _scalars(self):
         """The optimizer's lr and t device scalars, brought up to date
@@ -187,13 +233,38 @@ class TrainStep:
     def __call__(self, *batch):
         """batch: input tensors consumed by model.forward; loss_fn receives
         the model output(s) and the remaining tensors. Runs eagerly and
-        returns the loss as a 0-d tensor on the device (no host sync)."""
-        inputs, labels = self._prepare(batch)
-        self._scalars()
-        loss, bad = self._one_step(inputs, labels)
-        self.optimizer._count_steps(1)
-        raise_nonfinite(bad, self._pnames, "train step")
-        return loss
+        returns the loss as a 0-d tensor on the device (no host sync, but
+        with FLAGS_obs_timeline, whose device_compute phase synchronizes
+        the step's stream)."""
+        with _obs.step_record():
+            inputs, labels, novel = self._prepare(batch)
+            _mon = _monitor._ENABLED
+            if _mon:
+                t0 = time.time()
+            with _exe.booking("train_step") as bk:
+                if novel:
+                    bk.compiled()
+                with _exe.dispatch_guard("TrainStep",
+                                         report=self._state_report):
+                    self._scalars()
+                    loss, bad = self._one_step(inputs, labels)
+                if _obs._TL_ENABLED:
+                    _obs.fence(self._device)
+            self.optimizer._count_steps(1)
+            if _mem._ENABLED:
+                self._tag_state()
+            if _mon:
+                _monitor.count("jit.train_step.steps")
+                _monitor.observe("jit.train_step.dur", time.time() - t0)
+            raise_nonfinite(bad, self._pnames, "train step")
+            return loss
+
+    def _state_report(self):
+        """The step's resident bytes, for an OOM dump."""
+        slots = [v for s in self._slots for v in s.values()]
+        return {"param_bytes": _nbytes(self._ptensors),
+                "slot_bytes": _nbytes(slots),
+                "buffer_bytes": _nbytes(self._btensors)}
 
     @api
     def run(self, *batch):
@@ -217,16 +288,31 @@ class TrainStep:
 
         On the CPU, and where the parameters or the current mesh span more
         than one device (a step no four-card machine has captured yet), the
-        span is a loop over the eager step."""
-        inputs, labels = self._prepare(batch)
+        span is a loop over the eager step.
+
+        With FLAGS_obs_timeline every step of the span gets its own step
+        record (the batch's upload lands between steps): its `h2d` phase
+        copies the step's batch into the graph's static inputs, its
+        `device_compute` phase (`trace_compile` for the capture) ends when
+        the stream the replay was issued to is synchronized."""
+        inputs, labels, _novel = self._prepare(batch, steps_axis=True)
         n_steps = int(inputs[0].shape[0]) if inputs \
             else int(labels[0].shape[0])
         self._scalars()
-        if self._device.type == "cuda" and not self._spans_devices():
-            losses, bads = self._run_graph(inputs, labels, n_steps)
-        else:
-            losses, bads = self._run_loop(inputs, labels, n_steps)
+        _mon = _monitor._ENABLED
+        if _mon:
+            t0 = time.time()
+        with _exe.dispatch_guard("TrainStep", report=self._state_report):
+            if self._device.type == "cuda" and not self._spans_devices():
+                losses, bads = self._run_graph(inputs, labels, n_steps)
+            else:
+                losses, bads = self._run_loop(inputs, labels, n_steps)
         self.optimizer._count_steps(n_steps)
+        if _mem._ENABLED:
+            self._tag_state()
+        if _mon:
+            _monitor.count("jit.train_step.steps", n_steps)
+            _monitor.observe("jit.train_step.dur", time.time() - t0)
         raise_nonfinite(bads, self._pnames, "train step")
         return losses
 
@@ -241,8 +327,9 @@ class TrainStep:
     def _run_loop(self, inputs, labels, n_steps):
         losses, bads = [], []
         for i in range(n_steps):
-            loss, bad = self._one_step([x[i] for x in inputs],
-                                       [y[i] for y in labels])
+            with _obs.step_record(), _exe.booking("train_step"):
+                loss, bad = self._one_step([x[i] for x in inputs],
+                                           [y[i] for y in labels])
             losses.append(loss)
             bads.append(bad)
         return torch.stack(losses), \
@@ -267,17 +354,33 @@ class TrainStep:
             # drop the stale graph (and its memory pool) before capturing
             self._graphs.pop(key, None)
             cap = None
-            cap = self._capture(inputs, labels, n_steps)
+            with _obs.step_record(), \
+                    _exe.booking("train_step") as bk:
+                bk.compiled()
+                cap = self._capture(inputs, labels, n_steps)
+                if _obs._TL_ENABLED:
+                    _obs.fence(self._device)
             self._graphs[key] = cap
+            if _mem._ENABLED:
+                _mem.tag("activations", cap.inputs + cap.labels,
+                         origin="TrainStep.run")
             first = 1
         else:
             self._i.zero_()
+        tl = _obs._TL_ENABLED
         for i in range(first, n_steps):
-            for s, x in zip(cap.inputs, inputs):
-                s.copy_(x[i])
-            for s, y in zip(cap.labels, labels):
-                s.copy_(y[i])
-            cap.graph.replay()
+            with _obs.step_record():
+                with _obs.phase("h2d"):
+                    for s, x in zip(cap.inputs, inputs):
+                        s.copy_(x[i])
+                    for s, y in zip(cap.labels, labels):
+                        s.copy_(y[i])
+                    if tl:
+                        _obs.fence(self._device)
+                with _exe.booking("train_step"):
+                    cap.graph.replay()
+                    if tl:
+                        _obs.fence(self._device)
         return cap.losses[:n_steps].clone(), \
             cap.bads[:n_steps].clone() if cap.bads is not None else None
 
@@ -332,7 +435,7 @@ class TrainStep:
         10·BH·S²·D fused backward, halved when causal). Elementwise work
         and the update are not counted. `bytes_accessed` is None: torch
         does not count the bytes a step moves. Updates nothing."""
-        inputs, labels = self._prepare(batch)
+        inputs, labels, _ = self._prepare(batch, note=False)
         with FlopCounterMode(display=False) as counter:
             self._loss_and_grads(inputs, labels)
         return {"flops": float(counter.get_total_flops()),
@@ -350,7 +453,7 @@ class TrainStep:
         parameters) and `peak_bytes` (`torch.cuda.max_memory_allocated`
         over that forward + backward). On the CPU `temp_bytes` and
         `peak_bytes` are None. Updates nothing."""
-        inputs, labels = self._prepare(batch)
+        inputs, labels, _ = self._prepare(batch, note=False)
         state = _nbytes(itertools.chain(
             self._ptensors, (v for s in self._slots for v in s.values())))
         scalars = _nbytes(self._scalars())

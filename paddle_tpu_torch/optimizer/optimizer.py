@@ -148,7 +148,6 @@ class Optimizer:
         return found
 
     # ---- eager step ----
-    @torch.no_grad()
     def step(self, inv_scale=None):
         """One update of every parameter that has a gradient (`p.grad`).
 
@@ -156,7 +155,35 @@ class Optimizer:
         FLAGS_amp_fused_update): a 0-d f32 tensor, 1 / the loss scale. The
         gradients are unscaled in place, the update is gated on their
         found_inf, and the device found_inf is returned; the step count is
-        committed by `_resolve_pending()`."""
+        committed by `_resolve_pending()`.
+
+        Counted as `optimizer.steps` / `optimizer.step_dur` (FLAGS_monitor)
+        and booked as the timeline's `optimizer` phase
+        (FLAGS_obs_timeline), fenced on the current stream."""
+        from .. import monitor as _monitor
+        from .. import obs as _obs
+        if not (_monitor._ENABLED or _obs._TL_ENABLED):
+            return self._step_impl(inv_scale)
+        import time as _time
+        t0 = _time.time()
+        try:
+            with _obs.phase("optimizer"):
+                found = self._step_impl(inv_scale)
+                if _obs._TL_ENABLED:
+                    _obs.fence(self._fence_device())
+                return found
+        finally:
+            if _monitor._ENABLED:
+                _monitor.count("optimizer.steps")
+                _monitor.observe("optimizer.step_dur", _time.time() - t0)
+
+    def _fence_device(self):
+        for p in self._parameter_list or ():
+            return p.device
+        return None
+
+    @torch.no_grad()
+    def _step_impl(self, inv_scale=None):
         self._resolve_pending()
         params = [p for p in (self._parameter_list or [])
                   if p.requires_grad and p.grad is not None]

@@ -15,13 +15,21 @@ the engine's batch ladder; a saved artifact's (`inference.create_predictor`)
 take only its exported batch, and shorter batches pad up to it.
 
 Thread model: `submit()` is called from any number of threads; worker
-loops assemble batches per bucket lane; the predictor call is serialized
-by a dispatch lock. On a CUDA machine each worker launches on its own
-CUDA stream, which first waits for the work already queued on the
-default stream (the weights' upload).
+loops (`syncwatch.Thread`s) assemble batches per bucket lane; the
+predictor call is serialized by a dispatch lock (`syncwatch.lock`). On a
+CUDA machine each worker launches on its own CUDA stream, which first
+waits for the work already queued on the default stream (the weights'
+upload); the timeline's `device_compute` fences that stream.
 
-Not ported yet: the monitor, SLO, trace, memory-census, fault-injection,
-compile-cache, executable-ledger and syncwatch hooks of the JAX engine.
+The reference's hooks, each behind its flag's one attribute check: the
+`serving.*` monitor metrics; the SLO shed at admission and the outcome of
+every request (`obs/slo.py`); the `serving.queue_wait` /
+`serving.batch` / `serving.dispatch` trace spans under the request's
+wire context; the `serving.dispatch` fault site; `booking(
+"serving_bucket")` around the predictor call; the `serving_bucket`
+memory tag on the device buffers a dispatch pins; and a flight-recorder
+dump on overload (`ServerOverloadedError` is a registered trigger). The
+reference's persistent compile cache waits for the `to_static` slice.
 """
 from __future__ import annotations
 
@@ -33,7 +41,15 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import faults as _faults
+from .. import monitor as _monitor
+from .. import obs as _obs
+from ..core import executable as _exe
 from ..core import flags as _flags
+from ..obs import memory as _mem
+from ..obs import slo as _slo
+from ..obs import trace as _trace
+from ..utils import syncwatch as _syncwatch
 from .bucket import BucketSet, ShapeBucket, default_batch_sizes, signature_of
 
 __all__ = [
@@ -69,6 +85,11 @@ class EngineStoppedError(ServingError):
 class NoBucketError(ServingError):
     """No declared bucket accepts this shape and learning is disabled."""
     wire_status = 1
+
+
+# an overloaded engine dumps the flight recorder (rate-limited — one dump
+# per FLAGS_obs_dump_min_interval_s, not one per rejected request)
+_obs.register_dump_trigger(ServerOverloadedError, "serving_overload")
 
 
 class ResponseFuture:
@@ -107,15 +128,19 @@ class ResponseFuture:
 
 class _Request:
     __slots__ = ("inputs", "rows", "bucket", "future", "enqueue_t",
-                 "deadline")
+                 "deadline", "trace_ctx", "qw_span")
 
-    def __init__(self, inputs, rows, bucket, deadline):
+    def __init__(self, inputs, rows, bucket, deadline, trace_ctx=None):
         self.inputs = inputs
         self.rows = rows
         self.bucket = bucket
         self.future = ResponseFuture()
         self.enqueue_t = time.monotonic()
         self.deadline = deadline  # absolute monotonic, or None
+        self.trace_ctx = trace_ctx  # obs.trace.TraceContext, or None
+        # queue_wait child span: opened at enqueue, closed at dispatch
+        # pick-up (ok) or expiry (deadline status -> protected trace ring)
+        self.qw_span = _trace.server_span("serving.queue_wait", trace_ctx)
 
 
 @dataclass
@@ -170,12 +195,16 @@ class ServingEngine:
         self._inflight = 0
         self._stopping = False
         self._workers: List[threading.Thread] = []
-        self._dispatch_lock = threading.Lock()
+        self._dispatch_lock = _syncwatch.lock(
+            "engine.ServingEngine._dispatch_lock")
+        # (batch, item-sig) ledger: a novel signature is one build of the
+        # predictor's program (its eager first run + CUDA-graph capture)
+        self._ledger = _exe.ExecutableLedger("serving_bucket")
         self._warm_start_ms: Optional[float] = None
         self._counts: Dict[str, int] = {
             "requests": 0, "completed": 0, "failed": 0, "rejected": 0,
             "expired": 0, "batches": 0, "rows": 0, "padded_rows": 0,
-            "padding_waste_elems": 0, "warmup_runs": 0,
+            "padding_waste_elems": 0, "compiles": 0, "warmup_runs": 0,
         }
 
     # ---- construction helpers ----
@@ -189,6 +218,10 @@ class ServingEngine:
         def call(arrays: List[np.ndarray]) -> List[np.ndarray]:
             out = predictor(*arrays)
             outs = out if isinstance(out, (list, tuple)) else [out]
+            if _mem._ENABLED:
+                _mem.tag("serving_bucket",
+                         [o for o in outs if isinstance(o, torch.Tensor)],
+                         origin="ServingEngine")
             return [np.asarray(o) for o in outs]
 
         return call
@@ -212,10 +245,13 @@ class ServingEngine:
                 arrays = [np.zeros((bs,) + shape, dtype=np.dtype(dt))
                           for shape, dt in zip(bucket.item_shapes,
                                                bucket.dtypes)]
-                self._dispatch_to_predictor(arrays)
+                self._dispatch_to_predictor(bucket, bs, arrays)
                 runs += 1
         self._warm_start_ms = (time.time() - t0) * 1000.0
         self._bump("warmup_runs", runs)
+        if _monitor._ENABLED and runs:
+            _monitor.count("serving.warmup_runs", runs)
+            _monitor.gauge_set("serving.warm_start_ms", self._warm_start_ms)
         return runs
 
     # ---- lifecycle ----
@@ -226,8 +262,8 @@ class ServingEngine:
         if self.config.warmup_on_start:
             self.warmup()
         for i in range(max(1, self.config.num_workers)):
-            t = threading.Thread(target=self._worker_loop,
-                                 name=f"serving-worker-{i}", daemon=True)
+            t = _syncwatch.Thread(target=self._worker_loop,
+                                  name=f"serving-worker-{i}", daemon=True)
             t.start()
             self._workers.append(t)
         return self
@@ -249,6 +285,7 @@ class ServingEngine:
         for t in self._workers:
             t.join(max(0.0, deadline - time.monotonic()))
         self._workers = []
+        self._set_queue_gauge()
 
     @property
     def running(self) -> bool:
@@ -256,12 +293,15 @@ class ServingEngine:
 
     # ---- request intake ----
     def submit(self, inputs: Sequence[np.ndarray],
-               deadline_ms: Optional[float] = None) -> ResponseFuture:
+               deadline_ms: Optional[float] = None,
+               trace_ctx=None) -> ResponseFuture:
         """Enqueue one request (arrays share a leading batch dim, usually
         1; a `Tensor` is read through its `numpy()`, the Tensor API's
         boundary here). Raises ServerOverloadedError / EngineStoppedError /
         NoBucketError / ValueError synchronously; everything later lands
-        on the returned future."""
+        on the returned future. `trace_ctx` (an obs.trace.TraceContext,
+        normally the server-side request span's context) parents the
+        engine's queue_wait/batch/dispatch spans."""
         arrays = [np.ascontiguousarray(a) for a in inputs]
         if not arrays:
             raise ValueError("empty request")
@@ -270,10 +310,24 @@ class ServingEngine:
                            for a in arrays):
             raise ValueError(
                 "request inputs must share a leading batch dim >= 1")
+        if _slo._ENABLED and _slo.should_shed():
+            # burn-rate admission control (FLAGS_slo_shed_burn)
+            self._bump("rejected")
+            if _monitor._ENABLED:
+                _monitor.count("serving.rejected")
+                _monitor.count("serving.shed")
+            _slo.record_request(None, _slo.OUTCOME_REJECTED)
+            raise ServerOverloadedError(
+                "shedding: SLO error-budget burn rate over "
+                "FLAGS_slo_shed_burn; back off and retry")
         sig = signature_of(arrays)
         bucket = self.buckets.resolve(sig)
         if bucket is None:
             self._bump("rejected")
+            if _monitor._ENABLED:
+                _monitor.count("serving.rejected")
+            if _slo._ENABLED:
+                _slo.record_request(None, _slo.OUTCOME_REJECTED)
             raise NoBucketError(
                 f"no declared bucket accepts {sig} and bucket learning "
                 "is disabled (FLAGS_serving_learn_buckets)")
@@ -285,19 +339,37 @@ class ServingEngine:
             deadline_ms = self.config.default_deadline_ms
         deadline = (time.monotonic() + deadline_ms / 1e3
                     if deadline_ms and deadline_ms > 0 else None)
-        req = _Request(arrays, rows, bucket, deadline)
-        with self._cv:
-            if self._stopping:
-                raise EngineStoppedError("engine is stopped/draining")
-            if self._pending >= self.config.queue_depth:
-                self._counts["rejected"] += 1
-                raise ServerOverloadedError(
-                    f"queue at capacity ({self.config.queue_depth} "
-                    "pending); back off and retry")
-            self._lanes.setdefault(bucket.key(), []).append(req)
-            self._pending += 1
-            self._counts["requests"] += 1
-            self._cv.notify()
+        req = _Request(arrays, rows, bucket, deadline, trace_ctx=trace_ctx)
+        try:
+            with self._cv:
+                if self._stopping:
+                    raise EngineStoppedError("engine is stopped/draining")
+                if self._pending >= self.config.queue_depth:
+                    self._counts["rejected"] += 1
+                    if _monitor._ENABLED:
+                        _monitor.count("serving.rejected")
+                    if _slo._ENABLED:
+                        _slo.record_request(None, _slo.OUTCOME_REJECTED)
+                    err = ServerOverloadedError(
+                        f"queue at capacity ({self.config.queue_depth} "
+                        "pending); back off and retry")
+                    if _obs._FR_ENABLED:
+                        _obs.record_event(
+                            "serving.overload",
+                            queue_depth=self.config.queue_depth,
+                            pending=self._pending)
+                        _obs.dump_on_error(err)
+                    raise err
+                self._lanes.setdefault(bucket.key(), []).append(req)
+                self._pending += 1
+                self._counts["requests"] += 1
+                self._cv.notify()
+        except ServingError:
+            req.qw_span.end(status=_trace.STATUS_REJECTED)
+            raise
+        if _monitor._ENABLED:
+            _monitor.count("serving.requests")
+        self._set_queue_gauge()
         return req.future
 
     # ---- worker side ----
@@ -352,12 +424,19 @@ class ServingEngine:
                     break
                 self._cv.wait(t_close - now)
             self._inflight += len(batch)
+        self._set_queue_gauge()
         return batch, bucket
 
     def _expire(self, req: _Request) -> None:
         self._counts["expired"] += 1
         req.future._set_exception(DeadlineExceededError(
             "deadline expired before dispatch"))
+        req.qw_span.end(status=_trace.STATUS_DEADLINE)
+        if _slo._ENABLED:
+            _slo.record_request(time.monotonic() - req.enqueue_t,
+                                _slo.OUTCOME_DEADLINE)
+        if _monitor._ENABLED:
+            _monitor.count("serving.deadline_expired")
 
     def _dispatch(self, bucket: ShapeBucket, batch: List[_Request]) -> None:
         # deadlines re-checked at the last host moment: an entry that
@@ -373,11 +452,31 @@ class ServingEngine:
                     live.append(req)
         if not live:
             return
+        batch_span = _trace.NULL_SPAN
+        disp_spans = None
+        if _trace._ENABLED:
+            # the batch belongs to no single trace: it parents onto the
+            # OLDEST member's request span and LINKS every member span
+            batch_span = _trace.server_span("serving.batch",
+                                            live[0].trace_ctx)
+            for r in live:
+                if r.trace_ctx is not None:
+                    batch_span.link_ctx(r.trace_ctx)
+            batch_span.set(rows=sum(r.rows for r in live),
+                           requests=len(live))
+            # per-member dispatch spans: each trace's waterfall shows the
+            # (shared) predictor call it rode
+            disp_spans = [_trace.server_span("serving.dispatch",
+                                             r.trace_ctx) for r in live]
+        for r in live:
+            r.qw_span.end()
         try:
             rows = sum(r.rows for r in live)
             bs = bucket.round_up_batch(rows)
             arrays, waste = self._assemble(bucket, live, rows, bs)
-            outs = self._dispatch_to_predictor(arrays)
+            t_disp = time.monotonic()
+            outs = self._dispatch_to_predictor(bucket, bs, arrays)
+            t_done = time.monotonic()
             if not outs or any(o.shape[:1] != (bs,) for o in outs):
                 raise ServingError(
                     f"predictor returned shapes "
@@ -389,11 +488,13 @@ class ServingEngine:
                 req.future._set_result([o[off:off + req.rows]
                                         for o in outs])
                 off += req.rows
-            self._record_batch(live, rows, bs, waste)
+            if disp_spans is not None:
+                for sp in disp_spans:
+                    sp.end()
+                batch_span.end(batch=bs)
+            self._record_batch(live, rows, bs, waste, t_disp, t_done)
         except Exception as e:  # noqa: BLE001 — model errors go to callers
-            self._bump("failed", len(live))
-            for req in live:
-                req.future._set_exception(e)
+            self._fail_batch(live, e, disp_spans, batch_span)
         finally:
             with self._cv:
                 self._inflight -= len(live)
@@ -417,23 +518,110 @@ class ServingEngine:
             waste += bs * item_elems - real
         return arrays, waste
 
-    def _dispatch_to_predictor(self, arrays: List[np.ndarray]
-                               ) -> List[np.ndarray]:
+    def _dispatch_to_predictor(self, bucket: ShapeBucket, bs: int,
+                               arrays: List[np.ndarray]) -> List[np.ndarray]:
+        sig = (bs,) + bucket.key()
+        novel = self._ledger.note(sig, retrace=False)
+        if novel:
+            # first time this padded signature reaches the predictor: its
+            # program runs eagerly and is captured (warm-up, in steady
+            # state this never fires)
+            self._bump("compiles")
+            if _monitor._ENABLED:
+                _monitor.count("serving.compiles")
+                _monitor.log_event("serving.compile", batch=bs,
+                                   signature=[f"{s}:{d}" for s, d in
+                                              bucket.signature])
         with self._dispatch_lock:
-            return [np.asarray(o) for o in self._call(arrays)]
+            if _faults._ENABLED:
+                # an injected dispatch failure fails THIS batch's futures
+                # (via _dispatch's error path); the engine keeps serving
+                _faults.check("serving.dispatch")
+            with _exe.booking("serving_bucket") as bk, \
+                    _monitor.span("serving.predict"):
+                if novel:
+                    bk.compiled()
+                outs = [np.asarray(o) for o in self._call(arrays)]
+                if _obs._TL_ENABLED:
+                    _obs.fence()   # this worker's stream
+            if _mem._ENABLED:
+                self._tag_pool()
+            return outs
+
+    def _tag_pool(self) -> None:
+        """Tag the device buffers the predictor keeps for the buckets
+        dispatched so far (a loaded artifact's captured graphs: static
+        inputs and outputs) as `serving_bucket`."""
+        pool = getattr(self.predictor, "bucket_buffers", None)
+        if callable(pool):
+            _mem.tag("serving_bucket", pool(), origin="ServingEngine")
+
+    def _fail_batch(self, live: List[_Request], err: BaseException,
+                    disp_spans=None, batch_span=_trace.NULL_SPAN) -> None:
+        self._bump("failed", len(live))
+        if _monitor._ENABLED:
+            _monitor.count("serving.failed", len(live))
+        msg = f"{type(err).__name__}: {str(err)[:200]}"
+        if disp_spans is not None:
+            # a dispatch fault must close every member's span with error
+            # status — a leaked open span is a bug
+            for sp in disp_spans:
+                sp.end(status=_trace.STATUS_ERROR, error=msg)
+        batch_span.end(status=_trace.STATUS_ERROR, error=msg)
+        if _slo._ENABLED:
+            for _ in live:
+                _slo.record_request(None, _slo.OUTCOME_ERROR)
+        for req in live:
+            req.future._set_exception(err)
 
     # ---- accounting ----
     def _bump(self, name: str, delta: int = 1) -> None:
         with self._cv:
             self._counts[name] += delta
 
-    def _record_batch(self, live, rows, bs, waste) -> None:
+    def _set_queue_gauge(self) -> None:
+        if _monitor._ENABLED:
+            _monitor.gauge_set("serving.queue_depth", self._pending)
+
+    def _record_batch(self, live, rows, bs, waste, t_disp, t_done) -> None:
         with self._cv:
             self._counts["completed"] += len(live)
             self._counts["batches"] += 1
             self._counts["rows"] += rows
             self._counts["padded_rows"] += bs - rows
             self._counts["padding_waste_elems"] += waste
+        if _slo._ENABLED:
+            for req in live:
+                bad = _slo.record_request(t_done - req.enqueue_t)
+                if bad and _trace._ENABLED and req.trace_ctx is not None:
+                    # over the latency objective: an instant marker span
+                    # keeps this trace in the protected ring
+                    _trace.server_span(
+                        "serving.slo_violation", req.trace_ctx,
+                        attrs={"e2e_ms": (t_done - req.enqueue_t) * 1e3},
+                    ).end(status=_trace.STATUS_SLO_VIOLATION)
+        if not _monitor._ENABLED:
+            return
+        _monitor.count("serving.completed", len(live))
+        _monitor.count("serving.batches")
+        _monitor.count("serving.padded_rows", bs - rows)
+        _monitor.count("serving.padding_waste_elems", waste)
+        _monitor.observe("serving.batch_size", rows)
+        for req in live:
+            _monitor.observe("serving.queue_wait", t_disp - req.enqueue_t)
+            _monitor.observe("serving.e2e_latency", t_done - req.enqueue_t)
+
+    def bucket_pool_bytes(self) -> int:
+        """Bytes of one padded input set per (batch size, item signature)
+        ever dispatched — the inputs each captured program re-feeds.
+        Gauged as `serving.bucket_pool.bytes`."""
+        total = 0
+        for sig in self._ledger.seen_sigs():
+            bs = int(sig[0])
+            for shape, dt in sig[1:]:
+                elems = int(np.prod(shape)) if shape else 1
+                total += bs * elems * np.dtype(dt).itemsize
+        return total
 
     # ---- health / stats ----
     def stats(self) -> Dict[str, Any]:
@@ -442,6 +630,9 @@ class ServingEngine:
             counts = dict(self._counts)
             pending = self._pending
             inflight = self._inflight
+        pool_bytes = self.bucket_pool_bytes()
+        if _monitor._ENABLED:
+            _monitor.gauge_set("serving.bucket_pool.bytes", pool_bytes)
         return {
             "running": self.running,
             "queue_depth": pending,
@@ -451,6 +642,9 @@ class ServingEngine:
             "batch_timeout_ms": self.config.batch_timeout_ms,
             "workers": len(self._workers),
             "buckets": [b.describe() for b in self.buckets.buckets()],
+            "bucket_pool_bytes": pool_bytes,
             "counters": counts,
             "warm_start_ms": self._warm_start_ms,
+            # error-budget burn (None = no SLO configured)
+            "slo": _slo.stats(),
         }

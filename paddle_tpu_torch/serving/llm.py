@@ -32,9 +32,14 @@ Decode blocks are `decode_block` (=2) tokens wide with only row 0 real, as
 in the reference; the junk row's cache write lands one past the live
 prefix and is overwritten by the next real token before it can be read.
 
-Not ported: the reference's faults, SLO, obs timeline, executable
-dispatch-guard, memory-census and syncwatch hooks (ROADMAP Queue 1 item
-7), and the 'PDSQ' / 'PDST' streaming wire (item 6).
+The reference's hooks, each behind its flag's one attribute check: the
+SLO shed at admission and every finished request's outcome
+(`obs/slo.py`); the `llm.decode` fault site, checked once per in-flight
+sequence so an injected error evicts exactly that one; the decode step
+under `dispatch_guard("llm_decode")` and, with the timeline on, its own
+`decode_step` phase fenced on the scheduler's stream; the `kv_pool`
+memory tag; the scheduler as a `syncwatch.Thread`. The 'PDSQ' / 'PDST'
+streaming wire is `inference/server.py`'s, over `on_token` / `iter()`.
 """
 from __future__ import annotations
 
@@ -48,10 +53,16 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import faults as _faults
 from .. import monitor as _monitor
 from .. import nn
+from .. import obs as _obs
+from ..core import executable as _exe
 from ..core import flags as _flags
 from ..core.place import resolve_device
+from ..obs import memory as _mem
+from ..obs import slo as _slo
+from ..utils import syncwatch as _syncwatch
 from .engine import (DeadlineExceededError, EngineStoppedError,
                      ServerOverloadedError, ServingError)
 
@@ -246,6 +257,8 @@ class LLMEngine:
     for the CPU). See LLMConfig for sizing and the module docstring for
     the one-capture invariant."""
 
+    _FAULT_SITE = "llm.decode"
+
     def __init__(self, model, config: Optional[LLMConfig] = None,
                  device=None):
         from ..models.gpt import GPTForCausalLM, GPTModel
@@ -315,8 +328,9 @@ class LLMEngine:
             return self
         if self.config.warmup_on_start:
             self._warmup()
-        self._thread = threading.Thread(target=self._run, daemon=True,
-                                        name="llm-scheduler")
+        self._retag_pool()
+        self._thread = _syncwatch.Thread(target=self._run, daemon=True,
+                                         name="llm-scheduler")
         self._thread.start()
         return self
 
@@ -404,6 +418,12 @@ class LLMEngine:
                 f"bucket {self.buckets[-1]} (raise FLAGS_llm_max_len)")
         if self._stopped or self._thread is None:
             raise EngineStoppedError("LLM engine not running")
+        if _slo._ENABLED and _slo.should_shed():
+            self._counters["shed"] += 1
+            if _monitor._ENABLED:
+                _monitor.count("llm.shed")
+            _slo.record_request(None, _slo.OUTCOME_REJECTED)
+            raise ServerOverloadedError("shedding on SLO burn rate")
         budget = self.config.max_len - int(prompt.size)
         max_new = min(int(max_new_tokens or self.config.max_new_tokens),
                       max(budget, 1))
@@ -551,9 +571,17 @@ class LLMEngine:
         now = time.monotonic()
         with self._lock:
             live = sorted(self._active.items())
+        # the llm.decode fault site is checked once per in-flight
+        # sequence so an injected error takes down exactly one of them
         for slot, seq in live:
             if seq.deadline is not None and now > seq.deadline:
                 self._evict(seq, "deadline")
+                continue
+            if _faults._ENABLED:
+                try:
+                    _faults.check(self._FAULT_SITE)
+                except Exception as e:
+                    self._evict(seq, "error", f"{type(e).__name__}: {e}")
         with self._lock:
             live = sorted(self._active.items())
         if not live:
@@ -564,8 +592,19 @@ class LLMEngine:
         for slot, seq in live:
             toks[slot] = seq.last_token
             pos[slot] = seq.pos
-        with _monitor.span("llm.decode_step"):
-            nxt = self._decode_step(toks, pos)[0].cpu().numpy()
+        def _dispatch():
+            report = lambda: {"kv_pool_bytes": self.kv_pool_bytes()}  # noqa: E731
+            with _exe.dispatch_guard("llm_decode", report=report), \
+                    _monitor.span("llm.decode_step"):
+                return self._decode_step(toks, pos)[0].cpu().numpy()
+
+        if _obs._TL_ENABLED and not _obs.in_phase():
+            # the read-back above synchronizes the scheduler's stream, so
+            # the phase holds the step's device time
+            with _obs.timeline().phase("decode_step"):
+                nxt = _dispatch()
+        else:
+            nxt = _dispatch()
         now = time.monotonic()
         for slot, seq in live:
             tok = int(nxt[slot])
@@ -623,7 +662,18 @@ class LLMEngine:
         if _monitor._ENABLED:
             _monitor.count("llm.completed")
             _monitor.observe("llm.e2e_latency", latency)
+        if _slo._ENABLED:
+            outcome = {"done": _slo.OUTCOME_OK,
+                       "deadline": _slo.OUTCOME_DEADLINE}.get(
+                           status, _slo.OUTCOME_ERROR)
+            _slo.record_request(
+                latency if outcome == _slo.OUTCOME_OK else None, outcome)
         seq.stream._finish(status, error)
+
+    def _retag_pool(self) -> None:
+        if _mem._ENABLED:
+            _mem.tag("kv_pool", [*self._pool, *self._scales],
+                     origin="LLMEngine")
 
     # ---- introspection -----------------------------------------------------
 

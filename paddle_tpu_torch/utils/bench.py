@@ -71,6 +71,13 @@ its two config-4 deploy arms.
   20 `run()`s.
 
 Each arm prints one JSON line under `bench.py`'s keys where they exist.
+The three train arms (`ernie_train`, `ernie10b_layer`, `lenet_dispatch`)
+print two lines before it, `timeline: {...}` and `memory: {...}`:
+`bench.py`'s `_timeline_breakdown` (:52, the steady-state per-phase ms of
+`BREAKDOWN_STEPS` `__call__` steps under FLAGS_obs_timeline, their wall
+and phase coverage, and `cost_analysis`) and `_memory_breakdown` (:86, one
+step under FLAGS_mem_census: the census's live bytes and per-tag shares,
+the phase peaks, and `memory_report`).
 MFU is over the H100's 989 TFLOP/s dense bf16 peak. Run on a machine with
 a CUDA device:
 
@@ -105,6 +112,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 PEAK_BF16 = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
+BREAKDOWN_STEPS = 3     # steady-state __call__ steps of the timeline lines
 
 
 def _sync(device):
@@ -140,6 +148,75 @@ def _timed_rate(run, payload, reps, device):
     return med, (max(rates) - min(rates)) / med, out
 
 
+def _timeline_breakdown(step, batch, n_steps):
+    """bench.py:52: per-phase step-time attribution through the obs
+    plane — n_steps + 1 `__call__` steps under FLAGS_obs_timeline (the
+    first is the signature's trace_compile step), aggregated over the
+    steady-state records: (phases_ms, wall_ms, coverage, cost), coverage
+    = phase sum / wall."""
+    from .. import obs
+    from ..core import flags
+    flags.set_flags({"obs_timeline": True})
+    obs.reset()
+    try:
+        for _ in range(n_steps + 1):
+            step(*batch)
+        recs = [r for r in obs.timeline().records()
+                if "trace_compile" not in r.get("phases", {})
+                and "build" not in r.get("phases", {})]
+        cost = step.cost_analysis(*batch)
+    finally:
+        flags.set_flags({"obs_timeline": False})
+        obs.reset()
+    if not recs:
+        return {}, 0.0, 0.0, cost
+    agg = {}
+    for r in recs:
+        for k, v in r["phases"].items():
+            agg[k] = agg.get(k, 0.0) + v
+    n = len(recs)
+    phases_ms = {k: round(v / n * 1e3, 3) for k, v in agg.items()}
+    wall_ms = sum(r["wall"] for r in recs) / n * 1e3
+    coverage = (sum(agg.values()) / n * 1e3) / wall_ms if wall_ms else 0.0
+    return phases_ms, round(wall_ms, 3), round(coverage, 3), cost
+
+
+def _memory_breakdown(step, batch):
+    """bench.py:86: device memory attribution — one step under
+    FLAGS_mem_census, then the census's live bytes and per-tag shares, the
+    phase peaks and the step's `memory_report`."""
+    from ..core import flags
+    from ..obs import memory as _memory
+    flags.set_flags({"mem_census": True})
+    try:
+        step(*batch)
+        rec = _memory.census(publish=False, store=False)
+        total = int(rec.get("total_bytes", 0))
+        shares = {name: round(b["bytes"] / total, 4)
+                  for name, b in sorted(rec.get("tags", {}).items())} \
+            if total else {}
+        report = step.memory_report(*batch)
+        peaks = _memory.phase_peaks()
+        return {"live_bytes": total,
+                "peak_bytes": max([total] + list(peaks.values())),
+                "tag_shares": shares,
+                "executables": {"train_step": report}}
+    finally:
+        flags.set_flags({"mem_census": False})
+        _memory.reset()
+
+
+def _print_breakdowns(step, batch):
+    """The two lines a train arm prints before its result."""
+    phases, wall, coverage, cost = _timeline_breakdown(step, batch,
+                                                       BREAKDOWN_STEPS)
+    print("timeline: " + json.dumps(
+        {"phases_ms": phases, "wall_ms": wall, "coverage": coverage,
+         "cost": cost, "steps": BREAKDOWN_STEPS}), flush=True)
+    print("memory: " + json.dumps(_memory_breakdown(step, batch)),
+          flush=True)
+
+
 def step_split_ms(step, *batch, reps=4):
     """Device time of one step's forward, backward and optimizer update,
     from CUDA events (median of the last reps - 1). The update runs on
@@ -147,7 +224,7 @@ def step_split_ms(step, *batch, reps=4):
     untouched."""
     from ..jit.functional import amp_functional_call
     from ..nn.functional.norm import frozen_running_stats
-    inputs, labels = step._prepare(batch)
+    inputs, labels, _ = step._prepare(batch, note=False)
     ps, opt = step._ptensors, step.optimizer
     values = [p.detach().clone() for p in ps]
     slots = opt.init_state(ps)
@@ -257,6 +334,7 @@ def ernie_train(batch=32, seq=128, n_steps=100, reps=5, prefetch_steps=20,
             feed.close()
     overlap["speedup"] = overlap["prefetch_on"]["samples_per_sec"] / \
         overlap["prefetch_off"]["samples_per_sec"]
+    _print_breakdowns(step, one)
 
     flops_sample = flagship_flops_per_sample(net, seq)
     losses = [float(x) for x in first] + [float(x) for x in last]
@@ -307,6 +385,7 @@ def ernie10b_layer(h=4096, ffn=16384, heads=64, seq=2048, batch=2,
                                     device)
     peak = _peak(device)
     memory = dict(step.memory_report(x[0]), **peak)
+    _print_breakdowns(step, (x[0],))
     # per-layer products: qkv + out (4h^2) + mlp (2·h·ffn) (bench.py:727)
     n_matmul = 4 * h * h + 2 * h * ffn
     flops_step = batch * (6 * n_matmul * seq + 3 * 4 * seq * seq * h)
@@ -478,6 +557,7 @@ def lenet_dispatch(big=True, seed=0, batch=32, warmup=6):
     step.run(xs, ys)               # the first span captures the graph
     graph_ms, graph_spread, losses = _ms_per_step(
         lambda: step.run(xs, ys), n, reps, device)
+    _print_breakdowns(step, (x, y))
     return {"step_latency_ms": ms, "spread": spread,
             "graph_step_latency_ms": graph_ms, "graph_spread": graph_spread,
             "loss_after_warmup": first, "loss_eager_last": eager_last,

@@ -162,6 +162,8 @@ def test_entry_points_raise_without_cuda_or_a_cpu_request():
             pt.models.GPTModel(vocab_size=64, hidden_size=64, num_layers=1,
                                num_heads=1, max_seq_len=16)))
         assert raises(lambda: pt.nn.Linear(4, 4))
+        from paddle_tpu_torch.inference.server import PredictorServer
+        assert raises(lambda: PredictorServer(lambda x: x))
         pt.set_device("cpu")
         layer = pt.nn.Linear(4, 4)
         assert raises(lambda: pt.inference.Predictor(layer, device="gpu"))
@@ -256,6 +258,60 @@ def test_sequence_layers_and_config4_run_with_jax_and_the_jax_package_blocked(
             torch.randn(1, 8, 3, 3), None, [10, 13], 3, 0.5, 8)
         keep = pt.vision.ops.nms(boxes[0], 0.5, scores[0].max(-1).values)
         pt.vision.models.squeezenet1_1(num_classes=3)
+        loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                        and m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+        assert not loaded, loaded
+        print("ok")
+    """)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == "ok"
+
+
+def test_server_and_obs_plane_run_with_jax_and_the_jax_package_blocked():
+    res = _run("""
+        import sys
+        for name in ("jax", "jaxlib", "paddle_tpu"):
+            sys.modules[name] = None          # any import of them fails
+        import numpy as np
+        import paddle_tpu_torch as pt
+        from paddle_tpu_torch import _native, monitor, obs
+        from paddle_tpu_torch.inference.server import (PredictorClient,
+                                                       PredictorServer)
+        from paddle_tpu_torch.obs import memory, trace
+        pt.set_device("cpu")
+        pt.set_flags({"FLAGS_monitor": True, "FLAGS_trace": True,
+                      "FLAGS_obs_timeline": True, "FLAGS_mem_census": True})
+        pt.seed(0)
+        model = pt.models.GPTForCausalLM(pt.models.GPTModel(
+            vocab_size=64, hidden_size=64, num_layers=2, num_heads=2,
+            max_seq_len=32, dropout=0.0))
+        pred = pt.inference.Predictor(
+            model, input_spec=[pt.InputSpec([1, 32], "int32")])
+        llm = pt.serving.LLMEngine(model, pt.serving.LLMConfig(
+            num_slots=2, max_len=32, max_new_tokens=4), device="cpu")
+        srv = PredictorServer(pred, llm_engine=llm).start()
+        c = PredictorClient(srv.host, srv.port, timeout=60)
+        ids = np.arange(32, dtype=np.int32)[None] % 64
+        status, outs = c.run([ids])
+        assert status == 0 and outs[0].shape == (1, 32, 64)
+        rc, couts = _native.run(srv.host, srv.port, [ids])
+        assert rc == 0 and couts[0].tobytes() == outs[0].tobytes()
+        status, toks = c.generate([1, 2, 3], 4)
+        assert status == 0 and len(toks) == 4
+        assert c.health()["monitor"]["counters"]["serving.completed"] == 2
+        c.drain()
+        c.close()
+        srv.stop()
+        assert len(trace.traces()) == 1 and trace.active_depth() == 0
+        opt = pt.optimizer.AdamW(learning_rate=1e-3,
+                                 parameters=model.parameters())
+        step = pt.jit.TrainStep(model, pt.models.GPTPretrainingCriterion(),
+                                opt)
+        for _ in range(2):
+            step(ids, ids)
+        assert len(obs.timeline().records()) == 2
+        assert memory.census()["tags"]["params"]["bytes"] > 0
+        assert "paddle_tpu_serving_completed 2" in monitor.prometheus_text()
         loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                         and m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
         assert not loaded, loaded

@@ -181,8 +181,17 @@ def test_bench_lenet_dispatch_arm_runs_on_the_cpu():
     out = io.StringIO()
     with redirect_stdout(out):
         bench.main(["--arm", "lenet_dispatch", "--device", "cpu"])
-    r = json.loads(out.getvalue().strip().splitlines()[-1])
+    lines = out.getvalue().strip().splitlines()
+    r = json.loads(lines[-1])
     assert r["arm"] == "lenet_dispatch" and r["device"] == "cpu"
+    # bench.py's _timeline_breakdown / _memory_breakdown lines before it
+    assert lines[-3].startswith("timeline: ")
+    assert lines[-2].startswith("memory: ")
+    tl = json.loads(lines[-3][len("timeline: "):])
+    assert {"h2d", "device_compute"} <= set(tl["phases_ms"])
+    assert 0.8 <= tl["coverage"] <= 1.02 and tl["cost"]["flops"] > 0
+    mem = json.loads(lines[-2][len("memory: "):])
+    assert mem["tag_shares"]["params"] > 0 and mem["live_bytes"] > 0
     for key in ("step_latency_ms", "graph_step_latency_ms", "spread",
                 "graph_spread"):
         assert np.isfinite(r[key]) and r[key] >= 0, key
