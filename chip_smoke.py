@@ -286,6 +286,31 @@ last line is printed):
                jit.train_step.steps counter; 12 + 12 flash launches per
                eager step and kernel nodes per replay.
 
+ 22. dist    - slice 15, data parallelism and ZeRO over processes (BASELINE
+               config 3), ranks started by the port's own spawn: with two
+               or more cards one NCCL rank per card (at most 8); with one,
+               a world of one over NCCL and two gloo ranks on cuda:0
+               (gloo named explicitly; NCCL takes no two ranks on one
+               card). In each rank: every collective on CUDA tensors
+               seeded per rank, every ReduceOp, f32 (exact, integer
+               values) and bf16 (1e-2 relative); ERNIE-base at full width
+               and depth, dropout 0, MLM + NSP at the global 32 x 128, bf16
+               AMP, AdamW(1e-4) through fleet.init -> distributed_model ->
+               SPMDTrainStep(grad_reduction="bucketed"): the step-1 loss
+               within 1e-3 relative and every gradient at cosine >= 0.999
+               of one process's TrainStep on the whole batch from the same
+               weights, then 1 warm-up and 5 steps with the loss falling,
+               c_allreduce_bucket counted once per bucket and step, the
+               flight recorder holding them, the parameters bit-equal
+               across ranks (an all_gather of checksums); ZeRO stages 1, 2
+               and 3 over the world, 3 steps each from the same weights,
+               losses within 1e-3 of DP's, memory beside DP's and stage
+               1's slot bytes at 1/W of DP's; scaled_dot_product_attention
+               forward and backward in bf16 at 1 x 2048 x 12 x 64 on the
+               rank's card through rows 1 and 2 (1 + 1 launches) against
+               the plain f32 math; the allreduce arm's bus GB/s at 64 MB
+               (n/a for one rank; host-staged over gloo).
+
 Each fp16 step drives `scaler.step(opt)` after the scaled backward and no
 `scaler.update()`: the reference's step() already updates the scale once
 every optimizer has stepped, and an update() after it counts the step a
@@ -351,6 +376,11 @@ SERVER_THREADS, SERVER_NEW, SERVER_BURST = 4, 32, 6
 SERVER_SLO_MS = 30000.0
 # the obs phase's __call__ steps (run() then spans one more: its capture)
 OBS_STEPS = 5
+# the dist phase: DP warm-up and measured steps, ZeRO steps per stage,
+# the per-rank kernel check's attention shape, a world's time limit
+DIST_WARM, DIST_STEPS, ZERO_STEPS = 1, 5, 3
+DIST_ATT = (1, 2048, 12, 64)
+DIST_TIMEOUT = 300
 RING_SRC = "paddle_tpu_torch/kernels/csrc/ring_attention.cu"
 SOURCES = {"flash_fwd": "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
            "flash_bwd_fused": "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
@@ -4634,6 +4664,280 @@ def obs_phase(pt, fa, torch, np, card):
         torch.cuda.empty_cache()
 
 
+def dist_collectives(dist, torch, np, dev, r, w):
+    """Every collective of parallel.collective on this rank's CUDA tensors
+    (rank i's input from default_rng(SEED + i), integer-valued), each
+    held against the value computed from every rank's input: exact in
+    f32, 1e-2 relative in bf16. Returns {check: max relative error}."""
+    n = 4 * w
+    ins = [np.random.default_rng(SEED + i).integers(1, 4, n).astype(
+        np.float32) for i in range(w)]
+    errs = {}
+
+    def held(name, got, want, dtype):
+        got = got.float().cpu().numpy()
+        want = np.asarray(want, np.float32)
+        err = float(np.max(np.abs(got - want) / np.maximum(np.abs(want),
+                                                            1e-6)))
+        errs[name] = max(errs.get(name, 0.0), err)
+        tol = 0.0 if dtype == torch.float32 else 1e-2
+        check(got.shape == want.shape and err <= tol,
+              f"dist: {name} {dtype} rank {r}: err {err} (tol {tol})")
+
+    stack = np.stack(ins)
+    ops = {"SUM": stack.sum(0), "MAX": stack.max(0), "MIN": stack.min(0),
+           "PROD": stack.prod(0), "AVG": stack.mean(0)}
+    for dtype in (torch.float32, torch.bfloat16):
+        def mine():
+            return torch.from_numpy(ins[r].copy()).to(dev, dtype)
+        for name, want in ops.items():
+            t = mine()
+            dist.all_reduce(t, op=getattr(dist.ReduceOp, name))
+            held(f"all_reduce_{name}", t, want, dtype)
+        held("all_gather", dist.all_gather(None, mine()), stack, dtype)
+        held("reduce_scatter", dist.reduce_scatter(None, mine()),
+             stack.sum(0).reshape(w, -1)[r], dtype)
+        t = mine()
+        dist.broadcast(t, src=w - 1)
+        held("broadcast", t, ins[w - 1], dtype)
+        t = mine()
+        dist.reduce(t, dst=0)
+        held("reduce", t, stack.sum(0), dtype)
+        t = torch.empty(4, dtype=dtype, device=dev)
+        dist.scatter(t, list(mine().reshape(w, 4)), src=0)
+        held("scatter", t, ins[0].reshape(w, 4)[r], dtype)
+        held("alltoall", dist.alltoall(list(mine().reshape(w, 4))),
+             stack.reshape(w, w, 4)[:, r], dtype)
+        held("alltoall_single", dist.alltoall_single(mine()),
+             stack.reshape(w, w, 4)[:, r].reshape(-1), dtype)
+        held("p2p_shift", dist.p2p_shift(mine(), group=None),
+             ins[(r - 1) % w], dtype)
+        if w > 1:                        # no rank sends to itself
+            got = torch.empty(n, dtype=dtype, device=dev)
+            task = dist.isend(mine(), dst=(r + 1) % w)
+            dist.recv(got, src=(r - 1) % w)
+            task.wait()
+            held("send_recv", got, ins[(r - 1) % w], dtype)
+    objs = dist.all_gather_object([], {"rank": r})
+    check(objs == [{"rank": i} for i in range(w)],
+          f"dist: all_gather_object {objs}")
+    dist.barrier()
+    dist.wait(torch.ones(1, device=dev))
+    return errs
+
+
+def dist_rank(tag, outdir):
+    """One rank of the dist phase (see the module docstring, phase 22):
+    writes its results to outdir/<tag>_<rank>.json."""
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import distributed as dist, monitor, obs
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.parallel import HybridCommunicateGroup, SPMDTrainStep
+    from paddle_tpu_torch.utils import bench
+    t0 = time.perf_counter()
+    pt.set_flags({"FLAGS_monitor": True, "FLAGS_obs_flight_recorder": True})
+    w = int(os.environ["PADDLE_TRAINERS_NUM"])
+    strategy = pt.parallel.DistributedStrategy()
+    strategy.hybrid_configs["dp_degree"] = w
+    hcg = dist.fleet.init(is_collective=True, strategy=strategy)
+    r, dev = dist.get_rank(), dist.ParallelEnv().device
+    res = {"rank": r, "world": w, "device": str(dev),
+           "backend": dist.get_backend()}
+    check(dev.type == "cuda" and dist.get_world_size() == w,
+          f"dist: rank {r} on {dev}, world {dist.get_world_size()}")
+    res["collective_errs"] = dist_collectives(dist, torch, np, dev, r, w)
+
+    # ---- config 3: ERNIE-base, DP over the world, bucketed ----
+    rng = np.random.default_rng(SEED)
+    ids = torch.from_numpy(rng.integers(0, 30522, (FLAGSHIP_B, FLAGSHIP_S))
+                           .astype(np.int32)).to(dev)
+    nsp = torch.from_numpy(rng.integers(0, 2, (FLAGSHIP_B,)).astype(
+        np.int32)).to(dev)
+    batch = (ids, ids, nsp)
+    pt.seed(SEED)
+    step = bench.dp_step(pt, hcg)
+    net = step.model
+    init = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    ref = bench.flagship_step(pt)
+    with torch.no_grad():
+        for a, b in zip(ref.model.parameters(), net.parameters()):
+            a.copy_(b)
+    inputs, labels, _ = ref._prepare(batch, note=False)
+    loss_ref, g_ref = ref._loss_and_grads(inputs, labels)
+    loss_dp, g_dp = step.loss_and_grads(*batch)
+    names = [n for n, _ in net.named_parameters()]
+    rel = abs(float(loss_dp) - float(loss_ref)) / abs(float(loss_ref))
+    low = sorted((cosine(a.float(), b.float()), n)
+                 for a, b, n in zip(g_dp, g_ref, names))
+    res["step1"] = {"loss_dp": float(loss_dp), "loss_one": float(loss_ref),
+                    "rel_err": rel, "lowest_cosines": low[:3]}
+    check(rel <= 1e-3, f"dist: rank {r} step-1 loss rel err {rel}")
+    check(low[0][0] >= 0.999, f"dist: rank {r} gradient cosines {low[:3]}")
+    del ref, inputs, labels, loss_ref, g_ref, g_dp
+    counter = "collective.c_allreduce_bucket.count"
+    n_buckets = len(step.reducer.bucket_layout())
+    losses, per_step = [], []
+    for i in range(DIST_WARM + DIST_STEPS):
+        before = monitor.snapshot()["counters"].get(counter, 0)
+        losses.append(float(step(*batch)))
+        per_step.append(monitor.snapshot()["counters"].get(counter, 0)
+                        - before)
+        if i == DIST_WARM - 1:
+            torch.cuda.synchronize()
+            t_steps = time.perf_counter()
+    torch.cuda.synchronize()
+    res["dp"] = {"losses": losses, "n_buckets": n_buckets,
+                 "buckets_per_step": per_step,
+                 "ms_per_step": (time.perf_counter() - t_steps) / DIST_STEPS
+                 * 1e3,
+                 "memory_allocated": torch.cuda.memory_allocated(dev),
+                 "slot_bytes": step.memory_report(*batch)["slot_bytes"]}
+    check(losses[-1] < losses[0] and all(np.isfinite(losses)),
+          f"dist: rank {r} DP losses {losses}")
+    check(per_step == [n_buckets] * len(per_step),
+          f"dist: rank {r} c_allreduce_bucket per step {per_step}, "
+          f"{n_buckets} buckets")
+    sums = torch.stack([torch.stack([
+        p.detach().view(torch.int32).sum(dtype=torch.int64).double(),
+        p.detach().double().sum()]) for p in net.parameters()])
+    gathered = dist.all_gather(None, sums)
+    res["dp"]["bit_equal"] = bool((gathered == gathered[0]).all())
+    check(res["dp"]["bit_equal"], f"dist: rank {r} parameters differ "
+          "across ranks")
+    dump = obs.recorder().payload(reason="dist")
+    names_seen = [c[1] for c in dump["collectives"]]
+    res["dp"]["recorded_buckets"] = names_seen.count("c_allreduce_bucket")
+    check(res["dp"]["recorded_buckets"] >= n_buckets and all(
+        len(c) == 3 for c in dump["collectives"]),
+        f"dist: rank {r} flight recorder collectives {dump['collectives'][:4]}")
+    del step, net
+    torch.cuda.empty_cache()
+
+    # ---- ZeRO stages 1-3 over the world, from the same weights ----
+    hz = HybridCommunicateGroup(hybrid_configs={"sharding_degree": w})
+    res["zero"] = {}
+    for stage in (1, 2, 3):
+        pt.seed(SEED)
+        znet = pt.models.ErnieForPretraining(pt.models.ernie_base(
+            hidden_dropout_prob=0.0))
+        znet.set_state_dict(init)
+        zopt = pt.optimizer.AdamW(parameters=znet.parameters(),
+                                  learning_rate=1e-4)
+        zstep = SPMDTrainStep(znet, bench.flagship_loss(pt), zopt,
+                              mesh=hz.get_mesh(), sharding_stage=stage,
+                              amp_dtype="bfloat16", n_model_inputs=1)
+        zl = [float(zstep(*batch)) for _ in range(ZERO_STEPS)]
+        torch.cuda.synchronize()
+        zrel = max(abs(a - b) / abs(b) for a, b in zip(zl, losses))
+        res["zero"][stage] = {
+            "losses": zl, "max_rel_vs_dp": zrel,
+            "memory_allocated": torch.cuda.memory_allocated(dev),
+            "slot_bytes": zstep.memory_report(*batch)["slot_bytes"]}
+        check(zrel <= 1e-3, f"dist: rank {r} ZeRO-{stage} losses {zl} vs "
+              f"DP {losses[:ZERO_STEPS]}")
+        del zstep, znet, zopt
+        torch.cuda.empty_cache()
+    dp_slots = res["dp"]["slot_bytes"]
+    z1 = res["zero"][1]["slot_bytes"]
+    check(z1 <= dp_slots / w * 1.01 + 1e6, f"dist: rank {r} ZeRO-1 slots "
+          f"{z1} B vs DP {dp_slots} B over {w} ranks")
+
+    # ---- rows 1-2 on this rank's card ----
+    b_, s_, h_, d_ = DIST_ATT
+    g = torch.Generator(device="cpu").manual_seed(SEED + r)
+    q, k, v, do = (torch.randn(b_, s_, h_, d_, generator=g).to(
+        dev, torch.bfloat16).requires_grad_(i < 3) for i in range(4))
+    for c in (fa.flash_attention_fwd, fa.flash_attention_bwd_fused):
+        c.launches = 0
+    out = pt.nn.functional.scaled_dot_product_attention(q, k, v)
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    launches = [fa.flash_attention_fwd.launches,
+                fa.flash_attention_bwd_fused.launches]
+    q32, k32, v32 = (x.detach().float().requires_grad_() for x in (q, k, v))
+    p_ = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q32, k32)
+                       / math.sqrt(d_), -1)
+    ref_out = torch.einsum("bhqk,bkhd->bqhd", p_, v32)
+    ref_grads = torch.autograd.grad(ref_out, (q32, k32, v32), do.float())
+    tol, tol_g = tol_of(torch, torch.bfloat16), \
+        tol_of(torch, torch.bfloat16, grad=True)
+    errs = [close_enough(out, ref_out, tol)] + \
+        [close_enough(a, b_ref, tol_g) for a, b_ref in
+         zip((dq, dk, dv), ref_grads)]
+    res["kernels"] = {"launches": launches,
+                      "max_abs_err": [e[0] for e in errs], "tol": tol}
+    check(launches == [1, 1] and all(e[1] for e in errs),
+          f"dist: rank {r} on {dev}: flash launches {launches}, errors "
+          f"{errs}")
+
+    # ---- the allreduce arm ----
+    res["allreduce"] = bench.allreduce_busbw(64 << 20)
+    res["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(outdir, f"{tag}_{r}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def dist_phase(pt, torch, card):
+    """Slice 15 on the card: the worlds this machine allows, each started
+    by the port's spawn; the parent reads every rank's results and
+    prints one line per world."""
+    import tempfile
+    from paddle_tpu_torch.parallel import spawn
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        w = min(n_cards, 8)
+        worlds = [(f"nccl_w{w}", w, "nccl", ",".join(map(str, range(w))))]
+    else:
+        worlds = [("nccl_w1", 1, "nccl", "0"), ("gloo_w2", 2, "gloo", "0,0")]
+    with tempfile.TemporaryDirectory(prefix="dist_") as d:
+        for tag, w, backend, gpus in worlds:
+            t0 = time.perf_counter()
+            spawn(dist_rank, args=(tag, d), nprocs=w, backend=backend,
+                  gpus=gpus, timeout=DIST_TIMEOUT)
+            ranks = [json.load(open(os.path.join(d, f"{tag}_{r}.json")))
+                     for r in range(w)]
+            r0 = ranks[0]
+            ar = r0["allreduce"]
+            bus = "n/a (one rank)" if ar["bus_gbps"] is None else \
+                f"{ar['bus_gbps']:.2f} GB/s ({ar['note']})"
+            print(f"dist [{tag}: {w} rank(s), {backend}, cards "
+                  f"{[x['device'] for x in ranks]}]: collectives max rel "
+                  f"err {max(max(x['collective_errs'].values()) for x in ranks):.3g} "
+                  f"(f32 exact, bf16 1e-2); config 3 ERNIE-base "
+                  f"{FLAGSHIP_B}x{FLAGSHIP_S} bf16 step-1 loss "
+                  f"{r0['step1']['loss_dp']:.6f} vs one process "
+                  f"{r0['step1']['loss_one']:.6f} (rel err "
+                  f"{max(x['step1']['rel_err'] for x in ranks):.3g}, tol "
+                  f"1e-3), lowest grad cosines {r0['step1']['lowest_cosines']}"
+                  f" (tol 0.999); losses {[round(v, 4) for v in r0['dp']['losses']]}"
+                  f"; {r0['dp']['n_buckets']} buckets, c_allreduce_bucket per "
+                  f"step {r0['dp']['buckets_per_step']}, recorded "
+                  f"{r0['dp']['recorded_buckets']}; parameters bit-equal "
+                  f"across ranks {all(x['dp']['bit_equal'] for x in ranks)};"
+                  f" ms/step {[round(x['dp']['ms_per_step'], 2) for x in ranks]}"
+                  f" ({FLAGSHIP_B * 1e3 / r0['dp']['ms_per_step']:.1f} "
+                  f"samples/s); ZeRO max rel vs DP "
+                  f"{ {s: round(z['max_rel_vs_dp'], 6) for s, z in r0['zero'].items()} }"
+                  f" (tol 1e-3); memory_allocated MB DP "
+                  f"{r0['dp']['memory_allocated'] / 2**20:.0f}, ZeRO "
+                  f"{ {s: round(z['memory_allocated'] / 2**20) for s, z in r0['zero'].items()} }"
+                  f"; slot MB DP {r0['dp']['slot_bytes'] / 2**20:.1f}, ZeRO "
+                  f"{ {s: round(z['slot_bytes'] / 2**20, 1) for s, z in r0['zero'].items()} }"
+                  f"; rows 1-2 per rank launches "
+                  f"{[x['kernels']['launches'] for x in ranks]} max abs err "
+                  f"{[[round(e, 4) for e in x['kernels']['max_abs_err']] for x in ranks]}"
+                  f" (tol {r0['kernels']['tol']} (1+|ref|)); allreduce 64 MB "
+                  f"bus {bus}; world {time.perf_counter() - t0:.1f} s "
+                  f"[{card}]", flush=True)
+    print(f"dist: phase {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+
+
 def ptxas(path):
     """{kernel symbol: {"registers": N, "spill": [stores, loads]}} from a
     built library's `-Xptxas -v` log."""
@@ -4946,6 +5250,7 @@ def main() -> int:
     finally:
         gpt2_dir.cleanup()
     obs_launches = obs_phase(pt, fa, torch, np, card)
+    dist_phase(pt, torch, card)
 
     summary = {"flash_fwd": dict(serving_row,
                                  launches=train_launches["flash_fwd"]

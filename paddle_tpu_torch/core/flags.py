@@ -6,7 +6,8 @@ Counterpart of `paddle_tpu/core/flags.py`: `check_nan_inf` (read by
 `FLAGS_llm_*` entries that `LLMConfig.from_flags` reads, `monitor` (the
 gate of `paddle_tpu_torch.monitor`, kept in sync through `watch_flag`),
 the data feed's `prefetch`, `prefetch_depth` and
-`dataloader_max_worker_restarts`, and the observability and wire plane's
+`dataloader_max_worker_restarts`, `dp_bucket_mb` (read by
+`parallel.Reducer`), and the observability and wire plane's
 flags (`fault_inject`, `obs_*`, `mem_*`, `trace*`, `slo_*`, `net_*`,
 `sync_*`, `serving_client_*`), with the reference's defaults. Flags may be
 seeded from environment variables named FLAGS_<name>.
@@ -64,6 +65,11 @@ def flag(name: str) -> Any:
 define_flag("check_nan_inf", False,
             "scan op outputs for NaN/Inf (operator.cc:1171); TrainStep "
             "checks the loss and every gradient")
+define_flag("dp_bucket_mb", 25,
+            "bucketed gradient reduction (parallel/reducer.py): gradient "
+            "bytes coalesced per collective in the backward-interleaved "
+            "DP reduction (reference DataParallel comm_buffer_size=25MB); "
+            "smaller = earlier overlap, larger = fewer collectives")
 define_flag("amp_fused_update", True,
             "GradScaler.step folds unscale + found_inf check + gate into "
             "the optimizer's update (no host sync on found_inf before the "

@@ -445,6 +445,14 @@ def record_op(name: str, dur: float) -> None:
     _REGISTRY.histogram(f"dispatch.dur.{name}").observe(dur)
 
 
+def record_collective(name: str, nbytes: int) -> None:
+    """One collective API call moving (logically) `nbytes`."""
+    _REGISTRY.counter("collective.count").add(1)
+    _REGISTRY.counter("collective.bytes").add(nbytes)
+    _REGISTRY.counter(f"collective.{name}.count").add(1)
+    _REGISTRY.counter(f"collective.{name}.bytes").add(nbytes)
+
+
 def record_retrace(kind: str, signature, first: bool) -> None:
     """A dispatch-cache event. first=True is the first signature (the
     expected build: a CUDA-graph capture or an export); first=False is a

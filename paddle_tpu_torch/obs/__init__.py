@@ -16,9 +16,10 @@ counters and spans:
   - `memory` (device memory attribution), `trace` (request tracing),
     `slo` (error-budget burn), `cost` (attributed MFU, roofline gap).
 
-The reference's cross-rank merge (`obs/merge.py`, over
-`parallel.collective`) and fleet telemetry (`obs/telemetry.py`) wait for
-the distributed slice.
+`record_collective` feeds the recorder's collective ring from
+`parallel/collective._record`. The reference's cross-rank merge
+(`obs/merge.py`) and fleet telemetry (`obs/telemetry.py`) are not ported
+yet.
 
 Hot-path contract: instrumented sites check ONE module attribute
 (`_obs._TL_ENABLED` / `_obs._FR_ENABLED` / `_obs._ENABLED`) and call
@@ -43,7 +44,7 @@ __all__ = [
     "StepTimeline", "FlightRecorder", "PHASES", "DUMP_SCHEMA",
     "enabled", "enable", "disable", "timeline", "recorder",
     "phase", "step_record", "add_phase", "add_async_phase", "mark",
-    "in_phase", "fence", "record_event",
+    "in_phase", "fence", "record_event", "record_collective",
     "dump", "dump_on_error", "register_dump_trigger", "dump_triggers",
     "trigger_reason", "executable_cost",
     "attributed_mfu", "roofline_gap", "dump_to_chrome_events",
@@ -183,6 +184,12 @@ def record_event(kind: str, **payload) -> None:
     fr = _RECORDER
     if fr is not None and _FR_ENABLED:
         fr.record_event(kind, **payload)
+
+
+def record_collective(name: str, nbytes: int) -> None:
+    fr = _RECORDER
+    if fr is not None and _FR_ENABLED:
+        fr.record_collective(name, nbytes)
 
 
 def dump(path: Optional[str] = None, reason: str = "manual",

@@ -7,8 +7,8 @@ either package's dumps. The black box holds
 
   - the last N step-timeline records (shared ring with `obs/timeline.py`),
   - the last M per-step monitor-counter deltas,
-  - the reference's collective-sequence key, empty until the
-    distributed slice ports `parallel.collective`,
+  - the recent collective sequence ([ts, name, bytes], from
+    `parallel/collective._record`),
   - recent events (serving overloads, injected faults),
 
 plus the in-flight phase, the still-open step record, the memory census
@@ -45,6 +45,7 @@ __all__ = ["FlightRecorder", "DUMP_SCHEMA", "dump_to_chrome_events"]
 # one without the section.
 DUMP_SCHEMA = "paddle_tpu.flight_recorder/5"
 
+_COLLECTIVE_RING = 256
 _EVENT_RING = 128
 
 
@@ -57,12 +58,13 @@ def _rank() -> int:
 
 class FlightRecorder:
     """One per process. Reads the step ring off the shared StepTimeline;
-    owns the monitor-delta and event rings."""
+    owns the monitor-delta, collective and event rings."""
 
     def __init__(self, timeline, snapshot_ring: int = 16):
         self.timeline = timeline
         self._lock = threading.Lock()
         self._deltas: deque = deque(maxlen=max(1, int(snapshot_ring)))
+        self._collectives: deque = deque(maxlen=_COLLECTIVE_RING)
         self._events: deque = deque(maxlen=_EVENT_RING)
         self._last_counters: Optional[Dict[str, Any]] = None
         self._last_dump: Dict[str, float] = {}   # reason -> monotonic ts
@@ -81,6 +83,10 @@ class FlightRecorder:
             self._last_counters = counters
             self._deltas.append({"step": record.get("step"),
                                  "ts": record.get("t1"), "delta": delta})
+
+    def record_collective(self, name: str, nbytes: int) -> None:
+        with self._lock:
+            self._collectives.append([time.time(), name, int(nbytes)])
 
     def record_event(self, kind: str, **payload) -> None:
         ev = {"ts": time.time(), "event": kind}
@@ -143,6 +149,7 @@ class FlightRecorder:
         tl = self.timeline
         with self._lock:
             deltas = list(self._deltas)
+            collectives = list(self._collectives)
             events = list(self._events)
         snap = _monitor.snapshot()
         out = {
@@ -155,9 +162,7 @@ class FlightRecorder:
             "open_step": tl.open_record(),
             "steps": tl.records(),
             "monitor_deltas": deltas,
-            # the reference's collective ring: nothing feeds it until the
-            # distributed slice ports parallel.collective
-            "collectives": [],
+            "collectives": collectives,
             "events": events,
             "monitor": {"counters": snap["counters"],
                         "gauges": snap["gauges"],

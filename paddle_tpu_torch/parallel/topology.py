@@ -15,6 +15,15 @@ per-hop work that each card of a four-card ring would do) or four cards
 (peer copies, no code change). Such slots are only made when the caller
 passes them: the default devices are the visible CUDA devices, or the CPU
 when the current place is the CPU.
+
+Over a process world (`init_parallel_env`, one process per card) and with
+no `devices` given, `HybridCommunicateGroup` is the reference Paddle's:
+the ranks map to coordinates in `CommunicateTopology`'s order (data,
+pipe, sharding, model), each axis has a real `collective.Group`, and the
+rank's coordinates answer `get_data_parallel_rank()` and the like. There
+dp x sharding must equal the world size; a tensor, pipeline or sequence
+degree above 1 across processes raises NotImplementedError. Every slot of
+its mesh names this process's device (the one it can address).
 """
 from __future__ import annotations
 
@@ -98,6 +107,11 @@ class CommunicateTopology:
         return tuple(int(c) for c in np.unravel_index(rank, self._dims))
 
 
+# the paddle axis names beside the mesh's
+_AXIS_ALIAS = {"data": "dp", "pipe": "pp", "sharding": "sharding",
+               "model": "mp", "sep": "sp"}
+
+
 class HybridCommunicateGroup:
     """Builds the device mesh for the hybrid strategy.
 
@@ -112,6 +126,12 @@ class HybridCommunicateGroup:
         self.sharding_degree = int(cfg.get("sharding_degree", 1))
         self.mp_degree = int(cfg.get("mp_degree", 1))
         self.sp_degree = int(cfg.get("sp_degree", 1))
+        self.process_mode = False
+        self._groups = {}
+        from .env import is_world
+        if devices is None and is_world():
+            self._init_process_world()
+            return
 
         devices = list(devices) if devices is not None else _default_devices()
         need = (self.dp_degree * self.pp_degree * self.sharding_degree *
@@ -134,6 +154,66 @@ class HybridCommunicateGroup:
         self.global_rank = 0  # single controller: rank-free programming model
         _GLOBAL_HCG[0] = self
         _GLOBAL_MESH[0] = self.mesh
+
+    def _init_process_world(self):
+        """The hybrid topology over the ranks of the process world."""
+        import torch.distributed as dist
+        from . import collective
+        from .env import ParallelEnv
+        world, rank = dist.get_world_size(), dist.get_rank()
+        for name, deg in (("mp_degree", self.mp_degree),
+                          ("pp_degree", self.pp_degree),
+                          ("sp_degree", self.sp_degree)):
+            if deg > 1:
+                raise NotImplementedError(
+                    f"{name}={deg} across processes: tensor, pipeline and "
+                    "sequence parallelism over ranks come with the next "
+                    "slices (mp_layers, pipeline_parallel; ROADMAP.md "
+                    "Queue 1 item 5)")
+        if self.dp_degree * self.sharding_degree == 1 and world > 1:
+            self.dp_degree = world          # paddle's default: pure DP
+        if self.dp_degree * self.sharding_degree != world:
+            raise ValueError(
+                f"dp_degree {self.dp_degree} x sharding_degree "
+                f"{self.sharding_degree} must equal the world size {world}")
+        self.process_mode = True
+        names = ("dp", "pp", "sharding", "mp")
+        dims = [self.dp_degree, 1, self.sharding_degree, 1]
+        self._axis_names = list(names)
+        self.topology = CommunicateTopology(
+            ("data", "pipe", "sharding", "model"), dims)
+        self.global_rank = rank
+        self._coord = self.topology.get_coord(rank)
+        world_group = collective.get_group(0)
+        for ax, name in enumerate(names):
+            if dims[ax] == world:
+                self._groups[name] = world_group
+                continue
+            if dims[ax] == 1:
+                self._groups[name] = collective.Group([rank], None,
+                                                      axis_name=name)
+                continue
+            # every rank makes every group of the axis, in one order
+            others = [d for i, d in enumerate(dims) if i != ax]
+            for rest in np.ndindex(*others):
+                ranks = [int(np.ravel_multi_index(
+                    rest[:ax] + (k,) + rest[ax:], dims))
+                    for k in range(dims[ax])]
+                g = collective.new_group(ranks, axis_name=name)
+                if rank in ranks:
+                    self._groups[name] = g
+        self._groups["sp"] = collective.Group([rank], None, axis_name="sp")
+        device = ParallelEnv().device
+        slots = np.empty(int(np.prod(dims)), dtype=object)
+        slots[:] = [device] * slots.size
+        self.mesh = Mesh(slots.reshape(dims), names)
+        _GLOBAL_HCG[0] = self
+        _GLOBAL_MESH[0] = self.mesh
+
+    def axis_group(self, name):
+        """The process-world group of a mesh axis ('dp', 'sharding', ...,
+        or paddle's 'data', 'model', ...); None outside a process world."""
+        return self._groups.get(_AXIS_ALIAS.get(name, name))
 
     def get_mesh(self) -> Mesh:
         return self.mesh
@@ -163,26 +243,35 @@ class HybridCommunicateGroup:
     def get_sep_parallel_world_size(self):
         return self.sp_degree
 
+    def _coord_of(self, ax):
+        return self._coord[ax] if self.process_mode else 0
+
     def get_data_parallel_rank(self):
-        return 0
+        return self._coord_of(0)
+
+    def get_sharding_parallel_rank(self):
+        return self._coord_of(2)
 
     def get_model_parallel_rank(self):
-        return 0
+        return self._coord_of(3)
 
     def get_stage_id(self):
-        return 0
+        return self._coord_of(1)
+
+    def _group(self, name):
+        return self._groups[name] if self.process_mode else name
 
     def get_model_parallel_group(self):
-        return "mp"
+        return self._group("mp")
 
     def get_data_parallel_group(self):
-        return "dp"
+        return self._group("dp")
 
     def get_pipe_parallel_group(self):
-        return "pp"
+        return self._group("pp")
 
     def get_sharding_parallel_group(self):
-        return "sharding"
+        return self._group("sharding")
 
     def get_check_parallel_group(self):
         return None

@@ -1,6 +1,7 @@
 """The port's counterpart of `bench.py`'s two ERNIE training arms, its
-LLM serving arm, its LeNet dispatch arm, its two ResNet-50 deploy arms and
-its two config-4 deploy arms.
+LLM serving arm, its LeNet dispatch arm, its two ResNet-50 deploy arms,
+its two config-4 deploy arms, its allreduce arm and config 3's
+data-parallel ERNIE.
 
 - `--arm ernie_train` (`bench_ernie_train`, bench.py:188-276): the
   flagship, `ErnieForPretraining(ernie_base(hidden_dropout_prob=0.0))`
@@ -69,6 +70,22 @@ its two config-4 deploy arms.
   bench.py's keys (`imgs_per_sec`, `spread`, `batch`, `img`, `layout`,
   `precision`, `variant`) with `mfu`, peak memory and the idle share over
   20 `run()`s.
+
+- `--arm allreduce` (`bench_allreduce`, bench.py:741, BASELINE config 3's
+  metric): `distributed.all_reduce` of 64 MB of f32 per rank over W ranks
+  (one per card, NCCL; `--nproc`, `--backend`, `--gpus`), a warm-up then
+  10 reps timed to a synchronise. Reports `bus_gbps` = 2(n-1)/n x bytes / t
+  (None with one rank), `n_devices`, `payload_mb` and `backend`; gloo is
+  labelled host-staged. On the CPU: 2 gloo ranks, 1 MB.
+- `--arm ernie_dp` (BASELINE config 3): the flagship's model, loss,
+  AdamW(1e-4) and bf16 AMP at its global batch of 32 x 128 through
+  `fleet.init(dp_degree=W)` -> `fleet.distributed_model` ->
+  `SPMDTrainStep(grad_reduction="bucketed")` over W ranks, 2 warm-up
+  steps then 3 reps of 10 steps. Reports samples/s in total and per card
+  beside one card's TrainStep on the same global batch (`__call__`, the
+  same eager per-step path, and `run()`, ernie_train's replayed graph),
+  the bucket count and the step's collectives. On the CPU: 2 gloo ranks
+  and a small ERNIE (hidden 64, 2 layers) at 4 x 16.
 
 Each arm prints one JSON line under `bench.py`'s keys where they exist.
 The three train arms (`ernie_train`, `ernie10b_layer`, `lenet_dispatch`)
@@ -257,6 +274,13 @@ def flagship_step(pt, model=None):
     base = pt.models.ernie_base(hidden_dropout_prob=0.0) if model is None \
         else pt.models.ErnieModel(**model)
     net = pt.models.ErnieForPretraining(base)
+    opt = pt.optimizer.AdamW(parameters=net.parameters(), learning_rate=1e-4)
+    return pt.jit.TrainStep(net, flagship_loss(pt), opt, amp_dtype="bfloat16",
+                            n_model_inputs=1)
+
+
+def flagship_loss(pt):
+    """The flagship's MLM + NSP loss (bench.py:203-206)."""
     ce = pt.nn.CrossEntropyLoss()
 
     def loss_fn(logits, nsp_logits, ids, nsp):
@@ -264,9 +288,7 @@ def flagship_step(pt, model=None):
         return ce(logits.reshape(-1, v), ids.reshape(-1)) + \
             ce(nsp_logits, nsp)
 
-    opt = pt.optimizer.AdamW(parameters=net.parameters(), learning_rate=1e-4)
-    return pt.jit.TrainStep(net, loss_fn, opt, amp_dtype="bfloat16",
-                            n_model_inputs=1)
+    return loss_fn
 
 
 def flagship_flops_per_sample(net, seq):
@@ -828,11 +850,189 @@ def ocr_rec_infer(big=True, seed=0):
     return _config4_infer("ocr_rec_infer", big, seed)
 
 
+# ---- the multi-process arms (BASELINE config 3) ----
+ALLREDUCE_MB, ALLREDUCE_REPS = 64, 10
+DP_STEPS, DP_REPS, DP_WARMUP = 10, 3, 2
+SMALL_ERNIE = dict(vocab_size=256, hidden_size=64, num_hidden_layers=2,
+                   num_attention_heads=2, intermediate_size=128,
+                   hidden_dropout_prob=0.0)
+
+
+def allreduce_busbw(payload_bytes, reps=ALLREDUCE_REPS):
+    """Inside a rank of an initialised world: all_reduce of
+    `payload_bytes` of f32 on the rank's device, one warm-up, then `reps`
+    timed to a synchronise. Returns bench.py's keys and the backend; the
+    bus rate is None for a world of one."""
+    from .. import distributed as dist
+    device = dist.ParallelEnv().device
+    n = dist.get_world_size()
+    x = torch.ones(payload_bytes // 4, dtype=torch.float32, device=device)
+    dist.all_reduce(x)
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dist.all_reduce(x)
+    _sync(device)
+    dt = (time.perf_counter() - t0) / reps
+    backend = dist.get_backend()
+    bus = 2 * (n - 1) / n * payload_bytes / dt if n > 1 else None
+    return {"bus_gbps": None if bus is None else bus / 1e9,
+            "n_devices": n, "payload_mb": payload_bytes >> 20
+            if payload_bytes >= 1 << 20 else payload_bytes / (1 << 20),
+            "ms_per_allreduce": dt * 1e3, "backend": backend,
+            "note": "n/a (one rank)" if n == 1 else
+            "host-staged (gloo), not NVLink" if backend == "gloo" else
+            f"{backend} between cards"}
+
+
+def _rank_setup():
+    """A spawned rank: the CPU when the arm asked for it, else TF32 off
+    as in the parent (`main`)."""
+    import paddle_tpu_torch as pt
+    if os.environ.get("PADDLE_DISTRI_DEVICE") == "cpu":
+        pt.set_device("cpu")
+    else:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return pt
+
+
+def _allreduce_rank(payload_bytes, out):
+    pt = _rank_setup()
+    pt.distributed.init_parallel_env()
+    r = allreduce_busbw(payload_bytes)
+    if pt.distributed.get_rank() == 0:
+        with open(out, "w") as f:
+            json.dump(r, f)
+
+
+def _spawn_arm(fn, args, nproc, backend, cpu, gpus=None):
+    """The arm's ranks; the backend is named (NCCL on cards, gloo on the
+    CPU by default), so a world of one runs the backend's path too."""
+    from ..parallel import spawn
+    spawn(fn, args=args, nprocs=nproc,
+          backend=backend or ("gloo" if cpu else "nccl"), gpus=gpus,
+          device="cpu" if cpu else None, timeout=1200)
+
+
+def allreduce(big=True, nproc=None, backend=None, gpus=None):
+    """bench.py's allreduce arm over `nproc` ranks; returns rank 0's
+    JSON-able result."""
+    import tempfile
+    nproc = nproc or (torch.cuda.device_count() if big else 2)
+    payload = (ALLREDUCE_MB if big else 1) << 20
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "allreduce.json")
+        _spawn_arm(_allreduce_rank, (payload, out), nproc, backend, not big,
+                   gpus)
+        with open(out) as f:
+            return json.load(f)
+
+
+def dp_step(pt, hcg, model_cfg=None, reduction="bucketed"):
+    """Config 3's step in a rank: the flagship's model (or
+    `ErnieModel(**model_cfg)`), loss and AdamW(1e-4) in bf16 AMP through
+    fleet.distributed_model and SPMDTrainStep."""
+    base = pt.models.ernie_base(hidden_dropout_prob=0.0) \
+        if model_cfg is None else pt.models.ErnieModel(**model_cfg)
+    net = pt.models.ErnieForPretraining(base)
+    model = pt.distributed.fleet.distributed_model(net)
+    opt = pt.distributed.fleet.distributed_optimizer(
+        pt.optimizer.AdamW(parameters=net.parameters(), learning_rate=1e-4))
+    return pt.parallel.SPMDTrainStep(model, flagship_loss(pt), opt,
+                                     mesh=hcg.get_mesh(),
+                                     amp_dtype="bfloat16", n_model_inputs=1,
+                                     grad_reduction=reduction)
+
+
+def _ernie_dp_rank(batch, seq, model_cfg, steps, reps, out):
+    pt = _rank_setup()
+    strategy = pt.parallel.DistributedStrategy()
+    strategy.hybrid_configs["dp_degree"] = int(
+        os.environ.get("PADDLE_TRAINERS_NUM", "1"))
+    hcg = pt.distributed.fleet.init(is_collective=True, strategy=strategy)
+    pt.seed(0)
+    step = dp_step(pt, hcg, model_cfg)
+    device = step.model.ernie.embeddings.word_embeddings.weight.device
+    vocab = step.model.ernie.embeddings.word_embeddings.weight.shape[0]
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, vocab, (batch, seq)).astype(
+        np.int32)).to(device)
+    nsp = torch.from_numpy(rng.integers(0, 2, (batch,)).astype(
+        np.int32)).to(device)
+    losses = [float(step(ids, ids, nsp)) for _ in range(DP_WARMUP)]
+
+    def span():
+        loss = None
+        for _ in range(steps):
+            loss = step(ids, ids, nsp)
+        return loss
+
+    sps, spread, last = _timed_rate(span, batch * steps, reps, device)
+    n = pt.distributed.get_world_size()
+    if pt.distributed.get_rank() == 0:
+        with open(out, "w") as f:
+            json.dump({"samples_per_sec": sps, "spread": spread,
+                       "samples_per_sec_per_card": sps / n, "n_ranks": n,
+                       "backend": pt.distributed.get_backend(),
+                       "step_ms": batch / sps * 1e3,
+                       "loss_first": losses[0], "loss_last": float(last),
+                       "n_buckets": len(step.reducer.bucket_layout()),
+                       "collectives_per_step": len(
+                           step.collective_signature())}, f)
+
+
+def ernie_dp(big=True, nproc=None, backend=None, gpus=None, seed=0):
+    """Config 3 over `nproc` ranks, beside one card's TrainStep on the
+    same global batch; returns the JSON-able result."""
+    import tempfile
+    import paddle_tpu_torch as pt
+    nproc = nproc or (torch.cuda.device_count() if big else 2)
+    batch, seq = (32, 128) if big else (4, 16)
+    model_cfg = None if big else SMALL_ERNIE
+    steps = DP_STEPS if big else 2
+    reps = DP_REPS if big else 2
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "ernie_dp.json")
+        _spawn_arm(_ernie_dp_rank, (batch, seq, model_cfg, steps, reps, out),
+                   nproc, backend, not big, gpus)
+        with open(out) as f:
+            r = json.load(f)
+    pt.seed(seed)
+    one = flagship_step(pt, model_cfg)
+    device = next(one.model.parameters()).device
+    vocab = one.model.ernie.embeddings.word_embeddings.weight.shape[0]
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, vocab, (batch, seq)).astype(
+        np.int32)).to(device)
+    nsp = torch.from_numpy(rng.integers(0, 2, (batch,)).astype(
+        np.int32)).to(device)
+    for _ in range(DP_WARMUP):
+        one(ids, ids, nsp)
+
+    def calls():
+        for _ in range(steps):
+            one(ids, ids, nsp)
+
+    r["one_card_call_samples_per_sec"] = _timed_rate(
+        calls, batch * steps, reps, device)[0]
+    xs = [t.expand((steps,) + tuple(t.shape)).contiguous()
+          for t in (ids, ids, nsp)]
+    one.run(*xs)
+    r["one_card_run_samples_per_sec"] = _timed_rate(
+        lambda: one.run(*xs), batch * steps, reps, device)[0]
+    r["scaling_vs_call"] = r["samples_per_sec"] / \
+        r["one_card_call_samples_per_sec"]
+    r.update(batch=batch, seqlen=seq)
+    return r
+
+
 ARMS = {"ernie_train": ernie_train, "ernie10b_layer": ernie10b_layer,
         "llm": llm, "lenet_dispatch": lenet_dispatch,
         "resnet50_infer": resnet50_infer,
         "resnet50_infer_int8": resnet50_infer_int8,
-        "yoloe_infer": yoloe_infer, "ocr_rec_infer": ocr_rec_infer}
+        "yoloe_infer": yoloe_infer, "ocr_rec_infer": ocr_rec_infer,
+        "allreduce": allreduce, "ernie_dp": ernie_dp}
 
 
 def main(argv=None):
@@ -841,6 +1041,15 @@ def main(argv=None):
                     required=True)
     ap.add_argument("--device", choices=("gpu", "cpu"), default="gpu",
                     help="run on the card (default) or on the CPU")
+    ap.add_argument("--nproc", type=int, default=None,
+                    help="ranks of the allreduce and ernie_dp arms "
+                         "(default: the cards, or 2 on the CPU)")
+    ap.add_argument("--backend", default=None,
+                    help="their backend (default: nccl on cards, gloo on "
+                         "the CPU)")
+    ap.add_argument("--gpus", default=None,
+                    help="their cards, one per rank ('0,0': two gloo ranks "
+                         "on one card; default: rank i on card i)")
     args = ap.parse_args(argv)
     import paddle_tpu_torch as pt
     if args.device == "cpu":
@@ -857,10 +1066,14 @@ def main(argv=None):
         pt.set_device("gpu")
         card, device = _card(), torch.cuda.get_device_name(0)
     for arm in args.arm:
-        r = ARMS[arm](big=args.device == "gpu") \
-            if arm in ("llm", "lenet_dispatch", "resnet50_infer",
-                       "resnet50_infer_int8", "yoloe_infer",
-                       "ocr_rec_infer") else ARMS[arm]()
+        if arm in ("allreduce", "ernie_dp"):
+            r = ARMS[arm](big=args.device == "gpu", nproc=args.nproc,
+                          backend=args.backend, gpus=args.gpus)
+        elif arm in ("llm", "lenet_dispatch", "resnet50_infer",
+                     "resnet50_infer_int8", "yoloe_infer", "ocr_rec_infer"):
+            r = ARMS[arm](big=args.device == "gpu")
+        else:
+            r = ARMS[arm]()
         r.update(arm=arm, card=card, device=device)
         print(json.dumps(r), flush=True)
         if args.device == "gpu":

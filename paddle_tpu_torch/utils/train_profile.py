@@ -12,6 +12,11 @@ through `jit.TrainStep` + `AdamW(1e-4)`:
   four cards when there are four);
 - `--model ernie`: the flagship of `utils/bench.py`, ERNIE-base without sp
   on 32 x 128 tokens;
+- `--model ernie_dp`: config 3's step (`utils/bench.py dp_step`: the
+  flagship through `fleet.distributed_model` and `SPMDTrainStep(
+  grad_reduction="bucketed")`) in a world of one NCCL rank made in this
+  process: where the data-parallel step's time goes beside `--model
+  ernie`'s `__call__`; no `run()` span;
 - `--model titan`: the titan arm of `utils/bench.py`, four layers of
   `ErnieScanStack(4096, 64, 16384, remat="dots")` on 2 x 2048;
 - `--model titan_fp16` / `ernie_sp_fp16`: the titan stack / the sp
@@ -328,6 +333,22 @@ def _ernie(pt, rng):
     return step, (ids, ids, nsp)
 
 
+def _ernie_dp(pt, rng):
+    """Config 3's SPMDTrainStep over a world of one NCCL rank (this
+    process) and the flagship's batch of 32 x 128."""
+    import os
+    from .bench import dp_step
+    from ..parallel.launch import rank_envs
+    os.environ.update(rank_envs(1, backend="nccl")[0])
+    strategy = pt.parallel.DistributedStrategy()
+    hcg = pt.distributed.fleet.init(is_collective=True, strategy=strategy)
+    step = dp_step(pt, hcg)
+    vocab = step.model.ernie.embeddings.word_embeddings.weight.shape[0]
+    ids = torch.from_numpy(rng.integers(0, vocab, (32, 128))).cuda()
+    nsp = torch.from_numpy(rng.integers(0, 2, (32,))).cuda()
+    return step, (ids, ids, nsp)
+
+
 def _titan(pt, rng):
     """Four titan layers and one batch of 2 x 2048 x 4096 inputs."""
     from .bench import titan_step
@@ -540,7 +561,7 @@ def mse_loss(out, y):
 
 
 MODELS = {"gpt2": _gpt2, "gpt2_dygraph": _gpt2_dygraph,
-          "ernie_sp": _ernie_sp, "ernie": _ernie,
+          "ernie_sp": _ernie_sp, "ernie": _ernie, "ernie_dp": _ernie_dp,
           "lenet": _lenet,
           "stem": _stem,
           "stem_nhwc": lambda pt, rng: _stem(pt, rng, "NHWC"),

@@ -319,3 +319,72 @@ def test_server_and_obs_plane_run_with_jax_and_the_jax_package_blocked():
     """)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip() == "ok"
+
+
+def test_data_parallel_and_zero_ranks_run_with_jax_and_the_jax_package_blocked(
+        tmp_path):
+    """Slice 15's modules (env, collective, launch + spawn, topology,
+    reducer, data_parallel, spmd, hybrid_optimizer, meta_parallel, fleet,
+    the distributed namespace, bench's arms) in two gloo ranks whose
+    imports of jax and the JAX package fail."""
+    script = tmp_path / "ranks.py"
+    script.write_text(textwrap.dedent("""
+        import os
+        import sys
+        BLOCKED = ("jax", "jaxlib", "paddle_tpu")
+        for name in BLOCKED:
+            sys.modules[name] = None          # any import of them fails
+
+
+        def rank(out):
+            for name in BLOCKED:
+                sys.modules[name] = None
+            import torch
+            import paddle_tpu_torch as pt
+            from paddle_tpu_torch import distributed as dist
+            from paddle_tpu_torch.parallel import (
+                DataParallel, DistributedStrategy, SPMDTrainStep, fleet,
+                group_sharded_parallel)
+            from paddle_tpu_torch.utils import bench
+            pt.set_device("cpu")
+            st = DistributedStrategy()
+            st.hybrid_configs["sharding_degree"] = 2
+            hcg = fleet.init(is_collective=True, strategy=st)
+            r = dist.get_rank()
+            t = torch.ones(2) * (r + 1)
+            dist.all_reduce(t)
+            assert t.tolist() == [3.0, 3.0]
+            pt.seed(0)
+            net = pt.nn.Linear(8, 4)
+            model = fleet.distributed_model(net)
+            opt = fleet.distributed_optimizer(pt.optimizer.AdamW(
+                parameters=net.parameters(), learning_rate=1e-2))
+            model, opt = group_sharded_parallel(model, opt, "p_g_os")
+            step = SPMDTrainStep(model, lambda o, y: ((o - y) ** 2).mean(),
+                                 opt, mesh=hcg.get_mesh(),
+                                 sharding_stage=opt.sharding_stage)
+            x, y = torch.ones(4, 8), torch.zeros(4, 4)
+            losses = [float(step(x, y)) for _ in range(3)]
+            assert losses[-1] < losses[0], losses
+            bench.allreduce_busbw(1 << 16, reps=2)
+            DataParallel(pt.nn.Linear(4, 4))
+            loaded = sorted(m for m in sys.modules
+                            if sys.modules[m] is not None
+                            and m.split(".")[0] in BLOCKED)
+            assert not loaded, loaded
+            open(os.path.join(out, f"ok_{r}"), "w").close()
+
+
+        if __name__ == "__main__":
+            sys.path.insert(0, sys.argv[1])
+            from paddle_tpu_torch.parallel import spawn
+            spawn(rank, args=(sys.argv[2],), nprocs=2, backend="gloo",
+                  device="cpu", timeout=120)
+            print("ok")
+    """))
+    res = subprocess.run([sys.executable, str(script), ROOT, str(tmp_path)],
+                         cwd=str(tmp_path), capture_output=True, text=True,
+                         timeout=180)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == "ok"
+    assert (tmp_path / "ok_0").exists() and (tmp_path / "ok_1").exists()
