@@ -309,7 +309,36 @@ last line is printed):
                forward and backward in bf16 at 1 x 2048 x 12 x 64 on the
                rank's card through rows 1 and 2 (1 + 1 launches) against
                the plain f32 math; the allreduce arm's bus GB/s at 64 MB
-               (n/a for one rank; host-staged over gloo).
+               (n/a for one rank; host-staged over gloo). ZeRO-3 gathers
+               unit by unit: each stage's peak max_memory_allocated, the
+               peak gathered bytes beside the largest unit's, and stages
+               1 and 3 with ClipGradByGlobalNorm(1.0) within 1e-3.
+ 23. config5 - BASELINE config 5's model-parallel half:
+               gpt_pipeline_layer at gpt_10b's full width (hidden 4096, 64
+               heads of 64, FFN 16384, vocabulary 50304, sequence 2048),
+               depth cut from 48 to 4 layers, 4 micro-batches of 1 x 2048
+               of random ids from SEED, AdamW(1e-4) with
+               ClipGradByGlobalNorm(1.0). Rows 1-2 at the micro-batch's
+               attention (B 1, 64 heads, S 2048, D 64, causal, bf16)
+               against their plain versions, device ms beside SDPA's and
+               the bound. The single controller (PipelineParallel, pp 2
+               over cuda:0 twice, or cuda:0 and cuda:1): the fp32 pipeline
+               against the same PipelineLayer run whole over the same
+               micro-batches (loss within 1e-4 relative, every gradient
+               at cosine >= 0.9999), bf16 against fp32 (2e-2, 0.99), one
+               bf16 train_batch's flash launches (2 L M forwards and L M
+               backwards: the backward recomputes each stage's forward),
+               in-flight inputs <= 2, ms per train_batch, tokens/s, peak
+               memory per stage device. Then a process world of pp 2 x
+               mp 2 (four gloo ranks on cuda:0, or NCCL on four cards)
+               through fleet.init -> distributed_model ->
+               distributed_optimizer -> train_batch, each rank loading
+               its stage and mp slices of the single controller's initial
+               state: the fp32 step-1 loss within 1e-4 and the gathered
+               gradients at cosine >= 0.9999 of the single controller's,
+               3 bf16 steps with the loss falling, the flash launches per
+               rank, rows 1-2 on every rank against the plain math, the
+               collective signature's length equal within each stage.
 
 Each fp16 step drives `scaler.step(opt)` after the scaled backward and no
 `scaler.update()`: the reference's step() already updates the scale once
@@ -377,8 +406,11 @@ SERVER_SLO_MS = 30000.0
 # the obs phase's __call__ steps (run() then spans one more: its capture)
 OBS_STEPS = 5
 # the dist phase: DP warm-up and measured steps, ZeRO steps per stage,
-# the per-rank kernel check's attention shape, a world's time limit
+# the per-rank kernel check's attention shape, a world's time limit; the
+# ZeRO clip check's SGD rate (one step: the update is the clipped
+# gradient) and clip norm as a share of the initial gradient norm
 DIST_WARM, DIST_STEPS, ZERO_STEPS = 1, 5, 3
+ZERO_CLIP_LR, ZERO_CLIP_SHARE = 1.0, 0.5
 DIST_ATT = (1, 2048, 12, 64)
 DIST_TIMEOUT = 300
 RING_SRC = "paddle_tpu_torch/kernels/csrc/ring_attention.cu"
@@ -4777,6 +4809,9 @@ def dist_rank(tag, outdir):
                     "rel_err": rel, "lowest_cosines": low[:3]}
     check(rel <= 1e-3, f"dist: rank {r} step-1 loss rel err {rel}")
     check(low[0][0] >= 0.999, f"dist: rank {r} gradient cosines {low[:3]}")
+    # the initial gradient's global norm, for the ZeRO clip check below
+    gnorm = float(torch.sqrt(sum(g.float().pow(2).sum() for g in g_dp)))
+    res["step1"]["grad_norm"] = gnorm
     del ref, inputs, labels, loss_ref, g_ref, g_dp
     counter = "collective.c_allreduce_bucket.count"
     n_buckets = len(step.reducer.bucket_layout())
@@ -4818,49 +4853,121 @@ def dist_rank(tag, outdir):
     torch.cuda.empty_cache()
 
     # ---- ZeRO stages 1-3 over the world, from the same weights ----
+    # (stage 3 gathers unit by unit: peak max_memory_allocated of each
+    # stage's steps beside its bytes after them, and the most bytes of
+    # whole parameters and their bf16 casts held at once, at most the root
+    # group's plus the largest unit's; then one SGD step of stages 1 and 3
+    # with ClipGradByGlobalNorm at half the initial gradient's norm: the
+    # update is the clipped gradient, whose norm is the clip norm, and
+    # stage 3 takes the norm over its slices)
     hz = HybridCommunicateGroup(hybrid_configs={"sharding_degree": w})
     res["zero"] = {}
-    for stage in (1, 2, 3):
+    clip_norm = ZERO_CLIP_SHARE * gnorm
+    start = {k: v.float().cpu().numpy() for k, v in init.items()}
+    for stage in (1, 2, 3, "1clip", "3clip"):
         pt.seed(SEED)
         znet = pt.models.ErnieForPretraining(pt.models.ernie_base(
             hidden_dropout_prob=0.0))
         znet.set_state_dict(init)
-        zopt = pt.optimizer.AdamW(parameters=znet.parameters(),
-                                  learning_rate=1e-4)
+        clipped = str(stage).endswith("clip")
+        if clipped:
+            zopt = pt.optimizer.SGD(
+                parameters=znet.parameters(), learning_rate=ZERO_CLIP_LR,
+                grad_clip=pt.nn.ClipGradByGlobalNorm(clip_norm))
+        else:
+            zopt = pt.optimizer.AdamW(parameters=znet.parameters(),
+                                      learning_rate=1e-4)
         zstep = SPMDTrainStep(znet, bench.flagship_loss(pt), zopt,
-                              mesh=hz.get_mesh(), sharding_stage=stage,
+                              mesh=hz.get_mesh(),
+                              sharding_stage=int(str(stage)[0]),
                               amp_dtype="bfloat16", n_model_inputs=1)
-        zl = [float(zstep(*batch)) for _ in range(ZERO_STEPS)]
         torch.cuda.synchronize()
-        zrel = max(abs(a - b) / abs(b) for a, b in zip(zl, losses))
+        torch.cuda.reset_peak_memory_stats(dev)
+        zl = [float(zstep(*batch)) for _ in range(1 if clipped
+                                                   else ZERO_STEPS)]
+        torch.cuda.synchronize()
+        zrel = None if clipped else \
+            max(abs(a - b) / abs(b) for a, b in zip(zl, losses))
+        units = zstep._units
         res["zero"][stage] = {
             "losses": zl, "max_rel_vs_dp": zrel,
             "memory_allocated": torch.cuda.memory_allocated(dev),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+            "peak_gathered_bytes": zstep.last_peak_gathered_bytes,
+            "largest_unit_bytes": None if units is None else
+            max(b for g, b in units.unit_bytes.items() if g >= 0),
+            "root_bytes": None if units is None else units.unit_bytes[-1],
             "slot_bytes": zstep.memory_report(*batch)["slot_bytes"]}
-        check(zrel <= 1e-3, f"dist: rank {r} ZeRO-{stage} losses {zl} vs "
-              f"DP {losses[:ZERO_STEPS]}")
+        z = res["zero"][stage]
+        check(zrel is None or zrel <= 1e-3, f"dist: rank {r} ZeRO-{stage} "
+              f"losses {zl} vs {losses}")
+        check(all(math.isfinite(x) for x in zl),
+              f"dist: rank {r} ZeRO-{stage} losses {zl}")
+        check(units is None or z["peak_gathered_bytes"] <=
+              z["root_bytes"] + z["largest_unit_bytes"],
+              f"dist: rank {r} ZeRO-{stage} peak gathered bytes "
+              f"{z['peak_gathered_bytes']} vs root {z['root_bytes']} + "
+              f"largest unit {z['largest_unit_bytes']}")
+        if clipped:
+            upd = {k: (start[k] - v) / ZERO_CLIP_LR
+                   for k, v in zstep.state_dict()["params"].items()}
+            z["update_norm"] = float(np.sqrt(sum(
+                float(np.square(u, dtype=np.float64).sum())
+                for u in upd.values())))
+            z["clip_norm"] = clip_norm
+            check(abs(z["update_norm"] - clip_norm) <= 1e-3 * clip_norm,
+                  f"dist: rank {r} ZeRO-{stage} clipped update norm "
+                  f"{z['update_norm']} vs clip norm {clip_norm}")
+            if stage == "1clip":
+                upd1 = upd
+            else:
+                z["update_rel_vs_1clip"] = float(np.sqrt(sum(
+                    float(np.square(upd[k] - upd1[k], dtype=np.float64).sum())
+                    for k in upd))) / res["zero"]["1clip"]["update_norm"]
+                check(z["update_rel_vs_1clip"] <= 1e-3,
+                      f"dist: rank {r} ZeRO-3 clipped update vs ZeRO-1's: "
+                      f"rel {z['update_rel_vs_1clip']}")
         del zstep, znet, zopt
         torch.cuda.empty_cache()
+    del start, upd, upd1
     dp_slots = res["dp"]["slot_bytes"]
     z1 = res["zero"][1]["slot_bytes"]
     check(z1 <= dp_slots / w * 1.01 + 1e6, f"dist: rank {r} ZeRO-1 slots "
           f"{z1} B vs DP {dp_slots} B over {w} ranks")
 
     # ---- rows 1-2 on this rank's card ----
-    b_, s_, h_, d_ = DIST_ATT
+    res["kernels"] = rows_on_rank(pt, fa, torch, dev, r, DIST_ATT, False,
+                                  "dist")
+
+    # ---- the allreduce arm ----
+    res["allreduce"] = bench.allreduce_busbw(64 << 20)
+    res["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(outdir, f"{tag}_{r}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def rows_on_rank(pt, fa, torch, dev, r, shape, causal, where):
+    """scaled_dot_product_attention forward and backward in bf16 at
+    `shape` (B, S, H, D) on this rank's card, through rows 1 and 2 (1 + 1
+    launches), against the plain f32 math."""
+    b_, s_, h_, d_ = shape
     g = torch.Generator(device="cpu").manual_seed(SEED + r)
     q, k, v, do = (torch.randn(b_, s_, h_, d_, generator=g).to(
         dev, torch.bfloat16).requires_grad_(i < 3) for i in range(4))
     for c in (fa.flash_attention_fwd, fa.flash_attention_bwd_fused):
         c.launches = 0
-    out = pt.nn.functional.scaled_dot_product_attention(q, k, v)
+    out = pt.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                        is_causal=causal)
     dq, dk, dv = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
     launches = [fa.flash_attention_fwd.launches,
                 fa.flash_attention_bwd_fused.launches]
     q32, k32, v32 = (x.detach().float().requires_grad_() for x in (q, k, v))
-    p_ = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q32, k32)
-                       / math.sqrt(d_), -1)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q32, k32) / math.sqrt(d_)
+    if causal:
+        scores = scores.masked_fill(torch.ones(
+            s_, s_, dtype=torch.bool, device=dev).triu(1), float("-inf"))
+    p_ = torch.softmax(scores, -1)
     ref_out = torch.einsum("bhqk,bkhd->bqhd", p_, v32)
     ref_grads = torch.autograd.grad(ref_out, (q32, k32, v32), do.float())
     tol, tol_g = tol_of(torch, torch.bfloat16), \
@@ -4868,17 +4975,11 @@ def dist_rank(tag, outdir):
     errs = [close_enough(out, ref_out, tol)] + \
         [close_enough(a, b_ref, tol_g) for a, b_ref in
          zip((dq, dk, dv), ref_grads)]
-    res["kernels"] = {"launches": launches,
-                      "max_abs_err": [e[0] for e in errs], "tol": tol}
     check(launches == [1, 1] and all(e[1] for e in errs),
-          f"dist: rank {r} on {dev}: flash launches {launches}, errors "
+          f"{where}: rank {r} on {dev}: flash launches {launches}, errors "
           f"{errs}")
-
-    # ---- the allreduce arm ----
-    res["allreduce"] = bench.allreduce_busbw(64 << 20)
-    res["seconds"] = time.perf_counter() - t0
-    with open(os.path.join(outdir, f"{tag}_{r}.json"), "w") as f:
-        json.dump(res, f)
+    return {"launches": launches, "max_abs_err": [e[0] for e in errs],
+            "tol": tol}
 
 
 def dist_phase(pt, torch, card):
@@ -4902,6 +5003,15 @@ def dist_phase(pt, torch, card):
             ranks = [json.load(open(os.path.join(d, f"{tag}_{r}.json")))
                      for r in range(w)]
             r0 = ranks[0]
+            z3 = r0["zero"]["3"]
+            # a world of one slices nothing: no unit is gathered
+            units3 = "n/a (one rank)" if z3["peak_gathered_bytes"] is None \
+                else (f"{z3['peak_gathered_bytes']:,} (fp32 whole + bf16 "
+                      f"casts) <= the root group's {z3['root_bytes']:,} (the "
+                      "word embeddings, read by the tied MLM head, stay "
+                      f"gathered) + the largest unit's "
+                      f"{z3['largest_unit_bytes']:,}")
+            zc1, zc3 = r0["zero"]["1clip"], r0["zero"]["3clip"]
             ar = r0["allreduce"]
             bus = "n/a (one rank)" if ar["bus_gbps"] is None else \
                 f"{ar['bus_gbps']:.2f} GB/s ({ar['note']})"
@@ -4922,10 +5032,21 @@ def dist_phase(pt, torch, card):
                   f" ms/step {[round(x['dp']['ms_per_step'], 2) for x in ranks]}"
                   f" ({FLAGSHIP_B * 1e3 / r0['dp']['ms_per_step']:.1f} "
                   f"samples/s); ZeRO max rel vs DP "
-                  f"{ {s: round(z['max_rel_vs_dp'], 6) for s, z in r0['zero'].items()} }"
+                  f"{ {s: round(z['max_rel_vs_dp'], 6) for s, z in r0['zero'].items() if z['max_rel_vs_dp'] is not None} }"
                   f" (tol 1e-3); memory_allocated MB DP "
                   f"{r0['dp']['memory_allocated'] / 2**20:.0f}, ZeRO "
                   f"{ {s: round(z['memory_allocated'] / 2**20) for s, z in r0['zero'].items()} }"
+                  f"; peak max_memory_allocated MB over the ZeRO steps "
+                  f"{ {s: round(z['max_memory_allocated'] / 2**20) for s, z in r0['zero'].items()} }"
+                  f" (stage 3 with whole gathers held 1,653,798,400 B "
+                  f"after its steps on two gloo ranks); stage-3 peak "
+                  f"gathered bytes {units3}; one SGD step with a global-"
+                  f"norm clip at {zc1['clip_norm']:.4g} (half the initial "
+                  f"gradient norm {r0['step1']['grad_norm']:.4g}): update "
+                  f"norm ZeRO-1 {zc1['update_norm']:.6g}, ZeRO-3 "
+                  f"{zc3['update_norm']:.6g} (tol 1e-3 rel), ZeRO-3 update "
+                  f"vs ZeRO-1's rel {zc3['update_rel_vs_1clip']:.3g} (tol "
+                  "1e-3)"
                   f"; slot MB DP {r0['dp']['slot_bytes'] / 2**20:.1f}, ZeRO "
                   f"{ {s: round(z['slot_bytes'] / 2**20, 1) for s, z in r0['zero'].items()} }"
                   f"; rows 1-2 per rank launches "
@@ -4936,6 +5057,334 @@ def dist_phase(pt, torch, card):
                   f"[{card}]", flush=True)
     print(f"dist: phase {time.perf_counter() - t_phase:.1f} s [{card}]",
           flush=True)
+
+
+# ---- the config-5 phase ----
+# gpt_pipeline_layer at gpt_10b's full width (hidden 4096, 64 heads of 64,
+# FFN 16384, vocabulary 50304, sequence 2048), its depth cut from 48 to 4
+# layers as bench.py's titan proxy is (bench.py:683-738); micro-batches
+# of 1 x 2048, 4 of them per train_batch
+C5_CFG = dict(vocab_size=50304, hidden_size=4096, num_layers=4,
+              num_heads=64, max_seq_len=2048, dropout=0.0)
+C5_MICRO, C5_MB, C5_STEPS = 4, 1, 3
+C5_ATT = (1, 2048, 64, 64)          # the micro-batch's attention, causal
+C5_TIMEOUT = 600
+
+
+def c5_batch(np, torch, cfg, micro, mb, device):
+    rng = np.random.default_rng(SEED)
+    return torch.from_numpy(rng.integers(
+        0, cfg["vocab_size"], (micro * mb, cfg["max_seq_len"])).astype(
+        np.int64)).to(device)
+
+
+def c5_named(pl, params, grads):
+    """{state-dict name: gradient} of a PipelineLayer's parameters."""
+    by_id = {id(p): g for p, g in zip(params, grads)}
+    return {n: by_id[id(p)] for n, p in pl.named_parameters()
+            if id(p) in by_id}
+
+
+def c5_losses_falling(losses):
+    return all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+
+
+def c5_single(pt, torch, np, cfg, devices, micro, mb, workdir, fa=None):
+    """The single controller at pp 2 over `devices` (two slots): fp32
+    forward_backward_pipeline against the same PipelineLayer run whole as
+    one module over the same micro-batches (gradients accumulated, scaled
+    by 1 / micro); bf16 against fp32; then bf16 train_batch steps with
+    AdamW(1e-4) and ClipGradByGlobalNorm(1.0), the flash launches of one
+    counted. Saves the initial state, the fp32 loss and gradients into
+    `workdir` for the process world."""
+    from paddle_tpu_torch.parallel import (DistributedStrategy,
+                                           HybridCommunicateGroup,
+                                           PipelineParallel)
+    dev0 = torch.device(devices[0])
+    pt.set_device("cpu" if dev0.type == "cpu" else "gpu")
+    out = {}
+    hcg = HybridCommunicateGroup(hybrid_configs={"pp_degree": 2},
+                                 devices=devices)
+    st = DistributedStrategy()
+    st.pipeline_configs["accumulate_steps"] = micro
+    pt.seed(SEED)
+    pl = pt.models.gpt_pipeline_layer(num_stages=2, **cfg)
+    out["params"] = sum(p.numel() for p in pl.parameters())
+    torch.save({k: v.detach().cpu() for k, v in pl.state_dict().items()},
+               os.path.join(workdir, "state.pt"))
+    ids = c5_batch(np, torch, cfg, micro, mb, dev0)
+    # the whole module, one micro-batch at a time (before the engine
+    # places stage 1 on its slot)
+    t0 = time.perf_counter()
+    whole_loss = 0.0
+    for x in ids.split(mb):
+        loss = pl.loss_fn(pl(x), x) / micro
+        loss.backward()
+        whole_loss += float(loss.detach())
+    whole = {n: p.grad for n, p in pl.named_parameters()}
+    for p in pl.parameters():
+        p.grad = None
+    out["whole_s"] = time.perf_counter() - t0
+    engine = PipelineParallel(pl, hcg, st)
+    sync = (lambda: torch.cuda.synchronize()) if dev0.type == "cuda" \
+        else (lambda: None)
+    t0 = time.perf_counter()
+    loss32, grads = engine.forward_backward_pipeline(ids, [ids])
+    sync()
+    out["fp32_s"] = time.perf_counter() - t0
+    params = [p for mod in engine.stages for p in engine._stage_params(mod)]
+    g32 = c5_named(pl, params, [g for gs in grads for g in gs])
+    del grads
+    out["loss32"], out["loss_whole"] = float(loss32), whole_loss
+    out["rel_vs_whole"] = abs(out["loss32"] - whole_loss) / abs(whole_loss)
+    cos = sorted((cosine(g32[n].float(), whole[n].float().to(
+        g32[n].device)), n) for n in whole)
+    out["lowest_vs_whole"] = cos[:3]
+    del whole
+    torch.save({n: g.detach().cpu() for n, g in g32.items()},
+               os.path.join(workdir, "grads32.pt"))
+    with pt.amp.auto_cast(dtype="bfloat16"):
+        loss16, grads = engine.forward_backward_pipeline(ids, [ids])
+    g16 = c5_named(pl, params, [g for gs in grads for g in gs])
+    del grads
+    out["loss16"] = float(loss16)
+    out["rel_bf16"] = abs(out["loss16"] - out["loss32"]) / abs(out["loss32"])
+    out["lowest_bf16"] = sorted((cosine(g16[n].float(), g32[n].float()), n)
+                                for n in g32)[:3]
+    del g16, g32
+    opt = pt.optimizer.AdamW(parameters=pl.parameters(), learning_rate=1e-4,
+                             grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
+    devs = sorted({str(d) for d in engine._stage_devices})
+    if dev0.type == "cuda":
+        for d in devs:
+            torch.cuda.reset_peak_memory_stats(d)
+    losses = []
+    with pt.amp.auto_cast(dtype="bfloat16"):
+        for i in range(C5_STEPS):
+            if i == 0 and fa is not None:
+                for c in (fa.flash_attention_fwd,
+                          fa.flash_attention_bwd_fused):
+                    c.launches = 0
+            if i == 1:
+                sync()
+                t0 = time.perf_counter()
+            losses.append(float(engine.train_batch([ids, ids], opt)))
+            if i == 0 and fa is not None:
+                out["launches"] = [fa.flash_attention_fwd.launches,
+                                   fa.flash_attention_bwd_fused.launches]
+    sync()
+    out["ms_per_batch"] = (time.perf_counter() - t0) / (C5_STEPS - 1) * 1e3
+    out["tokens_per_s"] = ids.numel() / out["ms_per_batch"] * 1e3
+    out["losses"] = losses
+    out["peak_inflight"] = engine.last_peak_inflight
+    out["max_memory_allocated"] = {
+        d: torch.cuda.max_memory_allocated(d) for d in devs} \
+        if dev0.type == "cuda" else None
+    with open(os.path.join(workdir, "single.json"), "w") as f:
+        json.dump({"cfg": cfg, "micro": micro, "mb": mb,
+                   "loss32": out["loss32"]}, f)
+    del engine, pl, opt
+    return out
+
+
+def c5_rank(workdir):
+    """One rank of the config-5 process world (pp 2 x mp 2): fleet.init ->
+    gpt_pipeline_layer(use_mp=True) -> distributed_model ->
+    distributed_optimizer; the single controller's initial state loaded
+    (the rank's stage, its mp slices); the fp32 step-1 loss and gathered
+    gradients against the single controller's; bf16 train_batch steps;
+    rows 1-2 at the micro-batch's attention shape. Writes
+    workdir/rank_<r>.json."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.parallel import DistributedStrategy, fleet
+    from paddle_tpu_torch.parallel.mp_layers import gather_whole
+    on_cpu = os.environ.get("PADDLE_DISTRI_DEVICE") == "cpu"
+    if on_cpu:
+        pt.set_device("cpu")
+    else:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    t_rank = time.perf_counter()
+    with open(os.path.join(workdir, "single.json")) as f:
+        single = json.load(f)
+    cfg, micro, mb = single["cfg"], single["micro"], single["mb"]
+    st = DistributedStrategy()
+    st.hybrid_configs.update(pp_degree=2, mp_degree=2)
+    st.pipeline_configs["accumulate_steps"] = micro
+    hcg = fleet.init(is_collective=True, strategy=st)
+    r, dev = dist.get_rank(), dist.ParallelEnv().device
+    check(on_cpu or dev.type == "cuda", f"config5: rank {r} on {dev}")
+    pt.seed(SEED)
+    pl = pt.models.gpt_pipeline_layer(num_stages=2, use_mp=True, **cfg)
+    engine = fleet.distributed_model(pl)
+    state = torch.load(os.path.join(workdir, "state.pt"), mmap=True)
+    mine = set(pl.state_dict(keep_vars=True))
+    pl.set_state_dict({k: v for k, v in state.items() if k in mine})
+    del state
+    opt = fleet.distributed_optimizer(pt.optimizer.AdamW(
+        parameters=pl.parameters(), learning_rate=1e-4,
+        grad_clip=pt.nn.ClipGradByGlobalNorm(1.0)))
+    ids = c5_batch(np, torch, cfg, micro, mb, dev)
+    res = {"rank": r, "device": str(dev), "stage": hcg.get_stage_id(),
+           "mp_rank": hcg.get_model_parallel_rank(),
+           "params": sum(p.numel() for p in pl.parameters())}
+    loss32, grads = engine.forward_backward_pipeline(ids, [ids])
+    g = c5_named(pl, engine._stage_params(engine._module), grads[0])
+    ref = torch.load(os.path.join(workdir, "grads32.pt"), mmap=True)
+    cos = []
+    for n, p in pl.named_parameters():
+        split = getattr(p, "_mp_split", None)
+        gw = gather_whole(g[n], split) if split is not None else g[n]
+        cos.append((cosine(gw.float(), ref[n].to(gw.device).float()), n))
+    del ref, g, grads
+    res["loss32"] = float(loss32)
+    res["rel32"] = abs(res["loss32"] - single["loss32"]) / \
+        abs(single["loss32"])
+    res["lowest32"] = sorted(cos)[:3]
+    check(res["rel32"] <= 1e-4 and res["lowest32"][0][0] >= 0.9999,
+          f"config5: rank {r} fp32 step 1 loss {res['loss32']} vs "
+          f"{single['loss32']} (rel {res['rel32']}), lowest cosines "
+          f"{res['lowest32']}")
+    sync = (lambda: None) if on_cpu else torch.cuda.synchronize
+    if not on_cpu:
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses = []
+    with pt.amp.auto_cast(dtype="bfloat16"):
+        res["signature_len"] = len(engine.collective_signature([ids, ids],
+                                                               opt))
+        for i in range(C5_STEPS):
+            if i == 0:
+                for c in (fa.flash_attention_fwd,
+                          fa.flash_attention_bwd_fused):
+                    c.launches = 0
+            if i == 1:
+                sync()
+                t0 = time.perf_counter()
+            losses.append(float(engine.train_batch([ids, ids], opt)))
+            if i == 0:
+                res["launches"] = [fa.flash_attention_fwd.launches,
+                                   fa.flash_attention_bwd_fused.launches]
+    sync()
+    res["ms_per_step"] = (time.perf_counter() - t0) / (C5_STEPS - 1) * 1e3
+    res["losses"] = losses
+    res["peak_inflight"] = engine.last_peak_inflight
+    res["max_memory_allocated"] = None if on_cpu else \
+        torch.cuda.max_memory_allocated(dev)
+    check(c5_losses_falling(losses), f"config5: rank {r} bf16 losses "
+          f"{losses}")
+    check(engine.last_peak_inflight <= engine.num_stages,
+          f"config5: rank {r} in flight {engine.last_peak_inflight}")
+    if not on_cpu:
+        layers = sum(1 for n in pl.state_dict(keep_vars=True)
+                     if n.endswith("attention.qkv.weight"))
+        want = [2 * layers * micro, layers * micro]
+        check(res["launches"] == want, f"config5: rank {r} flash launches "
+              f"{res['launches']} per train_batch, want {want}")
+        res["kernels"] = rows_on_rank(pt, fa, torch, dev, r, C5_ATT, True,
+                                      "config5")
+    res["seconds"] = time.perf_counter() - t_rank
+    with open(os.path.join(workdir, f"rank_{r}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def config5_phase(pt, fa, torch, np, card):
+    """Config 5's model-parallel half on the card: gpt_pipeline_layer at
+    gpt_10b's width, 4 layers, through the single controller (pp 2 over
+    two slots) and a pp 2 x mp 2 process world; rows 1-2 at its
+    micro-batch's attention shape. Returns the flash launches of one
+    single-controller train_batch."""
+    import gc
+    import tempfile
+    from paddle_tpu_torch.parallel import spawn
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    devices = ["cuda:0", "cuda:1"] if n_cards >= 2 else ["cuda:0"] * 2
+    L, M = C5_CFG["num_layers"], C5_MICRO
+    rows = {"flash_fwd": fwd_case(fa, torch, *C5_ATT, torch.bfloat16, True)}
+    rows.update(bwd_case(fa, torch, *C5_ATT, torch.bfloat16, True))
+    for kname in ("flash_fwd", "flash_bwd_fused"):
+        r = rows[kname]
+        print(f"config5: {kname} at the gpt_10b micro-batch "
+              f"(B 1, 64 heads, S 2048, D 64, causal, bf16): max_abs_err="
+              f"{r['max_abs_err']:.3g} device_ms={r['device_ms']:.4f} "
+              f"library_device_ms={fmt_ms(r['library_device_ms'])} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) plain_ms="
+              f"{r['plain_ms']:.4f} [{card}]", flush=True)
+    with tempfile.TemporaryDirectory(prefix="config5_") as d:
+        one = c5_single(pt, torch, np, C5_CFG, devices, M, C5_MB, d, fa)
+        want = [2 * L * M, L * M]
+        check(one["rel_vs_whole"] <= 1e-4 and
+              one["lowest_vs_whole"][0][0] >= 0.9999,
+              f"config5: fp32 pipeline vs the whole module: loss rel "
+              f"{one['rel_vs_whole']}, lowest cosines "
+              f"{one['lowest_vs_whole']}")
+        check(one["rel_bf16"] <= 2e-2 and one["lowest_bf16"][0][0] >= 0.99,
+              f"config5: bf16 vs fp32: loss rel {one['rel_bf16']}, lowest "
+              f"cosines {one['lowest_bf16']}")
+        check(one["launches"] == want, f"config5: flash launches "
+              f"{one['launches']} per train_batch, want {want}")
+        check(one["peak_inflight"] <= 2 and
+              c5_losses_falling(one["losses"]),
+              f"config5: in flight {one['peak_inflight']}, losses "
+              f"{one['losses']}")
+        print(f"config5 [single controller, pp 2 over {devices}]: "
+              f"{one['params']:,} parameters, {M} micro-batches of {C5_MB} x "
+              f"{C5_CFG['max_seq_len']}; fp32 step-1 loss {one['loss32']:.6f}"
+              f" vs the whole module {one['loss_whole']:.6f} (rel "
+              f"{one['rel_vs_whole']:.3g}, tol 1e-4), lowest grad cosines "
+              f"{one['lowest_vs_whole']} (tol 0.9999); bf16 loss "
+              f"{one['loss16']:.6f} (rel {one['rel_bf16']:.3g}, tol 2e-2), "
+              f"lowest cosines {one['lowest_bf16']} (tol 0.99); flash "
+              f"launches per train_batch {one['launches']} (2 L M, L M with "
+              f"the recomputing backward); in flight "
+              f"{one['peak_inflight']}; bf16 train_batch "
+              f"{one['ms_per_batch']:.1f} ms, {one['tokens_per_s']:.0f} "
+              f"tokens/s, losses {[round(x, 4) for x in one['losses']]}; "
+              f"peak max_memory_allocated GiB "
+              f"{ {k: round(v / 2**30, 2) for k, v in one['max_memory_allocated'].items()} }"
+              f"; fp32 pipeline {one['fp32_s']:.1f} s, whole module "
+              f"{one['whole_s']:.1f} s [{card}]", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if n_cards >= 4:
+            backend, gpus = "nccl", "0,1,2,3"
+        else:
+            backend, gpus = "gloo", "0,0,0,0"
+        t0 = time.perf_counter()
+        spawn(c5_rank, args=(d,), nprocs=4, backend=backend, gpus=gpus,
+              timeout=C5_TIMEOUT)
+        ranks = [json.load(open(os.path.join(d, f"rank_{r}.json")))
+                 for r in range(4)]
+    by_stage = {}
+    for x in ranks:
+        by_stage.setdefault(x["stage"], set()).add(x["signature_len"])
+    check(all(len(v) == 1 for v in by_stage.values()),
+          f"config5: signature lengths differ within a stage {by_stage}")
+    last = [x for x in ranks if x["stage"] == 1][0]
+    print(f"config5 [process world pp 2 x mp 2, {backend}, cards "
+          f"{[x['device'] for x in ranks]}]: fp32 step-1 loss "
+          f"{last['loss32']:.6f} vs the single controller "
+          f"{one['loss32']:.6f} (rel {max(x['rel32'] for x in ranks):.3g}, "
+          f"tol 1e-4), lowest gathered grad cosines "
+          f"{min(x['lowest32'][0][0] for x in ranks):.8f} (tol 0.9999); "
+          f"bf16 losses {[round(v, 4) for v in last['losses']]}; ms per "
+          f"step {[round(x['ms_per_step'], 1) for x in ranks]}; parameters "
+          f"per rank {[x['params'] for x in ranks]}; peak "
+          f"max_memory_allocated GiB per rank "
+          f"{[round(x['max_memory_allocated'] / 2**30, 2) for x in ranks]};"
+          f" signature lengths by stage "
+          f"{ {k: sorted(v) for k, v in by_stage.items()} }; flash "
+          f"launches per train_batch {[x['launches'] for x in ranks]}; rows "
+          f"1-2 per rank max abs err "
+          f"{[[round(e, 4) for e in x['kernels']['max_abs_err']] for x in ranks]}"
+          f"; world {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    print(f"config5: phase {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return {"launches": one["launches"], "rows": rows}
 
 
 def ptxas(path):
@@ -5251,9 +5700,11 @@ def main() -> int:
         gpt2_dir.cleanup()
     obs_launches = obs_phase(pt, fa, torch, np, card)
     dist_phase(pt, torch, card)
+    c5 = config5_phase(pt, fa, torch, np, card)
 
     summary = {"flash_fwd": dict(serving_row,
-                                 launches=train_launches["flash_fwd"]
+                                 launches=c5["launches"][0]
+                                 + train_launches["flash_fwd"]
                                  + serve_launches + titan["launches"][0]
                                  + dygraph["launches"]["flash_fwd"]
                                  + deploy_launches
@@ -5263,7 +5714,7 @@ def main() -> int:
     for kname in ("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"):
         summary[kname] = dict(train_rows[kname],
                               launches=train_launches[kname] + (
-                                  titan["launches"][1]
+                                  c5["launches"][1] + titan["launches"][1]
                                   + dygraph["launches"][kname]
                                   + seq_launches[kname]
                                   + obs_launches[kname]
@@ -5284,8 +5735,8 @@ def main() -> int:
     paths16 = {k: "fp16 titan" for k in fp16_flash}
     paths16.update({k: "fp16 sp" for k in RING_KERNELS})
     entries = [(k, r, "train + serve + titan + dygraph + deploy + seq + "
-                "server + obs" if k == "flash_fwd"
-                else "train + titan + dygraph + seq + obs"
+                "server + obs + config5" if k == "flash_fwd"
+                else "train + titan + dygraph + seq + obs + config5"
                 if k == "flash_bwd_fused" else
                 "sp train" if k.startswith("ring") else "train")
                for k, r in summary.items()] + \

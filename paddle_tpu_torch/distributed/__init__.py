@@ -4,13 +4,18 @@ Counterpart of `paddle_tpu/distributed/__init__.py`: the collectives, the
 process environment, `spawn` / `launch`, `fleet`, the gloo control plane
 (`gloo_init_parallel_env`, `gloo_barrier`, `gloo_release`, over
 `torch.distributed.TCPStore`), `split`, and the sparse-table entry
-configs. `InMemoryDataset` and `QueueDataset` wait for the
-parameter-server slice (ROADMAP.md Queue 1 item 5).
+configs, and the tensor- and pipeline-parallel names of the reference's
+`parallel/__init__.py:26-33`. `InMemoryDataset` and `QueueDataset` wait
+for the parameter-server slice (ROADMAP.md Queue 1, "the host-side
+distributed state").
 """
 import time as _time
 
 from ..parallel import *  # noqa: F401,F403
 from ..parallel import (  # noqa: F401
+    ColumnParallelLinear, LayerDesc, ParallelCrossEntropy, PipelineLayer,
+    PipelineParallel, RowParallelLinear, SharedLayerDesc, TensorParallel,
+    VocabParallelEmbedding,
     DataParallel, Group, ParallelEnv, ReduceOp, Reducer, SPMDTrainStep,
     all_gather, all_gather_object, all_reduce, alltoall, alltoall_single,
     barrier, broadcast, fleet, get_backend, get_group, get_rank,

@@ -56,4 +56,16 @@ def amp_functional_call(model, pnames, ps, bnames, buffers, inputs,
         return functional_call(model, pnames, ps, bnames, buffers, *inputs)
 
 
-__all__ = ["split_state", "functional_call", "amp_functional_call"]
+def fake_of(mode, t):
+    """A fake of tensor `t` under FakeTensorMode `mode`, for tracing a
+    step without running it: made from `t`'s plain-tensor view (the
+    port's `Parameter` and `Tensor` subclasses are not fake-able as they
+    are), with `t`'s requires_grad."""
+    fake = mode.from_tensor(t.as_subclass(torch.Tensor))
+    if fake.requires_grad != t.requires_grad:
+        fake.requires_grad_(t.requires_grad)
+    return fake
+
+
+__all__ = ["split_state", "functional_call", "amp_functional_call",
+           "fake_of"]

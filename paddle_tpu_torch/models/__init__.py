@@ -4,7 +4,8 @@ from .ernie import (ErnieEmbeddings, ErnieForPretraining,  # noqa: F401
                     bert_base, bert_large, ernie_base, ernie_large,
                     ernie_titan_10b)
 from .gpt import (GPTEmbeddings, GPTForCausalLM, GPTModel,  # noqa: F401
-                  GPTPretrainingCriterion, gpt2_medium, gpt2_small)
+                  GPTPretrainingCriterion, gpt2_medium, gpt2_small, gpt_10b,
+                  gpt_pipeline_layer)
 from .lenet import LeNet  # noqa: F401
 from .mobilenet import (MobileNetV1, MobileNetV2, mobilenet_v1,  # noqa: F401
                         mobilenet_v2)

@@ -9,8 +9,16 @@ parameter names and layouts, so a JAX state dict loads by name.
 
 With `use_sp`, attention is `parallel.sequence_parallel_attention(impl=
 "ring")` over the current mesh's 'sp' axis, and the attention mask and
-dropout are ignored, as in the reference (:92-94). Tensor parallelism
-(`use_mp=True`) raises: it comes with the distributed slice.
+dropout are ignored, as in the reference (:92-94). With `use_mp` the
+layers are `parallel.mp_layers`' as the reference wires them (:22-99):
+the word embeddings vocab-parallel, the MLP column then row parallel, the
+attention's qkv column parallel with its output gathered (so every mp
+rank runs all heads, as the reference's does) and its output projection
+row parallel. Without a process world of mp > 1 they compute the dense
+layers; in one, each rank holds its slices and runs the collectives. The
+MLM head of `ErnieForPretraining(use_mp=True)` is then the rank's
+vocabulary slice of the logits (`mp_layers.parallel_logits`), for
+`ParallelCrossEntropy`.
 
 `forward_cached` (:103-229), the cached-attention step of LLM serving,
 keeps the reference's arithmetic (masked einsums over the whole page, the
@@ -34,26 +42,24 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .. import nn
-from ..amp.state import amp_enabled, amp_state, maybe_cast
-from ..core.enforce import InvalidArgumentError, UnimplementedError
+from ..amp.state import amp_enabled, amp_state
+from ..core.enforce import InvalidArgumentError
 from ..kernels.flash_attention import flash_attention_arrays
 from ..nn.functional.attention import scaled_dot_product_attention
+from ..parallel.mp_layers import (ColumnParallelLinear, RowParallelLinear,
+                                  VocabParallelEmbedding, parallel_logits)
 from ..parallel.sp import sequence_parallel_attention
-
-
-def _no_mp(use_mp, where):
-    if use_mp:
-        raise UnimplementedError(
-            f"{where}(use_mp=True): tensor parallelism (mp_layers) comes with "
-            "the distributed slice of the port")
 
 
 class ErnieEmbeddings(nn.Layer):
     def __init__(self, vocab_size, hidden_size, max_position_embeddings=512,
                  type_vocab_size=2, dropout=0.1, use_mp=False):
         super().__init__()
-        _no_mp(use_mp, "ErnieEmbeddings")
-        self.word_embeddings = nn.Embedding(vocab_size, hidden_size)
+        if use_mp:
+            self.word_embeddings = VocabParallelEmbedding(vocab_size,
+                                                          hidden_size)
+        else:
+            self.word_embeddings = nn.Embedding(vocab_size, hidden_size)
         self.position_embeddings = nn.Embedding(max_position_embeddings,
                                                 hidden_size)
         self.token_type_embeddings = nn.Embedding(type_vocab_size, hidden_size)
@@ -78,9 +84,14 @@ class ErnieMLP(nn.Layer):
     def __init__(self, hidden_size, intermediate_size, dropout=0.1,
                  use_mp=False):
         super().__init__()
-        _no_mp(use_mp, "ErnieMLP")
-        self.fc1 = nn.Linear(hidden_size, intermediate_size)
-        self.fc2 = nn.Linear(intermediate_size, hidden_size)
+        if use_mp:
+            self.fc1 = ColumnParallelLinear(hidden_size, intermediate_size,
+                                            gather_output=False)
+            self.fc2 = RowParallelLinear(intermediate_size, hidden_size,
+                                         input_is_parallel=True)
+        else:
+            self.fc1 = nn.Linear(hidden_size, intermediate_size)
+            self.fc2 = nn.Linear(intermediate_size, hidden_size)
         self.act = nn.GELU()
         self.dropout = nn.Dropout(dropout)
 
@@ -92,13 +103,17 @@ class ErnieSelfAttention(nn.Layer):
     def __init__(self, hidden_size, num_heads, dropout=0.1, use_mp=False,
                  use_sp=False, causal=False):
         super().__init__()
-        _no_mp(use_mp, "ErnieSelfAttention")
         self.num_heads = num_heads
         self.head_dim = hidden_size // num_heads
         self.causal = causal
         self.use_sp = use_sp
-        self.qkv = nn.Linear(hidden_size, 3 * hidden_size)
-        self.out = nn.Linear(hidden_size, hidden_size)
+        if use_mp:
+            self.qkv = ColumnParallelLinear(hidden_size, 3 * hidden_size,
+                                            gather_output=True)
+            self.out = RowParallelLinear(hidden_size, hidden_size)
+        else:
+            self.qkv = nn.Linear(hidden_size, 3 * hidden_size)
+            self.out = nn.Linear(hidden_size, hidden_size)
         self.dropout_p = dropout
 
     def forward(self, x, attn_mask=None):
@@ -252,7 +267,6 @@ class ErnieForPretraining(nn.Layer):
 
     def __init__(self, ernie: ErnieModel, use_mp=False):
         super().__init__()
-        _no_mp(use_mp, "ErnieForPretraining")
         self.ernie = ernie
         hidden = ernie.pooler.weight.shape[1]
         self.transform = nn.Linear(hidden, hidden)
@@ -266,9 +280,8 @@ class ErnieForPretraining(nn.Layer):
         # weight-tied MLM logits, [B*S, H] x [V, H]^T then back to [B, S, V]
         # (:291-296); the product is an AMP white-list matmul
         b, s = h.shape[0], h.shape[1]
-        h2, w = maybe_cast(h.reshape(-1, h.shape[-1]),
-                           self.ernie.embeddings.word_embeddings.weight)
-        logits = torch.matmul(h2, w.t())
+        logits = parallel_logits(h.reshape(-1, h.shape[-1]),
+                                 self.ernie.embeddings.word_embeddings)
         return logits.reshape(b, s, logits.shape[-1]), self.nsp(pooled)
 
 

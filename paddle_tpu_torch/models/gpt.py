@@ -2,12 +2,16 @@
 
 Counterpart of `paddle_tpu/models/gpt.py`: `GPTEmbeddings`, `GPTModel`,
 `GPTForCausalLM` with the head tied to the word embeddings (:96-100), the
-shifted-LM `GPTPretrainingCriterion` (:113-132) and the
-`gpt2_small`/`gpt2_medium` configs. The cached decode path
-(`init_kv_cache`, `forward_cached`, :58-110) writes each block's K/V into
-the given pages in place: a CUDA graph of the decode step replays over the
-same pool. Tensor, sequence and pipeline parallelism (and the
-vocab-parallel loss) come with the distributed slice.
+shifted-LM `GPTPretrainingCriterion` (:113-132, with the vocab-parallel
+loss), `gpt_pipeline_layer` (:135-172, the `PipelineLayer` build for
+pipeline parallelism) and the `gpt2_small`/`gpt2_medium`/`gpt_10b`
+configs. `use_mp` / `use_sp` wire tensor and sequence parallelism into
+the blocks as `models/ernie.py` does; with `use_mp` in a process world of
+mp > 1 the tied head gives the rank's vocabulary slice of the logits, the
+input of `GPTPretrainingCriterion(use_parallel_ce=True)`. The cached
+decode path (`init_kv_cache`, `forward_cached`, :58-110) writes each
+block's K/V into the given pages in place: a CUDA graph of the decode step
+replays over the same pool.
 """
 from __future__ import annotations
 
@@ -15,15 +19,21 @@ import torch
 import torch.nn.functional as TF
 
 from .. import nn
-from ..amp.state import maybe_cast
 from ..core.dtype import convert_dtype
+from ..parallel.mp_layers import (ParallelCrossEntropy,
+                                  VocabParallelEmbedding, parallel_logits)
 from .ernie import ErnieLayer
 
 
 class GPTEmbeddings(nn.Layer):
-    def __init__(self, vocab_size, hidden_size, max_seq_len=1024, dropout=0.1):
+    def __init__(self, vocab_size, hidden_size, max_seq_len=1024, dropout=0.1,
+                 use_mp=False):
         super().__init__()
-        self.word_embeddings = nn.Embedding(vocab_size, hidden_size)
+        if use_mp:
+            self.word_embeddings = VocabParallelEmbedding(vocab_size,
+                                                          hidden_size)
+        else:
+            self.word_embeddings = nn.Embedding(vocab_size, hidden_size)
         self.position_embeddings = nn.Embedding(max_seq_len, hidden_size)
         self.dropout = nn.Dropout(dropout)
 
@@ -53,14 +63,14 @@ class GPTEmbeddings(nn.Layer):
 class GPTModel(nn.Layer):
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_heads=12, intermediate_size=None, max_seq_len=1024,
-                 dropout=0.1):
+                 dropout=0.1, use_mp=False, use_sp=False):
         super().__init__()
         intermediate_size = intermediate_size or 4 * hidden_size
         self.embeddings = GPTEmbeddings(vocab_size, hidden_size, max_seq_len,
-                                        dropout)
+                                        dropout, use_mp)
         self.layers = nn.LayerList([
             ErnieLayer(hidden_size, num_heads, intermediate_size, dropout,
-                       causal=True)
+                       use_mp, use_sp, causal=True)
             for _ in range(num_layers)])
         self.final_norm = nn.LayerNorm(hidden_size)
 
@@ -107,10 +117,9 @@ class GPTForCausalLM(nn.Layer):
         self.gpt = gpt
 
     def forward(self, input_ids):
-        h = self.gpt(input_ids)
         # the tied head is an AMP white-list matmul (ops/math.py:139-140)
-        h, w = maybe_cast(h, self.gpt.embeddings.word_embeddings.weight)
-        return torch.matmul(h, w.t())
+        return parallel_logits(self.gpt(input_ids),
+                               self.gpt.embeddings.word_embeddings)
 
     def forward_cached(self, input_ids, past_kv, positions, kv_scales=None):
         """Cached-attention LM step: (logits, past_kv, new_kv_scales), the
@@ -124,21 +133,66 @@ class GPTForCausalLM(nn.Layer):
 
 class GPTPretrainingCriterion(nn.Layer):
     """Shifted-LM loss: logits at position i against the token at i + 1,
-    mean cross entropy over the batch."""
+    mean cross entropy over the batch; with `use_parallel_ce`, the
+    vocab-parallel `ParallelCrossEntropy` (the rank's logits slice in a
+    process world of mp > 1)."""
 
     def __init__(self, use_parallel_ce=False):
         super().__init__()
-        if use_parallel_ce:
-            raise NotImplementedError(
-                "GPTPretrainingCriterion(use_parallel_ce=True): the "
-                "vocab-parallel loss comes with the distributed slice")
-        self.ce = nn.CrossEntropyLoss()
+        self._parallel = bool(use_parallel_ce)
+        self.ce = ParallelCrossEntropy() if self._parallel \
+            else nn.CrossEntropyLoss()
 
     def forward(self, logits, labels):
         shifted = logits[:, :-1]
         tgt = labels[:, 1:]
+        if self._parallel:
+            return self.ce(shifted, tgt.unsqueeze(-1)).mean()
         b, s, v = shifted.shape
         return self.ce(shifted.reshape(b * s, v), tgt.reshape(b * s))
+
+
+class _EmbedStage(nn.Layer):
+    """`gpt_pipeline_layer`'s first entry: the embeddings."""
+
+    def __init__(self, vocab_size, hidden_size, max_seq_len, dropout, use_mp):
+        super().__init__()
+        self.emb = GPTEmbeddings(vocab_size, hidden_size, max_seq_len,
+                                 dropout, use_mp)
+
+    def forward(self, ids):
+        return self.emb(ids)
+
+
+class _HeadStage(nn.Layer):
+    """`gpt_pipeline_layer`'s last entry: the final norm and an untied
+    LM head."""
+
+    def __init__(self, hidden_size, vocab_size):
+        super().__init__()
+        self.norm = nn.LayerNorm(hidden_size)
+        self.lm_head = nn.Linear(hidden_size, vocab_size, bias_attr=False)
+
+    def forward(self, x):
+        return self.lm_head(self.norm(x))
+
+
+def gpt_pipeline_layer(vocab_size=50304, hidden_size=768, num_layers=12,
+                       num_heads=12, num_stages=2, use_mp=False, dropout=0.1,
+                       max_seq_len=1024, num_virtual_pipeline_stages=1):
+    """PipelineLayer build of GPT for pipeline training (the reference's
+    :135-172): the embeddings, `num_layers` causal ErnieLayers (FFN 4 x
+    hidden), the norm and an untied head, with the shifted-LM loss."""
+    from ..parallel.pp_layers import LayerDesc, PipelineLayer
+    descs = [LayerDesc(_EmbedStage, vocab_size, hidden_size, max_seq_len,
+                       dropout, use_mp)]
+    for _ in range(num_layers):
+        descs.append(LayerDesc(ErnieLayer, hidden_size, num_heads,
+                               4 * hidden_size, dropout, use_mp, False, True))
+    descs.append(LayerDesc(_HeadStage, hidden_size, vocab_size))
+    return PipelineLayer(descs, num_stages=num_stages,
+                         loss_fn=GPTPretrainingCriterion(),
+                         num_virtual_pipeline_stages=num_virtual_pipeline_stages)
 
 
 # configs
@@ -150,5 +204,13 @@ def gpt2_medium(**kw):
     return GPTModel(hidden_size=1024, num_layers=24, num_heads=16, **kw)
 
 
+def gpt_10b(**kw):
+    """Config 5's model (:178): 48 layers of hidden 4096, 64 heads of 64,
+    FFN 16384, vocabulary 50304, sequence 2048."""
+    return GPTModel(hidden_size=4096, num_layers=48, num_heads=64,
+                    max_seq_len=2048, **kw)
+
+
 __all__ = ["GPTEmbeddings", "GPTModel", "GPTForCausalLM",
-           "GPTPretrainingCriterion", "gpt2_small", "gpt2_medium"]
+           "GPTPretrainingCriterion", "gpt_pipeline_layer", "gpt2_small",
+           "gpt2_medium", "gpt_10b"]

@@ -116,12 +116,18 @@ class Layer(torch.nn.Module):
 
     def set_state_dict(self, state_dict, use_structured_name=True):
         """Copy values by name into this layer's parameters; each value is
-        cast to the parameter's dtype and device. Returns
-        (missing, unexpected) key lists like the JAX package."""
+        cast to the parameter's dtype and device, after the layer that
+        owns it has made it its own (`_own_piece`). Returns (missing,
+        unexpected) key lists like the JAX package."""
         own = self.state_dict(keep_vars=True)
         missing = [k for k in own if k not in state_dict]
         unexpected = [k for k in state_dict if k not in own]
-        srcs = {k: _as_tensor(v) for k, v in state_dict.items() if k in own}
+        srcs = {}
+        for k, v in state_dict.items():
+            if k in own:
+                path, _, attr = k.rpartition(".")
+                owner = self.get_submodule(path) if path else self
+                srcs[k] = owner._own_piece(attr, _as_tensor(v))
         for k, src in srcs.items():  # every shape checked before any copy
             if tuple(src.shape) != tuple(own[k].shape):
                 raise ValueError(f"shape mismatch for {k}: "
@@ -131,6 +137,12 @@ class Layer(torch.nn.Module):
             for k, src in srcs.items():
                 own[k].copy_(src.to(device=own[k].device, dtype=own[k].dtype))
         return missing, unexpected
+
+    def _own_piece(self, name, value):
+        """The part of a loaded tensor that this layer's parameter or
+        buffer `name` holds: all of it here (a tensor-parallel layer keeps
+        its slice)."""
+        return value
 
     def to(self, device=None, dtype=None, blocking=None):
         """Paddle spelling: `to('gpu')`, `to(dtype='bfloat16')`. Casts

@@ -16,12 +16,17 @@ through `torch.distributed` (gloo on the CPU):
   - `reducer.py`: bucketed gradient all-reduce overlapped with the
     backward; `data_parallel.py`: `DataParallel`;
   - `spmd.py`: `SPMDTrainStep`, data parallelism and ZeRO stages 1-3;
-  - `hybrid_optimizer.py`, `meta_parallel.py` (`ShardingParallel`),
-    `fleet.py`: the fleet facade's DP and sharding path;
+  - `mp_layers.py`: tensor parallelism (the dense layers without a
+    world, the rank's slices and the collectives in one);
+    `pp_layers.py` and `pipeline_parallel.py`: pipeline parallelism, 1F1B
+    over the slots of one process's mesh or over the pp group of a world;
+    `grad_clip.py`: norm clips over gradients split across ranks;
+  - `hybrid_optimizer.py`, `meta_parallel.py` (`TensorParallel` =
+    `ShardingParallel`), `fleet.py`: the fleet facade;
   - `strategy.py`, and `sp.py` (sequence parallelism, ring and Ulysses
     attention, still single-controller inside one process).
 
-Tensor, pipeline and expert parallelism are not ported yet.
+Expert parallelism (`moe.py`) is not ported yet.
 """
 import os as _os
 import traceback as _traceback
@@ -40,7 +45,12 @@ from .collective import (  # noqa: F401
 )
 from .reducer import Reducer  # noqa: F401
 from .data_parallel import DataParallel  # noqa: F401
-from .meta_parallel import ShardingParallel  # noqa: F401
+from .meta_parallel import ShardingParallel, TensorParallel  # noqa: F401
+from .mp_layers import (ColumnParallelLinear,  # noqa: F401
+                        ParallelCrossEntropy, RowParallelLinear,
+                        VocabParallelEmbedding)
+from .pp_layers import LayerDesc, PipelineLayer, SharedLayerDesc  # noqa: F401
+from .pipeline_parallel import PipelineParallel  # noqa: F401
 from .spmd import SPMDTrainStep  # noqa: F401
 from .hybrid_optimizer import (  # noqa: F401
     DygraphShardingOptimizer, HybridParallelOptimizer, group_sharded_parallel,

@@ -29,6 +29,16 @@ Every call is counted by `_record` into the monitor (`collective.<name>.
 count` / `.bytes`, FLAGS_monitor) and the flight recorder's collective ring
 (FLAGS_obs_flight_recorder), under the reference's names, and takes the
 step timeline's `collective` phase when no phase is open.
+
+`record_only()` is the port's counterpart of tracing a step for the
+reference's `analysis.collective_sequence`: inside it no call
+communicates; each appends a `CollectiveDesc(op, axis, shape, dtype,
+perm)` (the reference's `analysis/graph.py:179`, with its primitive names:
+`psum`, `pmax`, `pmin`, `pmean`, `all_gather`, `psum_scatter`,
+`all_to_all`, `ppermute`, and `send` / `recv` / `broadcast` / `barrier`
+for the point-to-point and rooted calls) and returns a value of the shape
+the call would give. Run under `FakeTensorMode`, a step issues its whole
+sequence without touching a number.
 """
 from __future__ import annotations
 
@@ -46,6 +56,107 @@ from .env import TIMEOUT, is_world
 # the collective sequence of a capture (`capture()`), or None
 _SEQ = [None]
 _SEQ_LOCK = threading.Lock()
+# the CollectiveDesc lists of a `record_only()` / `trace()` block, or None
+_REC = [None]
+_TRACE = [None]
+
+
+class CollectiveDesc:
+    """One collective in a rank's sequence: what must match across peers
+    for the call to complete instead of deadlocking (the reference's
+    `analysis/graph.py:179`)."""
+
+    __slots__ = ("op", "axis", "shape", "dtype", "perm")
+
+    def __init__(self, op: str, axis, shape, dtype, perm=None):
+        self.op = op
+        self.axis = axis
+        self.shape = tuple(shape)
+        self.dtype = str(dtype).replace("torch.", "")
+        self.perm = tuple(perm) if perm is not None else None
+
+    def _key(self):
+        return (self.op, self.axis, self.shape, self.dtype, self.perm)
+
+    def __eq__(self, other):
+        return isinstance(other, CollectiveDesc) and \
+            self._key() == other._key()
+
+    def __hash__(self):
+        return hash(self._key())
+
+    def __repr__(self):
+        shp = ",".join(str(s) for s in self.shape)
+        return f"{self.op}(axis={self.axis}, {self.dtype}[{shp}])"
+
+
+@contextlib.contextmanager
+def record_only():
+    """Inside the block no collective communicates: each appends its
+    CollectiveDesc to the yielded list and returns a value of its result's
+    shape (the input's values, or copies of them)."""
+    seq: List = []
+    prev, _REC[0] = _REC[0], seq
+    try:
+        yield seq
+    finally:
+        _REC[0] = prev
+
+
+@contextlib.contextmanager
+def trace():
+    """Collect the CollectiveDesc of every collective issued inside the
+    block, which communicate as usual: what a step really issued, to hold
+    against what `record_only()` traced."""
+    seq: List = []
+    prev, _TRACE[0] = _TRACE[0], seq
+    try:
+        yield seq
+    finally:
+        _TRACE[0] = prev
+
+
+def first_divergence(a, b):
+    """The index of the first entry where CollectiveDesc sequences `a` and
+    `b` differ (or where the shorter one ends), or None when they are
+    equal: the collective two ranks would deadlock on (the reference's
+    `analysis.verify_collective_order`)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def recording() -> bool:
+    return _REC[0] is not None
+
+
+def _axis_name(group, g) -> Optional[str]:
+    if isinstance(group, str):
+        return group
+    return g.axis_name
+
+
+def _in_group(g, rank):
+    """A global rank's index in group `g` (the rank itself when it is not
+    a member): perms are recorded in group indices, as the reference's
+    axis indices, so the ranks of one stage record the same sequence."""
+    return g.ranks.index(rank) if rank in g.ranks else rank
+
+
+def _rec(op, group, g, t, perm=None):
+    """Append the call's CollectiveDesc to the open `record_only()` and
+    `trace()` lists."""
+    if _REC[0] is None and _TRACE[0] is None:
+        return
+    desc = CollectiveDesc(op, _axis_name(group, g), tuple(t.shape),
+                          t.dtype, perm)
+    for seq in (_REC[0], _TRACE[0]):
+        if seq is not None:
+            seq.append(desc)
+
+
+_OP_NAME = {0: "psum", 1: "pmax", 2: "pmin", 3: "pprod", 4: "pmean"}
 
 
 def _record(name: str, t) -> None:
@@ -241,8 +352,11 @@ def _all_reduce(t, op, g, async_op=False) -> _Task:
 def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True):
     """In place (paddle semantics): `tensor` is replaced with the result.
     Returns the tensor, or a task with `wait()` when `sync_op` is False."""
-    _record("c_allreduce", tensor)
     g = _resolve(group)
+    _rec(_OP_NAME[op], group, g, tensor)
+    if _REC[0] is not None:
+        return tensor if sync_op else _Task()
+    _record("c_allreduce", tensor)
     if not _live(g):
         return tensor if sync_op else _Task()
     with _phase():
@@ -257,11 +371,15 @@ def all_gather(tensor_list, tensor, group=None, sync_op=True, axis=0):
     """Every rank's `tensor`, stacked along a new dimension `axis` (the
     reference's `lax.all_gather(tiled=False)` at axis 0); `tensor_list`,
     when given, is extended with the parts in rank order."""
-    _record("c_allgather", tensor)
     g = _resolve(group)
-    if not _live(g):
+    _rec("all_gather", group, g, tensor)
+    if _REC[0] is not None:
+        parts = [tensor.clone() for _ in range(g.nranks)]
+    elif not _live(g):
+        _record("c_allgather", tensor)
         parts = [tensor]
     else:
+        _record("c_allgather", tensor)
         src = tensor.contiguous()
         parts = [torch.empty_like(src) for _ in range(g.nranks)]
         with _phase():
@@ -291,14 +409,19 @@ def reduce_scatter(tensor, tensor_list_or_input, op=ReduceOp.SUM, group=None,
     src = tensor_list_or_input
     if isinstance(src, (list, tuple)):
         src = torch.cat(list(src), dim=0)
-    _record("c_reducescatter", src)
     g = _resolve(group)
-    if not _live(g):
+    _rec("psum_scatter", group, g, src)
+    if _REC[0] is not None:
+        out = src.chunk(g.nranks, 0)[max(g.rank, 0)].clone()
+    elif not _live(g):
+        _record("c_reducescatter", src)
         out = src
     elif src.shape[0] % g.nranks:
+        _record("c_reducescatter", src)
         raise ValueError(f"reduce_scatter: axis 0 of {tuple(src.shape)} "
                          f"does not split into {g.nranks} chunks")
     else:
+        _record("c_reducescatter", src)
         with _phase():
             if _gloo(g):
                 # gloo: all_reduce, then this rank's slice
@@ -319,8 +442,11 @@ def reduce_scatter(tensor, tensor_list_or_input, op=ReduceOp.SUM, group=None,
 
 def broadcast(tensor, src=0, group=None, sync_op=True):
     """In place: every rank's `tensor` becomes rank `src`'s."""
-    _record("c_broadcast", tensor)
     g = _resolve(group)
+    _rec("broadcast", group, g, tensor, perm=(_in_group(g, src),))
+    if _REC[0] is not None:
+        return tensor
+    _record("c_broadcast", tensor)
     if _live(g):
         with _phase():
             dist.broadcast(tensor, src=src, group=g.process_group)
@@ -335,8 +461,11 @@ def reduce(tensor, dst=0, op=ReduceOp.SUM, group=None, sync_op=True):
 def scatter(tensor, tensor_list=None, src=0, group=None, sync_op=True):
     """In place: rank r's `tensor` becomes entry r of rank `src`'s
     `tensor_list`."""
-    _record("c_scatter", tensor)
     g = _resolve(group)
+    _rec("scatter", group, g, tensor, perm=(_in_group(g, src),))
+    if _REC[0] is not None:
+        return tensor
+    _record("c_scatter", tensor)
     if not _live(g):
         if tensor_list is not None:
             tensor.copy_(tensor_list[g.rank if g.rank >= 0 else 0])
@@ -376,11 +505,15 @@ def alltoall(in_tensor_list, out_tensor_list=None, group=None, sync_op=True):
         src = torch.stack(list(in_tensor_list), dim=0)
     else:
         src = in_tensor_list
-    _record("alltoall", src)
     g = _resolve(group)
-    if not _live(g):
+    _rec("all_to_all", group, g, src)
+    if _REC[0] is not None:
+        out = src.clone()
+    elif not _live(g):
+        _record("alltoall", src)
         out = src
     else:
+        _record("alltoall", src)
         with _phase():
             out = _all_to_all_single(torch.empty_like(src), src, g)
     if out_tensor_list is not None:
@@ -393,11 +526,15 @@ def alltoall_single(in_tensor, out_tensor=None, in_split_sizes=None,
     """Axis 0 of `in_tensor` split into group-size chunks (or
     `in_split_sizes`), chunk j sent to rank j; the chunks received,
     concatenated in rank order (the reference's tiled `all_to_all`)."""
-    _record("alltoall_single", in_tensor)
     g = _resolve(group)
-    if not _live(g):
+    _rec("all_to_all", group, g, in_tensor)
+    if _REC[0] is not None:
+        out = in_tensor.clone()
+    elif not _live(g):
+        _record("alltoall_single", in_tensor)
         out = in_tensor
     else:
+        _record("alltoall_single", in_tensor)
         rows = sum(out_split_sizes) if out_split_sizes else in_tensor.shape[0]
         out = out_tensor if out_tensor is not None else in_tensor.new_empty(
             (rows,) + tuple(in_tensor.shape[1:]))
@@ -424,9 +561,17 @@ def _p2p(fn, tensor, peer, g, recv: bool):
               group=g.process_group), None
 
 
+def _me():
+    return dist.get_rank() if is_world() else 0
+
+
 def isend(tensor, dst=0, group=None, sync_op=False):
-    _record("send_v2", tensor)
     g = _resolve(group)
+    _rec("send", group, g, tensor,
+         perm=(_in_group(g, _me()), _in_group(g, dst)))
+    if _REC[0] is not None:
+        return _Task()
+    _record("send_v2", tensor)
     if not _live(g):
         return _Task()
     work, post = _p2p(dist.isend, tensor, dst, g, recv=False)
@@ -435,10 +580,47 @@ def isend(tensor, dst=0, group=None, sync_op=False):
 
 def irecv(tensor, src=0, group=None, sync_op=False):
     g = _resolve(group)
+    _rec("recv", group, g, tensor,
+         perm=(_in_group(g, src), _in_group(g, _me())))
+    if _REC[0] is not None:
+        return _Task()
     if not _live(g):
         return _Task()
     work, post = _p2p(dist.irecv, tensor, src, g, recv=True)
     return _Task([work], post)
+
+
+def send_recv(ops, group=None):
+    """Point-to-point calls posted together, then waited on: `ops` is a
+    list of ("send", tensor, dst) and ("recv", tensor, src) with global
+    ranks; each received tensor is written in place. NCCL runs them as
+    one group (`batch_isend_irecv`: a send and a receive that wait on each
+    other's peers cannot deadlock on the stream); gloo posts each
+    `isend` / `irecv`. Recorded as the `send` / `recv` they are."""
+    g = _resolve(group)
+    for kind, t, peer in ops:
+        pair = (_me(), peer) if kind == "send" else (peer, _me())
+        _rec(kind, group, g, t, perm=tuple(_in_group(g, x) for x in pair))
+    if _REC[0] is not None or not _live(g):
+        return
+    for kind, t, _ in ops:
+        if kind == "send":
+            _record("send_v2", t)
+    with _phase():
+        if g.backend == "nccl":
+            p2p = [dist.P2POp(dist.isend if kind == "send" else dist.irecv,
+                              t.contiguous() if kind == "send" else t, peer,
+                              g.process_group) for kind, t, peer in ops]
+            for w in dist.batch_isend_irecv(p2p):
+                w.wait()
+            return
+        tasks = []
+        for kind, t, peer in ops:
+            work, post = _p2p(dist.isend if kind == "send" else dist.irecv,
+                              t, peer, g, recv=kind == "recv")
+            tasks.append(_Task([work], post))
+        for task in tasks:
+            task.wait()
 
 
 def send(tensor, dst=0, group=None, sync_op=True):
@@ -464,9 +646,13 @@ def recv(tensor, src=0, group=None, sync_op=True):
 def p2p_shift(x, group="pp", shift=1):
     """Each rank's `x` moves `shift` places along the group (rank i's goes
     to rank i + shift): the reference's `ppermute` neighbour shift."""
-    _record("p2p_shift", x)
     g = _resolve(group)
     n = g.nranks
+    _rec("ppermute", group, g, x,
+         perm=[(i, (i + shift) % n) for i in range(n)])
+    if _REC[0] is not None:
+        return x.clone()
+    _record("p2p_shift", x)
     if not _live(g) or shift % n == 0:
         return x.clone()
     dst = g.ranks[(g.rank + shift) % n]
@@ -492,6 +678,9 @@ def p2p_shift(x, group="pp", shift=1):
 def barrier(group=None):
     """Every rank of the group reaches this call before any leaves it."""
     g = _resolve(group)
+    _rec("barrier", group, g, torch.empty(0))
+    if _REC[0] is not None:
+        return
     if not _live(g):
         return
     kwargs = {}
@@ -510,4 +699,6 @@ def wait(tensor, group=None, use_calc_stream=True):
 __all__ = ["ReduceOp", "Group", "new_group", "get_group", "all_reduce",
            "all_gather", "all_gather_object", "reduce_scatter", "broadcast",
            "reduce", "scatter", "alltoall", "alltoall_single", "send", "recv",
-           "isend", "irecv", "p2p_shift", "barrier", "wait", "capture"]
+           "isend", "irecv", "p2p_shift", "barrier", "wait", "capture",
+           "CollectiveDesc", "record_only", "recording", "trace",
+           "first_divergence", "send_recv"]

@@ -1,14 +1,18 @@
-"""Fleet facade: the DP and sharding path.
+"""Fleet facade: the collective path.
 
 Counterpart of `paddle_tpu/parallel/fleet.py` (the reference Paddle's
 `fleet_base.py:170` init, :896 distributed_model, :839
 distributed_optimizer, and the role makers). `init` brings up the process
 world (`init_parallel_env`) and its `HybridCommunicateGroup`;
-`distributed_model` gives `DataParallel`, or `ShardingParallel` when the
-sharding degree is above 1; `distributed_optimizer` gives a
-`HybridParallelOptimizer`. Pipeline and tensor parallelism, the
+`distributed_model` is the reference's (:80-92): with pp > 1 a
+`PipelineLayer` is re-segmented to the pp degree and wrapped in
+`PipelineParallel`; with mp or sharding > 1 the model is wrapped in
+`TensorParallel` (= `ShardingParallel`); else in `DataParallel`.
+`distributed_optimizer` gives a `HybridParallelOptimizer`. The
 meta-optimizers (gradient merge, LocalSGD, DGC) and the parameter-server
-surface raise until their slices are ported (ROADMAP.md Queue 1 item 5).
+surface raise until their slices are ported (ROADMAP.md Queue 1,
+"meta-optimizers, MoE and elastic" and "the host-side distributed
+state").
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ from .topology import HybridCommunicateGroup, get_hybrid_communicate_group
 
 _FLEET = {"init": False, "strategy": None, "hcg": None}
 
-_NEXT = "(ROADMAP.md Queue 1 item 5)"
+_META = '(ROADMAP.md Queue 1, "meta-optimizers, MoE and elastic")'
+_PS = '(ROADMAP.md Queue 1, "the host-side distributed state")'
 
 
 class PaddleCloudRoleMaker:
@@ -51,7 +56,7 @@ class UserDefinedRoleMaker(PaddleCloudRoleMaker):
 def init(role_maker=None, is_collective=True, strategy=None, log_dir=None):
     if not is_collective:
         raise NotImplementedError("fleet.init(is_collective=False): the "
-                                  f"parameter-server mode is not ported {_NEXT}")
+                                  f"parameter-server mode is not ported {_PS}")
     strategy = strategy or DistributedStrategy()
     init_parallel_env()
     hcg = HybridCommunicateGroup(strategy)
@@ -80,22 +85,22 @@ def get_strategy() -> Optional[DistributedStrategy]:
 
 
 def distributed_model(model):
-    """DataParallel, or ShardingParallel with a sharding degree above 1
-    (`fleet_base.py:956-990`)."""
+    """PipelineParallel (pp > 1, a PipelineLayer), TensorParallel (mp or
+    sharding > 1) or DataParallel (`fleet_base.py:956-990`)."""
     from .data_parallel import DataParallel
-    from .meta_parallel import ShardingParallel
+    from .meta_parallel import TensorParallel
+    from .pipeline_parallel import PipelineParallel
+    from .pp_layers import PipelineLayer
     hcg = get_hybrid_group()
     strategy = _FLEET["strategy"] or DistributedStrategy()
     if hcg is not None and hcg.pp_degree > 1:
-        raise NotImplementedError("fleet.distributed_model with pp_degree > "
-                                  "1: PipelineParallel comes with the "
-                                  f"pipeline slice {_NEXT}")
-    if hcg is not None and hcg.mp_degree > 1:
-        raise NotImplementedError("fleet.distributed_model with mp_degree > "
-                                  "1: TensorParallel comes with the "
-                                  f"mp_layers slice {_NEXT}")
-    if hcg is not None and hcg.sharding_degree > 1:
-        return ShardingParallel(model, hcg, strategy)
+        if not isinstance(model, PipelineLayer):
+            raise TypeError("pp_degree > 1 requires a PipelineLayer model")
+        if model.num_stages != hcg.pp_degree:
+            model.resegment(hcg.pp_degree)
+        return PipelineParallel(model, hcg, strategy)
+    if hcg is not None and (hcg.mp_degree > 1 or hcg.sharding_degree > 1):
+        return TensorParallel(model, hcg, strategy)
     return DataParallel(model, hcg=hcg, strategy=strategy,
                         find_unused_parameters=strategy.find_unused_parameters)
 
@@ -107,14 +112,14 @@ def distributed_optimizer(optimizer, strategy=None):
         if st is not None and getattr(st, toggle, False):
             raise NotImplementedError(
                 f"DistributedStrategy.{toggle}: the meta-optimizers "
-                f"(meta_optimizers.py) are not ported yet {_NEXT}")
+                f"(meta_optimizers.py) are not ported yet {_META}")
     return HybridParallelOptimizer(optimizer, get_hybrid_group(), st)
 
 
 def _ps(name):
     def fn(*a, **kw):
         raise NotImplementedError(f"fleet.{name}: the parameter-server "
-                                  f"surface is not ported yet {_NEXT}")
+                                  f"surface is not ported yet {_PS}")
     fn.__name__ = name
     return fn
 

@@ -19,7 +19,8 @@ and the launcher exits with that code; when `--timeout` seconds pass
 first, all are stopped and it exits 124 (no limit by default: a training
 run may take days, and a rank that hangs in a collective fails at the
 group's timeout). The `ps` and `elastic` run
-modes are not ported (ROADMAP.md Queue 1 item 5).
+modes are not ported (ROADMAP.md Queue 1: elastic with the
+meta-optimizers and MoE, ps with the host-side distributed state).
 """
 from __future__ import annotations
 
@@ -142,7 +143,9 @@ def launch(argv=None) -> int:
     if args.run_mode != "collective":
         raise NotImplementedError(
             f"launch --run_mode {args.run_mode}: the parameter-server and "
-            "elastic modes are not ported yet (ROADMAP.md Queue 1 item 5)")
+            "elastic modes are not ported yet (ROADMAP.md Queue 1: "
+            "\"meta-optimizers, MoE and elastic\", \"the host-side "
+            "distributed state\")")
     envs = rank_envs(args.nproc_per_node, args.nnodes, args.node_rank,
                      args.master, args.devices, args.backend, args.device)
     procs, logs = [], []

@@ -131,9 +131,13 @@ class Reducer:
         return torch.cat([g.detach().reshape(-1) for g in gs])
 
     def _all_reduce(self, flat):
-        """One bucket's async all-reduce, recorded as c_allreduce_bucket."""
-        collective._record("c_allreduce_bucket", flat)
+        """One bucket's async all-reduce, recorded as c_allreduce_bucket
+        (under `collective.record_only()`, as its `psum`)."""
         g = self.group()
+        collective._rec("psum", self.axis, g, flat)
+        if collective.recording():
+            return collective._Task()
+        collective._record("c_allreduce_bucket", flat)
         if not collective._live(g):
             return collective._Task()
         with collective._phase():

@@ -20,10 +20,15 @@ Over a process world (`init_parallel_env`, one process per card) and with
 no `devices` given, `HybridCommunicateGroup` is the reference Paddle's:
 the ranks map to coordinates in `CommunicateTopology`'s order (data,
 pipe, sharding, model), each axis has a real `collective.Group`, and the
-rank's coordinates answer `get_data_parallel_rank()` and the like. There
-dp x sharding must equal the world size; a tensor, pipeline or sequence
-degree above 1 across processes raises NotImplementedError. Every slot of
-its mesh names this process's device (the one it can address).
+rank's coordinates answer `get_data_parallel_rank()`, `get_stage_id()`,
+`get_model_parallel_rank()` and the like. There dp x pp x sharding x mp
+must equal the world size; a sequence degree above 1 across processes
+raises NotImplementedError (ROADMAP.md Queue 1, "sp across processes").
+Besides the four axes' groups it makes the group of the data axes (the
+ranks that share this rank's pipe and model coordinates:
+`get_data_axes_group()`), over which a stage's gradients are averaged.
+Every slot of its mesh names this process's device (the one it can
+address).
 """
 from __future__ import annotations
 
@@ -161,47 +166,32 @@ class HybridCommunicateGroup:
         from . import collective
         from .env import ParallelEnv
         world, rank = dist.get_world_size(), dist.get_rank()
-        for name, deg in (("mp_degree", self.mp_degree),
-                          ("pp_degree", self.pp_degree),
-                          ("sp_degree", self.sp_degree)):
-            if deg > 1:
-                raise NotImplementedError(
-                    f"{name}={deg} across processes: tensor, pipeline and "
-                    "sequence parallelism over ranks come with the next "
-                    "slices (mp_layers, pipeline_parallel; ROADMAP.md "
-                    "Queue 1 item 5)")
-        if self.dp_degree * self.sharding_degree == 1 and world > 1:
+        if self.sp_degree > 1:
+            raise NotImplementedError(
+                f"sp_degree={self.sp_degree} across processes: sequence "
+                "parallelism runs over the slots of one process's mesh "
+                "(ROADMAP.md Queue 1, \"sp across processes\")")
+        if self.dp_degree * self.pp_degree * self.sharding_degree * \
+                self.mp_degree == 1 and world > 1:
             self.dp_degree = world          # paddle's default: pure DP
-        if self.dp_degree * self.sharding_degree != world:
+        dims = [self.dp_degree, self.pp_degree, self.sharding_degree,
+                self.mp_degree]
+        if int(np.prod(dims)) != world:
             raise ValueError(
-                f"dp_degree {self.dp_degree} x sharding_degree "
-                f"{self.sharding_degree} must equal the world size {world}")
+                f"dp_degree {self.dp_degree} x pp_degree {self.pp_degree} x "
+                f"sharding_degree {self.sharding_degree} x mp_degree "
+                f"{self.mp_degree} must equal the world size {world}")
         self.process_mode = True
         names = ("dp", "pp", "sharding", "mp")
-        dims = [self.dp_degree, 1, self.sharding_degree, 1]
         self._axis_names = list(names)
         self.topology = CommunicateTopology(
             ("data", "pipe", "sharding", "model"), dims)
         self.global_rank = rank
         self._coord = self.topology.get_coord(rank)
-        world_group = collective.get_group(0)
         for ax, name in enumerate(names):
-            if dims[ax] == world:
-                self._groups[name] = world_group
-                continue
-            if dims[ax] == 1:
-                self._groups[name] = collective.Group([rank], None,
-                                                      axis_name=name)
-                continue
-            # every rank makes every group of the axis, in one order
-            others = [d for i, d in enumerate(dims) if i != ax]
-            for rest in np.ndindex(*others):
-                ranks = [int(np.ravel_multi_index(
-                    rest[:ax] + (k,) + rest[ax:], dims))
-                    for k in range(dims[ax])]
-                g = collective.new_group(ranks, axis_name=name)
-                if rank in ranks:
-                    self._groups[name] = g
+            self._groups[name] = self._axes_group(dims, (ax,), name)
+        self._groups["data_axes"] = self._axes_group(dims, (0, 2),
+                                                     "data_axes")
         self._groups["sp"] = collective.Group([rank], None, axis_name="sp")
         device = ParallelEnv().device
         slots = np.empty(int(np.prod(dims)), dtype=object)
@@ -209,6 +199,35 @@ class HybridCommunicateGroup:
         self.mesh = Mesh(slots.reshape(dims), names)
         _GLOBAL_HCG[0] = self
         _GLOBAL_MESH[0] = self.mesh
+
+    def _axes_group(self, dims, axes, name):
+        """This rank's group along the mesh `axes` (the ranks that share
+        its coordinates on every other axis). Every rank makes every group
+        of the axes, in one order, as `new_group` requires."""
+        import torch.distributed as dist
+        from . import collective
+        world, rank = dist.get_world_size(), dist.get_rank()
+        size = int(np.prod([dims[a] for a in axes]))
+        if size == world:
+            return collective.Group(range(world), dist.group.WORLD,
+                                    axis_name=name)
+        if size == 1:
+            return collective.Group([rank], None, axis_name=name)
+        rest_axes = [a for a in range(len(dims)) if a not in axes]
+        mine = None
+        for rest in np.ndindex(*[dims[a] for a in rest_axes]):
+            ranks = []
+            for inner in np.ndindex(*[dims[a] for a in axes]):
+                coord = [0] * len(dims)
+                for a, c in zip(rest_axes, rest):
+                    coord[a] = c
+                for a, c in zip(axes, inner):
+                    coord[a] = c
+                ranks.append(int(np.ravel_multi_index(coord, dims)))
+            g = collective.new_group(ranks, axis_name=name)
+            if rank in ranks:
+                mine = g
+        return mine
 
     def axis_group(self, name):
         """The process-world group of a mesh axis ('dp', 'sharding', ...,
@@ -272,6 +291,11 @@ class HybridCommunicateGroup:
 
     def get_sharding_parallel_group(self):
         return self._group("sharding")
+
+    def get_data_axes_group(self):
+        """The ranks of this rank's stage and model slice along the data
+        axes (dp x sharding)."""
+        return self._group("data_axes")
 
     def get_check_parallel_group(self):
         return None

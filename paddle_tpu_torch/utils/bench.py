@@ -979,7 +979,7 @@ def _ernie_dp_rank(batch, seq, model_cfg, steps, reps, out):
                        "loss_first": losses[0], "loss_last": float(last),
                        "n_buckets": len(step.reducer.bucket_layout()),
                        "collectives_per_step": len(
-                           step.collective_signature())}, f)
+                           step.last_step_collectives())}, f)
 
 
 def ernie_dp(big=True, nproc=None, backend=None, gpus=None, seed=0):

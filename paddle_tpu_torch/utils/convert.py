@@ -22,7 +22,7 @@ def load_numpy_state(layer, state: Dict[str, np.ndarray],
     is cast to the parameter's dtype and moved to its device. With strict,
     a missing or unexpected key raises KeyError; a shape mismatch always
     raises ValueError."""
-    own = layer.state_dict()
+    own = layer.state_dict(keep_vars=True)
     missing = sorted(set(own) - set(state))
     unexpected = sorted(set(state) - set(own))
     if strict and (missing or unexpected):

@@ -388,3 +388,102 @@ def test_data_parallel_and_zero_ranks_run_with_jax_and_the_jax_package_blocked(
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip() == "ok"
     assert (tmp_path / "ok_0").exists() and (tmp_path / "ok_1").exists()
+
+
+def test_tensor_and_pipeline_parallel_ranks_run_with_jax_and_the_jax_package_blocked(
+        tmp_path):
+    """The tensor- and pipeline-parallel modules (mp_layers, pp_layers,
+    pipeline_parallel, grad_clip, zero3, TensorParallel, the models'
+    use_mp, gpt_10b's module, collective_signature) in two gloo ranks
+    whose imports of jax and the JAX package fail: SPMDTrainStep over mp
+    2, ZeRO-3 by units, then a pp 2 gpt_pipeline_layer through fleet."""
+    script = tmp_path / "ranks.py"
+    script.write_text(textwrap.dedent("""
+        import os
+        import sys
+        BLOCKED = ("jax", "jaxlib", "paddle_tpu")
+        for name in BLOCKED:
+            sys.modules[name] = None          # any import of them fails
+
+
+        def rank(out):
+            for name in BLOCKED:
+                sys.modules[name] = None
+            import torch
+            import paddle_tpu_torch as pt
+            from paddle_tpu_torch import distributed as dist
+            from paddle_tpu_torch.parallel import (
+                ColumnParallelLinear, DistributedStrategy,
+                HybridCommunicateGroup, PipelineParallel, RowParallelLinear,
+                SPMDTrainStep, TensorParallel, fleet)
+            pt.set_device("cpu")
+            st = DistributedStrategy()
+            st.hybrid_configs["mp_degree"] = 2
+            hcg = fleet.init(is_collective=True, strategy=st)
+            r = dist.get_rank()
+            pt.seed(0)
+            net = pt.nn.Sequential(ColumnParallelLinear(8, 16,
+                                                        gather_output=False),
+                                   RowParallelLinear(16, 4,
+                                                     input_is_parallel=True))
+            model = fleet.distributed_model(net)
+            assert isinstance(model, TensorParallel)
+            opt = fleet.distributed_optimizer(pt.optimizer.AdamW(
+                parameters=net.parameters(), learning_rate=1e-2,
+                grad_clip=pt.nn.ClipGradByGlobalNorm(1.0)))
+            step = SPMDTrainStep(model, lambda o, y: ((o - y) ** 2).mean(),
+                                 opt, mesh=hcg.get_mesh())
+            x, y = torch.ones(4, 8), torch.zeros(4, 4)
+            assert step.collective_signature(x, y)
+            losses = [float(step(x, y)) for _ in range(3)]
+            assert losses[-1] < losses[0], losses
+            assert model.state_dict()["0.weight"].shape == (8, 16)
+            z = HybridCommunicateGroup(hybrid_configs={"sharding_degree": 2})
+            znet = pt.models.ErnieModel(vocab_size=32, hidden_size=16,
+                                        num_hidden_layers=2,
+                                        num_attention_heads=2,
+                                        intermediate_size=32)
+            zstep = SPMDTrainStep(
+                znet, lambda s, p: (p ** 2).mean(),
+                pt.optimizer.AdamW(parameters=znet.parameters()),
+                mesh=z.get_mesh(), sharding_stage=3)
+            ids = torch.ones(2, 8, dtype=torch.int64)
+            zstep(ids)
+            assert zstep.last_peak_gathered_bytes > 0
+            st = DistributedStrategy()
+            st.hybrid_configs["pp_degree"] = 2
+            st.pipeline_configs["accumulate_steps"] = 2
+            fleet.init(is_collective=True, strategy=st)
+            pl = pt.models.gpt_pipeline_layer(
+                vocab_size=32, hidden_size=16, num_layers=2, num_heads=2,
+                max_seq_len=8, dropout=0.0, num_stages=2)
+            engine = fleet.distributed_model(pl)
+            assert isinstance(engine, PipelineParallel)
+            popt = pt.optimizer.SGD(parameters=pl.parameters(),
+                                    learning_rate=0.1)
+            tok = torch.ones(4, 8, dtype=torch.int64)
+            assert engine.collective_signature([tok, tok], popt)
+            pl_losses = [float(engine.train_batch([tok, tok], popt))
+                         for _ in range(2)]
+            assert pl_losses[1] < pl_losses[0], pl_losses
+            assert pt.models.gpt_10b is not None
+            loaded = sorted(m for m in sys.modules
+                            if sys.modules[m] is not None
+                            and m.split(".")[0] in BLOCKED)
+            assert not loaded, loaded
+            open(os.path.join(out, f"ok_{r}"), "w").close()
+
+
+        if __name__ == "__main__":
+            sys.path.insert(0, sys.argv[1])
+            from paddle_tpu_torch.parallel import spawn
+            spawn(rank, args=(sys.argv[2],), nprocs=2, backend="gloo",
+                  device="cpu", timeout=120)
+            print("ok")
+    """))
+    res = subprocess.run([sys.executable, str(script), ROOT, str(tmp_path)],
+                         cwd=str(tmp_path), capture_output=True, text=True,
+                         timeout=180)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == "ok"
+    assert (tmp_path / "ok_0").exists() and (tmp_path / "ok_1").exists()

@@ -93,3 +93,15 @@ def run_both(j, t, inputs, call=None, grads=True, seed=1, tol=1e-5,
         if isinstance(b, torch.Tensor) and b.requires_grad:
             assert dev(b.grad.numpy(), a.gradient()) <= grad_tol
     return jout, tout
+
+
+def carry_state(jlayer, tlayer, strict=True):
+    """Load a reference layer's parameters into the port's by name, as
+    numpy arrays under the reference's keys (a `gpt_pipeline_layer`, a
+    model with `use_mp=True`). In a process world a `PipelineLayer` holds
+    its stage's entries and an mp layer its slices: with strict=False the
+    rank takes the keys it holds and keeps its slice of each. Returns the
+    state."""
+    state = state_of(jlayer)
+    load_numpy_state(tlayer, state, strict=strict)
+    return state
