@@ -339,14 +339,46 @@ last line is printed):
                3 bf16 steps with the loss falling, the flash launches per
                rank, rows 1-2 on every rank against the plain math, the
                collective signature's length equal within each stage.
+ 24. fault   - slice 17, fault-tolerant training: (a) TrainGuard over
+               GPT-2 small's TrainStep (bf16 AMP, AdamW(1e-4), 8 x 1024):
+               a batch whose loss scale is NaN rolled back and skipped,
+               parameters and AdamW slots bit-equal to the snapshot; under
+               deterministic algorithms a SIGTERM to this process before
+               step 3, the checkpoint, fresh objects from another seed and
+               resume(), the final parameters bit-equal to an
+               uninterrupted run of 4 steps; 12 + 12 flash launches per
+               guarded step (fused, then dq + dk/dv when deterministic);
+               (b) ERNIE-base at 32 x 128 in fp32: fleet's gradient_merge,
+               k 4 over 8 x 128 micro-batches, against one SGD step on the
+               whole batch (loss and parameters within 1e-4 relative);
+               fleet.utils.recompute over the 12 encoder layers with
+               dropout on against the plain backward (gradients within
+               1e-5 (1 + |ref|), both peaks printed); LocalSGD (k 4, AdamW)
+               and DGC (sparsity 0.999) in a world of two (gloo on cuda:0,
+               NCCL on 2+ cards): parameters bit-equal across ranks after
+               each averaging and each DGC step, DGC's sent count per
+               parameter the top-k's k (more only on a tie), residual +
+               sent equal to the accumulation exactly; (c)
+               MoELayer(768, 3072, 8 experts, top 2) on 4096 tokens at ep
+               4 (four gloo ranks on cuda:0, NCCL on 4+ cards) against the
+               same layer with every expert local on each rank's tokens:
+               fp32 outputs and gradients within 1e-5 (1 + |ref|), the aux
+               loss equal, bf16 within tol_of; dropped assignments and ms
+               per forward + backward at ep 4 and ep 1; (d)
+               launch_elastic of a gang of two (this script with
+               --elastic-rank) over a TCPStore, each rank config 3's DP
+               step at 8 x 128 under AutoCheckpoint for 4 epochs of 2
+               steps: rank 1 exits 9 on the first launch, the relaunched
+               pair commits epochs 0 and 1, a joiner announces itself, and
+               the gang of three resumes at epoch 2 and finishes.
 
 Each fp16 step drives `scaler.step(opt)` after the scaled backward and no
 `scaler.update()`: the reference's step() already updates the scale once
 every optimizer has stepped, and an update() after it counts the step a
 second time, as a good one. The last two lines are a JSON summary of the
 kernels, one entry per kernel and dtype (bf16 from the bf16 paths, the
-dygraph, seq and obs phases' launches in rows 1-2 and the deploy and
-server phases' in row 1, fp16
+dygraph, seq and obs phases' launches in rows 1-2, the fault phase's in
+rows 1-4 and the deploy and server phases' in row 1, fp16
 from paths A and B), and `{"ok": true, "device": {...}}`. Imports nothing
 of JAX.
 
@@ -5387,6 +5419,674 @@ def config5_phase(pt, fa, torch, np, card):
     return {"launches": one["launches"], "rows": rows}
 
 
+# ---- the fault-tolerance phase (slice 17) ----
+# (a) the guard: GPT-2 small at the train phase's 8 x 1024, bf16 AMP +
+# AdamW(1e-4); the uninterrupted run's steps, the step before which the
+# SIGTERM arrives, the steps of the NaN check (the third poisoned)
+GUARD_STEPS, GUARD_KILL_AT, GUARD_NAN_STEPS = 4, 2, 4
+# (b) the meta-optimizers at the flagship's width (ERNIE-base, 32 x 128):
+# gradient merge of k micro-batches (of 8), LocalSGD's k and steps, DGC's
+# sparsity and steps, in a world of two
+META_K = 4
+LOCALSGD_K, LOCALSGD_STEPS, DGC_SPARSITY, DGC_STEPS = 4, 8, 0.999, 3
+# (c) MoE: GPT-2 small's FFN width as 8 experts, top-2, on 4096 tokens
+MOE_D, MOE_H, MOE_E, MOE_K, MOE_T, MOE_EP = 768, 3072, 8, 2, 4096, 4
+MOE_REPS = 5
+# (d) elastic: config 3's DP step per rank at 8 x 128 tokens, 4 epochs of
+# 2 steps; a gang of 2 grown to 3
+ELASTIC_EPOCHS, ELASTIC_STEPS, ELASTIC_B = 4, 2, 8
+FAULT_TIMEOUT = 300
+FLASH_ROWS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq",
+              "flash_bwd_dkv")
+
+
+def flash_counts(fa):
+    return [fa.flash_attention_fwd, fa.flash_attention_bwd_fused,
+            fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv]
+
+
+def guard_checks(pt, fa, torch, np, card, workdir):
+    """(a) TrainGuard over GPT-2 small's TrainStep: a poisoned batch (its
+    loss scale NaN) rolled back and skipped, parameters and AdamW slots
+    bit-equal to the snapshot after it; under deterministic algorithms a
+    SIGTERM before step GUARD_KILL_AT, the checkpoint, fresh objects from
+    another seed and resume(), ending bit-equal to an uninterrupted run.
+    Returns the flash launches of the guarded steps."""
+    import signal
+    from paddle_tpu_torch.guard import GuardConfig, PreemptedError, TrainGuard
+    crit = pt.models.GPTPretrainingCriterion()
+
+    def loss_fn(logits, labels, scale):
+        return crit(logits, labels) * scale[0]
+
+    def make(seed):
+        pt.seed(seed)
+        model = pt.models.GPTForCausalLM(pt.models.gpt2_small(dropout=0.0))
+        opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=model.parameters())
+        return pt.jit.TrainStep(model, loss_fn, opt, amp_dtype="bfloat16",
+                                n_model_inputs=1)
+
+    rng = np.random.default_rng(SEED + 17)
+    one = torch.ones(1, device="cuda")
+    batches = [(ids, ids, one) for ids in (
+        torch.from_numpy(rng.integers(0, 50257, (TRAIN_B, TRAIN_S))).cuda()
+        for _ in range(GUARD_STEPS))]
+    counters = flash_counts(fa)
+    res = {}
+
+    def same_state(a, b):
+        return all(np.array_equal(a["params"][n], b["params"][n])
+                   for n in a["params"]) and all(
+            np.array_equal(x[k], y[k]) for x, y in zip(a["slots"], b["slots"])
+            for k in x) and a["step_count"] == b["step_count"] and \
+            np.array_equal(a["t"], b["t"])
+
+    # ---- a NaN step: rolled back bit-exactly and skipped ----
+    for c in counters:
+        c.launches = 0
+    step = make(SEED)
+    nan = torch.full((1,), float("nan"), device="cuda")
+    with TrainGuard(step, config=GuardConfig(snapshot_interval=1,
+                                             max_bad_steps=3)) as g:
+        losses = []
+        for i in range(GUARD_NAN_STEPS):
+            g.set_cursor(0, i)
+            if i == 2:
+                before = step.state_dict()
+                t0 = time.perf_counter()
+                losses.append(g.step(batches[i][0], batches[i][1], nan))
+                res["rollback_step_ms"] = (time.perf_counter() - t0) * 1e3
+                after = step.state_dict()
+            else:
+                losses.append(g.step(*batches[i]))
+    res["nan_losses"] = losses
+    res["nan_bit_equal"] = same_state(before, after)
+    res["nan_launches"] = [c.launches for c in counters]
+    del step, g, before, after
+    torch.cuda.empty_cache()
+    check(losses[2] is None and all(
+        math.isfinite(x) for i, x in enumerate(losses) if i != 2),
+        f"fault: guard losses around the poisoned step {losses}")
+    check(res["nan_bit_equal"], "fault: the rollback after the NaN step "
+          "left parameters or slots unequal to the snapshot")
+    n_layers = 12
+    check(res["nan_launches"] == [n_layers * GUARD_NAN_STEPS] * 2 + [0, 0],
+          f"fault: guard flash launches {res['nan_launches']} in "
+          f"{GUARD_NAN_STEPS} steps (fwd, fused, dq, dkv)")
+
+    # ---- preemption and resume, bit-identical ----
+    ckpt = os.path.join(workdir, "guard")
+    with determinism(torch, True):
+        for c in counters:
+            c.launches = 0
+        step = make(SEED)
+        with TrainGuard(step, config=GuardConfig(snapshot_interval=0)) as g:
+            for i in range(GUARD_STEPS):
+                g.set_cursor(0, i)
+                g.step(*batches[i])
+        final_a = {n: t.detach().clone()
+                   for n, t in step.named_param_arrays().items()}
+        del step, g
+        step = make(SEED)
+        cursor = None
+        with TrainGuard(step, ckpt_dir=ckpt,
+                        config=GuardConfig(snapshot_interval=0)) as g:
+            try:
+                for i in range(GUARD_STEPS):
+                    g.set_cursor(0, i)
+                    if i == GUARD_KILL_AT:
+                        os.kill(os.getpid(), signal.SIGTERM)
+                    t0 = time.perf_counter()
+                    g.step(*batches[i])
+            except PreemptedError as e:
+                cursor = e.cursor
+                res["preempt_step_ms"] = (time.perf_counter() - t0) * 1e3
+        check(cursor == (0, GUARD_KILL_AT + 1),
+              f"fault: the SIGTERM gave no PreemptedError at the step "
+              f"(cursor {cursor})")
+        del step, g
+        torch.cuda.empty_cache()
+        step = make(SEED + 1)
+        with TrainGuard(step, ckpt_dir=ckpt,
+                        config=GuardConfig(snapshot_interval=0)) as g:
+            t0 = time.perf_counter()
+            start = g.resume()
+            res["resume_ms"] = (time.perf_counter() - t0) * 1e3
+            for i in range(start[1], GUARD_STEPS):
+                g.set_cursor(0, i)
+                g.step(*batches[i])
+        got = step.named_param_arrays()
+        res["resume_bit_equal"] = all(torch.equal(got[n], final_a[n])
+                                      for n in final_a)
+        res["det_launches"] = [c.launches for c in counters]
+    res["ckpt_bytes"] = sum(os.path.getsize(os.path.join(ckpt, f))
+                            for f in os.listdir(ckpt))
+    del step, g, got, final_a
+    torch.cuda.empty_cache()
+    n_det = GUARD_STEPS + GUARD_KILL_AT + 1 + GUARD_STEPS - GUARD_KILL_AT - 1
+    check(res["resume_bit_equal"], "fault: the resumed run's parameters "
+          "differ from the uninterrupted run's")
+    check(res["det_launches"] == [n_layers * n_det, 0, n_layers * n_det,
+                                  n_layers * n_det],
+          f"fault: deterministic guard launches {res['det_launches']} in "
+          f"{n_det} steps")
+    res["launches"] = {k: res["nan_launches"][i] + res["det_launches"][i]
+                       for i, k in enumerate(FLASH_ROWS)}
+    print(f"fault [guard]: gpt2_small bf16 AMP {TRAIN_B}x{TRAIN_S}, "
+          f"TrainGuard(snapshot_interval=1): losses "
+          f"{[None if x is None else round(x, 4) for x in res['nan_losses']]}"
+          f" (step 3's loss scale NaN: skipped), parameters and slots "
+          f"bit-equal to the snapshot {res['nan_bit_equal']}, the bad step "
+          f"with its rollback {res['rollback_step_ms']:.1f} ms; SIGTERM "
+          f"before step {GUARD_KILL_AT + 1} -> PreemptedError at cursor "
+          f"{cursor}, the step with the checkpoint "
+          f"{res['preempt_step_ms']:.1f} ms ({res['ckpt_bytes']:,} bytes), "
+          f"resume() from fresh objects {res['resume_ms']:.1f} ms, final "
+          f"parameters bit-equal to the uninterrupted run "
+          f"{res['resume_bit_equal']} (deterministic algorithms); flash "
+          f"launches (fwd, fused, dq, dkv) {res['nan_launches']} in "
+          f"{GUARD_NAN_STEPS} steps and {res['det_launches']} in {n_det} "
+          f"deterministic steps [{card}]", flush=True)
+    return res
+
+
+def ernie_batch(np, torch, rows, seed, device):
+    rng = np.random.default_rng(seed)
+    ids = torch.from_numpy(rng.integers(0, 30522, (rows, FLAGSHIP_S))
+                           .astype(np.int64)).to(device)
+    nsp = torch.from_numpy(rng.integers(0, 2, (rows,)).astype(np.int64)
+                           ).to(device)
+    return ids, nsp
+
+
+def meta_checks(pt, torch, np, card):
+    """(b) in this process: gradient merge (fleet's toggle, k META_K over
+    micro-batches of FLAGSHIP_B / META_K, SGD(0.1) so each update is
+    its gradient's) against one step on the whole batch, fp32, dropout 0;
+    fleet.utils.recompute over the 12 encoder layers with dropout on
+    against the plain backward, fp32, from one seed."""
+    from paddle_tpu_torch.parallel import DistributedStrategy, fleet
+    from paddle_tpu_torch.utils import bench
+    loss_fn = bench.flagship_loss(pt)
+    ids, nsp = ernie_batch(np, torch, FLAGSHIP_B, SEED + 3, "cuda")
+    res = {}
+    # ---- gradient merge ----
+    pt.seed(SEED)
+    net = pt.models.ErnieForPretraining(
+        pt.models.ernie_base(hidden_dropout_prob=0.0))
+    init = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    opt = pt.optimizer.SGD(learning_rate=0.1, parameters=net.parameters())
+    big_loss = loss_fn(*net(ids), ids, nsp)
+    big_loss.backward()
+    big_loss = big_loss.detach()
+    opt.step()
+    opt.clear_grad()
+    big = [p.detach().clone() for p in net.parameters()]
+    net.set_state_dict(init)
+    st = DistributedStrategy()
+    st.gradient_merge = True
+    st.gradient_merge_configs = {"k_steps": META_K, "avg": True}
+    gm = fleet.distributed_optimizer(pt.optimizer.SGD(
+        learning_rate=0.1, parameters=net.parameters()), strategy=st)
+    micro, rows = [], FLAGSHIP_B // META_K
+    for i in range(META_K):
+        sl = slice(i * rows, (i + 1) * rows)
+        loss = loss_fn(*net(ids[sl]), ids[sl], nsp[sl])
+        loss.backward()
+        gm.step()
+        gm.clear_grad()
+        micro.append(float(loss.detach()))
+    merged_loss = sum(micro) / META_K
+    res["merge_loss_rel"] = abs(merged_loss - float(big_loss)) / \
+        abs(float(big_loss))
+    res["merge_param_rel"] = max(
+        float((p.detach() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        for p, b in zip(net.parameters(), big))
+    check(res["merge_loss_rel"] <= 1e-4 and res["merge_param_rel"] <= 1e-4,
+          f"fault: gradient merge against the large batch: loss rel "
+          f"{res['merge_loss_rel']}, parameter rel {res['merge_param_rel']}")
+    del net, opt, gm, big, init
+    torch.cuda.empty_cache()
+    # ---- recompute over the encoder layers, dropout on ----
+    pt.seed(SEED)
+    net = pt.models.ErnieForPretraining(pt.models.ernie_base())
+    layers = list(net.ernie.layers)
+
+    def grads(rc):
+        for p in net.parameters():
+            p.grad = None
+        if rc:
+            for layer in layers:
+                layer.forward = (lambda fwd: lambda *a: fleet.utils.recompute(
+                    fwd, *a))(type(layer).forward.__get__(layer))
+        try:
+            pt.seed(SEED + 5)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            loss = loss_fn(*net(ids), ids, nsp)
+            loss.backward()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            for layer in layers:
+                layer.__dict__.pop("forward", None)
+        return float(loss), [p.grad.clone() for p in net.parameters()], peak
+
+    loss_p, g_p, peak_p = grads(False)
+    loss_r, g_r, peak_r = grads(True)
+    errs = [close_enough(a, b, 1e-5) for a, b in zip(g_r, g_p)]
+    res["recompute"] = {"loss": [loss_p, loss_r],
+                        "max_abs_err": max(e for e, _ in errs),
+                        "ok": all(ok for _, ok in errs),
+                        "peak": [peak_p, peak_r]}
+    check(loss_p == loss_r and res["recompute"]["ok"],
+          f"fault: recompute against the plain backward: losses "
+          f"{loss_p} {loss_r}, max abs err {res['recompute']['max_abs_err']}")
+    del net, g_p, g_r
+    torch.cuda.empty_cache()
+    print(f"fault [meta]: ERNIE-base {FLAGSHIP_B}x{FLAGSHIP_S} fp32; "
+          f"fleet gradient_merge k {META_K} over "
+          f"{FLAGSHIP_B // META_K}x{FLAGSHIP_S} "
+          f"micro-batches vs one SGD(0.1) step on the whole batch: loss rel "
+          f"{res['merge_loss_rel']:.3g}, max parameter rel "
+          f"{res['merge_param_rel']:.3g} (tol 1e-4); fleet.utils.recompute "
+          f"over the 12 encoder layers, dropout 0.1: loss {loss_r:.6f} "
+          f"(plain {loss_p:.6f}), gradients max abs err "
+          f"{res['recompute']['max_abs_err']:.3g} (tol 1e-5 (1+|ref|)), "
+          f"peak max_memory_allocated {peak_r / 2**20:.0f} MB vs plain "
+          f"{peak_p / 2**20:.0f} MB [{card}]", flush=True)
+    return res
+
+
+def meta_rank(outdir):
+    """One rank of (b)'s world of two: ERNIE-base fp32 on batches of this
+    rank's own (16 x 128); LocalSGD (fleet's toggle, k LOCALSGD_K, the
+    default mean over the world) over LOCALSGD_STEPS AdamW steps, then
+    DGC (sparsity DGC_SPARSITY, momentum 0.9, SGD(0.1), its allreduce the
+    world's mean of what each rank sends). Writes outdir/meta_<r>.json."""
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.guard import fingerprint
+    from paddle_tpu_torch.parallel import (DistributedStrategy, collective,
+                                           fleet, init_parallel_env)
+    from paddle_tpu_torch.parallel.meta_optimizers import DGCMomentumOptimizer
+    from paddle_tpu_torch.utils import bench
+    env = init_parallel_env()
+    r, w, dev = env.rank, env.world_size, env.device
+    loss_fn = bench.flagship_loss(pt)
+    res = {"device": str(dev)}
+
+    def fps(net):
+        out = []
+        collective.all_gather_object(
+            out, fingerprint(dict(net.named_parameters())))
+        return out
+
+    pt.seed(SEED)
+    net = pt.models.ErnieForPretraining(
+        pt.models.ernie_base(hidden_dropout_prob=0.0))
+    st = DistributedStrategy()
+    st.localsgd = True
+    st.localsgd_configs = {"k_steps": LOCALSGD_K}
+    opt = fleet.distributed_optimizer(pt.optimizer.AdamW(
+        learning_rate=1e-4, parameters=net.parameters()), strategy=st)
+    rows = FLAGSHIP_B // 2
+    equal, t0 = [], time.perf_counter()
+    for step in range(1, LOCALSGD_STEPS + 1):
+        ids, nsp = ernie_batch(np, torch, rows, SEED + 100 * r + step, dev)
+        loss_fn(*net(ids), ids, nsp).backward()
+        opt.step()
+        opt.clear_grad()
+        f = fps(net)
+        equal.append(f[0] == f[1])
+    res["localsgd"] = {"equal": equal, "s": time.perf_counter() - t0}
+    del net, opt
+    torch.cuda.empty_cache()
+
+    def world_mean(t):
+        sent.append(t.clone())
+        t = t.clone()
+        collective.all_reduce(t)
+        return t / w
+
+    pt.seed(SEED)
+    net = pt.models.ErnieForPretraining(
+        pt.models.ernie_base(hidden_dropout_prob=0.0))
+    params = list(net.parameters())
+    opt = DGCMomentumOptimizer(
+        pt.optimizer.SGD(learning_rate=0.1, parameters=params),
+        momentum=0.9, sparsity=DGC_SPARSITY, allreduce=world_mean)
+    equal, counts_ok, exact, ties, t0 = [], True, True, 0, time.perf_counter()
+    for step in range(DGC_STEPS):
+        ids, nsp = ernie_batch(np, torch, rows, SEED + 200 * r + step, dev)
+        loss_fn(*net(ids), ids, nsp).backward()
+        grads = [p.grad.clone() for p in params]
+        prev = [(opt._u.get(id(p)), opt._v.get(id(p))) for p in params]
+        sent = []
+        opt.step()
+        opt.clear_grad()
+        for p, g, (u0, v0), s in zip(params, grads, prev, sent):
+            u = g if u0 is None else 0.9 * u0 + g
+            acc = u if v0 is None else v0 + u
+            k = max(1, int(p.numel() * (1.0 - DGC_SPARSITY)))
+            thresh = torch.topk(acc.abs().reshape(-1), k).values[-1]
+            n_ge = int((acc.abs() >= thresh).sum())
+            n_sent = int((s != 0).sum())
+            if n_ge > k:
+                ties += 1
+            counts_ok &= n_ge == n_sent and (n_ge == k or int(
+                (acc.abs() == thresh).sum()) > 1)
+            exact &= bool(torch.equal(opt._v[id(p)] + s, acc))
+        f = fps(net)
+        equal.append(f[0] == f[1])
+    res["dgc"] = {"equal": equal, "counts_ok": bool(counts_ok),
+                  "exact": bool(exact), "tie_params": ties,
+                  "n_params": len(params), "s": time.perf_counter() - t0}
+    with open(os.path.join(outdir, f"meta_{r}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def moe_rank(outdir):
+    """One rank of (c)'s world of MOE_EP: its quarter of MOE_T tokens
+    through MoELayer at ep MOE_EP (its experts) and with every expert
+    local, fp32 then bf16; outputs, aux, gradients (the all-local expert
+    gradients summed over the world), dropped assignments, ms per
+    forward + backward. Writes outdir/moe_<r>.json."""
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.parallel import collective, init_parallel_env
+    from paddle_tpu_torch.parallel.moe import MoELayer, top_k_gating
+    env = init_parallel_env()
+    r, w, dev = env.rank, env.world_size, env.device
+    world = collective.get_group(0)
+    t_local = MOE_T // w
+    x_all = np.random.default_rng(SEED + 31).normal(
+        size=(MOE_T, MOE_D)).astype(np.float32)
+    x0 = torch.from_numpy(x_all[r * t_local:(r + 1) * t_local]).to(dev)
+    res = {"device": str(dev)}
+    for dtype in ("float32", "bfloat16"):
+        out = {}
+        for tag, ep in (("ep", world), ("local", None)):
+            layer = MoELayer(MOE_D, MOE_H, MOE_E, top_k=MOE_K, ep_axis=ep,
+                             seed=SEED, dtype=dtype)
+            x = x0.to(layer.wg.dtype).detach().clone().requires_grad_()
+            y, aux = layer(x, return_aux=True)
+            ((y.float() ** 2).sum() + aux).backward()
+            grads = {n: p.grad.clone() for n, p in layer.named_parameters()}
+            out[tag] = (y.detach(), float(aux.detach()), x.grad.clone(),
+                        grads)
+            times = []
+            for _ in range(MOE_REPS):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                y2, aux2 = layer(x, return_aux=True)
+                ((y2.float() ** 2).sum() + aux2).backward()
+                torch.cuda.synchronize(dev)
+                times.append((time.perf_counter() - t0) * 1e3)
+            out[tag + "_ms"] = statistics.median(times)
+            if tag == "local":
+                with torch.no_grad():
+                    dispatch, _, _ = top_k_gating(x @ layer.wg, MOE_K)
+                res["dropped"] = MOE_K * t_local - int(dispatch.sum())
+            del layer
+        y_ep, aux_ep, xg_ep, g_ep = out["ep"]
+        y_lo, aux_lo, xg_lo, g_lo = out["local"]
+        tol = 1e-5 if dtype == "float32" else tol_of(torch, torch.bfloat16)
+        row = {"y": close_enough(y_ep, y_lo, tol),
+               "aux_equal": aux_ep == aux_lo, "aux": aux_ep,
+               "ms": {"ep": out["ep_ms"], "local": out["local_ms"]}}
+        if dtype == "float32":
+            per = MOE_E // w
+            errs = [close_enough(xg_ep, xg_lo, tol),
+                    close_enough(g_ep["wg"], g_lo["wg"], tol)]
+            for n in ("w1", "b1", "w2", "b2"):
+                whole = g_lo[n].clone()
+                collective.all_reduce(whole)
+                errs.append(close_enough(g_ep[n],
+                                         whole[r * per:(r + 1) * per], tol))
+            row["grads"] = [max(e for e, _ in errs), all(ok for _, ok in errs)]
+        res[dtype] = row
+        del out, y_ep, y_lo, xg_ep, xg_lo, g_ep, g_lo
+        torch.cuda.empty_cache()
+    with open(os.path.join(outdir, f"moe_{r}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def elastic_rank(workdir):
+    """One rank of (d)'s gang (started by launch_elastic as `chip_smoke.py
+    --elastic-rank DIR`): config 3's DP step over the gang's gloo world,
+    ELASTIC_B x 128 per rank, under AutoCheckpoint for ELASTIC_EPOCHS
+    epochs of ELASTIC_STEPS steps. Rank 1 exits 9 on the first launch;
+    the gang of two waits at epoch 2 until the scale-out stops it. Rank 0
+    commits the snapshots and logs each epoch to DIR/elastic.log."""
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    ws = int(os.environ["PADDLE_TRAINERS_NUM"])
+    launch = int(os.environ["PADDLE_ELASTIC_RESTART_COUNT"])
+    if rank == 1 and launch == 0:
+        return 9
+    sys.path.insert(0, HERE)
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework.sharded_io import (AutoCheckpoint,
+                                                       load_sharded,
+                                                       save_sharded)
+    from paddle_tpu_torch.parallel import DistributedStrategy, fleet
+    from paddle_tpu_torch.utils import bench
+    t_rank = time.perf_counter()
+    st = DistributedStrategy()
+    st.hybrid_configs["dp_degree"] = ws
+    hcg = fleet.init(is_collective=True, strategy=st)
+    dev = pt.distributed.ParallelEnv().device
+    pt.seed(SEED)
+    step = bench.dp_step(pt, hcg)
+
+    def save(path):
+        if rank != 0:
+            return
+        sd = step.state_dict()
+        flat = {f"params/{n}": v for n, v in sd["params"].items()}
+        for i, s in enumerate(sd["slots"]):
+            flat.update({f"slots/{i}/{k}": v for k, v in s.items()})
+        flat["step_count"] = np.array(sd["step_count"])
+        save_sharded(flat, path, process_index=0)
+
+    def load(path):
+        a = load_sharded(path)
+        n_slots = 1 + max(int(k.split("/")[1]) for k in a
+                          if k.startswith("slots/"))
+        slots = [{} for _ in range(n_slots)]
+        for k, v in a.items():
+            if k.startswith("slots/"):
+                _, i, name = k.split("/", 2)
+                slots[int(i)][name] = v
+        step.set_state_dict({
+            "params": {k[7:]: v for k, v in a.items()
+                       if k.startswith("params/")},
+            "slots": slots, "step_count": int(a["step_count"])})
+
+    acp = AutoCheckpoint(os.path.join(workdir, "ckpt"), save, load)
+    if rank == 0:
+        epochs = acp.train_epoch_range(ELASTIC_EPOCHS)
+    else:
+        start = acp.completed_epochs()   # read-only: rank 0 commits
+        if start:
+            load(acp._status()["snapshot"])
+        epochs = range(start, ELASTIC_EPOCHS)
+    log = open(os.path.join(workdir, "elastic.log"), "a") if rank == 0 \
+        else None
+    for epoch in epochs:
+        if log:
+            print(f"ws{ws} launch{launch} epoch{epoch} "
+                  f"t={time.perf_counter() - t_rank:.1f}", file=log,
+                  flush=True)
+        while ws == 2 and epoch == 2:
+            time.sleep(0.05)     # until the scale-out stops this gang
+        for i in range(ELASTIC_STEPS):
+            ids, nsp = ernie_batch(np, torch, ELASTIC_B * ws,
+                                   SEED + 1000 * epoch + i, dev)
+            loss = float(step(ids, ids, nsp))
+        if log:
+            print(f"ws{ws} launch{launch} epoch{epoch} loss {loss:.6f}",
+                  file=log, flush=True)
+    if log:
+        print(f"ws{ws} launch{launch} done", file=log, flush=True)
+        log.close()
+    return 0
+
+
+def fault_phase(pt, fa, torch, np, card):
+    """Slice 17 on the card: (a) the guard, (b) the meta-optimizers, (c)
+    MoE with expert parallelism, (d) elastic relaunch with
+    AutoCheckpoint. Returns the flash launches of the guard's steps."""
+    import datetime
+    import tempfile
+    import torch.distributed as tdist
+    from paddle_tpu_torch.parallel import spawn
+    from paddle_tpu_torch.parallel.elastic import (ElasticManager,
+                                                   launch_elastic)
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    pt.set_device("gpu")
+    with tempfile.TemporaryDirectory(prefix="fault_") as d:
+        t0 = time.perf_counter()
+        guard = guard_checks(pt, fa, torch, np, card, d)
+        t_guard = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        meta_checks(pt, torch, np, card)
+        # ---- (b) LocalSGD and DGC in a world of two ----
+        spawn(meta_rank, args=(d,), nprocs=2,
+              backend="nccl" if n_cards >= 2 else "gloo",
+              gpus="0,1" if n_cards >= 2 else "0,0", timeout=FAULT_TIMEOUT)
+        meta = [json.load(open(os.path.join(d, f"meta_{r}.json")))
+                for r in range(2)]
+        m0 = meta[0]
+        avg_steps = [s for s in range(1, LOCALSGD_STEPS + 1)
+                     if s % LOCALSGD_K == 0]
+        print(f"fault [meta]: world of two ({'nccl' if n_cards >= 2 else 'gloo'}"
+              f", {[x['device'] for x in meta]}), ERNIE-base fp32 at "
+              f"{FLAGSHIP_B // 2}x{FLAGSHIP_S} per rank: LocalSGD k "
+              f"{LOCALSGD_K} parameters bit-equal across ranks after each "
+              f"step {m0['localsgd']['equal']} ({LOCALSGD_STEPS} AdamW steps, "
+              f"{m0['localsgd']['s']:.1f} s); DGC sparsity {DGC_SPARSITY}: "
+              f"bit-equal after each step {m0['dgc']['equal']}, sent count = "
+              f"top-k's k per parameter (ties widening "
+              f"{m0['dgc']['tie_params']} of {m0['dgc']['n_params']}) "
+              f"{m0['dgc']['counts_ok']}, residual + sent == accumulation "
+              f"exactly {m0['dgc']['exact']} ({DGC_STEPS} steps, "
+              f"{m0['dgc']['s']:.1f} s) [{card}]", flush=True)
+        for x in meta:
+            check(all(x["localsgd"]["equal"][s - 1] for s in avg_steps) and
+                  not x["localsgd"]["equal"][0],
+                  f"fault: LocalSGD fingerprints {x['localsgd']['equal']}")
+            check(all(x["dgc"]["equal"]) and x["dgc"]["counts_ok"] and
+                  x["dgc"]["exact"], f"fault: DGC invariants {x['dgc']}")
+        t_meta = time.perf_counter() - t0
+        # ---- (c) MoE, ep over a world of MOE_EP ----
+        t0 = time.perf_counter()
+        spawn(moe_rank, args=(d,), nprocs=MOE_EP,
+              backend="nccl" if n_cards >= MOE_EP else "gloo",
+              gpus=",".join(str(i if n_cards >= MOE_EP else 0)
+                            for i in range(MOE_EP)), timeout=FAULT_TIMEOUT)
+        moe = [json.load(open(os.path.join(d, f"moe_{r}.json")))
+               for r in range(MOE_EP)]
+        for x in moe:
+            f32, b16 = x["float32"], x["bfloat16"]
+            check(f32["y"][1] and f32["grads"][1] and f32["aux_equal"],
+                  f"fault: MoE ep {MOE_EP} vs all-local fp32 {f32}")
+            check(b16["y"][1] and b16["aux_equal"],
+                  f"fault: MoE ep {MOE_EP} vs all-local bf16 {b16}")
+        t_moe = time.perf_counter() - t0
+        print(f"fault [moe]: MoELayer({MOE_D}, {MOE_H}, {MOE_E} experts, "
+              f"top {MOE_K}) on {MOE_T} tokens, ep {MOE_EP} "
+              f"({'nccl' if n_cards >= MOE_EP else 'gloo'}, "
+              f"{[x['device'] for x in moe]}) vs every expert local on each "
+              f"rank's {MOE_T // MOE_EP}: fp32 output max abs err "
+              f"{max(x['float32']['y'][0] for x in moe):.3g}, gradients "
+              f"{max(x['float32']['grads'][0] for x in moe):.3g} (tol 1e-5 "
+              f"(1+|ref|)), aux equal {all(x['float32']['aux_equal'] for x in moe)}"
+              f"; bf16 output {max(x['bfloat16']['y'][0] for x in moe):.3g} "
+              f"(tol {tol_of(torch, torch.bfloat16)}); dropped assignments "
+              f"per rank {[x['dropped'] for x in moe]} of "
+              f"{MOE_K * MOE_T // MOE_EP}; ms per forward + backward fp32 ep "
+              f"{MOE_EP} {[round(x['float32']['ms']['ep'], 2) for x in moe]}, "
+              f"ep 1 {[round(x['float32']['ms']['local'], 2) for x in moe]}; "
+              f"bf16 ep {MOE_EP} "
+              f"{[round(x['bfloat16']['ms']['ep'], 2) for x in moe]}, ep 1 "
+              f"{[round(x['bfloat16']['ms']['local'], 2) for x in moe]} "
+              f"[{card}]", flush=True)
+        # ---- (d) elastic relaunch and scale-out ----
+        t0 = time.perf_counter()
+        store = tdist.TCPStore("127.0.0.1", 0, is_master=True,
+                               wait_for_workers=False,
+                               timeout=datetime.timedelta(seconds=60))
+        log = os.path.join(d, "elastic.log")
+        joined = threading.Event()
+
+        def join_after_two_epochs():
+            deadline = time.monotonic() + FAULT_TIMEOUT
+            while time.monotonic() < deadline:
+                if os.path.exists(log) and \
+                        "ws2 launch1 epoch2" in open(log).read():
+                    ElasticManager(store, rank=-1,
+                                   world_size=0).announce_join("node-3")
+                    joined.set()
+                    return
+                time.sleep(0.05)
+
+        th = threading.Thread(target=join_after_two_epochs, daemon=True)
+        th.start()
+        res = launch_elastic(
+            os.path.abspath(__file__), ["--elastic-rank", d], nprocs=2,
+            max_restarts=2, timeout=FAULT_TIMEOUT, store=store, max_np=3,
+            backend="gloo", gpus=",".join(
+                str(i if n_cards >= 3 else 0) for i in range(3)),
+            log_dir=os.path.join(d, "logs"))
+        th.join(timeout=5)
+        lines = open(log).read().split("\n") if os.path.exists(log) else []
+        starts = [ln for ln in lines if " loss " not in ln and "epoch" in ln]
+        ws3 = [ln for ln in starts if ln.startswith("ws3")]
+        first3 = int(ws3[0].split("epoch")[1].split()[0]) if ws3 else None
+        t_el = time.perf_counter() - t0
+        print(f"fault [elastic]: launch_elastic, a gang of 2 (gloo, "
+              f"{'cuda:0-2' if n_cards >= 3 else 'cuda:0'}), ERNIE-base DP "
+              f"{ELASTIC_B}x{FLAGSHIP_S} per rank under AutoCheckpoint, "
+              f"{ELASTIC_EPOCHS} epochs of {ELASTIC_STEPS} steps: success "
+              f"{res.success}, restarts {res.restarts}, return codes "
+              f"{res.returncodes}, join announced {joined.is_set()}; rank 0's "
+              f"log {[ln.split(' t=')[0] for ln in starts]}; the gang of 3 "
+              f"resumed at epoch {first3}; {t_el:.1f} s [{card}]",
+              flush=True)
+        if not res.success:
+            logs = os.path.join(d, "logs")
+            for name in sorted(os.listdir(logs)) if os.path.isdir(logs) \
+                    else []:
+                print(f"fault [elastic]: {name} tail: "
+                      f"{open(os.path.join(logs, name)).read()[-3000:]}",
+                      flush=True)
+        check(res.success and res.restarts >= 1 and
+              len(res.returncodes) == 3 and joined.is_set(),
+              f"fault: elastic result {res.success} {res.restarts} "
+              f"{res.returncodes}")
+        check(first3 is not None and first3 == 2 and
+              any(ln.startswith("ws3") and "done" in ln for ln in lines),
+              f"fault: the gang of 3 did not resume at the committed epoch "
+              f"2: {lines}")
+    print(f"fault: phase {time.perf_counter() - t_phase:.1f} s (guard "
+          f"{t_guard:.1f}, meta {t_meta:.1f}, moe {t_moe:.1f}, elastic "
+          f"{t_el:.1f}) [{card}]", flush=True)
+    return guard["launches"]
+
+
 def ptxas(path):
     """{kernel symbol: {"registers": N, "spill": [stores, loads]}} from a
     built library's `-Xptxas -v` log."""
@@ -5462,6 +6162,7 @@ def kernel_rows(root=HERE, dtype_name="bfloat16"):
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "paddle_tpu_torch")):
         fail(f"no paddle_tpu_torch package beside {__file__}: run from the "
              "root of a checkout")
@@ -5701,6 +6402,7 @@ def main() -> int:
     obs_launches = obs_phase(pt, fa, torch, np, card)
     dist_phase(pt, torch, card)
     c5 = config5_phase(pt, fa, torch, np, card)
+    fault_launches = fault_phase(pt, fa, torch, np, card)
 
     summary = {"flash_fwd": dict(serving_row,
                                  launches=c5["launches"][0]
@@ -5710,10 +6412,12 @@ def main() -> int:
                                  + deploy_launches
                                  + seq_launches["flash_fwd"]
                                  + server_launches
-                                 + obs_launches["flash_fwd"])}
+                                 + obs_launches["flash_fwd"]
+                                 + fault_launches["flash_fwd"])}
     for kname in ("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"):
         summary[kname] = dict(train_rows[kname],
-                              launches=train_launches[kname] + (
+                              launches=train_launches[kname]
+                              + fault_launches[kname] + (
                                   c5["launches"][1] + titan["launches"][1]
                                   + dygraph["launches"][kname]
                                   + seq_launches[kname]
@@ -5735,10 +6439,10 @@ def main() -> int:
     paths16 = {k: "fp16 titan" for k in fp16_flash}
     paths16.update({k: "fp16 sp" for k in RING_KERNELS})
     entries = [(k, r, "train + serve + titan + dygraph + deploy + seq + "
-                "server + obs + config5" if k == "flash_fwd"
-                else "train + titan + dygraph + seq + obs + config5"
+                "server + obs + config5 + fault" if k == "flash_fwd"
+                else "train + titan + dygraph + seq + obs + config5 + fault"
                 if k == "flash_bwd_fused" else
-                "sp train" if k.startswith("ring") else "train")
+                "sp train" if k.startswith("ring") else "train + fault")
                for k, r in summary.items()] + \
         [(k, r, paths16[k]) for k, r in summary16.items()]
     for kname, r, path in entries:
@@ -5760,6 +6464,8 @@ def main() -> int:
                 **{k: r[k] for k in ("device_ms_per_hop", "bound_ms_per_hop",
                                      "library_hop_device_ms") if k in r}}
                for kname, r, _ in entries]
+    print(f"smoke: wall {time.perf_counter() - t_main:.1f} s, the kernels' "
+          f"build {build_s:.1f} s of it [{card}]", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -5770,4 +6476,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rows"]:
         sys.exit(kernel_rows(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--elastic-rank"]:    # a rank of the fault phase
+        sys.exit(elastic_rank(sys.argv[2]))
     sys.exit(main())

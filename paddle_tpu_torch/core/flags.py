@@ -9,7 +9,8 @@ the data feed's `prefetch`, `prefetch_depth` and
 `dataloader_max_worker_restarts`, `dp_bucket_mb` (read by
 `parallel.Reducer`), and the observability and wire plane's
 flags (`fault_inject`, `obs_*`, `mem_*`, `trace*`, `slo_*`, `net_*`,
-`sync_*`, `serving_client_*`), with the reference's defaults. Flags may be
+`sync_*`, `serving_client_*`) and the training guard's `guard_*` (read by
+`guard.GuardConfig.from_flags`), with the reference's defaults. Flags may be
 seeded from environment variables named FLAGS_<name>.
 """
 from __future__ import annotations
@@ -280,3 +281,34 @@ define_flag("sync_order_fatal", True,
             "syncwatch: raise SyncOrderError on a lock-order cycle "
             "(False: warn + count sync.order_violations and continue — "
             "for soaks that want the census without dying on first hit)")
+
+# ---- training guard plane (guard.GuardConfig.from_flags) ----
+define_flag("guard_step_timeout_s", 0.0,
+            "step watchdog: hard per-step deadline in seconds; 0 = "
+            "auto-calibrate from the trailing median step duration after "
+            "FLAGS_guard_warmup_steps completed steps")
+define_flag("guard_warmup_steps", 5,
+            "step watchdog: completed steps observed before the "
+            "auto-calibrated deadline arms")
+define_flag("guard_timeout_factor", 10.0,
+            "step watchdog: auto deadline = max(min, factor x trailing "
+            "median step duration)")
+define_flag("guard_min_timeout_s", 30.0,
+            "step watchdog: floor for the auto-calibrated deadline")
+define_flag("guard_loss_spike_ratio", 10.0,
+            "divergence guard: a finite loss above ratio x trailing-median "
+            "good loss counts as a bad step (rollback + skip); 0 disables "
+            "the spike check (a non-finite loss is always bad)")
+define_flag("guard_snapshot_interval", 25,
+            "divergence guard: steps between rolling in-memory last-good "
+            "snapshots of params/slots/rng (rollback granularity)")
+define_flag("guard_max_bad_steps", 3,
+            "divergence guard: consecutive bad (rolled-back) steps before "
+            "DivergedError is raised instead of skipping")
+define_flag("guard_desync_interval", 0,
+            "cross-rank desync detector: steps between parameter-"
+            "fingerprint all-gathers across the data-parallel group; "
+            "0 = disabled")
+define_flag("guard_desync_timeout_s", 30.0,
+            "cross-rank desync detector: how long to wait for peer "
+            "fingerprints before giving up on a round")

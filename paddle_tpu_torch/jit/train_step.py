@@ -478,6 +478,13 @@ class TrainStep:
         return report
 
     # ---- full loop-state capture ----
+    def named_param_arrays(self):
+        """name -> the trainable parameter's tensor on its device, no copy
+        (the guard's desync fingerprints)."""
+        if not self._built:
+            self._build()
+        return dict(zip(self._pnames, self._ptensors))
+
     def state_dict(self):
         """Host copy of the loop state: params, optimizer slots, the rng
         state and the step counter. `set_state_dict` of it resumes the

@@ -24,9 +24,13 @@ through `torch.distributed` (gloo on the CPU):
   - `hybrid_optimizer.py`, `meta_parallel.py` (`TensorParallel` =
     `ShardingParallel`), `fleet.py`: the fleet facade;
   - `strategy.py`, and `sp.py` (sequence parallelism, ring and Ulysses
-    attention, still single-controller inside one process).
-
-Expert parallelism (`moe.py`) is not ported yet.
+    attention, still single-controller inside one process);
+  - `moe.py`: top-k gating and `MoELayer`, expert parallelism over a
+    process group (`global_scatter` / `global_gather`);
+  - `meta_optimizers.py`: recompute, gradient merge, LocalSGD and DGC
+    (`fleet.distributed_optimizer`'s toggles, `fleet.utils.recompute`);
+  - `elastic.py`: lease membership over a TCPStore and the gang
+    relauncher (`launch --run_mode elastic`).
 """
 import os as _os
 import traceback as _traceback
@@ -61,6 +65,8 @@ from .sp import (  # noqa: F401
     ring_flash_attention_local, sequence_parallel_attention,
     ulysses_attention_local,
 )
+from .moe import (MoELayer, global_gather, global_scatter,  # noqa: F401
+                  moe_combine, moe_dispatch)
 from . import fleet  # noqa: F401
 from . import launch  # noqa: F401
 

@@ -400,6 +400,54 @@ def all_gather_object(obj_list, obj, group=None):
     return obj_list
 
 
+def store_peek(store, key: str):
+    """The value under `key` in a rendezvous store, or None while it is
+    missing, without blocking: `torch.distributed.TCPStore.get` waits for
+    a missing key until the store's own timeout, so a store with `check`
+    is asked that first; a plain set/get mapping raises KeyError."""
+    check = getattr(store, "check", None)
+    if check is not None:
+        return store.get(key) if check([key]) else None
+    try:
+        return store.get(key)
+    except KeyError:
+        return None
+
+
+def store_all_gather_object(store, key: str, obj, rank: int, world_size: int,
+                            timeout_s: float = 30.0, poll_s: float = 0.01):
+    """All-gather of a small JSON-able object between processes through
+    the rendezvous store they share (a `torch.distributed.TCPStore`, or
+    any set/get mapping): each rank sets `key:<rank>`, then reads every
+    rank's entry (reference `parallel/collective.py:160-193`). Returns
+    {rank: obj}; raises TimeoutError when a peer's value has not appeared
+    within `timeout_s` (a hang, not a desync: callers must not blame a
+    slow rank)."""
+    import json as _json
+    import time as _time
+    with _obs.phase("collective"):
+        store.set(f"{key}:{rank}", _json.dumps(obj))
+        if _monitor._ENABLED:
+            _monitor.count("c_store_allgather_obj")
+        if _obs._FR_ENABLED:
+            _obs.record_collective("store_allgather_obj", 0)
+        out = {}
+        deadline = _time.monotonic() + timeout_s
+        for r in range(world_size):
+            while True:
+                raw = store_peek(store, f"{key}:{r}")
+                if raw is not None:
+                    break
+                if _time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"store_all_gather_object: rank {r} never "
+                        f"published {key!r} within {timeout_s}s")
+                _time.sleep(poll_s)
+            out[r] = _json.loads(raw.decode() if isinstance(
+                raw, (bytes, bytearray)) else raw)
+    return out
+
+
 def reduce_scatter(tensor, tensor_list_or_input, op=ReduceOp.SUM, group=None,
                    sync_op=True):
     """The reduction of every rank's input (a list is concatenated along

@@ -8,14 +8,17 @@ world (`init_parallel_env`) and its `HybridCommunicateGroup`;
 `PipelineLayer` is re-segmented to the pp degree and wrapped in
 `PipelineParallel`; with mp or sharding > 1 the model is wrapped in
 `TensorParallel` (= `ShardingParallel`); else in `DataParallel`.
-`distributed_optimizer` gives a `HybridParallelOptimizer`. The
-meta-optimizers (gradient merge, LocalSGD, DGC) and the parameter-server
-surface raise until their slices are ported (ROADMAP.md Queue 1,
-"meta-optimizers, MoE and elastic" and "the host-side distributed
+`distributed_optimizer` gives a `HybridParallelOptimizer`, wrapped by
+the strategy's meta-optimizer toggles as the reference wraps it
+(:91-140): `gradient_merge`, then `localsgd`, then `dgc`, which takes over
+the inner optimizer's momentum on a shallow copy. `utils.recompute` is
+`meta_optimizers.recompute`. The parameter-server surface raises until
+its slice is ported (ROADMAP.md Queue 1, "the host-side distributed
 state").
 """
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 from .env import get_rank, get_world_size, init_parallel_env
@@ -24,7 +27,6 @@ from .topology import HybridCommunicateGroup, get_hybrid_communicate_group
 
 _FLEET = {"init": False, "strategy": None, "hcg": None}
 
-_META = '(ROADMAP.md Queue 1, "meta-optimizers, MoE and elastic")'
 _PS = '(ROADMAP.md Queue 1, "the host-side distributed state")'
 
 
@@ -106,14 +108,41 @@ def distributed_model(model):
 
 
 def distributed_optimizer(optimizer, strategy=None):
+    """The optimizer wrapped per the strategy's toggles (the meta-optimizer
+    resolution of the reference Paddle's `fleet_base.py:1367`): gradient
+    merge and LocalSGD stack around the hybrid optimizer, DGC outermost.
+    Under `dgc` an inner optimizer with momentum is shallow-copied with its
+    momentum set to 0 and slots of its own, so DGC applies the momentum
+    once and the caller's optimizer and its state are untouched."""
     from .hybrid_optimizer import HybridParallelOptimizer
+    from .meta_optimizers import (DGCMomentumOptimizer,
+                                  GradientMergeOptimizer, LocalSGDOptimizer)
     st = strategy or _FLEET["strategy"]
-    for toggle in ("gradient_merge", "localsgd", "dgc"):
-        if st is not None and getattr(st, toggle, False):
-            raise NotImplementedError(
-                f"DistributedStrategy.{toggle}: the meta-optimizers "
-                f"(meta_optimizers.py) are not ported yet {_META}")
-    return HybridParallelOptimizer(optimizer, get_hybrid_group(), st)
+    dgc = st is not None and getattr(st, "dgc", False)
+    dgc_inner_m = 0.0
+    if dgc:
+        dgc_inner_m = float(getattr(optimizer, "_momentum", 0.0) or 0.0)
+        if dgc_inner_m > 0:
+            optimizer = copy.copy(optimizer)
+            optimizer._momentum = 0.0
+            optimizer._accumulators = {}
+    opt = HybridParallelOptimizer(optimizer, get_hybrid_group(), st)
+    if st is not None and getattr(st, "gradient_merge", False):
+        cfg = getattr(st, "gradient_merge_configs", {})
+        opt = GradientMergeOptimizer(opt, k_steps=cfg.get("k_steps", 1),
+                                     avg=cfg.get("avg", True))
+    if st is not None and getattr(st, "localsgd", False):
+        cfg = getattr(st, "localsgd_configs", {"k_steps": 4})
+        opt = LocalSGDOptimizer(opt, k_steps=cfg.get("k_steps", 4))
+    if dgc:
+        cfg = getattr(st, "dgc_configs", {})
+        momentum = cfg.get("momentum")
+        if momentum is None:
+            momentum = dgc_inner_m if dgc_inner_m > 0 else 0.9
+        opt = DGCMomentumOptimizer(
+            opt, momentum=momentum, sparsity=cfg.get("sparsity", 0.999),
+            rampup_begin_step=cfg.get("rampup_begin_step", 0))
+    return opt
 
 
 def _ps(name):
@@ -133,3 +162,24 @@ stop_worker = _ps("stop_worker")
 def barrier_worker():
     from .collective import barrier
     barrier()
+
+
+class _FleetUtils:
+    """The fleet.utils namespace (reference fleet/utils/)."""
+
+    @staticmethod
+    def recompute(function, *args, **kwargs):
+        from .meta_optimizers import recompute as _rc
+        return _rc(function, *args, **kwargs)
+
+
+utils = _FleetUtils()
+
+
+def save_inference_model(*a, **kw):
+    raise NotImplementedError("use paddle_tpu_torch.jit.save")
+
+
+def save_persistables(executor=None, dirname=None, main_program=None, **kw):
+    raise NotImplementedError(
+        "use paddle_tpu_torch.save(model.state_dict(), path)")

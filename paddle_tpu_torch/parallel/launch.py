@@ -18,9 +18,17 @@ Every child is watched: when one exits non-zero the others are stopped
 and the launcher exits with that code; when `--timeout` seconds pass
 first, all are stopped and it exits 124 (no limit by default: a training
 run may take days, and a rank that hangs in a collective fails at the
-group's timeout). The `ps` and `elastic` run
-modes are not ported (ROADMAP.md Queue 1: elastic with the
-meta-optimizers and MoE, ps with the host-side distributed state).
+group's timeout).
+
+    python -m paddle_tpu_torch.parallel.launch --run_mode elastic \
+        --nproc_per_node 2 --max_restarts 3 script.py [args]
+
+runs the gang under `elastic.launch_elastic` (reference :86-96): a rank
+exiting non-zero stops the gang, which is relaunched as a unit (with
+`PADDLE_ELASTIC_RESTART_COUNT` counting the launches) up to
+`--max_restarts` times; the launcher exits 0 when a launch succeeded,
+else 1. `--timeout` bounds each launch there. The `ps` run mode is not
+ported (ROADMAP.md Queue 1, "the host-side distributed state").
 """
 from __future__ import annotations
 
@@ -132,7 +140,9 @@ def _parse(argv=None):
     p.add_argument("--timeout", type=float, default=None,
                    help="seconds before every rank is stopped (exit 124)")
     p.add_argument("--run_mode", default="collective",
-                   help="collective (ps and elastic are not ported)")
+                   help="collective | elastic (ps is not ported)")
+    p.add_argument("--max_restarts", type=int, default=3,
+                   help="elastic: relaunches of the gang after a failure")
     p.add_argument("training_script")
     p.add_argument("training_script_args", nargs=argparse.REMAINDER)
     return p.parse_args(argv)
@@ -140,11 +150,20 @@ def _parse(argv=None):
 
 def launch(argv=None) -> int:
     args = _parse(argv)
+    if args.run_mode == "elastic":
+        from .elastic import launch_elastic
+        res = launch_elastic(
+            args.training_script, args.training_script_args,
+            nprocs=max(args.nproc_per_node, 1),
+            max_restarts=args.max_restarts,
+            timeout=args.timeout,
+            backend=args.backend, device=args.device, gpus=args.devices,
+            log_dir=args.log_dir)
+        return 0 if res.success else 1
     if args.run_mode != "collective":
         raise NotImplementedError(
-            f"launch --run_mode {args.run_mode}: the parameter-server and "
-            "elastic modes are not ported yet (ROADMAP.md Queue 1: "
-            "\"meta-optimizers, MoE and elastic\", \"the host-side "
+            f"launch --run_mode {args.run_mode}: the parameter-server mode "
+            "is not ported yet (ROADMAP.md Queue 1, \"the host-side "
             "distributed state\")")
     envs = rank_envs(args.nproc_per_node, args.nnodes, args.node_rank,
                      args.master, args.devices, args.backend, args.device)

@@ -1,1 +1,1 @@
-from .convert import load_numpy_state  # noqa: F401
+from .convert import load_moe_state, load_numpy_state  # noqa: F401

@@ -6,6 +6,9 @@ renaming:
 
     state = {k: np.asarray(v._value) for k, v in jax_layer.state_dict().items()}
     load_numpy_state(torch_layer, state)
+
+The JAX package's `parallel.moe.MoELayer` is a plain object with five
+arrays, not a Layer: `load_moe_state(torch_moe, jax_moe)` copies them.
 """
 from __future__ import annotations
 
@@ -31,4 +34,17 @@ def load_numpy_state(layer, state: Dict[str, np.ndarray],
     layer.set_state_dict({k: v for k, v in state.items() if k in own})
 
 
-__all__ = ["load_numpy_state"]
+MOE_KEYS = ("wg", "w1", "b1", "w2", "b2")
+
+
+def load_moe_state(layer, src) -> None:
+    """Copy a MoE layer's gate and stacked expert weights into a port
+    `parallel.MoELayer`: `src` is a {name: array} map or an object with
+    the five attributes (the JAX `MoELayer`). Whole expert stacks load as
+    the rank's own experts under expert parallelism."""
+    get = src.__getitem__ if isinstance(src, dict) else \
+        (lambda k: getattr(src, k))
+    load_numpy_state(layer, {k: np.asarray(get(k)) for k in MOE_KEYS})
+
+
+__all__ = ["load_numpy_state", "load_moe_state"]

@@ -487,3 +487,47 @@ def test_tensor_and_pipeline_parallel_ranks_run_with_jax_and_the_jax_package_blo
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip() == "ok"
     assert (tmp_path / "ok_0").exists() and (tmp_path / "ok_1").exists()
+
+
+def test_fault_tolerance_modules_run_with_jax_and_the_jax_package_blocked(
+        tmp_path):
+    """Slice 17: the guard, sharded_io, MoE, the meta-optimizers and
+    elastic import and run with the JAX package blocked; MoELayer raises
+    without CUDA unless the CPU was asked for."""
+    res = _run(f"""
+        import sys
+        for name in ("jax", "jaxlib", "paddle_tpu"):
+            sys.modules[name] = None          # any import of them fails
+        import numpy as np
+        import torch
+        import paddle_tpu_torch as pt
+        from paddle_tpu_torch.core.enforce import UnavailableError
+        from paddle_tpu_torch.framework import sharded_io
+        from paddle_tpu_torch.guard import GuardConfig, TrainGuard
+        from paddle_tpu_torch.parallel import elastic, meta_optimizers, moe
+        try:
+            moe.MoELayer(8, 16, 4)
+            raise SystemExit("MoELayer ran on the CPU unasked")
+        except UnavailableError:
+            pass
+        pt.set_device("cpu")
+        pt.seed(0)
+        net = pt.nn.Sequential(pt.nn.Linear(4, 8), pt.nn.Linear(8, 1))
+        opt = pt.optimizer.Adam(parameters=net.parameters())
+        step = pt.jit.TrainStep(net, pt.nn.MSELoss(), opt, n_model_inputs=1)
+        x, y = torch.ones(2, 4), torch.zeros(2, 1)
+        with TrainGuard(step, ckpt_dir={str(tmp_path / "g")!r},
+                        config=GuardConfig(snapshot_interval=1)) as g:
+            g.step(x, y)
+            g.checkpoint()
+            assert g.step(torch.full((2, 4), float("nan")), y) is None
+        sharded_io.save_sharded({{"w": torch.ones(3)}}, {str(tmp_path / "s")!r})
+        assert sharded_io.load_sharded({str(tmp_path / "s")!r})["w"].sum() == 3
+        layer = moe.MoELayer(8, 16, 4, top_k=2)
+        out = meta_optimizers.recompute(layer, torch.ones(6, 8))
+        assert out.shape == (6, 8)
+        assert elastic.ElasticResult(0, [0, 0]).success
+        print("ok", "jax" in sys.modules and sys.modules["jax"] is not None)
+    """, env_extra={"CUDA_VISIBLE_DEVICES": ""})
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == "ok False"

@@ -92,9 +92,8 @@ def test_rank_environments_and_modes():
         envs[0]["PADDLE_MASTER"]
     with pytest.raises(ValueError, match="fewer cards"):
         launch.rank_envs(3, gpus="0,1")
-    for mode in ("ps", "elastic"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            launch.launch(["--run_mode", mode, "train.py"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        launch.launch(["--run_mode", "ps", "train.py"])
 
 
 def test_nccl_for_a_cpu_rank_raises_and_one_process_stays_one(monkeypatch):

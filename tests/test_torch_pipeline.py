@@ -316,11 +316,14 @@ def test_remaining_raises_name_roadmap():
     with pytest.raises(NotImplementedError, match="sp across processes"):
         pt.parallel.SPMDTrainStep(pt.nn.Linear(4, 4), pt.nn.MSELoss(),
                                   pt.optimizer.SGD(), mesh=hcg.get_mesh())
+    # the meta-optimizer toggles no longer raise: they wrap the optimizer
     st = pt.parallel.DistributedStrategy()
     st.gradient_merge = True
-    with pytest.raises(NotImplementedError,
-                       match="meta-optimizers, MoE and elastic"):
-        fleet.distributed_optimizer(pt.optimizer.SGD(), strategy=st)
+    from paddle_tpu_torch.parallel.meta_optimizers import \
+        GradientMergeOptimizer
+    assert isinstance(fleet.distributed_optimizer(pt.optimizer.SGD(),
+                                                  strategy=st),
+                      GradientMergeOptimizer)
     for call in (lambda: fleet.init_server(),
                  lambda: fleet.init(is_collective=False)):
         with pytest.raises(NotImplementedError,

@@ -846,6 +846,101 @@ def job_pp(outdir):
     _save(outdir, "pp", dist.get_rank(), **out)
 
 
+def job_meta(outdir):
+    """LocalSGD (k 2, the default mean over the world) and DGC (sparsity
+    0.9, allreduce the world's mean of what each rank sends) on batches
+    of each rank's own: the parameters before and after each averaging,
+    and after each DGC step."""
+    pt = _setup()
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.parallel import collective, init_parallel_env
+    from paddle_tpu_torch.parallel.meta_optimizers import (
+        DGCMomentumOptimizer, LocalSGDOptimizer)
+    init_parallel_env()
+    r, w = dist.get_rank(), dist.get_world_size()
+    flat = lambda net: torch.cat([p.detach().reshape(-1)  # noqa: E731
+                                  for p in net.parameters()]).numpy()
+    rng = np.random.default_rng(10 + r)
+    out = {}
+    pt.seed(0)
+    net = pt.nn.Linear(8, 8)
+    opt = LocalSGDOptimizer(pt.optimizer.SGD(parameters=net.parameters(),
+                                             learning_rate=0.1), k_steps=2)
+    pre = []
+
+    def spy(t):
+        pre.append(t.clone())
+        return LocalSGDOptimizer._default_mean(t)
+
+    opt._allreduce_mean = spy
+    for step in range(1, 5):
+        x = torch.from_numpy(rng.normal(size=(4, 8)).astype(np.float32))
+        (net(x) ** 2).sum().backward()
+        opt.step()
+        opt.clear_grad()
+        if step % 2 == 0:
+            out[f"pre{step}"] = torch.cat([t.reshape(-1) for t in pre]).numpy()
+            out[f"avg{step}"] = flat(net)
+            pre.clear()
+
+    def world_mean(t):
+        t = t.clone()
+        collective.all_reduce(t)
+        return t / w
+
+    pt.seed(1)
+    net = pt.nn.Linear(16, 16)
+    opt = DGCMomentumOptimizer(
+        pt.optimizer.SGD(parameters=net.parameters(), learning_rate=0.1),
+        momentum=0.9, sparsity=0.9, allreduce=world_mean)
+    for step in range(3):
+        x = torch.from_numpy(rng.normal(size=(4, 16)).astype(np.float32))
+        (net(x) ** 2).sum().backward()
+        opt.step()
+        opt.clear_grad()
+        out[f"dgc{step}"] = flat(net)
+    _save(outdir, "meta", r, **out)
+
+
+def job_moe(outdir):
+    """MoELayer with expert parallelism over the world (each rank its
+    E/ep experts and its own chunk of the tokens) and the same layer with
+    every expert local on the same chunk: outputs, aux losses and the
+    gradients of (y ** 2).sum() + aux; then global_scatter /
+    global_gather of the same buckets with counts."""
+    pt = _setup()
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.parallel import collective, init_parallel_env
+    from paddle_tpu_torch.parallel.moe import (MoELayer, global_gather,
+                                               global_scatter)
+    dev = init_parallel_env().device
+    r = dist.get_rank()
+    with np.load(os.path.join(outdir, "moe_in.npz")) as z:
+        x_all, cfg, buckets, counts = (z["x"], z["cfg"], z["buckets"],
+                                       z["counts"])
+    d, h, e, k, seed = (int(v) for v in cfg)
+    world = collective.get_group(0)
+    out = {}
+    for tag, ep in (("ep", world), ("local", None)):
+        layer = MoELayer(d, h, e, top_k=k, ep_axis=ep, seed=seed)
+        x = torch.from_numpy(x_all[r]).to(dev).requires_grad_()
+        y, aux = layer(x, return_aux=True)
+        ((y ** 2).sum() + aux).backward()
+        out[f"{tag}_y"] = _np(y)
+        out[f"{tag}_aux"] = np.float32(float(aux))
+        out[f"{tag}_x_grad"] = _np(x.grad)
+        for n, p in layer.named_parameters():
+            out[f"{tag}_{n}_grad"] = _np(p.grad)
+        out[f"{tag}_n_local"] = np.int32(layer.num_local_experts)
+    b = torch.from_numpy(buckets).to(dev)
+    s = global_scatter(b, local_count=torch.from_numpy(counts), group=world)
+    out["scattered"] = _np(s)
+    out["gathered"] = _np(global_gather(s, group=world))
+    _save(outdir, "moe", r, **out)
+
+
 def run(job, outdir):
     """The spawn entry: run `job` (a name of this module's job_* ones)."""
     globals()[f"job_{job}"](outdir)
