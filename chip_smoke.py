@@ -63,9 +63,12 @@ last line is printed):
                the loss must fall;
   6. serve   - the same model at full width in bf16, served through
                Predictor -> ServingEngine: 8 requests of 1024 tokens from
-               4 threads. Every attention call must go through the kernel
-               (launch counts), and one request's logits must match the
-               same model run in float32;
+               4 threads. The live layer serves through jit.to_static:
+               each batch bucket exports and captures once at warm-up
+               (timed), then replays. Every attention call must go
+               through the kernel (host launches of the captures, flash
+               nodes of each graph), and one request's logits must match
+               the same model run in float32;
   7. sp train - ErnieForPretraining(ernie_base(use_sp=True)) at full width
                and depth, trained in bf16 AMP on 8 x 512 tokens through
                jit.TrainStep + AdamW with the MLM + NSP loss, under
@@ -371,6 +374,36 @@ last line is printed):
                steps: rank 1 exits 9 on the first launch, the relaunched
                pair commits epochs 0 and 1, a joiner announces itself, and
                the gang of three resumes at epoch 2 and finishes.
+ 25. static  - slice 18, the static-graph half (config 2's @to_static
+               path): (a) jit.to_static(resnet50(data_format="NHWC")) at
+               resnet50_infer's batch of 128 x 224 x 224, fp32, under
+               no_grad: the first call exports and captures, later calls
+               replay one CUDA graph (one program, one capture), the
+               output within relative L2 1e-5 of the eager layer; jit.save
+               of the to_static'd layer -> create_predictor gives the
+               same output; a second Predictor over the live layer runs
+               through to_static, its imgs/s beside the artifact's and the
+               replay's, each export timed; a to_static'd Dropout in
+               training mode draws fresh bits in each replay. (b) GPT-2
+               small through to_static at 8 x 1024, bf16 auto_cast, AdamW:
+               3 steps of loss.backward() across the static boundary
+               against the same eager loop from one state under
+               deterministic algorithms (losses within 1e-4 relative,
+               every parameter at cosine >= 0.9999), 12 + 12 flash
+               launches a step (host counts of the three steps, and of
+               one profiled step of each backward: rows 1-2, or rows 1,
+               3, 4 deterministic; its device trace holds those kernels
+               and no other flash kernel);
+               after opt.step() a no-grad replay reads the updated
+               weights. (c) dy2static: a function with a tensor if / elif,
+               a tensor while with break, a for over range(tensor) with
+               continue and an early return, exported through the cond
+               and while_loop operators on the card, equal to its eager
+               run; a gradient through a cond equal to the eager one.
+               (d) the Programs of (a) and (b): op_histogram (53
+               convolutions; 48 linears), prune, and the dead_op_elim /
+               remat / bf16_io passes, each run within its dtype's
+               tolerance of the unpassed program.
 
 Each fp16 step drives `scaler.step(opt)` after the scaled backward and no
 `scaler.update()`: the reference's step() already updates the scale once
@@ -1332,17 +1365,19 @@ def serve_phase(pt, fa, torch, np, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.flash_attention_fwd.launches = 0
-    t_start = time.perf_counter()
-    engine.start()
-    t_warm = time.perf_counter()
-    threads = [threading.Thread(target=client, args=([2 * j, 2 * j + 1],))
-               for j in range(4)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(900)
-    wall = time.perf_counter() - t_warm
-    engine.stop(drain=True)
+    with kept_graphs(torch):
+        t_start = time.perf_counter()
+        engine.start()
+        t_warm = time.perf_counter()
+        threads = [threading.Thread(target=client,
+                                    args=([2 * j, 2 * j + 1],))
+                   for j in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        wall = time.perf_counter() - t_warm
+        engine.stop(drain=True)
     launches = fa.flash_attention_fwd.launches
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     check(not any(t.is_alive() for t in threads), "client threads hung")
@@ -1351,9 +1386,20 @@ def serve_phase(pt, fa, torch, np, card):
     dispatched = counts["batches"] + counts["warmup_runs"]
     check(counts["completed"] == len(requests),
           f"completed {counts['completed']} of {len(requests)}")
-    check(launches == n_layers * dispatched and launches > 0,
-          f"attention kernel launched {launches} times for {dispatched} "
-          f"batches of {n_layers} layers")
+    # the live layer serves through to_static: each signature's first
+    # dispatch exports, runs eagerly and captures (2 host launches a
+    # layer), every later one replays its graph (a kernel node a layer)
+    from paddle_tpu_torch.utils.train_profile import (graph_kernel_names,
+                                                      kernel_counts)
+    n_sigs = len(pred._fn._programs)
+    nodes = [kernel_counts(graph_kernel_names(rep.graph))["flash_fwd"]
+             for rep in pred._fn.captures()]
+    check(isinstance(pred._fn, pt.jit.StaticFunction) and
+          len(nodes) == n_sigs and all(n == n_layers for n in nodes) and
+          launches == 2 * n_layers * n_sigs,
+          f"attention kernel launched {launches} times from the host for "
+          f"{n_sigs} signatures of {n_layers} layers, graph nodes {nodes}")
+    replayed = n_layers * (dispatched - n_sigs)
     for i, out in enumerate(results_by_req):
         logits = out[0][0]
         check(logits.shape == (seq, vocab) and logits.dtype == np.float32,
@@ -1388,12 +1434,16 @@ def serve_phase(pt, fa, torch, np, card):
     p99 = lat_ms[min(len(lat_ms) - 1, math.ceil(0.99 * len(lat_ms)) - 1)]
     print(f"serve: gpt2_small bf16 S={seq}: {len(requests)} requests in "
           f"{wall:.3f} s after {1e3 * (t_warm - t_start):.0f} ms warm-up "
-          f"({counts['warmup_runs']} runs); batches={counts['batches']} "
+          f"({counts['warmup_runs']} runs, one to_static export + capture "
+          f"per batch bucket: {n_sigs} signatures); "
+          f"batches={counts['batches']} "
           f"requests/s={len(requests) / wall:.3f} "
           f"tokens/s={len(requests) * seq / wall:.1f} p50_ms={p50:.1f} "
           f"p99_ms={p99:.1f} peak_mem_mib={peak_mib:.0f} "
-          f"attention_launches={launches} ({n_layers} x {dispatched} "
-          f"batches) vs_fp32_rel_mean_abs_err={rel:.3g} top1_agree={top1:.4f}"
+          f"attention_launches={launches} host ({2 * n_layers} x {n_sigs} "
+          f"signatures: eager run + capture) and {replayed} replayed "
+          f"({n_layers} graph nodes x {dispatched - n_sigs} replays) "
+          f"vs_fp32_rel_mean_abs_err={rel:.3g} top1_agree={top1:.4f}"
           f" [{card}]", flush=True)
     return launches
 
@@ -4434,6 +4484,11 @@ def server_phase(pt, fa, torch, np, card, gpt2_path):
         live = pt.inference.Predictor(
             copy.deepcopy(lm).to(torch.bfloat16),
             input_spec=[pt.InputSpec([4, 1024], "int32")])
+        t_live = time.perf_counter()
+        live.run_batch([reqs[0][0]])
+        print(f"server: the live layer's Predictor through to_static: "
+              f"first 1 x 1024 batch (export + eager run + capture) "
+              f"{time.perf_counter() - t_live:.2f} s [{card}]", flush=True)
         worst = 0.0
         for k in range(SERVER_THREADS):
             for j in range(2):
@@ -6087,6 +6142,367 @@ def fault_phase(pt, fa, torch, np, card):
     return guard["launches"]
 
 
+# ---- the static phase: to_static, dy2static and Program on the card ----
+STATIC_RUNS, STATIC_REPS, STATIC_STEPS = 20, 3, 3
+STATIC_BF16_TOL = 2e-2
+
+
+def _static_flow(pt):
+    """The dy2static case: a tensor if / elif, a tensor while with break,
+    a for over range(tensor) with continue, an early return."""
+    def flow(x, n):
+        s = x.sum()
+        if s > 0:
+            y = x * 2.0
+        elif s > -10.0:
+            y = x - 1.0
+        else:
+            y = -x
+        acc = y * 0.0
+        k = 0.0
+        while k < 100.0:
+            acc = acc + y
+            if acc.abs().sum() > 50.0:
+                break
+            k = k + 1.0
+        j = 0
+        for j in range(n):
+            if j % 2 == 1:
+                continue
+            acc = acc + 1.0
+        if acc.mean() > 1000.0:
+            return acc * 0.0
+        return acc + k
+    return flow
+
+
+def _gated_sum(x):
+    if x.sum() > 0:
+        return (x * 3.0).sum()
+    return (x * 5.0).sum()
+
+
+def static_phase(pt, fa, torch, np, card):
+    """Slice 18 on the card (phase 25 of the docstring). Returns the flash
+    kernels' host launches of (b)'s main path."""
+    import tempfile
+    from paddle_tpu_torch.utils import bench
+    from paddle_tpu_torch.utils.train_profile import kernel_launches
+    t_phase = time.perf_counter()
+    pt.set_device("gpu")
+    sf_type = pt.jit.StaticFunction
+    work = tempfile.TemporaryDirectory(prefix="static_")
+    try:
+        # ---- (a) ResNet-50 NHWC fp32 through to_static ----
+        pt.seed(SEED)
+        net = pt.models.resnet50(data_format="NHWC")
+        net.eval()
+        live_net = copy.deepcopy(net)
+        x_np = np.random.default_rng(SEED).random((DEPLOY_B, 224, 224, 3),
+                                                  dtype=np.float32)
+        x = torch.from_numpy(x_np).cuda()
+        with torch.no_grad():
+            eager = net(x)
+        pt.jit.to_static(net)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            first = net(x)
+        torch.cuda.synchronize()
+        export_s = time.perf_counter() - t0
+        with torch.no_grad():
+            replayed = net(x)
+        n_prog, n_cap = len(net.forward._programs), len(
+            net.forward.captures())
+        e1, e2 = rel_l2(first, eager), rel_l2(replayed, eager)
+        check(n_prog == 1 and n_cap == 1,
+              f"static: {n_prog} programs, {n_cap} captures (want 1, 1)")
+        check(e1 <= DEPLOY_TOL and e2 <= DEPLOY_TOL,
+              f"static: to_static vs eager {e1}, {e2}")
+
+        def replay():
+            with torch.no_grad():
+                return net(x)
+
+        rate, spread, _ = bench._timed_rate(
+            lambda: [replay() for _ in range(STATIC_RUNS)],
+            DEPLOY_B * STATIC_RUNS, STATIC_REPS, torch.device("cuda"))
+        busy, idle, wall = busy_ms(torch, replay, STATIC_RUNS)
+        path = os.path.join(work.name, "r50_static")
+        t0 = time.perf_counter()
+        pt.jit.save(net, path, input_spec=[pt.InputSpec(
+            [DEPLOY_B, 224, 224, 3], "float32")])
+        save_s = time.perf_counter() - t0
+        cfg = pt.inference.Config(path)
+        cfg.enable_use_gpu(device_id=0)
+        art = pt.inference.create_predictor(cfg)
+        e_art = rel_l2(art.run([x_np])[0], eager)
+        check(e_art <= DEPLOY_TOL, f"static: saved artifact vs eager {e_art}")
+        art_rate, art_spread = bench.predictor_rate(art, x_np, STATIC_RUNS,
+                                                    STATIC_REPS)
+        del art
+        live = pt.inference.Predictor(live_net, input_spec=[pt.InputSpec(
+            [DEPLOY_B, 224, 224, 3], "float32")])
+        t0 = time.perf_counter()
+        e_live = rel_l2(live.run([x_np])[0], eager)
+        live_s = time.perf_counter() - t0
+        check(isinstance(live._fn, sf_type) and len(live._fn._programs) == 1
+              and len(live._fn.captures()) == 1 and e_live <= DEPLOY_TOL,
+              f"static: live-layer predictor {type(live._fn)} vs eager "
+              f"{e_live}")
+        live_rate, live_spread = bench.predictor_rate(live, x_np,
+                                                      STATIC_RUNS,
+                                                      STATIC_REPS)
+        n_bufs = len(live.bucket_buffers())
+        print(f"static: (a) ResNet-50 NHWC fp32 through jit.to_static, "
+              f"batch {DEPLOY_B}, no_grad: first call (export + capture) "
+              f"{export_s:.1f} s, {n_prog} program and {n_cap} capture; "
+              f"relative L2 vs the eager layer first {e1:.3g}, replay "
+              f"{e2:.3g} (tol {DEPLOY_TOL}); replay {rate:.1f} imgs/s "
+              f"(spread {spread:.3f}, {STATIC_RUNS} calls x {STATIC_REPS}), "
+              f"device busy {busy:.3f} ms per call, idle share {idle:.4f} "
+              f"(profiled wall {wall:.3f} ms); jit.save of the to_static'd "
+              f"layer {save_s:.1f} s -> create_predictor: relative L2 "
+              f"{e_art:.3g}, {art_rate:.1f} imgs/s (spread "
+              f"{art_spread:.3f}); a Predictor over the live layer (through "
+              f"to_static: first run {live_s:.1f} s, {n_bufs} bucket "
+              f"buffers) relative L2 {e_live:.3g}, {live_rate:.1f} imgs/s "
+              f"(spread {live_spread:.3f}) [{card}]", flush=True)
+        del live, live_net
+        torch.cuda.empty_cache()
+
+        # dropout in a replay draws fresh bits
+        drop = pt.jit.to_static(pt.nn.Dropout(0.5))
+        ones = torch.ones(4096, device="cuda")
+        with torch.no_grad():
+            masks = [drop(ones).clone() for _ in range(3)]
+        n_drop = len(drop.forward.captures())
+        fresh = not torch.equal(masks[1], masks[2])
+        share = float((masks[2] == 0).float().mean())
+        print(f"static: a to_static'd Dropout(0.5) in training mode, no_grad "
+              f"on the card: {n_drop} capture, replays draw fresh bits "
+              f"{fresh}, dropped share {share:.3f} [{card}]", flush=True)
+        check(n_drop == 1 and fresh and 0.4 < share < 0.6,
+              f"static: dropout replay {n_drop} {fresh} {share}")
+
+        # ---- (d) on (a)'s Program ----
+        prog = net.forward.program()
+        hist = prog.op_histogram()
+        convs = sum(v for k, v in hist.items() if "conv" in k)
+        check(convs == 53 and hist.get("aten.linear") == 1,
+              f"static: ResNet-50 histogram {hist}")
+        params = list(pt.jit.split_state(net)[0].values())
+        with torch.no_grad():
+            base = prog.run(*params, x)
+            pass_err = {}
+            for name in ("dead_op_elim", "remat", "bf16_io"):
+                t0 = time.perf_counter()
+                out = prog.apply_pass(name).run(*params, x)
+                pass_err[name] = (rel_l2(out.float(), base),
+                                  time.perf_counter() - t0)
+            pruned = prog.prune([0])
+            pass_err["prune"] = (rel_l2(pruned.run(*params, x), base), 0.0)
+        print(f"static: (d) ResNet-50's Program: {len(prog.ops())} ops, "
+              f"{convs} convolutions, {hist.get('aten.linear')} linear, "
+              f"{prog.num_blocks()} block; relative L2 to the unpassed "
+              f"program (and the seconds of pass + export + run): "
+              f"{ {k: (float(f'{e:.3g}'), round(t, 1)) for k, (e, t) in pass_err.items()} } "
+              f"(tol {DEPLOY_TOL}, bf16_io {STATIC_BF16_TOL}) [{card}]",
+              flush=True)
+        for name, (e, _) in pass_err.items():
+            check(e <= (STATIC_BF16_TOL if name == "bf16_io" else DEPLOY_TOL),
+                  f"static: ResNet-50 {name} {e}")
+        del net, prog, params, base, eager, first, replayed, x
+        torch.cuda.empty_cache()
+
+        # ---- (b) GPT-2 small through to_static, trained ----
+        launches = gpt2_static(pt, fa, torch, np, card, kernel_launches)
+
+        # ---- (c) dy2static on the card ----
+        flow_py = _static_flow(pt)
+        flow = pt.jit.to_static(flow_py)
+        cases = [(np.full(6, 0.5, np.float32), 5),
+                 (np.full(6, -0.5, np.float32), 4),
+                 (np.full(6, -3.0, np.float32), 0)]
+        for arr, n in cases:
+            xs = pt.to_tensor(arr)
+            ns = pt.to_tensor(np.asarray(n, np.int32))
+            got = flow(xs, ns)
+            want = flow_py(xs, n)
+            check(torch.equal(torch.as_tensor(got), torch.as_tensor(want)),
+                  f"static: dy2static {arr[0]} {n}: {got} vs {want}")
+        fhist = flow.program().op_histogram()
+        check(fhist.get("higher_order.cond", 0) >= 3 and
+              fhist.get("higher_order.while_loop", 0) == 2,
+              f"static: dy2static program {fhist}")
+        gated = pt.jit.to_static(_gated_sum)
+        grads = []
+        for sign in (1.0, -1.0):
+            for fn in (gated, _gated_sum):
+                v = pt.to_tensor(np.full(4, sign, np.float32),
+                                 stop_gradient=False)
+                fn(v).backward()
+                grads.append(v.grad.clone())
+        check(torch.equal(grads[0], grads[1]) and
+              torch.equal(grads[2], grads[3]) and
+              float(grads[0][0]) == 3.0 and float(grads[2][0]) == 5.0,
+              f"static: gradient through cond {grads}")
+        print(f"static: (c) dy2static on the card: the flow function equal "
+              f"to its eager run at {len(cases)} inputs, its program "
+              f"{ {k: v for k, v in fhist.items() if 'higher_order' in k} } "
+              f"({flow.program().num_blocks()} blocks); the gradient through "
+              f"a cond {float(grads[0][0])} / {float(grads[2][0])}, equal to "
+              f"eager [{card}]", flush=True)
+    finally:
+        work.cleanup()
+    print(f"static: phase wall {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]", flush=True)
+    return launches
+
+
+def gpt2_static(pt, fa, torch, np, card, kernel_launches):
+    """(b) and (d) on GPT-2 small: to_static training against eager."""
+    pt.seed(SEED)
+    model = pt.models.GPTForCausalLM(pt.models.gpt2_small(dropout=0.0))
+    vocab = model.gpt.embeddings.word_embeddings.weight.shape[0]
+    n_layers = len(model.gpt.layers)
+    saved = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    ids = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, vocab, (TRAIN_B, TRAIN_S)).astype(np.int32)).cuda()
+    eager_fwd = type(model).forward.__get__(model)
+    pt.jit.to_static(model)
+    F = pt.nn.functional
+
+    def step(fwd, opt):
+        with pt.amp.auto_cast(dtype="bfloat16"):
+            logits = fwd(ids)
+        loss = F.cross_entropy(logits[:, :-1].reshape(-1, vocab).float(),
+                               ids[:, 1:].reshape(-1)).mean()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    def loop(fwd, n=STATIC_STEPS):
+        opt = pt.optimizer.AdamW(1e-4, parameters=model.parameters())
+        losses, ms = [], []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            losses.append(step(fwd, opt))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return torch.stack(losses).float(), ms, opt
+
+    counters = {"flash_fwd": fa.flash_attention_fwd,
+                "flash_bwd_fused": fa.flash_attention_bwd_fused,
+                "flash_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_bwd_dkv": fa.flash_attention_bwd_dkv}
+    # the main path: counts set to 0 just before, read just after
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    losses, ms, opt = loop(model)
+    launches = {k: c.launches for k, c in counters.items()}
+    check(launches["flash_fwd"] == n_layers * STATIC_STEPS and
+          launches["flash_bwd_fused"] == n_layers * STATIC_STEPS and
+          launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0,
+          f"static: GPT-2 to_static launches {launches}")
+    lo = losses.tolist()
+    check(all(math.isfinite(v) for v in lo) and lo[-1] < lo[0],
+          f"static: GPT-2 to_static losses {lo}")
+    # one step of each backward under the profiler: its host launches
+    # exactly, and in its device trace each kernel that ran and none that
+    # did not (a trace can lose kernel records, never add one: PERF.md)
+    traced, host = {}, {}
+    for det in (False, True):
+        with determinism(torch, det):
+            for c in counters.values():
+                c.launches = 0
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                step(model, opt)
+                torch.cuda.synchronize()
+            host[det] = tuple(c.launches for c in counters.values())
+        k = kernel_launches(prof)
+        traced[det] = tuple(k[name] for name in counters)
+    want = {False: (n_layers, n_layers, 0, 0), True: (n_layers, 0, n_layers,
+                                                      n_layers)}
+    for det in (False, True):
+        check(host[det] == want[det] and all(
+            (0 < t <= w) if w else t == 0
+            for t, w in zip(traced[det], want[det])),
+            f"static: a step (deterministic {det}): host launches "
+            f"{host[det]}, device trace {traced[det]}, want {want[det]}")
+    # a no-grad replay reads the weights the optimizer updated in place
+    with torch.no_grad(), pt.amp.auto_cast(dtype="bfloat16"):
+        before = model(ids).float()
+    step(model, opt)
+    with torch.no_grad(), pt.amp.auto_cast(dtype="bfloat16"):
+        after = model(ids).float()
+        eager_after = eager_fwd(ids).float()
+    n_cap = len(model.forward.captures())
+    moved = rel_l2(after, before)
+    e_after = rel_l2(after, eager_after)
+    check(n_cap == 1 and moved > 0 and e_after <= 1e-3,
+          f"static: replay after opt.step(): {n_cap} captures, moved "
+          f"{moved}, vs eager {e_after}")
+    # parity from one state under deterministic algorithms
+    finals, det_losses = [], []
+    for fwd in (model, eager_fwd):
+        model.load_state_dict(saved)
+        with determinism(torch, True):
+            dl, _, _ = loop(fwd)
+        det_losses.append(dl)
+        finals.append([p.detach().float().clone()
+                       for p in model.parameters()])
+    rel = ((det_losses[0] - det_losses[1]).abs() /
+           det_losses[1].abs()).max().item()
+    names = [n for n, _ in model.named_parameters()]
+    low = min((cosine(a, b), n) for a, b, n in zip(*finals, names))
+    del finals
+    print(f"static: (b) GPT-2 small through jit.to_static, {TRAIN_B} x "
+          f"{TRAIN_S}, bf16 auto_cast, AdamW, {STATIC_STEPS} steps of "
+          f"loss.backward() across the static boundary: losses "
+          f"{[round(v, 4) for v in lo]}, ms per step {[round(v, 1) for v in ms]} "
+          f"(the first exports); host launches {launches}; one step's "
+          f"(fwd, fused, dq, dk/dv) host launches {host[False]} and "
+          f"deterministic {host[True]}, in the device trace {traced[False]} "
+          f"and {traced[True]}; a no-grad replay after opt.step() "
+          f"moved {moved:.3g} and is {e_after:.3g} from eager ({n_cap} "
+          f"capture); vs the eager loop from one state, deterministic: max "
+          f"rel loss diff {rel:.3g} (tol 1e-4), lowest parameter cosine "
+          f"{low[0]:.8f} ({low[1]}, tol 0.9999) [{card}]", flush=True)
+    check(rel <= 1e-4, f"static: to_static vs eager losses {det_losses}")
+    check(low[0] >= 0.9999, f"static: parameter cosine {low}")
+
+    # ---- (d) on (b)'s Program ----
+    prog = model.forward.program()
+    hist = prog.op_histogram()
+    check(hist.get("aten.linear") == 4 * n_layers,
+          f"static: GPT-2 histogram {hist}")
+    params = list(pt.jit.split_state(model)[0].values())
+    with torch.no_grad():
+        base = prog.run(*params, ids).float()
+        errs = {}
+        for name in ("dead_op_elim", "remat", "bf16_io"):
+            t0 = time.perf_counter()
+            out = prog.apply_pass(name).run(*params, ids).float()
+            errs[name] = (rel_l2(out, base), time.perf_counter() - t0)
+            del out
+    print(f"static: (d) GPT-2's Program (auto_cast bf16): {len(prog.ops())} "
+          f"ops, {hist.get('aten.linear')} linears, flash nodes "
+          f"{sum(v for k, v in hist.items() if 'flash' in k)}; relative L2 "
+          f"to the unpassed program (seconds): "
+          f"{ {k: (float(f'{e:.3g}'), round(t, 1)) for k, (e, t) in errs.items()} } "
+          f"(tol {STATIC_BF16_TOL}) [{card}]", flush=True)
+    for name, (e, _) in errs.items():
+        check(e <= STATIC_BF16_TOL, f"static: GPT-2 {name} {e}")
+    del model, prog, params, base
+    torch.cuda.empty_cache()
+    return launches
+
+
 def ptxas(path):
     """{kernel symbol: {"registers": N, "spill": [stores, loads]}} from a
     built library's `-Xptxas -v` log."""
@@ -6403,6 +6819,7 @@ def main() -> int:
     dist_phase(pt, torch, card)
     c5 = config5_phase(pt, fa, torch, np, card)
     fault_launches = fault_phase(pt, fa, torch, np, card)
+    static_launches = static_phase(pt, fa, torch, np, card)
 
     summary = {"flash_fwd": dict(serving_row,
                                  launches=c5["launches"][0]
@@ -6413,11 +6830,13 @@ def main() -> int:
                                  + seq_launches["flash_fwd"]
                                  + server_launches
                                  + obs_launches["flash_fwd"]
-                                 + fault_launches["flash_fwd"])}
+                                 + fault_launches["flash_fwd"]
+                                 + static_launches["flash_fwd"])}
     for kname in ("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"):
         summary[kname] = dict(train_rows[kname],
                               launches=train_launches[kname]
-                              + fault_launches[kname] + (
+                              + fault_launches[kname]
+                              + static_launches[kname] + (
                                   c5["launches"][1] + titan["launches"][1]
                                   + dygraph["launches"][kname]
                                   + seq_launches[kname]
@@ -6439,10 +6858,11 @@ def main() -> int:
     paths16 = {k: "fp16 titan" for k in fp16_flash}
     paths16.update({k: "fp16 sp" for k in RING_KERNELS})
     entries = [(k, r, "train + serve + titan + dygraph + deploy + seq + "
-                "server + obs + config5 + fault" if k == "flash_fwd"
-                else "train + titan + dygraph + seq + obs + config5 + fault"
-                if k == "flash_bwd_fused" else
-                "sp train" if k.startswith("ring") else "train + fault")
+                "server + obs + config5 + fault + static" if k == "flash_fwd"
+                else "train + titan + dygraph + seq + obs + config5 + fault "
+                "+ static" if k == "flash_bwd_fused" else
+                "sp train" if k.startswith("ring") else
+                "train + fault + static")
                for k, r in summary.items()] + \
         [(k, r, paths16[k]) for k, r in summary16.items()]
     for kname, r, path in entries:

@@ -28,11 +28,12 @@ from . import ops  # noqa: F401  (binds the Tensor methods)
 from .ops import *  # noqa: F401,F403
 from . import (amp, autograd, distributed, faults,  # noqa: F401
                inference, io, jit, models, monitor, nn, obs, optimizer,
-               parallel, quantization, serving, utils, vision)
+               parallel, quantization, serving, static, utils, vision)
 from .core.flags import set_flags  # noqa: F401
 from .core.place import (CPUPlace, CUDAPlace, get_device,  # noqa: F401
                          set_device)
 from .core.random import get_rng_state, seed, set_rng_state  # noqa: F401
+from .core.lod import LoDTensor, create_lod_tensor  # noqa: F401
 from .framework.io import load, save  # noqa: F401
 from .framework.param_attr import ParamAttr  # noqa: F401
 from .core.tensor import Parameter  # noqa: F401
@@ -45,7 +46,7 @@ __all__ = ["set_device", "get_device", "seed", "get_rng_state",
            "distributed", "faults",
            "inference", "io", "jit", "models", "monitor", "nn", "obs",
            "optimizer",
-           "parallel", "quantization", "serving", "utils", "vision",
+           "parallel", "quantization", "serving", "static", "utils", "vision",
            "Tensor", "grad",
            "no_grad", "enable_grad", "set_grad_enabled", "is_grad_enabled",
            "set_default_dtype", "get_default_dtype", "finfo", "iinfo", "bool",

@@ -3,9 +3,11 @@
 Counterpart of `paddle_tpu/inference/__init__.py` (Config :19-89,
 PredictorTensor :92-122, Predictor :125-284). A Predictor runs either a
 saved artifact (`jit.save` -> `Config(path)` -> `create_predictor`: the
-exported program of `jit/save_load.py`, no Python model code) or a live
-Layer (`Predictor(layer, input_spec=[...])`) under
-`torch.inference_mode()`. It runs on the card unless the Config or the
+exported program of `jit/save_load.py`, no Python model code, under
+`torch.inference_mode()`) or a live Layer (`Predictor(layer,
+input_spec=[...])`) through `jit.to_static(layer.forward)` under
+`torch.no_grad()`, as the reference's (:197-203, :270-275): each served
+signature is exported once and, on the card, replayed as one CUDA graph. It runs on the card unless the Config or the
 caller asks for the CPU (`Config.disable_gpu()`, `device="cpu"`, or
 `set_device("cpu")` before a Config that names no device).
 
@@ -177,6 +179,7 @@ class Predictor:
             self._device = resolve_device(device)
             self._layer = config_or_layer.to(self._device)
             self._layer.eval()
+            self._fn = None
             self._specs = [(list(s.shape), dtype_name(s.dtype))
                            for s in input_spec] if input_spec else None
         else:
@@ -216,9 +219,25 @@ class Predictor:
         if self._translated is not None:
             out = self._translated(*ins)
         else:
-            with torch.inference_mode():
-                out = self._layer(*ins)
+            with torch.no_grad():
+                out = self._static()(*ins)
         return list(out) if isinstance(out, (list, tuple)) else [out]
+
+    def _static(self):
+        """The live layer's `to_static` function (its own, when the Layer
+        was to_static'd already)."""
+        if self._fn is None:
+            from ..jit.to_static import StaticFunction, to_static
+            fwd = self._layer.__dict__.get("forward")
+            self._fn = fwd if isinstance(fwd, StaticFunction) else \
+                to_static(self._layer.forward)
+        return self._fn
+
+    @property
+    def books_compiles(self) -> bool:
+        """Whether the predictor books its own builds (a live layer's
+        to_static does; the serving engine then books none)."""
+        return self._layer is not None
 
     @api
     def run(self, inputs=None):
@@ -260,14 +279,17 @@ class Predictor:
         return [([s[1:] for s in shapes], dtypes, sizes)]
 
     def bucket_buffers(self):
-        """The device buffers this predictor keeps per served signature: a
-        loaded artifact's captured graphs' static inputs and outputs (on
-        the CPU, none). The serving engine tags them `serving_bucket` for
-        the memory census."""
-        if self._translated is None:
+        """The device buffers this predictor keeps per served signature:
+        the captured graphs' static inputs and outputs, of a loaded
+        artifact or of the live layer's to_static (on the CPU, none). The
+        serving engine tags them `serving_bucket` for the memory census."""
+        if self._translated is not None:
+            reps = self._translated.captures()
+        elif self._fn is not None:
+            reps = self._fn.captures()
+        else:
             return []
-        return [t for rep in self._translated.captures()
-                for t in (*rep.inputs, *rep.outputs)]
+        return [t for rep in reps for t in (*rep.inputs, *rep.outputs)]
 
     def run_batch(self, arrays):
         """Batched entry for the serving engine: numpy arrays (leading dim

@@ -57,16 +57,24 @@ class _Program(torch.nn.Module):
     reference's `pure`. The Layer is held outside the module tree, so the
     exported program lifts none of its state: every weight is an argument.
     With int8 weights the dequantization `q.to(bf16) * scale.to(bf16)` is
-    part of the program, as in the reference (:101-113)."""
+    part of the program, as in the reference (:101-113). With no Layer
+    (`jit.to_static` of a plain function), forward(*inputs) is `fn`'s
+    call. `kwargs` are constants of the program."""
 
-    def __init__(self, model, pnames, bnames, qmask, n_model_buffers):
+    def __init__(self, model, pnames, bnames, qmask=(), n_model_buffers=None,
+                 fn=None, kwargs=None):
         super().__init__()
         self.__dict__["_model"] = model
-        self._pnames, self._bnames = pnames, bnames[:n_model_buffers]
+        self.__dict__["_fn"] = fn
+        n_mb = len(bnames) if n_model_buffers is None else n_model_buffers
+        self._pnames, self._bnames = pnames, bnames[:n_mb]
         self._qmask, self._nb = qmask, len(bnames)
-        self._n_model_buffers = n_model_buffers
+        self._n_model_buffers = n_mb
+        self._kwargs = dict(kwargs or {})
 
     def forward(self, *flat):
+        if self._model is None:
+            return self._fn(*flat, **self._kwargs)
         n_p = len(self._pnames)
         params = list(flat[:n_p])
         buffers = flat[n_p:n_p + self._nb]
@@ -78,7 +86,18 @@ class _Program(torch.nn.Module):
                     next(scales).to(torch.bfloat16)
         return functional_call(self._model, self._pnames, params,
                                self._bnames,
-                               buffers[:self._n_model_buffers], *inputs)
+                               buffers[:self._n_model_buffers], *inputs,
+                               **self._kwargs)
+
+
+def export_program(program: _Program, args) -> "torch.export.ExportedProgram":
+    """`torch.export` of a `_Program` at example `args` (plain tensors):
+    the one export under `jit.save` and `jit.to_static`. Batch norm in
+    training mode leaves its running statistics as they are, as the
+    reference's traced forward does."""
+    from ..nn.functional.norm import frozen_running_stats
+    with frozen_running_stats():
+        return torch.export.export(program, tuple(args))
 
 
 def _plain(t: torch.Tensor) -> torch.Tensor:
@@ -95,17 +114,28 @@ def _npz_array(t: torch.Tensor) -> np.ndarray:
 
 
 def save(layer, path, input_spec=None, **configs):
-    """Export `layer`'s forward at `input_spec` with its weights. configs:
+    """Export `layer`'s forward at `input_spec` with its weights. `layer`
+    is a Layer, a `to_static`'d Layer or a `StaticFunction` of a Layer's
+    forward: a to_static capture is exported through its dy2static-
+    rewritten forward, so its tensor control flow becomes `cond` /
+    `while_loop` nodes (reference :25-37). configs:
     `precision` None / "float32", "bfloat16" (also "float16", "half",
     "bf16", "fp16", which export bf16 as in the reference) or "int8"
     ("int8_weight_only"): every floating parameter of 2 or more dims
     becomes an int8 argument with a per-channel f32 `__scale__{name}`
     buffer, quantized from the fp32 values."""
-    if not isinstance(layer, torch.nn.Module):
-        if callable(layer):
-            raise UnimplementedError(
-                "jit.save of a to_static function: to_static is not ported "
-                "yet\n  [Hint] save the Layer with input_spec=[...]")
+    from .to_static import StaticFunction
+    if isinstance(layer, StaticFunction):
+        if layer.layer is None:
+            raise TypeError(
+                "jit.save of a to_static function needs its Layer: the "
+                "artifact's weights are a Layer's parameters\n  [Hint] "
+                "to_static(layer) or to_static(layer.forward)")
+        layer, forward = layer.layer, layer._function
+    elif isinstance(layer, torch.nn.Module):
+        sf = layer.__dict__.get("forward")
+        forward = sf._function if isinstance(sf, StaticFunction) else None
+    else:
         raise TypeError("jit.save expects a Layer or @to_static function")
     if input_spec is None:
         raise ValueError("jit.save requires input_spec (shapes must be "
@@ -116,10 +146,12 @@ def save(layer, path, input_spec=None, **configs):
                          "use 'float32', 'bfloat16' or 'int8' (weight-only)")
     specs = [s if isinstance(s, InputSpec) else InputSpec.from_tensor(s)
              for s in input_spec]
+    from .to_static import forward_as
     was_training = layer.training
     layer.eval()
     try:
-        return _save(layer, path, specs, precision)
+        with forward_as(layer, forward):
+            return _save(layer, path, specs, precision)
     finally:
         if was_training:
             layer.train()
@@ -158,7 +190,7 @@ def _save(model, path, specs, precision):
     program = _Program(model, pnames, bnames, qmask, n_model_buffers)
     example = [torch.zeros([1 if d == -1 else d for d in s.shape],
                            dtype=s.dtype, device=device) for s in specs]
-    exported = torch.export.export(program, tuple(parrs + barrs + example))
+    exported = export_program(program, parrs + barrs + example)
     exported._example_inputs = None    # the weights stay out of .pdmodel
 
     os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
@@ -217,6 +249,30 @@ class _Replay:
                 "temp_size_in_bytes": max(0, self.reserved - out),
                 "alias_size_in_bytes": 0,
                 "generated_code_size_in_bytes": 0}
+
+
+def capture(run, arrs, device, param_bytes, what):
+    """(outputs, `_Replay`) of `run(inputs) -> [tensors]`: run eagerly on
+    a side stream (cuDNN, cuBLAS and the kernels initialise lazily there),
+    then captured in a CUDA graph over static copies of the inputs. The
+    graph reads every other tensor `run` closes over (the weights) in
+    place. The one capture under `TranslatedLayer` and `jit.to_static`."""
+    static = [a.clone() for a in arrs]
+    main = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        outs = run(static)
+    main.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    reserved = torch.cuda.memory_reserved(device)
+    try:
+        with torch.cuda.graph(graph):
+            captured = run(static)
+    except Exception as e:
+        raise RuntimeError(f"{what} in a CUDA graph failed") from e
+    reserved = torch.cuda.memory_reserved(device) - reserved
+    return outs, _Replay(graph, static, captured, reserved, param_bytes)
 
 
 class TranslatedLayer:
@@ -278,29 +334,9 @@ class TranslatedLayer:
         return [o.clone() for o in rep.outputs]
 
     def _capture(self, arrs):
-        """Run the program eagerly on a side stream (cuDNN, cuBLAS and the
-        kernels initialise lazily there), then capture it over static
-        copies of the inputs."""
-        static = [a.clone() for a in arrs]
-        main = torch.cuda.current_stream(self._device)
-        side = torch.cuda.Stream(self._device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            outs = self._run(static)
-        main.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        reserved = torch.cuda.memory_reserved(self._device)
-        try:
-            with torch.cuda.graph(graph):
-                captured = self._run(static)
-        except Exception as e:
-            raise RuntimeError(
-                "TranslatedLayer: capturing the loaded program in a CUDA "
-                "graph failed") from e
-        reserved = torch.cuda.memory_reserved(self._device) - reserved
-        return outs, _Replay(graph, static, captured, reserved,
-                             _nbytes(list(self._params) +
-                                     list(self._buffers)))
+        return capture(self._run, arrs, self._device,
+                       _nbytes(list(self._params) + list(self._buffers)),
+                       "TranslatedLayer: capturing the loaded program")
 
     def captures(self):
         """The CUDA-graph captures so far, one per input signature
@@ -368,4 +404,4 @@ def load(path, device=None, **configs):
     return TranslatedLayer(exported, params, buffers, meta, dev)
 
 
-__all__ = ["save", "load", "TranslatedLayer"]
+__all__ = ["save", "load", "TranslatedLayer", "export_program", "capture"]

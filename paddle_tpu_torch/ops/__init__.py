@@ -2,9 +2,10 @@
 
 Counterpart of `paddle_tpu/ops/__init__.py`: gathers the op modules and
 binds the paddle method surface onto `Tensor` from the same `_METHODS`
-list (:29-71), plus the `rsub` and `item_` aliases. Not ported in this
-slice: `ops/sequence.py` (with `core/lod.py` and `core/selected_rows.py`)
-and `ops/lazy.py`.
+list (:29-71), plus the `rsub` and `item_` aliases. `ops/sequence.py`
+(the ragged-batch ops over `core/lod.py`) is a module of its own here, as
+in the reference, not part of the top-level namespace. Not ported:
+`core/selected_rows.py` and `ops/lazy.py`.
 """
 from __future__ import annotations
 

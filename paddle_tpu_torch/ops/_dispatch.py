@@ -33,6 +33,9 @@ __all__ = ["op", "unary_op", "binary_op", "make_inplace", "from_data",
            "axis_arg", "int_list", "index64"]
 
 _FLAGS = _flags._REGISTRY
+# a profiler's `hook(name, t0, t1)` around whole-program calls
+# (`jit.to_static`), as the reference's; None until a profiler sets it
+_PROFILE_HOOK = None
 _PLAIN = torch.Tensor
 
 

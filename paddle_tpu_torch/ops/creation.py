@@ -31,6 +31,10 @@ def to_tensor(data, dtype=None, place=None, stop_gradient=True) -> Tensor:
         t = t.detach()
         if t.data_ptr() == data.data_ptr():
             t = t.clone()
+    if type(t) is not torch.Tensor:
+        # a fake tensor of an export trace (a constant made inside a
+        # to_static function) stays what it is
+        return t.requires_grad_(not stop_gradient)
     out = t.as_subclass(Tensor)
     if not stop_gradient:
         out.stop_gradient = False

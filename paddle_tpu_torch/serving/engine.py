@@ -539,7 +539,11 @@ class ServingEngine:
                 _faults.check("serving.dispatch")
             with _exe.booking("serving_bucket") as bk, \
                     _monitor.span("serving.predict"):
-                if novel:
+                # a live layer's to_static books its own export and capture
+                # (nested, this booking's phase keeps the wall time): the
+                # build counts once (reference engine.py:203, :557)
+                if novel and not getattr(self.predictor, "books_compiles",
+                                         False):
                     bk.compiled()
                 outs = [np.asarray(o) for o in self._call(arrays)]
                 if _obs._TL_ENABLED:

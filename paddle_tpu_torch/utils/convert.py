@@ -9,6 +9,9 @@ renaming:
 
 The JAX package's `parallel.moe.MoELayer` is a plain object with five
 arrays, not a Layer: `load_moe_state(torch_moe, jax_moe)` copies them.
+`load_scope_state(port_scope, jax_scope)` copies the legacy `static.nn`
+builders' scope (`static.nn._LAYER_SCOPE`: Layers and bare parameters by
+key) across.
 """
 from __future__ import annotations
 
@@ -47,4 +50,23 @@ def load_moe_state(layer, src) -> None:
     load_numpy_state(layer, {k: np.asarray(get(k)) for k in MOE_KEYS})
 
 
-__all__ = ["load_numpy_state", "load_moe_state"]
+def load_scope_state(scope: dict, src: dict, keys=None) -> None:
+    """Copy the entries of `src` (a `static.nn` layer scope of either
+    package: key -> Layer or parameter) into the port's `scope` under the
+    same keys, or under `keys`, a {src_key: scope_key} map. A Layer's
+    state goes by name (`load_numpy_state`), a bare parameter in place."""
+    import torch
+    pairs = keys.items() if keys is not None else \
+        ((k, k) for k in src if k in scope)
+    for sk, dk in pairs:
+        s, d = src[sk], scope[dk]
+        if hasattr(s, "state_dict") and hasattr(d, "state_dict"):
+            load_numpy_state(d, {k: np.asarray(getattr(v, "_value", v))
+                                 for k, v in s.state_dict().items()})
+        else:
+            with torch.no_grad():
+                d.copy_(torch.as_tensor(np.asarray(getattr(s, "_value", s)),
+                                        dtype=d.dtype))
+
+
+__all__ = ["load_numpy_state", "load_moe_state", "load_scope_state"]

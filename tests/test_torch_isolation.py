@@ -531,3 +531,79 @@ def test_fault_tolerance_modules_run_with_jax_and_the_jax_package_blocked(
     """, env_extra={"CUDA_VISIBLE_DEVICES": ""})
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip() == "ok False"
+
+
+def test_static_graph_half_runs_with_jax_and_the_jax_package_blocked(
+        tmp_path):
+    # from a file: dy2static reads the functions' source
+    script = tmp_path / "static_half.py"
+    script.write_text(textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "jaxlib", "paddle_tpu"):
+            sys.modules[name] = None          # any import of them fails
+        import numpy as np
+        import paddle_tpu_torch as pt
+        from paddle_tpu_torch import static
+        pt.set_device("cpu")
+        pt.seed(0)
+
+        class Gated(pt.nn.Layer):
+            def __init__(self):
+                super().__init__()
+                self.a, self.b = pt.nn.Linear(8, 4), pt.nn.Linear(8, 4)
+
+            def forward(self, x):
+                if x.mean() > 0:
+                    y = self.a(x)
+                else:
+                    y = self.b(x)
+                return y
+
+        net = pt.jit.to_static(Gated())
+        x = pt.to_tensor(np.abs(np.random.rand(2, 8)).astype("float32"))
+        net(x).sum().backward()
+        assert float(net.a.weight.grad.abs().sum()) > 0
+        assert float(net.b.weight.grad.abs().sum()) == 0   # untaken branch
+        prog = net.forward.program()
+        assert prog.has_op("cond") and prog.num_blocks() == 3
+        for name in ("dead_op_elim", "remat", "bf16_io"):
+            assert prog.apply_pass(name).outputs()[0].shape == [2, 4]
+
+        @pt.jit.to_static
+        def count(x, n):
+            acc = x * 0
+            i = 0
+            for i in range(n):
+                if i % 2 == 1:
+                    continue
+                acc = acc + x
+            while acc.sum() > 100.0:
+                acc = acc / 2.0
+            return acc
+        out = count(pt.to_tensor(np.ones(3, "float32")),
+                    pt.to_tensor(np.asarray(5, "int32")))
+        assert np.allclose(out.numpy(), 3.0)
+        y = static.nn.fc(x, 3)
+        p = static.nn.sequence_pool(y, pt.to_tensor(np.array([1, 2], "int32")),
+                                    "max")
+        assert list(p.shape) == [2] and static.Executor().run(
+            lambda v: v * 2, feed=[np.ones(2)])[0].tolist() == [2.0, 2.0]
+        path = {str(tmp_path / "sf")!r}
+        net.eval()
+        pt.jit.save(net, path, input_spec=[pt.InputSpec([2, 8], "float32")])
+        pred = pt.inference.create_predictor(pt.inference.Config(path))
+        live = pt.inference.Predictor(Gated(), input_spec=[
+            pt.InputSpec([2, 8], "float32")])
+        assert list(pred.run([x.numpy()])[0].shape) == [2, 4]
+        assert list(live.run([x.numpy()])[0].shape) == [2, 4]
+        assert isinstance(live._fn, pt.jit.StaticFunction)
+        loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                        and m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+        assert not loaded, loaded
+        print("ok")
+    """))
+    res = subprocess.run([sys.executable, str(script)], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == "ok"
