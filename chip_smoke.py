@@ -404,6 +404,39 @@ last line is printed):
                convolutions; 48 linears), prune, and the dead_op_elim /
                remat / bf16_io passes, each run within its dtype's
                tolerance of the unpassed program.
+ 26. analysis - slice 19, tpu-lint: the lint and concurrency passes over
+               25's two Programs (ResNet-50's, GPT-2's with its 12
+               flash_fwd nodes): no error, no host-callback, no
+               concurrency finding; verify_collective_order over the
+               dist phase's per-rank collective sequences (traced by
+               SPMDTrainStep.collective_signature without communicating)
+               finds nothing, and names the divergence of a copy with its
+               last collective dropped; the self-gates on this checkout
+               (the concurrency pass over paddle_tpu_torch: no finding, no
+               lock cycle; the lint over models/, nn/, ops/: none, the
+               CLI exits 0).
+ 27. warm_start - slice 19, the persistent compile cache: the workload of
+               `python -m paddle_tpu_torch.utils.warm_start DIR` (LeNet
+               TrainStep x2, a to_static predictor's bucket warm-up,
+               GPT-2 small's live-layer Predictor over 3 buckets of 1024
+               tokens in bf16 and 2 to_static bf16 AdamW steps at 8 x
+               1024, a relu and a gelu TransformerEncoderLayer of one
+               seed, deterministic algorithms) through bench.py's
+               `warm_start` arm, a cold and then a warm process over one
+               new directory: the warm process exports nothing and loads
+               all 8 signatures (`warm` true), the two activation layers'
+               outputs differ and each is within 1e-4 of its eager
+               layer's, its
+               digests of outputs, losses and parameters equal the cold
+               process's bit for bit, both launch 12 flash_fwd a forward
+               (72 over the 3 signatures' eager run + capture) and 12 + 12
+               + 12 a training step (rows 1, 3, 4), each program holds 12
+               flash_fwd nodes, each entry is under 50 MB; each
+               signature's export (cold) and load (warm) seconds. Then a
+               corrupt, torn, stale-torch-version and wrong-topology entry
+               of a to_static function on the card each fall back to a
+               fresh export, counted, pruned and stored anew, with an
+               equal output.
 
 Each fp16 step drives `scaler.step(opt)` after the scaled backward and no
 `scaler.update()`: the reference's step() already updates the scale once
@@ -411,7 +444,8 @@ every optimizer has stepped, and an update() after it counts the step a
 second time, as a good one. The last two lines are a JSON summary of the
 kernels, one entry per kernel and dtype (bf16 from the bf16 paths, the
 dygraph, seq and obs phases' launches in rows 1-2, the fault phase's in
-rows 1-4 and the deploy and server phases' in row 1, fp16
+rows 1-4, the warm_start phase's two processes' in rows 1, 3 and 4, and
+the deploy and server phases' in row 1, fp16
 from paths A and B), and `{"ok": true, "device": {...}}`. Imports nothing
 of JAX.
 
@@ -4936,6 +4970,11 @@ def dist_rank(tag, outdir):
     check(res["dp"]["recorded_buckets"] >= n_buckets and all(
         len(c) == 3 for c in dump["collectives"]),
         f"dist: rank {r} flight recorder collectives {dump['collectives'][:4]}")
+    # the step's collective sequence, traced without communicating: the
+    # analysis phase holds the ranks' sequences against each other
+    res["signature"] = [[d.op, d.axis, list(d.shape), d.dtype,
+                         None if d.perm is None else list(d.perm)]
+                        for d in step.collective_signature(*batch)]
     del step, net
     torch.cuda.empty_cache()
 
@@ -5072,7 +5111,8 @@ def rows_on_rank(pt, fa, torch, dev, r, shape, causal, where):
 def dist_phase(pt, torch, card):
     """Slice 15 on the card: the worlds this machine allows, each started
     by the port's spawn; the parent reads every rank's results and
-    prints one line per world."""
+    prints one line per world. Returns each world's per-rank traced
+    collective sequences ([op, axis, shape, dtype, perm] lists)."""
     import tempfile
     from paddle_tpu_torch.parallel import spawn
     t_phase = time.perf_counter()
@@ -5082,6 +5122,7 @@ def dist_phase(pt, torch, card):
         worlds = [(f"nccl_w{w}", w, "nccl", ",".join(map(str, range(w))))]
     else:
         worlds = [("nccl_w1", 1, "nccl", "0"), ("gloo_w2", 2, "gloo", "0,0")]
+    signatures = {}
     with tempfile.TemporaryDirectory(prefix="dist_") as d:
         for tag, w, backend, gpus in worlds:
             t0 = time.perf_counter()
@@ -5090,6 +5131,7 @@ def dist_phase(pt, torch, card):
             ranks = [json.load(open(os.path.join(d, f"{tag}_{r}.json")))
                      for r in range(w)]
             r0 = ranks[0]
+            signatures[tag] = [x["signature"] for x in ranks]
             z3 = r0["zero"]["3"]
             # a world of one slices nothing: no unit is gathered
             units3 = "n/a (one rank)" if z3["peak_gathered_bytes"] is None \
@@ -5144,6 +5186,7 @@ def dist_phase(pt, torch, card):
                   f"[{card}]", flush=True)
     print(f"dist: phase {time.perf_counter() - t_phase:.1f} s [{card}]",
           flush=True)
+    return signatures
 
 
 # ---- the config-5 phase ----
@@ -6182,9 +6225,10 @@ def _gated_sum(x):
     return (x * 5.0).sum()
 
 
-def static_phase(pt, fa, torch, np, card):
+def static_phase(pt, fa, torch, np, card, programs):
     """Slice 18 on the card (phase 25 of the docstring). Returns the flash
-    kernels' host launches of (b)'s main path."""
+    kernels' host launches of (b)'s main path; puts (d)'s two Programs in
+    `programs` (for the analysis phase)."""
     import tempfile
     from paddle_tpu_torch.utils import bench
     from paddle_tpu_torch.utils.train_profile import kernel_launches
@@ -6286,7 +6330,7 @@ def static_phase(pt, fa, torch, np, card):
               f"static: dropout replay {n_drop} {fresh} {share}")
 
         # ---- (d) on (a)'s Program ----
-        prog = net.forward.program()
+        prog = programs["ResNet-50"] = net.forward.program()
         hist = prog.op_histogram()
         convs = sum(v for k, v in hist.items() if "conv" in k)
         check(convs == 53 and hist.get("aten.linear") == 1,
@@ -6316,7 +6360,8 @@ def static_phase(pt, fa, torch, np, card):
         torch.cuda.empty_cache()
 
         # ---- (b) GPT-2 small through to_static, trained ----
-        launches = gpt2_static(pt, fa, torch, np, card, kernel_launches)
+        launches = gpt2_static(pt, fa, torch, np, card, kernel_launches,
+                               programs)
 
         # ---- (c) dy2static on the card ----
         flow_py = _static_flow(pt)
@@ -6360,7 +6405,7 @@ def static_phase(pt, fa, torch, np, card):
     return launches
 
 
-def gpt2_static(pt, fa, torch, np, card, kernel_launches):
+def gpt2_static(pt, fa, torch, np, card, kernel_launches, programs):
     """(b) and (d) on GPT-2 small: to_static training against eager."""
     pt.seed(SEED)
     model = pt.models.GPTForCausalLM(pt.models.gpt2_small(dropout=0.0))
@@ -6477,7 +6522,7 @@ def gpt2_static(pt, fa, torch, np, card, kernel_launches):
     check(low[0] >= 0.9999, f"static: parameter cosine {low}")
 
     # ---- (d) on (b)'s Program ----
-    prog = model.forward.program()
+    prog = programs["GPT-2"] = model.forward.program()
     hist = prog.op_histogram()
     check(hist.get("aten.linear") == 4 * n_layers,
           f"static: GPT-2 histogram {hist}")
@@ -6501,6 +6546,229 @@ def gpt2_static(pt, fa, torch, np, card, kernel_launches):
     del model, prog, params, base
     torch.cuda.empty_cache()
     return launches
+
+
+# ---- slice 19: tpu-lint and the persistent compile cache ----
+# the warm-start workload's processes (each a fresh interpreter: imports,
+# the kernels' load, then its exports or loads); its signatures (2 of the
+# to_static predictor, GPT-2's 3 serve buckets, 1 training step, 2
+# TransformerEncoderLayers differing only in their activation); an entry's
+# size limit (it holds no weights); the activation layers' gap to eager
+# (fp32, TF32 off)
+WARM_TIMEOUT = 600
+WARM_SIGNATURES = 8
+WARM_ENTRY_MAX = 50 * 2 ** 20
+WARM_ACT_TOL = 1e-4
+
+
+def analysis_phase(pt, torch, card, programs, signatures):
+    """Slice 19's tpu-lint on the card (phase 26 of the docstring)."""
+    import collections
+    import io
+    from paddle_tpu_torch import analysis
+    from paddle_tpu_torch.analysis import cli, concurrency, graph
+    from paddle_tpu_torch.parallel.collective import CollectiveDesc
+    from paddle_tpu_torch.static.program import op_names
+    t_phase = time.perf_counter()
+    for name, prog in programs.items():
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            lint = prog.apply_pass("lint").lint_findings
+            conc = prog.apply_pass("concurrency").concurrency_findings
+        seconds = time.perf_counter() - t0
+        names = op_names(prog.exported().graph_module)
+        flash = names.count("paddle_tpu_torch.flash_fwd")
+        rules = dict(collections.Counter(f.rule for f in lint + conc))
+        errors = [f.format() for f in lint + conc if f.severity == "error"]
+        callbacks = [f.format() for f in lint if f.rule == "host-callback"]
+        print(f"analysis: {name}'s to_static Program exported on the card "
+              f"({len(names)} ops, {flash} flash_fwd nodes): the lint pass "
+              f"{len(lint)} finding(s) {rules}, the concurrency pass "
+              f"{len(conc)}; {seconds:.2f} s for both [{card}]", flush=True)
+        check(not errors and not callbacks and not conc,
+              f"analysis: {name}: errors {errors[:3]}, host callbacks "
+              f"{callbacks[:3]}, concurrency {[f.format() for f in conc]}")
+        if name == "GPT-2":
+            check(flash == 12, f"analysis: GPT-2 flash nodes {flash}")
+    # the dist phase's ranks, each sequence traced without communicating
+    for tag, ranks in signatures.items():
+        seqs = {f"rank{r}": [CollectiveDesc(op, tuple(ax) if isinstance(
+            ax, list) else ax, shape, dtype, perm)
+            for op, ax, shape, dtype, perm in sig]
+            for r, sig in enumerate(ranks)}
+        fs = graph.verify_collective_order(seqs)
+        ref = seqs["rank0"]
+        skewed = graph.verify_collective_order(
+            {"rank0": ref, "rank1 (its last collective dropped)": ref[:-1]})
+        print(f"analysis: verify_collective_order over the dist phase's "
+              f"{tag} world: {len(seqs)} rank(s), {len(ref)} collectives "
+              f"each ({', '.join(sorted({d.op for d in ref}))}), "
+              f"{len(fs)} finding(s); a rank with its last collective "
+              f"dropped: {[f.message[:120] for f in skewed]} [{card}]",
+              flush=True)
+        check(ref and fs == [] and [f.rule for f in skewed] ==
+              ["collective-order"], f"analysis: {tag} {fs} {skewed}")
+    # the self-gates on this checkout
+    pkg = os.path.join(HERE, "paddle_tpu_torch")
+    t0 = time.perf_counter()
+    conc, n_files, sites = concurrency.analyze_paths([pkg])
+    dirs = [os.path.join(pkg, d) for d in ("models", "nn", "ops")]
+    lint, n_lint = analysis.lint_paths(dirs, all_functions=True)
+    rc = cli.main(dirs, stdout=io.StringIO())
+    print(f"analysis: the concurrency pass over paddle_tpu_torch ({n_files} "
+          f"files): {len(conc)} finding(s), {len(concurrency.find_cycles(sites))} "
+          f"lock cycles; the lint (--all) over models/, nn/, ops/ "
+          f"({n_lint} files): {len(lint)} finding(s); `python -m "
+          f"paddle_tpu_torch.analysis` over them exits {rc}; "
+          f"{time.perf_counter() - t0:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    check(not conc and not lint and rc == 0 and not
+          concurrency.find_cycles(sites), f"analysis: self-gates {conc} "
+          f"{lint}")
+
+
+def _cached_fn(x):
+    return (x * 2.0 + 1.0).tanh()
+
+
+def _doctor_manifest(d, key, **fields):
+    path = os.path.join(d, key + ".json")
+    with open(path) as f:
+        manifest = json.load(f)
+    manifest.update(fields)
+    with open(path, "w") as f:
+        json.dump(manifest, f)
+
+
+def warm_start_phase(pt, torch, np, card):
+    """Slice 19's persistent compile cache on the card (phase 27 of the
+    docstring). Returns the flash kernels' host launches of both
+    processes' main paths."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch import faults
+    from paddle_tpu_torch.core import compile_cache as cc
+    from paddle_tpu_torch.utils import bench
+    from paddle_tpu_torch.utils import warm_start as ws
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    summary = bench.warm_start(device="gpu", timeout=WARM_TIMEOUT)
+    check("error" not in summary, f"warm_start: {summary.get('error')}")
+    runs, rows = summary["records"], summary["entries"]
+    cold, warm = runs["cold"], runs["warm"]
+    digests = {arm: ws.digests(r) for arm, r in runs.items()}
+    n_layers = 12
+    want_serve = {"flash_fwd": 2 * n_layers * 3, "flash_bwd_fused": 0,
+                  "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    want_train = {"flash_fwd": 2 * n_layers, "flash_bwd_fused": 0,
+                  "flash_bwd_dq": 2 * n_layers, "flash_bwd_dkv": 2 * n_layers}
+    for arm, r in runs.items():
+        check(r["gpt_serve"]["launches"] == want_serve and
+              r["gpt_train"]["launches"] == want_train,
+              f"warm_start: {arm} flash host launches serve "
+              f"{r['gpt_serve']['launches']}, train "
+              f"{r['gpt_train']['launches']}")
+        check(r["gpt_serve"]["flash_nodes"] == [n_layers] * 3 and
+              r["gpt_train"]["flash_nodes"] == [n_layers] and
+              r["gpt_serve"]["finite"] and
+              all(math.isfinite(v) for v in r["gpt_train"]["losses"]),
+              f"warm_start: {arm} flash nodes {r['gpt_serve']['flash_nodes']}"
+              f" {r['gpt_train']['flash_nodes']}, losses "
+              f"{r['gpt_train']['losses']}")
+    check(cold["report"]["exports"] == cold["compile_cache"]["stores"] ==
+          WARM_SIGNATURES and cold["compile_cache"]["export_skips"] == 0,
+          f"warm_start: cold {cold['report']}")
+    check(warm["report"]["exports"] == 0 and warm["report"]["warm"] and
+          warm["compile_cache"]["hits"] == WARM_SIGNATURES and
+          warm["compile_cache"]["misses"] == 0 and
+          warm["compile_cache"]["fallbacks"] == 0,
+          f"warm_start: warm {warm['report']}")
+    check(digests["warm"] == digests["cold"] and summary["bit_identical"],
+          f"warm_start: digests {digests}")
+    for arm, r in runs.items():
+        act = r["activations"]
+        check(act["differ"] and act["max_abs_err"] <= WARM_ACT_TOL,
+              f"warm_start: {arm} relu / gelu TransformerEncoderLayers "
+              f"{act}")
+    check(len(rows) == WARM_SIGNATURES and
+          all(r["bytes"] < WARM_ENTRY_MAX for r in rows),
+          f"warm_start: entries {[(r['label'], r['bytes']) for r in rows]}")
+    pairs = [(c["label"], c["export_s"], w["load_s"], w["bytes"])
+             for c, w in zip(cold["programs"], warm["programs"])]
+    print(f"warm_start: {WARM_SIGNATURES} to_static signatures (the "
+          f"predictor's 2, GPT-2 small's 3 serve buckets at 1024 tokens in "
+          f"bf16, its bf16 training step at {TRAIN_B} x {TRAIN_S}, the relu "
+          f"and gelu TransformerEncoderLayers: outputs differ "
+          f"{warm['activations']['differ']}, max |export - eager| "
+          f"{max(r['activations']['max_abs_err'] for r in runs.values()):.3g}"
+          f"): per "
+          f"signature (label, cold export s, warm load s, entry bytes) "
+          f"{[(l, round(e, 3), round(ld, 3), b) for l, e, ld, b in pairs]} "
+          f"[{card}]", flush=True)
+    print(f"warm_start: cold process exports {cold['report']['exports']}, "
+          f"stores {cold['compile_cache']['stores']}, wall "
+          f"{cold['wall_s']:.1f} s; warm process exports "
+          f"{warm['report']['exports']}, hits {warm['compile_cache']['hits']}"
+          f", warm {warm['report']['warm']}, wall {warm['wall_s']:.1f} s; "
+          f"GPT-2's serve warm-up (3 signatures: export or load, eager run, "
+          f"capture) cold {cold['gpt_serve']['warm_start_ms']:.0f} ms, warm "
+          f"{warm['gpt_serve']['warm_start_ms']:.0f} ms; the first "
+          f"to_static training step cold {cold['t_first_train_s']:.2f} s, "
+          f"warm {warm['t_first_train_s']:.2f} s (then "
+          f"{cold['gpt_train']['ms'][1]:.1f} / "
+          f"{warm['gpt_train']['ms'][1]:.1f} ms); serve, train and LeNet "
+          f"digests bit-identical {digests['warm'] == digests['cold']}; "
+          f"flash host launches per process: serve warm-up "
+          f"{warm['gpt_serve']['launches']['flash_fwd']} (12 a forward: "
+          f"eager run + capture of 3 signatures), 2 training steps "
+          f"{ {k: v for k, v in warm['gpt_train']['launches'].items() if v} } "
+          f"(deterministic: rows 1, 3, 4); flash_fwd nodes per loaded "
+          f"program {warm['gpt_serve']['flash_nodes']} + "
+          f"{warm['gpt_train']['flash_nodes']}; trace_compile (captures "
+          f"included) cold {cold['trace_compile']}, warm "
+          f"{warm['trace_compile']} [{card}]", flush=True)
+
+    # a bad entry falls back to a fresh export, counted and pruned
+    x = torch.linspace(-2, 2, 4096, device="cuda").reshape(64, 64)
+    fn = pt.jit.to_static(_cached_fn)
+    seen = {}
+    with tempfile.TemporaryDirectory(prefix="cc_fallback_") as d:
+        pt.set_flags({"FLAGS_compile_cache_dir": d})
+        try:
+            for damage in ("corrupt", "torn", "stale_torch_version",
+                           "wrong_topology"):
+                shutil.rmtree(d, ignore_errors=True)
+                fn.release()
+                with (faults.inject("compile_cache.write:torn")
+                      if damage == "torn" else contextlib.nullcontext()):
+                    want = fn(x)
+                (row,) = cc.entries(d)
+                if damage == "corrupt":
+                    with open(os.path.join(d, row["key"] + ".bin"),
+                              "r+b") as f:
+                        f.seek(64)
+                        f.write(b"\x00\xff\x00")
+                elif damage == "stale_torch_version":
+                    _doctor_manifest(d, row["key"], torch_version="0.0.1")
+                elif damage == "wrong_topology":
+                    _doctor_manifest(d, row["key"], topology="elsewhere")
+                fn.release()
+                before, exports = cc.fallbacks, cc.exports
+                got = fn(x)
+                seen[damage] = (cc.fallbacks - before, cc.exports - exports,
+                                torch.equal(got, want), cc.verify(d))
+        finally:
+            pt.set_flags({"FLAGS_compile_cache_dir": ""})
+    print(f"warm_start: a damaged entry on the card (fallbacks, exports, "
+          f"output equal, verify after): {seen}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    check(all(v == (1, 1, True, (1, [])) for v in seen.values()),
+          f"warm_start: fallbacks {seen}")
+    return {k: cold["gpt_serve"]["launches"][k] + cold["gpt_train"][
+        "launches"][k] + warm["gpt_serve"]["launches"][k] +
+        warm["gpt_train"]["launches"][k] for k in want_serve}
 
 
 def ptxas(path):
@@ -6577,8 +6845,29 @@ def kernel_rows(root=HERE, dtype_name="bfloat16"):
     return 0
 
 
+PHASE_WALLS = {}
+
+
+def time_phases():
+    """Wrap every `*_phase` function of this module so that its wall
+    seconds land in PHASE_WALLS (printed before the summary)."""
+    g = globals()
+    for name, fn in list(g.items()):
+        if name.endswith("_phase") and callable(fn):
+            def timed(*args, _fn=fn, _name=name[:-len("_phase")], **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args, **kw)
+                finally:
+                    PHASE_WALLS[_name] = round(
+                        PHASE_WALLS.get(_name, 0.0) +
+                        time.perf_counter() - t0, 1)
+            g[name] = timed
+
+
 def main() -> int:
     t_main = time.perf_counter()
+    time_phases()
     if not os.path.isdir(os.path.join(HERE, "paddle_tpu_torch")):
         fail(f"no paddle_tpu_torch package beside {__file__}: run from the "
              "root of a checkout")
@@ -6816,10 +7105,14 @@ def main() -> int:
     finally:
         gpt2_dir.cleanup()
     obs_launches = obs_phase(pt, fa, torch, np, card)
-    dist_phase(pt, torch, card)
+    dist_signatures = dist_phase(pt, torch, card)
     c5 = config5_phase(pt, fa, torch, np, card)
     fault_launches = fault_phase(pt, fa, torch, np, card)
-    static_launches = static_phase(pt, fa, torch, np, card)
+    programs = {}
+    static_launches = static_phase(pt, fa, torch, np, card, programs)
+    analysis_phase(pt, torch, card, programs, dist_signatures)
+    del programs
+    warm = warm_start_phase(pt, torch, np, card)
 
     summary = {"flash_fwd": dict(serving_row,
                                  launches=c5["launches"][0]
@@ -6831,12 +7124,13 @@ def main() -> int:
                                  + server_launches
                                  + obs_launches["flash_fwd"]
                                  + fault_launches["flash_fwd"]
-                                 + static_launches["flash_fwd"])}
+                                 + static_launches["flash_fwd"]
+                                 + warm["flash_fwd"])}
     for kname in ("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"):
         summary[kname] = dict(train_rows[kname],
                               launches=train_launches[kname]
                               + fault_launches[kname]
-                              + static_launches[kname] + (
+                              + static_launches[kname] + warm[kname] + (
                                   c5["launches"][1] + titan["launches"][1]
                                   + dygraph["launches"][kname]
                                   + seq_launches[kname]
@@ -6858,11 +7152,12 @@ def main() -> int:
     paths16 = {k: "fp16 titan" for k in fp16_flash}
     paths16.update({k: "fp16 sp" for k in RING_KERNELS})
     entries = [(k, r, "train + serve + titan + dygraph + deploy + seq + "
-                "server + obs + config5 + fault + static" if k == "flash_fwd"
+                "server + obs + config5 + fault + static + warm_start"
+                if k == "flash_fwd"
                 else "train + titan + dygraph + seq + obs + config5 + fault "
                 "+ static" if k == "flash_bwd_fused" else
                 "sp train" if k.startswith("ring") else
-                "train + fault + static")
+                "train + fault + static + warm_start")
                for k, r in summary.items()] + \
         [(k, r, paths16[k]) for k, r in summary16.items()]
     for kname, r, path in entries:
@@ -6885,7 +7180,8 @@ def main() -> int:
                                      "library_hop_device_ms") if k in r}}
                for kname, r, _ in entries]
     print(f"smoke: wall {time.perf_counter() - t_main:.1f} s, the kernels' "
-          f"build {build_s:.1f} s of it [{card}]", flush=True)
+          f"build {build_s:.1f} s of it; phase walls s {PHASE_WALLS} "
+          f"[{card}]", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

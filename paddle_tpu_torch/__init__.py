@@ -26,7 +26,7 @@ from .core.autograd import (enable_grad, grad, is_grad_enabled,  # noqa: F401
                             no_grad, set_grad_enabled)
 from . import ops  # noqa: F401  (binds the Tensor methods)
 from .ops import *  # noqa: F401,F403
-from . import (amp, autograd, distributed, faults,  # noqa: F401
+from . import (amp, analysis, autograd, distributed, faults,  # noqa: F401
                inference, io, jit, models, monitor, nn, obs, optimizer,
                parallel, quantization, serving, static, utils, vision)
 from .core.flags import set_flags  # noqa: F401
@@ -42,7 +42,8 @@ from .jit import InputSpec  # noqa: F401
 __all__ = ["set_device", "get_device", "seed", "get_rng_state",
            "set_rng_state", "set_flags", "save", "load", "ParamAttr",
            "Parameter",
-           "CPUPlace", "CUDAPlace", "InputSpec", "amp", "autograd",
+           "CPUPlace", "CUDAPlace", "InputSpec", "amp", "analysis",
+           "autograd",
            "distributed", "faults",
            "inference", "io", "jit", "models", "monitor", "nn", "obs",
            "optimizer",

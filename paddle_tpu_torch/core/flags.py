@@ -10,8 +10,11 @@ the data feed's `prefetch`, `prefetch_depth` and
 `parallel.Reducer`), and the observability and wire plane's
 flags (`fault_inject`, `obs_*`, `mem_*`, `trace*`, `slo_*`, `net_*`,
 `sync_*`, `serving_client_*`) and the training guard's `guard_*` (read by
-`guard.GuardConfig.from_flags`), with the reference's defaults. Flags may be
-seeded from environment variables named FLAGS_<name>.
+`guard.GuardConfig.from_flags`), the persistent compile cache's
+`compile_cache_dir` / `compile_cache_mb` (`core/compile_cache.py`) and
+`lint`, the gate of the trace-time hook of `analysis/`, with the
+reference's defaults. Flags may be seeded from environment variables named
+FLAGS_<name>.
 """
 from __future__ import annotations
 
@@ -110,6 +113,27 @@ define_flag("monitor", False,
             "spans (platform/monitor.h STAT registry role); off = every "
             "instrumented site pays one module-attribute check and nothing "
             "else")
+define_flag("lint", False,
+            "run tpu-lint (paddle_tpu_torch.analysis) over functions as "
+            "they are exported by @to_static or wrapped by TrainStep / "
+            "SPMDTrainStep: trace-hazard warnings + lint.findings/lint.files "
+            "monitor counters, once per function; off = one "
+            "module-attribute check at build time only")
+# ---- executable plane (core/executable.py + core/compile_cache.py) --------
+define_flag("compile_cache_dir", "",
+            "persistent on-disk program cache (core/compile_cache.py): a "
+            "novel to_static signature's torch.export program is saved "
+            "under a key of (the signature, the parameter and buffer "
+            "names, the function's source, the source files of the "
+            "Layer's classes, the port's own sources, torch and CUDA "
+            "versions, the topology, the flags); a second process running "
+            "the same workload loads it instead of exporting (fleet warm "
+            "start). Empty = off: every build site pays one "
+            "module-attribute check")
+define_flag("compile_cache_mb", 1024,
+            "compile cache: on-disk size cap in MB; least-recently-used "
+            "entries beyond it are evicted at store/gc time "
+            "(compile_cache.evictions counter)")
 # ---- LLM continuous-batching serving (serving/llm.py) ---------------------
 define_flag("llm_num_slots", 8,
             "LLM engine: KV-cache pool slots = max sequences decoding "

@@ -17,6 +17,7 @@ from __future__ import annotations
 import io as _io
 import os
 import pickle
+import threading
 
 import numpy as np
 import torch
@@ -107,8 +108,13 @@ class _Unpickler(pickle.Unpickler):
 
 def atomic_write(path: str, data: bytes) -> None:
     """tmp + fsync + rename: the final name either holds the complete
-    bytes or does not exist (`paddle_tpu/framework/sharded_io.py:42`)."""
-    tmp = path + ".tmp"
+    bytes or does not exist (`paddle_tpu/framework/sharded_io.py:42`).
+
+    Each writer has its own tmp name (pid + thread id), so concurrent
+    writers of one name never interleave inside one tmp file: whoever
+    renames last wins, and both candidate files were complete (the
+    compile cache's lock-free writers rely on it)."""
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
     with open(tmp, "wb") as f:
         f.write(data)
         f.flush()

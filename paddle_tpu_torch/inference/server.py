@@ -437,8 +437,10 @@ class PredictorServer:
 
     def stats(self):
         """Engine health snapshot (what the 'PDHQ' wire probe returns):
-        queue/bucket/deadline counters, `warm_start_ms`, the SLO burn
-        windows (`slo`), the LLM engine's stats (`llm`) and the monitor
+        queue/bucket/deadline counters, `warm_start_ms` and the
+        `compile_cache` hit/miss stats (a replica that warm-started from
+        the persistent program cache against one that paid its own
+        exports), the SLO burn windows (`slo`), the LLM engine's stats (`llm`) and the monitor
         snapshot (`monitor`, when FLAGS_monitor is on). Hosted models
         appear under `models`; a `stats_extra()` hook merges on top."""
         stats = self.engine.stats()

@@ -27,6 +27,7 @@ import torch
 from ..core import flags as _flags
 from ..core.enforce import UnimplementedError
 from ..core.place import resolve_device
+from ..utils import syncwatch as _syncwatch
 
 __all__ = ["DevicePrefetcher", "maybe_wrap"]
 
@@ -81,7 +82,7 @@ class _Session:
         self._stop = threading.Event()
         self._produced = 0
         self._consumed = 0
-        self._thread = threading.Thread(target=self._feed, daemon=True,
+        self._thread = _syncwatch.Thread(target=self._feed, daemon=True,
                                         name="prefetch-feeder")
         self._thread.start()
 

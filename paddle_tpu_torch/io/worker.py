@@ -19,6 +19,7 @@ from multiprocessing import shared_memory
 import numpy as np
 
 from ..core import flags as _flags
+from ..utils import syncwatch as _syncwatch
 
 _SENTINEL = None
 _DONE = "__worker_done__"   # clean worker exit marker: (_DONE, worker_id)
@@ -168,7 +169,7 @@ class MultiprocessIter:
         for wid in range(n):
             self._index_queues.append(self._ctx.Queue())
             self._workers.append(self._spawn(wid))
-        self._feeder = threading.Thread(target=self._feed, daemon=True)
+        self._feeder = _syncwatch.Thread(target=self._feed, daemon=True)
         self._feeder.start()
 
     def _spawn(self, wid):

@@ -977,6 +977,8 @@ def ast_transform(func):
 
     functools.update_wrapper(new_fn, fn)
     new_fn.__dy2static_original__ = fn
+    # what the compile cache keys a rewritten function on
+    new_fn.__dy2static_source__ = ast.unparse(new_tree)
     if is_method:
         return new_fn.__get__(func.__self__)
     return new_fn

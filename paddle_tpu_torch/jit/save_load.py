@@ -95,9 +95,33 @@ def export_program(program: _Program, args) -> "torch.export.ExportedProgram":
     the one export under `jit.save` and `jit.to_static`. Batch norm in
     training mode leaves its running statistics as they are, as the
     reference's traced forward does."""
+    from ..core import compile_cache
     from ..nn.functional.norm import frozen_running_stats
+    compile_cache.note_export()
     with frozen_running_stats():
         return torch.export.export(program, tuple(args))
+
+
+def program_bytes(exported) -> bytes:
+    """The exported program as bytes (`torch.export.save`), without its
+    example inputs: the weights are the program's arguments and stay out.
+    The one serializer under `jit.save`'s `.pdmodel` and the compile
+    cache's entries."""
+    buf = io.BytesIO()
+    examples, exported._example_inputs = exported._example_inputs, None
+    try:
+        torch.export.save(exported, buf)
+    finally:
+        exported._example_inputs = examples
+    return buf.getvalue()
+
+
+def program_from_bytes(blob: bytes) -> "torch.export.ExportedProgram":
+    """`program_bytes`' inverse (`torch.export.load`)."""
+    # registers paddle_tpu_torch::flash_fwd / flash_bwd, which an exported
+    # attention program calls
+    from ..kernels import flash_attention  # noqa: F401
+    return torch.export.load(io.BytesIO(blob))
 
 
 def _plain(t: torch.Tensor) -> torch.Tensor:
@@ -191,11 +215,10 @@ def _save(model, path, specs, precision):
     example = [torch.zeros([1 if d == -1 else d for d in s.shape],
                            dtype=s.dtype, device=device) for s in specs]
     exported = export_program(program, parrs + barrs + example)
-    exported._example_inputs = None    # the weights stay out of .pdmodel
 
     os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
     with open(path + ".pdmodel", "wb") as f:
-        torch.export.save(exported, f)
+        f.write(program_bytes(exported))
     np.savez(path + ".pdiparams",
              **{f"p::{n}": _npz_array(a) for n, a in zip(pnames, parrs)},
              **{f"b::{n}": _npz_array(a) for n, a in zip(bnames, barrs)})
@@ -369,9 +392,6 @@ def load(path, device=None, **configs):
     """Load `{path}.pdmodel` with its weights onto `device` (the current
     place unless given). An artifact the JAX package wrote (StableHLO) is
     refused: the port cannot run it."""
-    # registers paddle_tpu_torch::flash_fwd / flash_bwd, which an exported
-    # attention program calls
-    from ..kernels import flash_attention  # noqa: F401
     with open(path + ".pdmodel.json") as f:
         meta = json.load(f)
     if not zipfile.is_zipfile(path + ".pdmodel"):
@@ -389,7 +409,7 @@ def load(path, device=None, **configs):
         warnings.warn(f"op semantics changed since save: {msg}")
     dev = resolve_device(device)
     with open(path + ".pdmodel", "rb") as f:
-        exported = torch.export.load(io.BytesIO(f.read()))
+        exported = program_from_bytes(f.read())
     src = _program_device(exported)
     if src != dev:
         from torch.export.passes import move_to_device_pass
@@ -404,4 +424,5 @@ def load(path, device=None, **configs):
     return TranslatedLayer(exported, params, buffers, meta, dev)
 
 
-__all__ = ["save", "load", "TranslatedLayer", "export_program", "capture"]
+__all__ = ["save", "load", "TranslatedLayer", "export_program", "capture",
+           "program_bytes", "program_from_bytes"]

@@ -33,21 +33,42 @@ A call runs the exported program:
   - on the CPU, eagerly.
 
 The reference's bookkeeping is kept: the `ExecutableLedger("to_static")`
-retrace counters, `jit.to_static.calls` / `.cache_miss` / `.dur`,
-FLAGS_check_nan_inf (:270), the profile hook (:273), `program()` and the
-default program each novel signature publishes (:215-221), `release()`.
-The persistent compile cache (:190-192, :236-246; off by default in the
-reference) waits for the compile-cache slice.
+retrace counters and its cache of each signature's program,
+`jit.to_static.calls` / `.cache_miss` / `.dur`, FLAGS_check_nan_inf
+(:270), the profile hook (:273), `program()` and the default program each
+novel signature publishes (:215-221), `release()`, and FLAGS_lint's
+trace-time hook (:205-208) at each novel signature's export.
+
+The persistent compile cache (:190-192, :236-246; `core/compile_cache.py`,
+off by default as in the reference): with FLAGS_compile_cache_dir set, a
+novel signature's export goes through `core.executable.acquire`, keyed on
+the signature above (device kinds, not indices) plus the parameter and
+buffer names, the function's qualname, dy2static-rewritten source and
+closure, every sublayer's non-tensor attributes and hooks (`_Describer`)
+and the source files of its classes. A later process loads the program
+instead of exporting it, moved onto the call's devices; the loaded
+program serves grad calls (eagerly, under autograd) and CUDA-graph
+replays alike. A program that holds tensor constants (a function closing
+over Layers), calls `static.nn.py_func` or is keyed on a value with no
+description that holds across processes is exported afresh in every
+process (`export_skips`).
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import enum
 import functools
+import hashlib
+import inspect
 import time
+import types
 
+import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
+from .. import analysis as _analysis
 from .. import monitor as _monitor
 from ..amp.state import amp_state
 from ..core import executable as _exe
@@ -57,7 +78,8 @@ from ..core.tensor import has_tensor, to_torch, wrap_tree
 from ..ops import _dispatch as _dsp
 from .functional import split_state
 from .input_spec import InputSpec  # noqa: F401  (re-export)
-from .save_load import _nbytes, _Program, capture, export_program
+from .save_load import (_nbytes, _Program, capture, export_program,
+                        program_bytes, program_from_bytes)
 
 __all__ = ["StaticFunction", "to_static", "declarative", "not_to_static",
            "forward_as"]
@@ -138,6 +160,213 @@ class _Capture:
         self.out_spec = None
 
 
+class _Unkeyable(Exception):
+    """A value with no description that is the same in every process: the
+    program keyed on it is exported afresh in each process, never
+    persisted (an `export_skip`)."""
+
+
+# a Module's own bookkeeping: its tensors and children are keyed by name
+# and signature, its hooks by `_Describer.hooks`; state-dict hooks change
+# no program
+_MODULE_BOOKKEEPING = frozenset({
+    "_parameters", "_buffers", "_modules", "_non_persistent_buffers_set",
+    "_state_dict_hooks", "_state_dict_pre_hooks",
+    "_load_state_dict_pre_hooks", "_load_state_dict_post_hooks",
+    "_forward_hooks", "_forward_hooks_with_kwargs",
+    "_forward_hooks_always_called", "_forward_pre_hooks",
+    "_forward_pre_hooks_with_kwargs", "_backward_hooks",
+    "_backward_pre_hooks"})
+_PRIMITIVES = (bool, int, float, complex, str, bytes, type(None))
+_BY_REPR = (torch.dtype, torch.layout, torch.memory_format, enum.Enum)
+_BY_NAME = (types.BuiltinFunctionType, types.BuiltinMethodType,
+            types.MethodWrapperType, types.WrapperDescriptorType,
+            types.MethodDescriptorType, np.ufunc)
+_BY_STR = (torch._ops.OpOverload, torch._ops.OpOverloadPacket)
+_DEPTH = 12
+
+
+def _qualname(v) -> str:
+    return f"{getattr(v, '__module__', None)}." \
+        f"{getattr(v, '__qualname__', getattr(v, '__name__', repr(v)))}"
+
+
+def _source(v) -> str:
+    """A function's dy2static rewrite when it has one, else its source,
+    else (no source: `python -c`) its code."""
+    src = getattr(v, "__dy2static_source__", None)
+    if src is not None:
+        return src
+    try:
+        return inspect.getsource(v)
+    except (OSError, TypeError):
+        code = getattr(v, "__code__", None)
+        return "" if code is None else \
+            repr((code.co_code, code.co_consts, code.co_names))
+
+
+class _Describer:
+    """Descriptions of the values a program depends on that are the same
+    in every process that builds the same program: configuration its
+    shapes do not show (sizes, epsilons, the activation a Layer holds, a
+    function a closure holds, hooks). Layers of the keyed tree are named
+    by their path; anything else without such a description raises
+    `_Unkeyable`."""
+
+    def __init__(self, layer=None):
+        self.paths = {} if layer is None else {
+            id(m): name for name, m in layer.named_modules()}
+        self._stack = set()
+
+    def layer(self, m, depth=0) -> str:
+        """A Layer's class, its attributes and hooks (not its children)."""
+        attrs = {k: v for k, v in vars(m).items()
+                 if k not in _MODULE_BOOKKEEPING}
+        return f"{_qualname(type(m))} {self(attrs, depth)} " \
+            f"{self.hooks(m, depth)}"
+
+    def hooks(self, m, depth=0) -> str:
+        """A Layer's hooks in order, each with whether it takes kwargs and
+        runs always (the handles' ids differ from process to process)."""
+        always = getattr(m, "_forward_hooks_always_called", {})
+        out = []
+        for name, kw in (("_forward_pre_hooks",
+                          "_forward_pre_hooks_with_kwargs"),
+                         ("_forward_hooks", "_forward_hooks_with_kwargs"),
+                         ("_backward_pre_hooks", ""),
+                         ("_backward_hooks", "")):
+            side = getattr(m, kw, {}) if kw else {}
+            out += [(name, self(fn, depth), hid in side, hid in always)
+                    for hid, fn in getattr(m, name, {}).items()]
+        return repr(out) if out else ""
+
+    def __call__(self, v, depth=0) -> str:
+        if isinstance(v, _PRIMITIVES) or isinstance(v, _BY_REPR):
+            return repr(v)
+        if depth > _DEPTH:
+            raise _Unkeyable(f"a value nested deeper than {_DEPTH}")
+        if id(v) in self._stack:
+            return f"<cycle {_qualname(type(v))}>"
+        self._stack.add(id(v))
+        try:
+            return self._describe(v, depth + 1)
+        finally:
+            self._stack.discard(id(v))
+
+    def _describe(self, v, depth) -> str:
+        if isinstance(v, torch.device):
+            # the index is not keyed: a loaded program is moved onto the
+            # call's device (`_loads`)
+            return f"device({v.type})"
+        if isinstance(v, (list, tuple)):
+            return f"{type(v).__name__}[" + ", ".join(
+                self(x, depth) for x in v) + "]"
+        if isinstance(v, (set, frozenset)):
+            return "set{" + ", ".join(sorted(self(x, depth)
+                                             for x in v)) + "}"
+        if isinstance(v, dict):
+            return "{" + ", ".join(f"{self(k, depth)}: {self(x, depth)}"
+                                   for k, x in v.items()) + "}"
+        if isinstance(v, torch.Tensor):
+            # read by the program, it is a constant: not persisted
+            return f"tensor{tuple(v.shape)}:{v.dtype}"
+        if isinstance(v, np.ndarray):
+            return f"ndarray{v.shape}:{v.dtype}:" + hashlib.sha256(
+                np.ascontiguousarray(v).tobytes()).hexdigest()
+        if isinstance(v, np.generic):
+            return repr(v)
+        if isinstance(v, torch.nn.Module):
+            if id(v) in self.paths:
+                return f"<layer {self.paths[id(v)]!r}>"
+            return "<layer " + "; ".join(self.layer(m, depth)
+                                         for m in v.modules()) + ">"
+        if isinstance(v, StaticFunction):
+            return f"to_static({self(v._function, depth)})"
+        if isinstance(v, functools.partial):
+            return f"partial({self(v.func, depth)}, {self(v.args, depth)}," \
+                f" {self(v.keywords, depth)})"
+        if isinstance(v, types.MethodType):
+            return f"method({self(v.__func__, depth)} of " \
+                f"{self(v.__self__, depth)})"
+        if isinstance(v, types.FunctionType):
+            src = _source(v)
+            # a dy2static rewrite closes over dy2static's own machinery:
+            # the closure and defaults that matter are its original's
+            v = getattr(v, "__dy2static_original__", v)
+            cells = [self(_cell(c), depth) for c in v.__closure__ or ()]
+            # the qualname, not the module: the same source in another
+            # file is the same program
+            return f"function {v.__qualname__}\n{src}\n" \
+                f"defaults {self(v.__defaults__, depth)} " \
+                f"{self(v.__kwdefaults__, depth)} closure {cells}"
+        if isinstance(v, type):
+            try:
+                return f"class {_qualname(v)}\n{inspect.getsource(v)}"
+            except (OSError, TypeError):    # a class defined in C
+                return f"class {_qualname(v)}"
+        if isinstance(v, _BY_NAME):
+            return _qualname(v)
+        if isinstance(v, _BY_STR):
+            return f"op {v}"
+        if isinstance(v, types.ModuleType):
+            return f"module {v.__name__}"
+        if dataclasses.is_dataclass(v) or isinstance(
+                v, types.SimpleNamespace) or (
+                type(v).__module__.startswith("paddle_tpu_torch.") and
+                hasattr(v, "__dict__")):
+            return f"{_qualname(type(v))}({self(vars(v), depth)})"
+        raise _Unkeyable(f"a {_qualname(type(v))}")
+
+
+def _cell(c):
+    try:
+        return c.cell_contents
+    except ValueError:          # an empty cell
+        return None
+
+
+# ---- the compile cache's rules for to_static's programs ----
+
+def _loads(blob, args):
+    """The cached program for a call with `args`, on the call's devices
+    (an entry written on `cuda:0` serves a rank on `cuda:1`: the key holds
+    device kinds only), or None when its placeholders do not take `args`
+    (shape, dtype, device)."""
+    from torch.export.passes import move_to_device_pass
+    exported = program_from_bytes(blob)
+    vals = [n.meta.get("val") for n in exported.graph.nodes
+            if n.op == "placeholder"]
+    if len(vals) != len(args) or any(v is None for v in vals):
+        return None
+    moves = {}
+    for v, a in zip(vals, args):
+        if v.device != a.device and moves.setdefault(
+                str(v.device), str(a.device)) != str(a.device):
+            return None         # one device of the program, two of the call
+    if moves:
+        exported = move_to_device_pass(exported, moves)
+        vals = [n.meta.get("val") for n in exported.graph.nodes
+                if n.op == "placeholder"]
+    fits = all(tuple(v.shape) == tuple(a.shape) and v.dtype == a.dtype
+               and v.device == a.device for v, a in zip(vals, args))
+    return exported if fits else None
+
+
+def _not_persistable(exported):
+    """Why `exported` must not outlive this process, or None: tensor
+    constants (a function's export closing over Layers aliases their live
+    storage here; a loaded copy would freeze the saver's values), or a
+    `static.nn.py_func` node (it names a function of this process's
+    registry)."""
+    if exported.constants or exported.state_dict:
+        return f"the program holds tensor constants " \
+            f"{sorted(exported.constants)[:4]}"
+    from ..static.program import op_names
+    if "paddle_tpu_torch.py_func" in op_names(exported.graph_module):
+        return "the program calls a py_func of this process"
+    return None
+
+
 class StaticFunction:
     """A function or Layer forward run as exported programs."""
 
@@ -149,11 +378,11 @@ class StaticFunction:
             self._function = function
         self._layer = layer
         self._input_spec = input_spec
-        self._programs = {}
         self._last_program = None
-        self._current = None
         # only a NOVEL signature is a retrace: alternating between two
-        # known signatures (the serving engine's batch buckets) replays
+        # known signatures (the serving engine's batch buckets) replays.
+        # The ledger keeps each signature's `_Capture`; its `current_sig`
+        # is the published program's.
         self._ledger = _exe.ExecutableLedger("to_static")
         try:
             functools.update_wrapper(self, function)
@@ -164,13 +393,17 @@ class StaticFunction:
     def layer(self):
         return self._layer
 
+    @property
+    def _programs(self):
+        """Signature -> `_Capture` of every program built so far."""
+        return dict(self._ledger.items())
+
     def release(self) -> None:
         """Drop every exported program and CUDA graph (and their memory
-        pools); the next call of each signature exports anew."""
-        self._programs.clear()
+        pools); the next call of each signature exports anew (or loads its
+        program from the compile cache)."""
         self._ledger.clear()
         self._last_program = None
-        self._current = None
 
     # ---- the program of a signature ----
     def _state(self):
@@ -182,16 +415,66 @@ class StaticFunction:
         return (list(trainable), list(frozen), list(trainable.values()),
                 list(frozen.values()), training)
 
-    def _export(self, pnames, bnames, params, buffers, inputs, kwargs):
+    def _export(self, pnames, bnames, params, buffers, inputs, kwargs,
+                key):
+        """(`_Capture`, source) of a novel signature: exported afresh, or
+        loaded from the compile cache (source "disk")."""
         program = _Program(self._layer, pnames, bnames,
                            fn=self._function if self._layer is None
                            else None, kwargs=kwargs)
-        closure = _closed_over_params_as_constants() \
-            if self._layer is None else contextlib.nullcontext()
-        with forward_as(self._layer, self._function), closure:
-            ep = export_program(program, [_plain(t) for t in
-                                          params + buffers + inputs])
-        return _Capture(program, ep)
+        args = [_plain(t) for t in params + buffers + inputs]
+
+        def build():
+            closure = _closed_over_params_as_constants() \
+                if self._layer is None else contextlib.nullcontext()
+            with forward_as(self._layer, self._function), closure:
+                return export_program(program, args)
+
+        ep, source = _exe.acquire(
+            "to_static", build,
+            lambda: self._key_material(pnames, bnames, key),
+            dumps=program_bytes, loads=lambda blob: _loads(blob, args),
+            not_persistable=_not_persistable,
+            label=getattr(self._function, "__name__", "to_static"))
+        return _Capture(program, ep), source
+
+    def _key_material(self, pnames, bnames, key) -> str:
+        """What the compile cache keys this signature's program on, beside
+        what `compile_cache.cache_key` adds (the port's sources, topology,
+        versions, flags): the signature with device kinds, the parameter
+        and buffer names, the function with its closure, and every
+        sublayer's attributes and hooks (`_Describer`) and the source
+        files of their classes. Raises `_Unkeyable` (the program is then
+        not persisted) for a value with no stable description. Blind to a
+        helper changed in a user file that defines no module class, or a
+        global a function reads (ROADMAP.md Queue 3 item 6)."""
+        sig, state_sig, training, amp, kw_key = key
+
+        def kinds(sigs):
+            return [(shape, str(dtype), dev.type)
+                    for shape, dtype, dev in sigs]
+
+        describe = _Describer(self._layer)
+        parts = [repr(kinds(sig)), repr(kinds(state_sig)), repr(training),
+                 repr(amp), describe(kw_key), repr(pnames), repr(bnames),
+                 describe(self._function)]
+        hooks = [getattr(torch.nn.modules.module, name) for name in (
+            "_global_forward_pre_hooks", "_global_forward_hooks",
+            "_global_backward_pre_hooks", "_global_backward_hooks")]
+        if any(hooks):
+            parts.append(describe([list(h.values()) for h in hooks]))
+        if self._layer is not None:
+            files = set()
+            for m in self._layer.modules():
+                parts.append(describe.layer(m))
+                try:
+                    files.add(inspect.getsourcefile(type(m)))
+                except TypeError:       # a class defined in C
+                    pass
+            for path in sorted(p for p in files if p):
+                with open(path, encoding="utf-8") as f:
+                    parts.append(f.read())
+        return "\n".join(parts)
 
     def _publish(self, cap, params, buffers, inputs, amp):
         """The capture as the default Program: arguments (params...,
@@ -245,17 +528,23 @@ class StaticFunction:
             t.requires_grad for t in params + inputs)
         t0 = time.time()
         with _exe.booking("to_static") as bk:
-            cap = self._programs.get(key)
+            cap = self._ledger.get(key)
+            source = "memory"
             if cap is None:
                 if _monitor._ENABLED:
                     _monitor.count("jit.to_static.cache_miss")
-                cap = self._programs[key] = self._export(
-                    pnames, bnames, params, buffers, inputs, kwargs)
-            if novel:
+                if _analysis._ENABLED:
+                    # trace-time tpu-lint: the novel-signature block only,
+                    # so the steady-state call never reaches this check
+                    _analysis.lint_traced(self._function, "to_static")
+                cap, source = self._export(pnames, bnames, params, buffers,
+                                           inputs, kwargs, key)
+                self._ledger.put(key, cap)
+            if novel and source != "disk":
                 bk.compiled()
-            if self._current != key:
+            if self._ledger.current_sig != key:
                 self._publish(cap, params, buffers, inputs, amp)
-                self._current = key
+                self._ledger.current_sig = key
             if not record and device.type == "cuda" and cap.capturable:
                 out = self._replay(cap, state, inputs, device, bk)
             else:
@@ -299,7 +588,7 @@ class StaticFunction:
     def captures(self):
         """The CUDA-graph captures of every signature (each a
         `save_load._Replay`: static inputs, outputs, memory breakdown)."""
-        return [rep for cap in self._programs.values()
+        return [rep for _, cap in self._ledger.items()
                 for rep in cap.replays.values()]
 
     def program(self, *args):

@@ -33,8 +33,15 @@ novel signature's first step and for a run() capture), device_compute
 fenced on the stream the step was launched on (FLAGS_obs_timeline,
 `run()` included: one record per step, replays too); the `params`,
 `opt_slots`, `step_state`, `model_buffers` and `activations` memory tags
-(FLAGS_mem_census); `dispatch_guard("TrainStep")` around every step. The
-reference's persistent compile cache waits for the `to_static` slice.
+(FLAGS_mem_census); `dispatch_guard("TrainStep")` around every step;
+FLAGS_lint's hook, which lints the model's forward and the loss function
+once, at construction.
+
+The step calls no `core.executable.acquire` (the reference's persistent
+compile cache, `core/compile_cache.py`): its build is an eager first step
+plus a CUDA-graph capture, and no process can load a capture, so nothing
+of it persists. `jit.to_static`'s exported programs are what the cache
+keeps.
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+from .. import analysis as _analysis
 from .. import monitor as _monitor
 from .. import obs as _obs
 from ..core import executable as _exe
@@ -108,6 +116,12 @@ class TrainStep:
             raise UnimplementedError(
                 "TrainStep(mesh=..., in_shardings=...): sharded steps come "
                 "with the distributed slice")
+        if _analysis._ENABLED:
+            # trace-time tpu-lint on the functions the step runs (once per
+            # function; __call__ pays nothing)
+            _analysis.lint_traced(getattr(model, "forward", model),
+                                  "train_step")
+            _analysis.lint_traced(loss_fn, "train_step")
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer

@@ -23,8 +23,10 @@ and `span(name)` ranges. Prometheus names keep the reference's
 `paddle_tpu_` prefix, so one dashboard reads either package.
 
 `python -m paddle_tpu_torch.monitor show|diff|trace|mem|slo|threads`
-inspects snapshot exports and flight-recorder dumps. The reference's
-`fleet`, `cache`, `ps` and `top` subcommands wait for their planes.
+inspects snapshot exports and flight-recorder dumps; `cache` lists,
+verifies and garbage-collects a persistent compile-cache directory
+(`core/compile_cache.py`). The reference's `fleet`, `ps` and `top`
+subcommands wait for their planes.
 """
 from __future__ import annotations
 
@@ -972,6 +974,40 @@ def _slo_main(args) -> int:
     return 0
 
 
+def _cache_main(args) -> int:
+    """`python -m paddle_tpu_torch.monitor cache [dir] [--gc] [--verify]`."""
+    from .core import compile_cache as _cc
+    d = args.dir or _cc.cache_dir()
+    if not d:
+        import sys as _sys
+        print("error: no cache dir (pass one or set "
+              "FLAGS_compile_cache_dir)", file=_sys.stderr)
+        return 2
+    if args.verify:
+        ok, bad = _cc.verify(d)
+        print(f"verify: {ok} ok, {len(bad)} corrupt pruned")
+        for key in bad:
+            print(f"  pruned {key}")
+    if args.gc:
+        evicted = _cc.gc(d, cap_mb=args.cap_mb)
+        print(f"gc: {len(evicted)} entries evicted")
+        for key in evicted:
+            print(f"  evicted {key}")
+    rows = _cc.entries(d)
+    total = sum(max(0, r["disk_bytes"]) for r in rows)
+    print(f"compile cache {d}: {len(rows)} entries, "
+          f"{total / 1e6:.1f} MB")
+    print(f"{'key':<42} {'kind':<14} {'topology':<30} "
+          f"{'bytes':>10} {'age':>8} {'hits':>5}")
+    for r in rows:
+        age = r["age_s"]
+        age_s = f"{age / 3600:.1f}h" if age >= 3600 else f"{age:.0f}s"
+        print(f"{r['key']:<42} {r.get('kind', ''):<14} "
+              f"{r.get('topology', ''):<30} {r['disk_bytes']:>10} "
+              f"{age_s:>8} {r.get('hits', 0):>5}")
+    return 0
+
+
 def _main(argv=None) -> int:
     import argparse
     p = argparse.ArgumentParser(
@@ -1013,7 +1049,23 @@ def _main(argv=None) -> int:
                            help="dump acquisition stacks for locks held "
                                 "longer than this (default: "
                                 "FLAGS_sync_hold_warn_ms)")
+    p_cache = sub.add_parser(
+        "cache", help="inspect a persistent compile-cache directory "
+                      "(core/compile_cache.py): list entries; --gc to "
+                      "enforce the size cap, --verify to CRC-check and "
+                      "prune corrupt entries")
+    p_cache.add_argument("dir", nargs="?", default=None,
+                         help="cache directory (default: "
+                              "FLAGS_compile_cache_dir)")
+    p_cache.add_argument("--gc", action="store_true",
+                         help="evict LRU entries beyond FLAGS_compile_cache_mb")
+    p_cache.add_argument("--cap-mb", type=float, default=None,
+                         help="override the size cap for --gc")
+    p_cache.add_argument("--verify", action="store_true",
+                         help="CRC-check every entry and prune corrupt ones")
     args = p.parse_args(argv)
+    if args.cmd == "cache":
+        return _cache_main(args)
     if args.cmd == "threads":
         from .utils import syncwatch as _syncwatch
         if args.path is None:

@@ -169,7 +169,7 @@ def interpolate(x, size=None, scale_factor=None, mode="nearest",
     spatial = [x.shape[a] for a in axes]
     if size is not None:
         if isinstance(size, torch.Tensor):
-            size = size.tolist()
+            size = size.tolist()  # tpu-lint: disable=host-sync (paddle API: Tensor size -> static ints)
         out = [int(s) for s in (size if isinstance(size, (list, tuple))
                                 else [size])]
     else:
@@ -270,7 +270,7 @@ def pad(x, pad, mode="constant", value=0.0, data_format="NCHW", name=None):
 def zeropad2d(x, padding, data_format="NCHW", name=None):
     """Zero padding of H and W: padding [left, right, top, bottom]."""
     if isinstance(padding, torch.Tensor):
-        padding = padding.tolist()
+        padding = padding.tolist()  # tpu-lint: disable=host-sync (paddle API: Tensor padding -> static ints)
     left, right, top, bottom = [int(v) for v in padding]
     if data_format == "NCHW":
         return TF.pad(x, (left, right, top, bottom))
@@ -301,7 +301,7 @@ def class_center_sample(label, num_classes, num_samples, group=None):
         n_neg = max(0, num_samples - len(pos))
         if n_neg == 0:
             return pos
-        rng = np.random.RandomState((base_seed + r) % (2 ** 31))
+        rng = np.random.RandomState((base_seed + r) % (2 ** 31))  # tpu-lint: disable=stdlib-random (seeded from the device generator: host-side sampling, eager only)
         negatives = np.setdiff1d(np.arange(num_classes, dtype=np.int64),
                                  pos, assume_unique=True)
         picked = rng.choice(negatives, size=n_neg, replace=False)

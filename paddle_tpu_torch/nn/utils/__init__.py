@@ -148,7 +148,7 @@ def spectral_norm(layer, name="weight", n_power_iterations=1, eps=1e-12,
     fn = _SpectralNorm(name, n_power_iterations, eps, dim)
     layer.register_parameter(name + "_orig", Parameter(w.detach()))
     h = _spectral_mat(w.detach(), dim).shape[0]
-    u0 = np.random.RandomState(0).randn(h).astype(np.float32)
+    u0 = np.random.RandomState(0).randn(h).astype(np.float32)  # tpu-lint: disable=stdlib-random (fixed-seed host init, runs once)
     object.__setattr__(layer, "_" + name + "_u", u0 / np.linalg.norm(u0))
     fn._handle = layer.register_forward_pre_hook(fn)
     fn(layer, None)

@@ -141,7 +141,7 @@ def _is_scalar(v) -> bool:
 
 def _operand(v, like, scalar_ok):
     if _is_scalar(v):
-        v = v.item() if isinstance(v, np.generic) else v
+        v = v.item() if isinstance(v, np.generic) else v  # tpu-lint: disable=host-sync (a numpy scalar, never a device value)
         return v if scalar_ok else _weak(v, like)
     return _t(v, like)
 

@@ -545,5 +545,6 @@ def shape(input):
 
 
 def tolist(x):
-    return Tensor.tolist(x) if type(x) is Tensor else \
-        np.asarray(_host(_t(x))).tolist()
+    if type(x) is Tensor:
+        return Tensor.tolist(x)  # tpu-lint: disable=host-sync (paddle API: tolist reads the host)
+    return np.asarray(_host(_t(x))).tolist()

@@ -62,6 +62,11 @@ updated in place. Without a process world, dp x sharding > 1 raises: start
 that many processes (mp and pp axes there compute the dense layers in
 one process). A sequence-parallel axis above 1 raises (ROADMAP.md Queue
 1, "sp across processes").
+
+FLAGS_lint lints the model's forward and the loss function once, at
+construction (the reference's :267-271). The step calls no
+`core.executable.acquire`: its build is an eager first step (and no
+export), so nothing of it persists in the compile cache.
 """
 from __future__ import annotations
 
@@ -74,6 +79,7 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+from .. import analysis as _analysis
 from .. import monitor as _monitor
 from .. import obs as _obs
 from ..amp.state import auto_cast
@@ -122,6 +128,10 @@ class SPMDTrainStep:
             if isinstance(model, DataParallel):
                 model.reducer.detach_hooks()
             model = model._layers
+        if _analysis._ENABLED:
+            _analysis.lint_traced(getattr(model, "forward", model),
+                                  "spmd_train_step")
+            _analysis.lint_traced(loss_fn, "spmd_train_step")
         self.model = model
         self.loss_fn = loss_fn
         # a fleet HybridParallelOptimizer steps its inner optimizer
@@ -571,20 +581,26 @@ class SPMDTrainStep:
             return whole, parts, None
         return whole, parts, "default"
 
-    def _update(self, whole, parts, clip_arg, apply=True):
+    def _update(self, whole, parts, clip_arg, fm=None):
         """The values to update (each parameter's slice, or the whole
-        parameter), updated in place unless `apply` is False."""
+        parameter), updated in place unless traced under FakeTensorMode
+        `fm` (then fakes of them, updated nowhere)."""
         opt = self.optimizer
+
+        def value(t):
+            return t.detach() if fm is None else fake_of(fm, t)
+
         values, grads = [], []
         for i, p in enumerate(self._ptensors):
             if i in self._shards:
-                values.append(self._shards[i])
+                values.append(self._shards[i] if fm is None
+                              else value(self._shards[i]))
             elif self._dims[i] is not None:
-                values.append(self._slice(p.detach(), i).contiguous())
+                values.append(self._slice(value(p), i).contiguous())
             else:
-                values.append(p.detach())
+                values.append(value(p))
             grads.append(parts[i] if i in parts else whole[i])
-        if apply:
+        if fm is None:
             opt.functional_update(values, grads, self._slots, opt._lr_arr,
                                   opt._t_arr, params_meta=self._ptensors,
                                   grad_clip=clip_arg)
@@ -642,7 +658,7 @@ class SPMDTrainStep:
                 _obs.fence(self._device)
         with phase("optimizer"):
             whole, parts, clip_arg = self._clip(whole, parts)
-            values = self._update(whole, parts, clip_arg, apply=not traced)
+            values = self._update(whole, parts, clip_arg, fm)
             if tl:
                 _obs.fence(self._device)
         with phase("collective"):

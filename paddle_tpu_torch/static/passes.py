@@ -15,10 +15,14 @@ pass, as in the reference:
     into the branches of `cond`, as the reference's reaches nested jits;
     a `while_loop` body is left as it is, with a warning, as the
     reference's `_warn_if_skipped_region` (:100) does for its loop bodies.
+  - the analysis-only program passes `lint` and `concurrency` (:265,
+    :294): tpu-lint's graph rules over the exported graph plus its source
+    lint of the Program's function, and its concurrency rules over the
+    module that defines the function. They return the Program with the
+    findings attached (`.lint_findings`, `.concurrency_findings`);
+    `fail_on=` raises at that severity.
 `Program.apply_pass(name)` returns a new Program; its `ops()` show the
-rewritten graph. `lint` and `concurrency` (:265, :294) need the
-`analysis/` package, which the port has not yet
-(ROADMAP.md Queue 1, "the lint and concurrency passes"): they raise.
+rewritten graph.
 """
 from __future__ import annotations
 
@@ -28,8 +32,6 @@ import warnings
 from typing import Callable, Dict
 
 import torch
-
-from ..core.enforce import UnimplementedError
 
 __all__ = ["register_pass", "get_pass", "list_passes", "apply_pass",
            "make_op_rewrite_pass"]
@@ -245,15 +247,53 @@ def _dead_op_elim_pass(program):
                        "dead_op_elim")
 
 
-def _needs_analysis(kind):
-    def pass_(program, fail_on=None):
-        raise UnimplementedError(
-            f"the {kind} pass needs the analysis/ package, which is not "
-            "ported yet (ROADMAP.md Queue 1, \"the lint and concurrency "
-            "passes\")")
-    pass_._program_pass = True
-    return pass_
+def _gate(findings, kind, fail_on):
+    """Warn each finding; with `fail_on` set, raise on the findings at or
+    above that severity (the export-time gate)."""
+    from ..analysis.base import severity_at_least
+    for f in findings:
+        warnings.warn(f"tpu-lint[pass]: {f.format()}")
+    if fail_on is not None:
+        bad = [f for f in findings if severity_at_least(f.severity, fail_on)]
+        if bad:
+            raise ValueError(
+                f"{kind} pass: {len(bad)} finding(s) at/above {fail_on}:\n"
+                + "\n".join(f.format() for f in bad))
 
 
-register_pass("lint", _needs_analysis("lint"))
-register_pass("concurrency", _needs_analysis("concurrency"))
+@register_pass("lint")
+@_program_pass
+def _lint_pass(program, fail_on: str = None):
+    """Analysis-only PROGRAM pass: tpu-lint's graph rules (dead ops,
+    unused inputs, f64 widenings, host callbacks) over the exported graph
+    and its source lint over the Program's function. Findings are warned
+    and stored on the returned program as `.lint_findings`; with
+    `fail_on=` set ('warning'/'error'), findings at/above that severity
+    raise ValueError — the export-time gate
+    (`prog.apply_pass('lint', fail_on='error')`)."""
+    from ..analysis import lint_callable
+    from ..analysis.graph import analyze_program
+    findings = analyze_program(program) + lint_callable(program._fn)
+    program.lint_findings = findings
+    _gate(findings, "lint", fail_on)
+    return program
+
+
+@register_pass("concurrency")
+@_program_pass
+def _concurrency_pass(program, fail_on: str = None):
+    """Analysis-only PROGRAM pass: tpu-lint's concurrency rules
+    (lock-order, blocking-under-lock, unregistered-thread) over the
+    module that defines the Program's function — the threading context
+    the program runs in, not its graph. Findings are warned and stored as
+    `.concurrency_findings`; `fail_on=` gates like the lint pass. A
+    function with no source file gives no findings."""
+    from ..analysis.concurrency import analyze_paths
+    try:
+        path = inspect.getsourcefile(program._fn)
+    except TypeError:
+        path = None
+    findings = analyze_paths([path])[0] if path else []
+    program.concurrency_findings = findings
+    _gate(findings, "concurrency", fail_on)
+    return program

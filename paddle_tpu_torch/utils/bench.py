@@ -86,6 +86,19 @@ data-parallel ERNIE.
   same eager per-step path, and `run()`, ernie_train's replayed graph),
   the bucket count and the step's collectives. On the CPU: 2 gloo ranks
   and a small ERNIE (hidden 64, 2 layers) at 4 x 16.
+- `--arm warm_start` (`bench_warm_start`, bench.py:487-542): the
+  persistent compile cache's A/B. The same workload process
+  (`utils/warm_start.py`: LeNet's TrainStep x2, a to_static predictor's
+  bucket warm-up, GPT-2 small's live-layer Predictor over 3 buckets and
+  two to_static training steps at 8 x 1024, two TransformerEncoderLayers
+  differing in their activation; a small GPT on the CPU) is spawned twice
+  over one new `FLAGS_compile_cache_dir`: the cold arm exports and stores
+  every signature, the warm arm loads them. Per arm: `t_first_train_s`,
+  `t_first_infer_s`, `process_wall_s`, `trace_compile`, `exports` and the
+  cache counters; then `speedup_first_train`, `speedup_first_infer` and
+  `bit_identical` (the output digests of the two processes), and the two
+  processes' raw records (`records`) and the directory's `entries`, which
+  the smoke's warm_start phase checks.
 
 Each arm prints one JSON line under `bench.py`'s keys where they exist.
 The three train arms (`ernie_train`, `ernie10b_layer`, `lenet_dispatch`)
@@ -101,7 +114,7 @@ a CUDA device:
     python -m paddle_tpu_torch.utils.bench \
         --arm ernie_train|ernie10b_layer|llm|lenet_dispatch|
               resnet50_infer|resnet50_infer_int8|yoloe_infer|
-              ocr_rec_infer
+              ocr_rec_infer|allreduce|ernie_dp|warm_start
 
 On the card both TF32 switches are off (`torch.backends.cuda.matmul` and
 `torch.backends.cudnn`), as in `chip_smoke.py`: fp32 products and
@@ -118,7 +131,6 @@ import argparse
 import json
 import os
 import statistics
-import threading
 import time
 
 import numpy as np
@@ -126,6 +138,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
+
+from . import syncwatch
 
 PEAK_BF16 = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
@@ -454,7 +468,7 @@ def serve_llm(lm, cfg, prompts, clients=1):
             except Exception as e:  # noqa: BLE001 — reported below
                 errors.append(repr(e))
 
-        threads = [threading.Thread(target=client,
+        threads = [syncwatch.Thread(target=client,
                                     args=(range(j, len(prompts), clients),))
                    for j in range(clients)]
         t0 = time.perf_counter()
@@ -1027,12 +1041,59 @@ def ernie_dp(big=True, nproc=None, backend=None, gpus=None, seed=0):
     return r
 
 
+def warm_start(device="gpu", timeout=900):
+    """The warm_start arm: a cold and then a warm process of
+    `utils/warm_start.py` over one fresh cache directory. Returns the
+    summary, the raw records (`records`: cold, warm) and the directory's
+    entries (`entries`)."""
+    import shutil
+    import tempfile
+    from ..core import compile_cache as cc
+    from . import warm_start as ws
+    cache_dir = tempfile.mkdtemp(prefix="bench_warmstart_")
+    records = {}
+    try:
+        for arm in ("cold", "warm"):
+            try:
+                records[arm] = ws.result(ws.spawn(cache_dir, device), timeout)
+            except RuntimeError as e:
+                return {"error": f"{arm}: {e}"}
+        entries = cc.entries(cache_dir)
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    out = {}
+    for arm, r in records.items():
+        stats = r["compile_cache"]
+        out[arm] = {
+            "t_first_train_s": r["t_first_train_s"],
+            "t_first_infer_s": r["t_first_infer_s"],
+            "process_wall_s": r["wall_s"],
+            "trace_compile": r["trace_compile"],
+            "exports": r["report"]["exports"],
+            "warm": r["report"]["warm"],
+            "cache_hits": stats["hits"],
+            "cache_misses": stats["misses"],
+            "cache_stores": stats["stores"],
+            "cache_fallbacks": stats["fallbacks"],
+            "export_skips": stats["export_skips"],
+        }
+    cold, warm = records["cold"], records["warm"]
+    out["bit_identical"] = ws.digests(cold) == ws.digests(warm)
+    out["speedup_first_train"] = \
+        cold["t_first_train_s"] / max(warm["t_first_train_s"], 1e-9)
+    out["speedup_first_infer"] = \
+        cold["t_first_infer_s"] / max(warm["t_first_infer_s"], 1e-9)
+    out.update(records=records, entries=entries)
+    return out
+
+
 ARMS = {"ernie_train": ernie_train, "ernie10b_layer": ernie10b_layer,
         "llm": llm, "lenet_dispatch": lenet_dispatch,
         "resnet50_infer": resnet50_infer,
         "resnet50_infer_int8": resnet50_infer_int8,
         "yoloe_infer": yoloe_infer, "ocr_rec_infer": ocr_rec_infer,
-        "allreduce": allreduce, "ernie_dp": ernie_dp}
+        "allreduce": allreduce, "ernie_dp": ernie_dp,
+        "warm_start": warm_start}
 
 
 def main(argv=None):
@@ -1069,6 +1130,8 @@ def main(argv=None):
         if arm in ("allreduce", "ernie_dp"):
             r = ARMS[arm](big=args.device == "gpu", nproc=args.nproc,
                           backend=args.backend, gpus=args.gpus)
+        elif arm == "warm_start":
+            r = ARMS[arm](device=args.device)
         elif arm in ("llm", "lenet_dispatch", "resnet50_infer",
                      "resnet50_infer_int8", "yoloe_infer", "ocr_rec_infer"):
             r = ARMS[arm](big=args.device == "gpu")

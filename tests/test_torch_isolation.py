@@ -607,3 +607,54 @@ def test_static_graph_half_runs_with_jax_and_the_jax_package_blocked(
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip() == "ok"
+
+
+def test_compile_cache_and_analysis_run_with_jax_and_the_jax_package_blocked(
+        tmp_path):
+    # from a file: the compile cache keys a to_static function's source
+    script = tmp_path / "build_plane.py"
+    script.write_text(textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "jaxlib", "paddle_tpu"):
+            sys.modules[name] = None          # any import of them fails
+        import numpy as np
+        import paddle_tpu_torch as pt
+        from paddle_tpu_torch import analysis
+        from paddle_tpu_torch.analysis import cli, concurrency, graph
+        from paddle_tpu_torch.core import compile_cache as cc
+        from paddle_tpu_torch.utils import warm_start  # noqa: F401
+        pt.set_device("cpu")
+        pt.set_flags({{"FLAGS_compile_cache_dir": {str(tmp_path / "cc")!r}}})
+
+        @pt.jit.to_static
+        def f(a):
+            return a * 2.0 + 1.0
+
+        x = pt.to_tensor(np.arange(4, dtype="float32"))
+        first = f(x).numpy()
+        f.release()
+        again = f(x).numpy()
+        assert (first == again).all()
+        assert cc.stats()["stores"] == 1 and cc.stats()["hits"] == 1, \\
+            cc.stats()
+        assert cc.verify() == (1, [])
+        prog = f.program()
+        assert prog.apply_pass("lint").lint_findings == []
+        assert prog.apply_pass("concurrency").concurrency_findings == []
+        assert graph.analyze_program(prog) == []
+        assert analysis.lint_source("def forward(self, x):\\n"
+                                    "    return x.item()\\n")[0].rule == \\
+            "host-sync"
+        assert concurrency.analyze_source("import threading\\n"
+                                          "threading.Thread()\\n")
+        assert cli.main(["--list-rules", "x"]) == 0
+        loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                        and m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+        assert not loaded, loaded
+        print("ok")
+    """))
+    res = subprocess.run([sys.executable, str(script)], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().splitlines()[-1] == "ok"
