@@ -96,7 +96,7 @@ last line is printed):
                spans of 10 steps, 3 reps; ms per layer-sample, MFU, peak
                memory. The loss must fall;
  10. graph   - for GPT-2, the flagship, titan and the sp train: from one
-               saved state, run() over 12 distinct steps (one CUDA-graph
+               saved state, run() over 4 distinct steps (one CUDA-graph
                replay each) against the eager loop of __call__ (GPT-2 and
                titan under torch.use_deterministic_algorithms, since the
                fused backward's dq atomics do not repeat bitwise): per-step
@@ -210,7 +210,7 @@ last line is printed):
                scaffold beside the live layer's eager forward at the same
                batch and dtype, the loaded program's device busy time per
                batch within 10% of the live layer's, MFU, peak memory and
-               the idle share over 20 run()s; GPT-2 small's bf16 artifact
+               the idle share over 6 run()s; GPT-2 small's bf16 artifact
                at 4 x 1024 (exported on the card: 12 flash_fwd nodes), 8
                requests through ServingEngine over the loaded Predictor
                (each input signature one CUDA graph: 2 x 12 host launches
@@ -252,7 +252,7 @@ last line is printed):
                artifacts at bench.py's batch, bf16 against fp32 (< 0.08 of
                max|ref| per output), the OCR program's two aten.lstm.input
                nodes, imgs/s with spread, MFU, peak memory, idle share over
-               20 run()s and device busy against the live layer (the OCR
+               6 run()s and device busy against the live layer (the OCR
                program run eagerly within 10%), and which recurrent
                kernels the OCR trace shows; yolo_box on the detector's
                three heads and nms of one image, card vs CPU; ctc_loss at
@@ -306,7 +306,7 @@ last line is printed):
                c_allreduce_bucket counted once per bucket and step, the
                flight recorder holding them, the parameters bit-equal
                across ranks (an all_gather of checksums); ZeRO stages 1, 2
-               and 3 over the world, 3 steps each from the same weights,
+               and 3 over the world, 2 steps each from the same weights,
                losses within 1e-3 of DP's, memory beside DP's and stage
                1's slot bytes at 1/W of DP's; scaled_dot_product_attention
                forward and backward in bf16 at 1 x 2048 x 12 x 64 on the
@@ -339,7 +339,7 @@ last line is printed):
                its stage and mp slices of the single controller's initial
                state: the fp32 step-1 loss within 1e-4 and the gathered
                gradients at cosine >= 0.9999 of the single controller's,
-               3 bf16 steps with the loss falling, the flash launches per
+               2 bf16 steps with the loss falling, the flash launches per
                rank, rows 1-2 on every rank against the plain math, the
                collective signature's length equal within each stage.
  24. fault   - slice 17, fault-tolerant training: (a) TrainGuard over
@@ -361,7 +361,8 @@ last line is printed):
                NCCL on 2+ cards): parameters bit-equal across ranks after
                each averaging and each DGC step, DGC's sent count per
                parameter the top-k's k (more only on a tie), residual +
-               sent equal to the accumulation exactly; (c)
+               sent equal to the accumulation exactly (ERNIE-base's width,
+               4 of its layers); (c)
                MoELayer(768, 3072, 8 experts, top 2) on 4096 tokens at ep
                4 (four gloo ranks on cuda:0, NCCL on 4+ cards) against the
                same layer with every expert local on each rank's tokens:
@@ -370,10 +371,11 @@ last line is printed):
                per forward + backward at ep 4 and ep 1; (d)
                launch_elastic of a gang of two (this script with
                --elastic-rank) over a TCPStore, each rank config 3's DP
-               step at 8 x 128 under AutoCheckpoint for 4 epochs of 2
-               steps: rank 1 exits 9 on the first launch, the relaunched
-               pair commits epochs 0 and 1, a joiner announces itself, and
-               the gang of three resumes at epoch 2 and finishes.
+               step (4 layers) at 8 x 128 under AutoCheckpoint for 3
+               epochs of 2 steps: rank 1 exits 9 on the first launch, the
+               relaunched pair commits epochs 0 and 1, a joiner announces
+               itself, and the gang of three resumes at epoch 2 and
+               finishes.
  25. static  - slice 18, the static-graph half (config 2's @to_static
                path): (a) jit.to_static(resnet50(data_format="NHWC")) at
                resnet50_infer's batch of 128 x 224 x 224, fp32, under
@@ -437,6 +439,34 @@ last line is printed):
                of a to_static function on the card each fall back to a
                fresh export, counted, pruned and stored anew, with an
                equal output.
+ 28. ps     - the parameter-server tier: PaddleRec's CTR-DNN on
+               Criteo (`models/rank/dnn`: 26 sparse slots sharing one
+               1,000,001 x 9 table, 13 dense features, fc 512-256-128-32
+               with ReLU and a 2-way softmax, batch 512; composed from the
+               port's layers, weights from the seed). Slot files of Zipf
+               ids written in a temporary directory -> InMemoryDataset ->
+               Executor.train_from_dataset -> DistributedEmbedding rows
+               pulled from two servers (a python PsServer with a WAL and
+               a NativePsServer, ids split by id % 2; the table under
+               Adam) onto cuda:0 -> the tower on cuda:0 -> the row
+               gradients pushed back through the Communicator, flushed
+               each step: 40 steps, the loss falls, rows and tower on
+               cuda:0. The same flow with an SGD table against one process
+               (a local Embedding(sparse=True) seeded with the servers'
+               initial rows, sparse SGD on the card): losses and tower
+               within 1e-5 (1 + |ref|); the card's run against the port's
+               CPU run within 1e-4 (1 + |ref|); a local sparse Embedding
+               under sparse Adam, lazy and not, card against CPU within
+               1e-5 (1 + |ref|); a snapshot and a restart of the python
+               server recover its table bit-equal at the same
+               applied_lsn. Printed: samples/s over the wall of
+               train_from_dataset's steady steps, ms per steady step split
+               into batch assembly, pull, H2D, device forward + backward
+               (+ the tower's update), D2H, push and flush (one window for
+               every part), the idle share of the same program traced over
+               one slot file's batches, push throughput to each server, the
+               ps_durability arm's WAL-off / WAL-on us per push, recovery
+               ms.
 
 Each fp16 step drives `scaler.step(opt)` after the scaled backward and no
 `scaler.update()`: the reference's step() already updates the scale once
@@ -483,8 +513,9 @@ SP_B, SP_S, SP_DEGREE = 8, 512, 4
 # the path past that point before "the loss fell" is read
 SP_RUN = 15
 # run() spans of the flagship and titan phases, and of the graph phase's
-# comparison of run() with the eager loop
-FLAGSHIP_RUN, TITAN_RUN, GRAPH_RUN = 20, 10, 12
+# comparison of run() with the eager loop (4 steps: cut from 12 to keep
+# the whole smoke inside its time limit)
+FLAGSHIP_RUN, TITAN_RUN, GRAPH_RUN = 20, 10, 4
 TITAN_B, TITAN_S = 2, 2048      # the titan arm's batch (bench.py:702)
 FLAGSHIP_B, FLAGSHIP_S = 32, 128
 # the llm phase: 16 slots of a 1024-row page (max_len 1022 + the decode
@@ -508,7 +539,7 @@ OBS_STEPS = 5
 # the per-rank kernel check's attention shape, a world's time limit; the
 # ZeRO clip check's SGD rate (one step: the update is the clipped
 # gradient) and clip norm as a share of the initial gradient norm
-DIST_WARM, DIST_STEPS, ZERO_STEPS = 1, 5, 3
+DIST_WARM, DIST_STEPS, ZERO_STEPS = 1, 5, 2     # ZeRO steps cut from 3
 ZERO_CLIP_LR, ZERO_CLIP_SHARE = 1.0, 0.5
 DIST_ATT = (1, 2048, 12, 64)
 DIST_TIMEOUT = 300
@@ -3134,7 +3165,9 @@ ZOO_TOL, ZOO_RULE_TOL = 1e-4, 1e-6
 
 
 def rel_l2(got, want):
-    g, w = got.detach().double().cpu(), want.detach().double().cpu()
+    """||got - want|| / ||want|| in float64, on got's device."""
+    g = got.detach().double()
+    w = want.detach().to(g.device).double()
     return ((g - w).norm() / max(w.norm().item(), 1e-30)).item()
 
 
@@ -3482,7 +3515,7 @@ def conv_phase(pt, torch, np, card):
 # card-vs-CPU check at a small batch, the runs of each rate span, the
 # repairs' TrainStep batch and steps
 DEPLOY_B, DEPLOY_CHECK_B, DEPLOY_TRAIN_B = 128, 8, 32
-DEPLOY_RUNS, DEPLOY_REPS, DEPLOY_TRAIN_STEPS = 20, 3, 3
+DEPLOY_RUNS, DEPLOY_REPS, DEPLOY_TRAIN_STEPS = 6, 2, 3   # cut from 20, 3
 # relative L2 of the fp32 artifact on the card against the live layer on
 # the CPU (TF32 off), and bf16 / int8 against fp32 by the reference's
 # measure, max|got - ref| / max|ref| (tests/test_quant_asp.py:278-280)
@@ -3791,8 +3824,9 @@ RNN_GRAD_TOL = 5e-4
 BEAM_VOCAB, BEAM_EMB, BEAM_HIDDEN, BEAM_W, BEAM_B, BEAM_STEPS = \
     1000, 128, 256, 4, 8, 32
 # config 4: the fp32 artifacts against the live layers on the CPU at these
-# batches; the rates over spans of C4_RUNS run()s
-OCR_CHECK_B, YOLOE_CHECK_B, OCR_TRAIN_B, C4_RUNS, C4_REPS = 4, 2, 4, 20, 3
+# batches; the rates over spans of C4_RUNS run()s (6 x 2: cut from 20 x
+# 3 to keep the whole smoke inside its time limit)
+OCR_CHECK_B, YOLOE_CHECK_B, OCR_TRAIN_B, C4_RUNS, C4_REPS = 4, 2, 4, 6, 2
 # the CTC loss at the OCR head's shapes: T 160 positions, batch 64,
 # 6625 classes, labels of 1-25 tokens
 CTC_T, CTC_B, CTC_C, CTC_L = 160, 64, 6625, 25
@@ -5196,7 +5230,7 @@ def dist_phase(pt, torch, card):
 # of 1 x 2048, 4 of them per train_batch
 C5_CFG = dict(vocab_size=50304, hidden_size=4096, num_layers=4,
               num_heads=64, max_seq_len=2048, dropout=0.0)
-C5_MICRO, C5_MB, C5_STEPS = 4, 1, 3
+C5_MICRO, C5_MB, C5_STEPS = 4, 1, 2      # bf16 steps (cut from 3)
 C5_ATT = (1, 2048, 64, 64)          # the micro-batch's attention, causal
 C5_TIMEOUT = 600
 
@@ -5524,15 +5558,22 @@ def config5_phase(pt, fa, torch, np, card):
 GUARD_STEPS, GUARD_KILL_AT, GUARD_NAN_STEPS = 4, 2, 4
 # (b) the meta-optimizers at the flagship's width (ERNIE-base, 32 x 128):
 # gradient merge of k micro-batches (of 8), LocalSGD's k and steps, DGC's
-# sparsity and steps, in a world of two
+# sparsity and steps, in a world of two (LocalSGD 4 steps: one averaging;
+# cut from 8 to keep the whole smoke inside its time limit)
 META_K = 4
-LOCALSGD_K, LOCALSGD_STEPS, DGC_SPARSITY, DGC_STEPS = 4, 8, 0.999, 3
+LOCALSGD_K, LOCALSGD_STEPS, DGC_SPARSITY, DGC_STEPS = 4, 4, 0.999, 3
 # (c) MoE: GPT-2 small's FFN width as 8 experts, top-2, on 4096 tokens
 MOE_D, MOE_H, MOE_E, MOE_K, MOE_T, MOE_EP = 768, 3072, 8, 2, 4096, 4
-MOE_REPS = 5
-# (d) elastic: config 3's DP step per rank at 8 x 128 tokens, 4 epochs of
+MOE_REPS = 2      # timed repeats (cut from 5)
+# (d) elastic: config 3's DP step per rank at 8 x 128 tokens, 3 epochs of
 # 2 steps; a gang of 2 grown to 3
-ELASTIC_EPOCHS, ELASTIC_STEPS, ELASTIC_B = 4, 2, 8
+ELASTIC_EPOCHS, ELASTIC_STEPS, ELASTIC_B = 3, 2, 8
+# the worlds of (b) and (d) run ERNIE-base at its width and 4 of its 12
+# layers (a depth cut, with 4 -> 3 epochs above, to keep the whole smoke
+# inside its time limit)
+FAULT_ERNIE = dict(vocab_size=30522, hidden_size=768, num_hidden_layers=4,
+                   num_attention_heads=12, intermediate_size=3072,
+                   hidden_dropout_prob=0.0)
 FAULT_TIMEOUT = 300
 FLASH_ROWS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq",
               "flash_bwd_dkv")
@@ -5825,8 +5866,7 @@ def meta_rank(outdir):
         return out
 
     pt.seed(SEED)
-    net = pt.models.ErnieForPretraining(
-        pt.models.ernie_base(hidden_dropout_prob=0.0))
+    net = pt.models.ErnieForPretraining(pt.models.ErnieModel(**FAULT_ERNIE))
     st = DistributedStrategy()
     st.localsgd = True
     st.localsgd_configs = {"k_steps": LOCALSGD_K}
@@ -5852,8 +5892,7 @@ def meta_rank(outdir):
         return t / w
 
     pt.seed(SEED)
-    net = pt.models.ErnieForPretraining(
-        pt.models.ernie_base(hidden_dropout_prob=0.0))
+    net = pt.models.ErnieForPretraining(pt.models.ErnieModel(**FAULT_ERNIE))
     params = list(net.parameters())
     opt = DGCMomentumOptimizer(
         pt.optimizer.SGD(learning_rate=0.1, parameters=params),
@@ -5986,7 +6025,7 @@ def elastic_rank(workdir):
     hcg = fleet.init(is_collective=True, strategy=st)
     dev = pt.distributed.ParallelEnv().device
     pt.seed(SEED)
-    step = bench.dp_step(pt, hcg)
+    step = bench.dp_step(pt, hcg, FAULT_ERNIE)
 
     def save(path):
         if rank != 0:
@@ -6071,7 +6110,8 @@ def fault_phase(pt, fa, torch, np, card):
         avg_steps = [s for s in range(1, LOCALSGD_STEPS + 1)
                      if s % LOCALSGD_K == 0]
         print(f"fault [meta]: world of two ({'nccl' if n_cards >= 2 else 'gloo'}"
-              f", {[x['device'] for x in meta]}), ERNIE-base fp32 at "
+              f", {[x['device'] for x in meta]}), ERNIE-base width, 4 layers, "
+              f"fp32 at "
               f"{FLAGSHIP_B // 2}x{FLAGSHIP_S} per rank: LocalSGD k "
               f"{LOCALSGD_K} parameters bit-equal across ranks after each "
               f"step {m0['localsgd']['equal']} ({LOCALSGD_STEPS} AdamW steps, "
@@ -6156,7 +6196,8 @@ def fault_phase(pt, fa, torch, np, card):
         first3 = int(ws3[0].split("epoch")[1].split()[0]) if ws3 else None
         t_el = time.perf_counter() - t0
         print(f"fault [elastic]: launch_elastic, a gang of 2 (gloo, "
-              f"{'cuda:0-2' if n_cards >= 3 else 'cuda:0'}), ERNIE-base DP "
+              f"{'cuda:0-2' if n_cards >= 3 else 'cuda:0'}), ERNIE-base width "
+              f"(4 layers) DP "
               f"{ELASTIC_B}x{FLAGSHIP_S} per rank under AutoCheckpoint, "
               f"{ELASTIC_EPOCHS} epochs of {ELASTIC_STEPS} steps: success "
               f"{res.success}, restarts {res.restarts}, return codes "
@@ -6186,7 +6227,7 @@ def fault_phase(pt, fa, torch, np, card):
 
 
 # ---- the static phase: to_static, dy2static and Program on the card ----
-STATIC_RUNS, STATIC_REPS, STATIC_STEPS = 20, 3, 3
+STATIC_RUNS, STATIC_REPS, STATIC_STEPS = 6, 2, 3   # cut from 20, 3
 STATIC_BF16_TOL = 2e-2
 
 
@@ -6771,6 +6812,395 @@ def warm_start_phase(pt, torch, np, card):
         warm["gpt_train"]["launches"][k] for k in want_serve}
 
 
+# ---- the ps phase: the parameter-server tier driving a CTR-DNN ----
+# PaddleRec models/rank/dnn (config.yaml): 26 sparse slots over one table
+# of sparse_feature_number rows of sparse_feature_dim, 13 dense features,
+# fc_sizes, batch 512; ids per slot from a Zipf law
+PS_SLOTS, PS_DENSE, PS_VOCAB, PS_DIM = 26, 13, 1_000_001, 9
+PS_FC, PS_B = (512, 256, 128, 32), 512
+PS_STEPS, PS_PARITY_STEPS, PS_LOCAL_STEPS, PS_WARM = 40, 5, 3, 3
+PS_ZIPF, PS_LR = 1.2, 0.001
+PS_SGD_LR = 0.25          # exact in f32: the wire carries the rate as f32
+PS_SNAP_AT = 30           # the snapshot: steps after it are a WAL suffix
+
+
+def ps_write_slots(np, d, n, seed):
+    """MultiSlotDataFeed files of n Criteo-shaped samples: 26 one-id
+    sparse slots (Zipf ids, each slot in its own stretch of the table), 13
+    dense floats, a click that depends on two dense features and one slot."""
+    rng = np.random.default_rng(seed)
+    ids = (rng.zipf(PS_ZIPF, (n, PS_SLOTS)) - 1
+           + np.arange(PS_SLOTS) * (PS_VOCAB // PS_SLOTS)) % PS_VOCAB
+    dense = rng.standard_normal((n, PS_DENSE)).astype(np.float32)
+    click = ((dense[:, 0] + 0.5 * dense[:, 1] + (ids[:, 0] % 3 == 0) - 0.5)
+             > 0).astype(np.int64)
+    files = []
+    for part, rows in enumerate(np.array_split(np.arange(n), 4)):
+        path = os.path.join(d, f"part-{part}")
+        with open(path, "w") as f:
+            for i in rows:
+                f.write(" ".join(f"1 {v}" for v in ids[i]) + f" {PS_DENSE} "
+                        + " ".join(f"{v:.6f}" for v in dense[i])
+                        + f" 1 {click[i]}\n")
+        files.append(path)
+    return files
+
+
+def ps_dataset(pt, files, seed):
+    ds = pt.distributed.InMemoryDataset()
+    slots = [f"C{i}" for i in range(1, PS_SLOTS + 1)]
+    ds.init(batch_size=PS_B, use_slots=slots + ["dense", "click"],
+            slot_types=["uint64"] * PS_SLOTS + ["float", "uint64"])
+    ds.set_filelist(files)
+    ds.load_into_memory()
+    ds.local_shuffle(seed=seed)
+    return ds
+
+
+def ps_tower(pt, torch, device):
+    """The CTR-DNN's dense tower from the seed, built on the CPU (so every
+    run starts from the same weights) and moved to `device`."""
+    pt.set_device("cpu")
+    pt.seed(SEED)
+    layers, width = [], PS_SLOTS * PS_DIM + PS_DENSE
+    for h in PS_FC:
+        layers += [pt.nn.Linear(width, h), pt.nn.ReLU()]
+        width = h
+    tower = pt.nn.Sequential(*layers, pt.nn.Linear(width, 2))
+    tower.to(device)
+    pt.set_device("gpu" if device.type == "cuda" else "cpu")
+    return tower
+
+
+def ps_arrays(np, batch):
+    ids = np.stack([batch[f"C{i}"][:, 0] for i in range(1, PS_SLOTS + 1)],
+                   1).astype(np.int64)
+    return ids, batch["dense"], batch["click"][:, 0].astype(np.int64)
+
+
+def ps_legs(pt):
+    """{leg: seconds so far} of DistributedEmbedding's monitor legs."""
+    return {k: pt.monitor.histogram(f"ps.embedding.{k}").sum
+            for k in ("pull", "h2d", "d2h", "push")}
+
+
+def ps_step(torch, lookup, tower, opt, ce, ids, dense, click, device):
+    """One CTR-DNN step, as every run of the phase takes it: the rows of
+    `ids` (pulled by a DistributedEmbedding, or a local sparse Embedding's),
+    the tower, the loss, its backward (which pushes a DistributedEmbedding's
+    row gradients) and the optimizer step. Returns the rows and the loss."""
+    rows = lookup(ids)
+    feat = torch.cat([rows.reshape(PS_B, -1),
+                      torch.from_numpy(dense).to(device)], 1)
+    loss = ce(tower(feat), torch.from_numpy(click).to(device))
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return rows, loss
+
+
+def ps_servers(pt, wal_dir, optimizer, lr):
+    """A python PsServer (with a WAL) and a NativePsServer; the table made
+    over the wire on both, ids split by id % 2."""
+    from paddle_tpu_torch.distributed import ps
+    py = ps.PsServer("127.0.0.1", 0, wal_dir=wal_dir)
+    py.run()
+    nat = ps.NativePsServer()
+    client = ps.PsClient([f"127.0.0.1:{py.port}", f"127.0.0.1:{nat.port}"])
+    client.create_sparse_table("emb", PS_DIM, optimizer=optimizer, lr=lr,
+                               seed=SEED + 20)
+    return py, nat, client
+
+
+def ps_train(pt, torch, np, ds, device, optimizer, lr, steps, wal_dir,
+             trace_ds=None, snapshot_at=None):
+    """The CTR flow through the PS for `steps` batches of `ds` on
+    `device`: Executor.train_from_dataset over a program that pulls the
+    rows (DistributedEmbedding), runs the tower, pushes through the
+    Communicator and flushes. Returns the losses, the tower's final
+    state, the per-step records, the python server's state and the rows
+    of the ids it saw. With `trace_ds`, each record also holds the step's
+    monitor legs (`ps.embedding.{pull,h2d,d2h,push}`), and the same
+    program then runs over `trace_ds` under the profiler for the device's
+    busy time and idle share."""
+    from paddle_tpu_torch.distributed import ps
+    py, nat, client = ps_servers(pt, wal_dir, optimizer, lr)
+    comm = ps.Communicator(client)
+    out = {}
+    try:
+        pt.set_device("gpu" if device.type == "cuda" else "cpu")
+        emb = ps.DistributedEmbedding(client, "emb", PS_DIM,
+                                      communicator=comm)
+        tower = ps_tower(pt, torch, device)
+        opt = (pt.optimizer.Adam if optimizer == "adam" else
+               pt.optimizer.SGD)(parameters=tower.parameters(),
+                                 learning_rate=lr)
+        ce = pt.nn.CrossEntropyLoss()
+        recs, seen, limit = [], [], [steps]
+
+        def program(batch):
+            t_in = time.perf_counter()
+            if len(recs) >= limit[0]:
+                return float("nan")      # past the run: no step
+            if snapshot_at is not None and len(recs) == snapshot_at:
+                t0 = time.perf_counter()
+                py.snapshot()
+                out["snapshot_ms"] = (time.perf_counter() - t0) * 1e3
+            ids, dense, click = ps_arrays(np, batch)
+            seen.append(ids)
+            legs0 = ps_legs(pt)
+            t0 = time.perf_counter()
+            rows, loss = ps_step(torch, emb, tower, opt, ce, ids, dense,
+                                 click, device)
+            lv = float(loss.detach())
+            t1 = time.perf_counter()
+            comm.flush()
+            t2 = time.perf_counter()
+            check(rows.device == device, f"ps: rows on {rows.device}")
+            rec = {"loss": lv, "in": t_in, "out": t2,
+                   "step_ms": (t2 - t0) * 1e3, "flush_ms": (t2 - t1) * 1e3}
+            rec.update({k: (v - legs0[k]) * 1e3
+                        for k, v in ps_legs(pt).items()})
+            recs.append(rec)
+            return lv
+
+        exe = pt.static.Executor()
+        if trace_ds is not None:
+            pt.monitor.enable()
+        losses = [x for x in exe.train_from_dataset(program, ds)
+                  if not math.isnan(x)]
+        if trace_ds is not None:
+            pt.monitor.disable()
+            pt.monitor.reset()
+            n0, limit[0] = len(recs), math.inf
+            from paddle_tpu_torch.utils import bench
+            busy, idle, wall = bench.busy_ms(
+                lambda: exe.train_from_dataset(program, trace_ds), 1, device)
+            out["traced_steps"] = len(recs) - n0
+            out["busy_ms"], out["idle_share"], out["traced_ms"] = \
+                busy, idle, wall
+        check(all(p.device == device for p in tower.parameters()),
+              "ps: the tower left the device")
+        out.update(losses=losses, recs=recs,
+                   tower={k: v.detach().cpu().numpy()
+                          for k, v in tower.state_dict().items()},
+                   applied_lsn=py.applied_lsn,
+                   table=py.table("emb").snapshot_arrays(),
+                   ids=np.unique(np.concatenate(seen)))
+        out["rows"] = client.pull_sparse("emb", out["ids"])
+    finally:
+        comm.stop()
+        client.close()
+        py.stop()
+        nat.stop()
+    return out
+
+
+def ps_local(pt, torch, np, ds, device, init_rows, ids_all, lr, steps,
+             opt_name="sgd", lazy=False):
+    """One process: a local Embedding(sparse=True) over the table,
+    seeded with `init_rows` at `ids_all`, the same tower and loss, the
+    sparse rule on `device`."""
+    pt.set_device("gpu" if device.type == "cuda" else "cpu")
+    emb = pt.nn.Embedding(PS_VOCAB, PS_DIM, sparse=True)
+    with torch.no_grad():
+        emb.weight.zero_()
+        emb.weight[torch.from_numpy(ids_all).to(emb.weight.device)] = \
+            torch.from_numpy(init_rows).to(emb.weight.device)
+    emb.to(device)
+    tower = ps_tower(pt, torch, device)
+    if opt_name == "sgd":
+        opt = pt.optimizer.SGD(parameters=list(emb.parameters())
+                               + list(tower.parameters()), learning_rate=lr)
+    else:
+        opt = pt.optimizer.Adam(parameters=list(emb.parameters())
+                                + list(tower.parameters()),
+                                learning_rate=lr, lazy_mode=lazy)
+    ce = pt.nn.CrossEntropyLoss()
+    emb.weight.register_hook(
+        lambda g: check(g.is_sparse, "ps: the local gradient is dense"))
+    losses = []
+    it = iter(ds)
+    for _ in range(steps):
+        ids, dense, click = ps_arrays(np, next(it))
+        _, loss = ps_step(torch, lambda i: emb(torch.from_numpy(i).to(
+            device)), tower, opt, ce, ids, dense, click, device)
+        losses.append(float(loss.detach()))
+    return losses, {k: v.detach().cpu().numpy()
+                    for k, v in tower.state_dict().items()}, \
+        emb.weight.detach().cpu().numpy()
+
+
+def ps_push_rate(pt, np, server, rows, reps=5):
+    """Rows per second of synchronous sparse pushes of `rows` ids x 9 to
+    one server, through a client of that server alone."""
+    from paddle_tpu_torch.distributed import ps
+    client = ps.PsClient([f"127.0.0.1:{server.port}"])
+    try:
+        client.create_sparse_table("rate", PS_DIM, optimizer="adam",
+                                   lr=PS_LR, seed=1)
+        ids = np.arange(rows, dtype=np.int64) * 2
+        g = np.full((rows, PS_DIM), 1e-3, np.float32)
+        client.push_sparse("rate", ids, g)           # the rows exist
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            client.push_sparse("rate", ids, g)
+        return rows * reps / (time.perf_counter() - t0)
+    finally:
+        client.close()
+
+
+def ps_dev(np, got, want):
+    return float(np.max(np.abs(got - want) / (1 + np.abs(want))))
+
+
+def ps_phase(pt, torch, np, card, dev=None):
+    """The CTR flow through the parameter-server tier (see the
+    module docstring, phase 28) on `dev` (cuda:0)."""
+    import tempfile
+    from paddle_tpu_torch.distributed import ps
+    from paddle_tpu_torch.utils import bench
+    t_phase = time.perf_counter()
+    dev = dev or torch.device("cuda", 0)
+    cpu = torch.device("cpu")
+    with tempfile.TemporaryDirectory(prefix="ps_") as d:
+        t0 = time.perf_counter()
+        n = PS_B * (PS_STEPS + 8)
+        files = ps_write_slots(np, d, n, SEED + 21)
+        ds = ps_dataset(pt, files, SEED + 22)
+        data_s = time.perf_counter() - t0
+        check(ds.get_memory_data_size() == n, "ps: dataset size")
+        # the traced run: the same program over one of the four files
+        trace_ds = ps_dataset(pt, files[:1], SEED + 23)
+        # (a) the main run: Adam table, 40 steps on the card, timed
+        main = ps_train(pt, torch, np, ds, dev, "adam", PS_LR, PS_STEPS,
+                        os.path.join(d, "wal_main"), trace_ds=trace_ds,
+                        snapshot_at=PS_SNAP_AT)
+        losses = main["losses"]
+        check(len(losses) == PS_STEPS and all(map(math.isfinite, losses)),
+              f"ps: {len(losses)} steps, losses {losses}")
+        first, last = (statistics.mean(losses[:5]),
+                       statistics.mean(losses[-5:]))
+        check(last < first, f"ps: the loss did not fall ({first} -> {last})")
+        # every part of the split over the steady steps; samples/s over
+        # the wall of train_from_dataset's steady steps (batch assembly
+        # included), the snapshot's own time taken out
+        steady = main["recs"][PS_WARM:PS_STEPS]
+        step_ms = statistics.mean(r["step_ms"] for r in steady)
+        flush_ms = statistics.mean(r["flush_ms"] for r in steady)
+        legs = {k: statistics.mean(r[k] for r in steady)
+                for k in ("pull", "h2d", "d2h", "push")}
+        device_ms = step_ms - flush_ms - sum(legs.values())
+        loop_ms = (steady[-1]["out"] - steady[0]["in"]) * 1e3 \
+            - main["snapshot_ms"]
+        loop_step_ms = loop_ms / len(steady)
+        rate = len(steady) * PS_B / loop_ms * 1e3
+        # (b) recovery: restart the python server over its WAL directory
+        t0 = time.perf_counter()
+        again = ps.PsServer("127.0.0.1", 0,
+                            wal_dir=os.path.join(d, "wal_main"))
+        recover_ms = (time.perf_counter() - t0) * 1e3
+        try:
+            same_lsn = again.applied_lsn == main["applied_lsn"]
+            got = again.table("emb").snapshot_arrays()
+            bit = sorted(got) == sorted(main["table"]) and all(
+                np.array_equal(got[k], main["table"][k]) for k in got)
+        finally:
+            again.stop()
+        check(same_lsn and bit, f"ps: recovery lsn {same_lsn} bit-equal "
+              f"{bit}")
+        # (c) the card against the port's CPU run (Adam table)
+        cpu_run = ps_train(pt, torch, np, ds, cpu, "adam", PS_LR,
+                           PS_PARITY_STEPS, os.path.join(d, "wal_cpu"))
+        card_vs_cpu = ps_dev(np, np.array(losses[:PS_PARITY_STEPS]),
+                             np.array(cpu_run["losses"]))
+        check(card_vs_cpu <= 1e-4, f"ps: card vs CPU losses {card_vs_cpu}")
+        # (d) the PS against one process: SGD table and tower
+        sgd = ps_train(pt, torch, np, ds, dev, "sgd", PS_SGD_LR,
+                       PS_PARITY_STEPS, os.path.join(d, "wal_sgd"))
+        py, nat, client = ps_servers(pt, os.path.join(d, "wal_init"), "sgd",
+                                     PS_SGD_LR)
+        try:
+            init_rows = client.pull_sparse("emb", sgd["ids"])
+        finally:
+            client.close()
+            py.stop()
+            nat.stop()
+        l_loss, l_tower, l_emb = ps_local(pt, torch, np, ds, dev, init_rows,
+                                          sgd["ids"], PS_SGD_LR,
+                                          PS_PARITY_STEPS)
+        one_loss = ps_dev(np, np.array(sgd["losses"]), np.array(l_loss))
+        one_tower = max(ps_dev(np, sgd["tower"][k], l_tower[k])
+                        for k in l_tower)
+        one_rows = ps_dev(np, sgd["rows"], l_emb[sgd["ids"]])
+        check(one_loss <= 1e-5 and one_tower <= 1e-5,
+              f"ps: PS vs one process losses {one_loss}, tower {one_tower}")
+        # (e) a local sparse Embedding under sparse Adam, card vs CPU
+        adam_dev = {}
+        for lazy in (False, True):
+            runs = [ps_local(pt, torch, np, ds, where, init_rows,
+                             sgd["ids"], PS_LR, PS_LOCAL_STEPS, "adam", lazy)
+                    for where in (dev, cpu)]
+            adam_dev[lazy] = max(
+                ps_dev(np, np.array(runs[0][0]), np.array(runs[1][0])),
+                max(ps_dev(np, runs[0][1][k], runs[1][1][k])
+                    for k in runs[1][1]),
+                ps_dev(np, runs[0][2], runs[1][2]))
+            check(adam_dev[lazy] <= 1e-5, f"ps: local sparse Adam lazy="
+                  f"{lazy} card vs CPU {adam_dev[lazy]}")
+        pt.set_device("gpu")
+        # (f) push throughput to each server, and the durability arm
+        py = ps.PsServer()
+        py.run()
+        nat = ps.NativePsServer()
+        try:
+            rows = PS_B * PS_SLOTS // 2
+            rate_py = ps_push_rate(pt, np, py, rows)
+            rate_nat = ps_push_rate(pt, np, nat, rows)
+        finally:
+            py.stop()
+            nat.stop()
+        dur = bench.ps_durability()
+    ps_s = time.perf_counter() - t_phase
+    print(f"ps: CTR-DNN (26 slots x 1,000,001 x 9, 13 dense, fc "
+          f"{list(PS_FC)}, batch {PS_B}) from {n} Zipf({PS_ZIPF}) samples "
+          f"in 4 slot files ({data_s:.2f} s to write and load) through "
+          f"InMemoryDataset -> train_from_dataset -> DistributedEmbedding "
+          f"over a python PsServer (WAL) + a NativePsServer, Adam table, "
+          f"rows and tower on {dev}: {PS_STEPS} steps, loss {losses[0]:.5f}"
+          f" -> {losses[-1]:.5f} (mean of 5 {first:.5f} -> {last:.5f}); "
+          f"{rate:.1f} samples/s ({len(steady)} steady steps of "
+          f"train_from_dataset in {loop_ms:.3f} ms, the snapshot's "
+          f"{main['snapshot_ms']:.3f} ms taken out); ms per steady step "
+          f"{loop_step_ms:.3f}: batch assembly between steps "
+          f"{loop_step_ms - step_ms:.3f}, pull {legs['pull']:.3f}, H2D "
+          f"{legs['h2d']:.3f}, "
+          f"device forward + backward + tower update {device_ms:.3f}, D2H "
+          f"{legs['d2h']:.3f}, push (enqueue) {legs['push']:.3f}, flush "
+          f"{flush_ms:.3f}; the same program traced over "
+          f"{main.get('traced_steps')} more batches: wall "
+          f"{fmt_ms(main['traced_ms'])} ms, device busy "
+          f"{fmt_ms(main['busy_ms'])} ms, idle share "
+          f"{fmt_ms(main['idle_share'])} [{card}]", flush=True)
+    print(f"ps: checks: card vs CPU losses over {PS_PARITY_STEPS} steps "
+          f"{card_vs_cpu:.3g} (tol 1e-4 (1+|ref|)); SGD table vs one process "
+          f"(local Embedding(sparse=True) + sparse SGD on the card) losses "
+          f"{one_loss:.3g}, tower {one_tower:.3g} (tol 1e-5), rows "
+          f"{one_rows:.3g}; local sparse Adam card vs CPU over "
+          f"{PS_LOCAL_STEPS} steps non-lazy {adam_dev[False]:.3g}, lazy "
+          f"{adam_dev[True]:.3g} (tol 1e-5); recovery (snapshot at step "
+          f"{PS_SNAP_AT} {main['snapshot_ms']:.2f} ms + WAL suffix) "
+          f"{recover_ms:.2f} ms, bit-equal, applied_lsn "
+          f"{main['applied_lsn']} [{card}]", flush=True)
+    print(f"ps: push throughput ({rows} rows x {PS_DIM} a push, Adam) python "
+          f"server {rate_py:.0f} rows/s, native server {rate_nat:.0f} rows/s;"
+          f" ps_durability per push (64 x 16, SGD) WAL off "
+          f"{dur['per_push_us_off']:.1f} us, on {dur['per_push_us_on']:.1f} "
+          f"us ({dur['overhead_pct']:.1f}%), snapshot "
+          f"{dur['snapshot_ms']:.2f} ms, recover {dur['recover_ms']:.2f} ms;"
+          f" phase {ps_s:.1f} s [{card}]", flush=True)
+
+
 def ptxas(path):
     """{kernel symbol: {"registers": N, "spill": [stores, loads]}} from a
     built library's `-Xptxas -v` log."""
@@ -7113,6 +7543,7 @@ def main() -> int:
     analysis_phase(pt, torch, card, programs, dist_signatures)
     del programs
     warm = warm_start_phase(pt, torch, np, card)
+    ps_phase(pt, torch, np, card)
 
     summary = {"flash_fwd": dict(serving_row,
                                  launches=c5["launches"][0]

@@ -1,6 +1,7 @@
-"""The C inference API client (`csrc/predict_capi.cpp`), loaded via ctypes.
+"""Native libraries built from `csrc/`, loaded via ctypes.
 
-Counterpart of the C-client part of `paddle_tpu/_native/`: C and Go apps
+The C inference API client (`csrc/predict_capi.cpp`), counterpart of the
+C-client part of `paddle_tpu/_native/`: C and Go apps
 run inference against a stable ABI — `PD_PredictorCreate`,
 `PD_PredictorRun`, `PD_PredictorRunWithDeadline`, `PD_TensorsDestroy`,
 `PD_GetLastError`, `PD_PredictorDestroy` — a thin binary-protocol client
@@ -10,9 +11,13 @@ of `inference.server.PredictorServer`.
 source the C apps compile against, so the ABI cannot drift) with
 `g++ -O2 -std=c++17 -fPIC -shared -pthread` into `_native/build/` at first
 use; the library's name carries a hash of the source, so an edited source
-rebuilds. A failed build raises: there is no Python stand-in. The
-reference's TCPStore and PS server sources wait for the distributed
-slice.
+rebuilds. A failed build raises: there is no Python stand-in.
+
+The native parameter server (`csrc/ps_server.cpp`, behind
+`distributed.ps.NativePsServer`): `load_ps()` builds the reference's
+source as it is, the same way, into its own library. The reference's
+TCPStore source stays unbuilt: the port's rendezvous store is
+`torch.distributed.TCPStore`.
 """
 from __future__ import annotations
 
@@ -22,15 +27,17 @@ import os
 import subprocess
 import threading
 
-__all__ = ["PD_Tensor", "load", "library_path", "run"]
+__all__ = ["PD_Tensor", "load", "load_ps", "library_path", "run"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SOURCE = os.path.normpath(os.path.join(_HERE, "..", "..", "csrc",
-                                        "predict_capi.cpp"))
+_CSRC = os.path.normpath(os.path.join(_HERE, "..", "..", "csrc"))
+_SOURCE = os.path.join(_CSRC, "predict_capi.cpp")
+_PS_SOURCE = os.path.join(_CSRC, "ps_server.cpp")
 _BUILD = os.path.join(_HERE, "build")
 _FLAGS = ["-O2", "-std=c++17", "-fPIC", "-shared", "-pthread"]
 
 _lib = None
+_ps_lib = None
 _lock = threading.Lock()
 
 
@@ -41,29 +48,67 @@ class PD_Tensor(ctypes.Structure):
                 ("dims", ctypes.c_int64 * 8), ("data", ctypes.c_void_p)]
 
 
-def library_path() -> str:
-    """Where the library for the current source lives (built or not)."""
-    if not os.path.exists(_SOURCE):
+def library_path(source: str = _SOURCE, stem: str = "capi") -> str:
+    """Where the library of `source` lives (built or not): its name
+    carries a hash of the source and the flags."""
+    if not os.path.exists(source):
         raise FileNotFoundError(
-            f"{_SOURCE}: the C client's source is not in this checkout")
-    with open(_SOURCE, "rb") as f:
+            f"{source}: the native source is not in this checkout")
+    with open(source, "rb") as f:
         h = hashlib.sha256(f.read() + " ".join(_FLAGS).encode())
-    return os.path.join(_BUILD, f"libpaddle_tpu_capi-{h.hexdigest()[:16]}.so")
+    return os.path.join(_BUILD,
+                        f"libpaddle_tpu_{stem}-{h.hexdigest()[:16]}.so")
 
 
-def _build(path: str) -> None:
+def _build(path: str, source: str = _SOURCE) -> None:
     os.makedirs(_BUILD, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = ["g++", *_FLAGS, "-o", tmp, _SOURCE]
+    cmd = ["g++", *_FLAGS, "-o", tmp, source]
     try:
         r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     except FileNotFoundError as e:
-        raise RuntimeError("building the C inference client needs g++ on "
-                           "PATH") from e
+        raise RuntimeError(f"building {os.path.basename(source)} needs g++ "
+                           "on PATH") from e
     if r.returncode != 0:
-        raise RuntimeError(f"building {_SOURCE} failed ({' '.join(cmd)}):\n"
+        raise RuntimeError(f"building {source} failed ({' '.join(cmd)}):\n"
                            f"{r.stderr[-2000:]}")
     os.replace(tmp, path)   # atomic: concurrent builds race harmlessly
+
+
+def _open(source: str, stem: str):
+    path = library_path(source, stem)
+    if not os.path.exists(path):
+        _build(path, source)
+    return ctypes.CDLL(path)
+
+
+def load_ps():
+    """The native parameter server's library (`csrc/ps_server.cpp`),
+    built on first use, with every entry's `argtypes` / `restype`
+    declared."""
+    global _ps_lib
+    with _lock:
+        if _ps_lib is not None:
+            return _ps_lib
+        lib = _open(_PS_SOURCE, "ps")
+        c = ctypes
+        lib.ps_native_server_start.restype = c.c_void_p
+        lib.ps_native_server_start.argtypes = [c.c_int, c.POINTER(c.c_int)]
+        lib.ps_native_server_stop.restype = None
+        lib.ps_native_server_stop.argtypes = [c.c_void_p]
+        lib.ps_native_server_port.restype = c.c_int
+        lib.ps_native_server_port.argtypes = [c.c_void_p]
+        lib.ps_native_add_sparse_v2.restype = c.c_int
+        lib.ps_native_add_sparse_v2.argtypes = [
+            c.c_void_p, c.c_char_p, c.c_longlong, c.c_float, c.c_float,
+            c.c_longlong, c.c_int, c.c_float, c.c_float, c.c_float,
+            c.c_int, c.c_float, c.c_float, c.c_float, c.c_float]
+        lib.ps_native_add_dense_v2.restype = c.c_int
+        lib.ps_native_add_dense_v2.argtypes = [
+            c.c_void_p, c.c_char_p, c.c_longlong, c.c_float, c.c_longlong,
+            c.c_longlong, c.c_int, c.c_float, c.c_float, c.c_float]
+        _ps_lib = lib
+        return lib
 
 
 def load():
@@ -73,10 +118,7 @@ def load():
     with _lock:
         if _lib is not None:
             return _lib
-        path = library_path()
-        if not os.path.exists(path):
-            _build(path)
-        lib = ctypes.CDLL(path)
+        lib = _open(_SOURCE, "capi")
         p_tensor = ctypes.POINTER(PD_Tensor)
         lib.PD_PredictorCreate.restype = ctypes.c_void_p
         lib.PD_PredictorCreate.argtypes = [ctypes.c_char_p, ctypes.c_int]

@@ -113,9 +113,11 @@ class GradScaler:
 
     def _can_fuse(self, optimizer) -> bool:
         """The fused path: unscale and gate inside the optimizer's step.
-        Needs the flag and an optimizer of this package."""
+        Needs the flag, an optimizer of this package and no sparse
+        gradient (the sparse rule runs unfused, reference :121-131)."""
         return bool(_flags.flag("amp_fused_update")) and \
-            isinstance(optimizer, Optimizer)
+            isinstance(optimizer, Optimizer) and \
+            not any(g.is_sparse for g in _grads_of(optimizer))
 
     def step(self, optimizer):
         if not self._enable:

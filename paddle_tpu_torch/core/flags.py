@@ -12,7 +12,8 @@ flags (`fault_inject`, `obs_*`, `mem_*`, `trace*`, `slo_*`, `net_*`,
 `sync_*`, `serving_client_*`) and the training guard's `guard_*` (read by
 `guard.GuardConfig.from_flags`), the persistent compile cache's
 `compile_cache_dir` / `compile_cache_mb` (`core/compile_cache.py`) and
-`lint`, the gate of the trace-time hook of `analysis/`, with the
+`lint`, the gate of the trace-time hook of `analysis/`, and the
+parameter server's `ps_*` (`distributed/ps/`), with the
 reference's defaults. Flags may be seeded from environment variables named
 FLAGS_<name>.
 """
@@ -177,6 +178,40 @@ define_flag("fault_inject", "",
             "site:kind[:p=..][:seed=..][:times=..][:after=..] strings "
             "(paddle_tpu_torch.faults); empty = every injection site is one "
             "module-attribute check")
+# ---- parameter server (distributed/ps/) -----------------------------------
+define_flag("ps_rpc_max_retries", 3,
+            "PS client: transport-failure retries per RPC (exponential "
+            "backoff + jitter; pushes stay exactly-once via per-client "
+            "request sequencing)")
+define_flag("ps_rpc_backoff_ms", 50.0,
+            "PS client: initial retry backoff; doubles per attempt, "
+            "capped at 2s, with up to 100% uniform jitter")
+define_flag("ps_rpc_call_timeout_s", 120.0,
+            "PS client: per-call deadline for connect + each response "
+            "read (0 = wait forever)")
+define_flag("ps_wal_dir", "",
+            "PS durability: directory for the server's write-ahead delta "
+            "log + crash-atomic snapshots; empty = in-memory only "
+            "(PsServer(wal_dir=...) overrides per instance)")
+define_flag("ps_wal_segment_mb", 16.0,
+            "PS durability: WAL segment rollover size in MiB")
+define_flag("ps_snapshot_every_records", 0,
+            "PS durability: auto-compact the WAL into a snapshot every N "
+            "committed delta records; 0 = manual snapshot() only")
+define_flag("ps_replication_interval_ms", 20.0,
+            "PS HA: standby poll interval for tailing the primary's delta "
+            "stream (CMD_REPLICATE)")
+define_flag("ps_communicator_max_requeues", 3,
+            "Communicator: times one async push batch may be re-enqueued "
+            "after a transport failure (client failover) before the "
+            "worker records a permanent error")
+define_flag("ps_ha_lease_ttl_s", 2.0,
+            "PS HA: primary lease time-to-live in the rendezvous store; "
+            "a standby promotes itself after this long without heartbeats")
+define_flag("ps_ha_heartbeat_s", 0.5,
+            "PS HA: lease heartbeat interval (must be well under "
+            "FLAGS_ps_ha_lease_ttl_s)")
+
 # ---- step timeline + flight recorder (obs/) --------------------------------
 define_flag("obs_timeline", False,
             "record a per-step phase timeline (data_wait/h2d/trace_compile/"

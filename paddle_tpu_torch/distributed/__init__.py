@@ -5,9 +5,9 @@ process environment, `spawn` / `launch`, `fleet`, the gloo control plane
 (`gloo_init_parallel_env`, `gloo_barrier`, `gloo_release`, over
 `torch.distributed.TCPStore`), `split`, and the sparse-table entry
 configs, and the tensor- and pipeline-parallel names of the reference's
-`parallel/__init__.py:26-33`. `InMemoryDataset` and `QueueDataset` wait
-for the parameter-server slice (ROADMAP.md Queue 1, "the host-side
-distributed state").
+`parallel/__init__.py:26-33`, and the parameter-server tier's datasets
+`InMemoryDataset` / `QueueDataset` (`distributed/dataset.py`) and its
+runtime (`distributed/ps/`): all 28 of the reference's names.
 """
 import time as _time
 
@@ -22,6 +22,7 @@ from ..parallel import (  # noqa: F401
     get_world_size, init_parallel_env, irecv, isend, launch, new_group,
     p2p_shift, recv, reduce, reduce_scatter, scatter, send, spawn, wait,
 )
+from .dataset import InMemoryDataset, QueueDataset  # noqa: F401
 
 
 class _PsEntryConfig:

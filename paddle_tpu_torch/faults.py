@@ -6,8 +6,11 @@ failure carries a *named injection site*, and a flag-gated registry
 decides, deterministically, whether a given hit turns into a connection
 reset, a timeout, a delay, an error or a torn payload. The ported sites:
 `serving.dispatch` (ServingEngine), `llm.decode` (LLMEngine),
-`mem.alloc` (`core.executable.dispatch_guard`) and the wire's
-`net.<plane>.send` / `net.<plane>.recv` (utils/net.py).
+`mem.alloc` (`core.executable.dispatch_guard`), the wire's
+`net.<plane>.send` / `net.<plane>.recv` (utils/net.py), and the parameter
+server's `ps.rpc.send` / `ps.rpc.recv` (the PS client's channel),
+`ps.server`, `ps.wal.write` (a torn WAL append), `ps.snapshot.commit`
+and `ps.delta.push` (`distributed/ps/`).
 
 Spec grammar (`FLAGS_fault_inject`, also `register()`/`inject()`):
 

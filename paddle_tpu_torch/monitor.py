@@ -974,6 +974,54 @@ def _slo_main(args) -> int:
     return 0
 
 
+def _ps_main(args) -> int:
+    """`python -m paddle_tpu_torch.monitor ps <wal-dir>`: render a PS
+    durability directory — snapshot generations, the WAL segment chain
+    (per-segment intactness), and the HA role/watermark side-file."""
+    import sys as _sys
+    if not os.path.isdir(args.dir):
+        print(f"error: {args.dir} is not a directory", file=_sys.stderr)
+        return 2
+    from .distributed.ps.wal import wal_status
+    doc = wal_status(args.dir)
+    print(f"ps durability dir {doc['dir']}: last_lsn={doc['last_lsn']}")
+    snap = doc.get("snapshot")
+    if snap:
+        tables = ", ".join(snap["tables"]) or "-"
+        print(f"snapshot: v{snap['version']} @ lsn {snap['lsn']} "
+              f"(tables: {tables})")
+        if snap.get("bak_version") is not None:
+            print(f"  previous generation (.bak): v{snap['bak_version']} "
+                  f"@ lsn {snap['bak_lsn']}")
+    else:
+        print("snapshot: none (recovery would replay the WAL from lsn 0)")
+    segs = doc["segments"]
+    print(f"wal segments: {len(segs)}")
+    if segs:
+        print(f"  {'file':<24} {'start':>8} {'last':>8} {'records':>8} "
+              f"{'bytes':>10}  state")
+        for s in segs:
+            last = s["last_lsn"] if s["last_lsn"] is not None else "-"
+            state = "intact" if s["intact"] else "TORN (truncates at replay)"
+            print(f"  {s['file']:<24} {s['start_lsn']:>8} {last:>8} "
+                  f"{s['records']:>8} {s['bytes']:>10}  {state}")
+    ha = doc.get("ha")
+    if ha:
+        print(f"ha: role={ha.get('role')} node={ha.get('node_id')} "
+              f"epoch={ha.get('epoch')} applied_lsn={ha.get('applied_lsn')} "
+              f"endpoint={ha.get('endpoint')}")
+        acks = ha.get("acks") or {}
+        for sid, lsn in sorted(acks.items()):
+            lag = None
+            try:
+                lag = int(ha.get("applied_lsn", 0)) - int(lsn)
+            except (TypeError, ValueError):
+                pass
+            lag_s = f" (lag {lag})" if lag is not None else ""
+            print(f"  standby {sid}: acked lsn {lsn}{lag_s}")
+    return 0
+
+
 def _cache_main(args) -> int:
     """`python -m paddle_tpu_torch.monitor cache [dir] [--gc] [--verify]`."""
     from .core import compile_cache as _cc
@@ -1063,7 +1111,15 @@ def _main(argv=None) -> int:
                          help="override the size cap for --gc")
     p_cache.add_argument("--verify", action="store_true",
                          help="CRC-check every entry and prune corrupt ones")
+    p_ps = sub.add_parser(
+        "ps", help="render a parameter-server durability directory "
+                   "(distributed/ps/wal.py): snapshot generations, WAL "
+                   "segment chain with intactness, HA role + replication "
+                   "watermark")
+    p_ps.add_argument("dir", help="a PsServer wal_dir (FLAGS_ps_wal_dir)")
     args = p.parse_args(argv)
+    if args.cmd == "ps":
+        return _ps_main(args)
     if args.cmd == "cache":
         return _cache_main(args)
     if args.cmd == "threads":

@@ -38,9 +38,45 @@ def linear(x, weight, bias=None, name=None):
     return TF.linear(x, weight.t(), bias)
 
 
+class _SparseLookup(torch.autograd.Function):
+    """The lookup with the reference's sparse backward
+    (`nn/functional/common.py:91-128`): the weight's gradient is an
+    uncoalesced sparse COO tensor with one entry per looked-up id, a
+    `padding_idx` entry holding zeros (`core/selected_rows.py`)."""
+
+    @staticmethod
+    def forward(ctx, weight, ids, padding_idx):
+        ctx.save_for_backward(ids)
+        ctx.meta = (tuple(weight.shape), padding_idx)
+        out = TF.embedding(ids, weight)
+        if padding_idx is not None and padding_idx >= 0:  # tpu-lint: disable=tensor-branch (an int argument)
+            out = out.masked_fill((ids == padding_idx).unsqueeze(-1), 0.0)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        shape, pad = ctx.meta
+        flat = ids.reshape(-1)
+        vals = g.reshape(-1, *shape[1:])
+        if pad is not None and pad >= 0:
+            vals = vals.masked_fill((flat == pad).unsqueeze(-1), 0.0)
+        grad = torch.sparse_coo_tensor(flat.unsqueeze(0), vals, shape,
+                                       is_coalesced=False,
+                                       check_invariants=False)
+        return grad, None, None
+
+
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     """Rows of weight [vocab, dim] looked up by integer ids; the row of
-    `padding_idx` reads as zeros."""
+    `padding_idx` reads as zeros. sparse=True on a leaf weight: its
+    gradient is the sparse row form (`_SparseLookup`) instead of a dense
+    [vocab, dim] scatter. A weight that is not a leaf gets the dense
+    gradient, as the reference densifies a SelectedRows cotangent entering
+    another op's backward."""
+    if sparse and torch.is_grad_enabled() and weight.requires_grad \
+            and weight.grad_fn is None:
+        return _SparseLookup.apply(weight, x.long(), padding_idx)
     out = TF.embedding(x.long(), weight)
     if padding_idx is not None and padding_idx >= 0:
         out = out.masked_fill((x == padding_idx).unsqueeze(-1), 0.0)

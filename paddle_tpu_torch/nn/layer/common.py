@@ -92,9 +92,7 @@ class Embedding(Layer):
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
                  sparse=False, weight_attr=None, name=None):
         super().__init__()
-        if sparse:
-            raise NotImplementedError("sparse embedding gradients are not "
-                                      "ported")
+        self.sparse = sparse
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
         self.padding_idx = padding_idx
@@ -107,7 +105,8 @@ class Embedding(Layer):
                 self.weight[padding_idx] = 0.0
 
     def forward(self, x):
-        return F.embedding(x, self.weight, padding_idx=self.padding_idx)
+        return F.embedding(x, self.weight, padding_idx=self.padding_idx,
+                           sparse=self.sparse)
 
     def extra_repr(self):
         return f"{self.num_embeddings}, {self.embedding_dim}"

@@ -17,9 +17,10 @@ counters and spans:
     `slo` (error-budget burn), `cost` (attributed MFU, roofline gap).
 
 `record_collective` feeds the recorder's collective ring from
-`parallel/collective._record`. The reference's cross-rank merge
-(`obs/merge.py`) and fleet telemetry (`obs/telemetry.py`) are not ported
-yet.
+`parallel/collective._record`. Of the reference's fleet telemetry
+(`obs/telemetry.py`) the port has the event hook (`emit`,
+`get_default`); its exporter and collector, and the cross-rank merge
+(`obs/merge.py`), are not ported yet.
 
 Hot-path contract: instrumented sites check ONE module attribute
 (`_obs._TL_ENABLED` / `_obs._FR_ENABLED` / `_obs._ENABLED`) and call

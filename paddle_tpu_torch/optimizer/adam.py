@@ -39,6 +39,16 @@ class Adam(Optimizer):
     def _decoupled(self):
         return False
 
+    def _apply_sparse(self, p, sr, slots, *, lr, t, wd):
+        """Sparse adam (adam_op.h SelectedRows path). lazy_mode=True:
+        moments and weights update ONLY at the gradient's rows (untouched
+        rows keep stale moments). The default lazy_mode=False densifies, so
+        every row's moments decay each step."""
+        if self._lazy_mode:
+            self._apply_rows(p, sr, slots, lr=lr, t=t, wd=wd)
+        else:
+            super()._apply_sparse(p, sr, slots, lr=lr, t=t, wd=wd)
+
     def _apply(self, values, grads, slots, *, lr, t, wd):
         b1, b2 = self._beta1, self._beta2
         bc1, bc2 = bias_correction(b1, t), bias_correction(b2, t)

@@ -24,6 +24,14 @@ bit-unchanged when found_inf is set. The host reads found_inf only in
 whose update is functional, `p.grad` holds the unscaled gradient
 afterwards (as after `GradScaler.unscale_`): an unscaled copy of every
 gradient would cost a model's worth of memory.
+
+A sparse gradient (`Embedding(sparse=True)`: an uncoalesced sparse COO
+`p.grad`, `core/selected_rows.py`) takes the reference's row-wise path
+(:161-203): duplicate ids are merged, the clip counts the rows with the
+dense gradients, and `_apply_sparse` updates the parameter. SGD and
+Adam's `lazy_mode` run the rule on the gradient's rows alone
+(`_apply_rows`); every other rule densifies. The fused scaler step does
+not take sparse gradients (`GradScaler` falls back to unscale + step).
 """
 from __future__ import annotations
 
@@ -90,6 +98,26 @@ class Optimizer:
         `slots` (in place). `lr` and `t` are host floats or 0-d f32
         tensors on the values' device (see `functional_update`)."""
         raise NotImplementedError
+
+    def _apply_sparse(self, p, sr, slots, *, lr, t, wd):
+        """The update for a merged SelectedRows gradient (unique rows;
+        reference `optimizer.py:86-91`). Default: densify — always correct;
+        SGD and Adam's lazy mode override with the row-wise rule."""
+        self._apply([p.data], [sr.to_dense().to(p.dtype)], [slots], lr=lr,
+                    t=t, wd=wd)
+
+    def _apply_rows(self, p, sr, slots, *, lr, t, wd):
+        """The rule on the gradient's rows only: the rows of the parameter
+        and of its slots are gathered, updated by `_apply` and written back
+        (the rows are unique, so the write is a plain deterministic copy);
+        the other rows and their slots stay as they were."""
+        rows = sr.rows
+        vals = [p.data[rows]]
+        part = {k: v[rows] for k, v in slots.items()}
+        self._apply(vals, [sr.values.to(p.dtype)], [part], lr=lr, t=t, wd=wd)
+        p.data[rows] = vals[0]
+        for k, v in part.items():
+            slots[k][rows] = v
 
     def _param_wd(self, p) -> float:
         """Per-parameter weight-decay coefficient (0 for excluded params)."""
@@ -177,6 +205,32 @@ class Optimizer:
                 _monitor.count("optimizer.steps")
                 _monitor.observe("optimizer.step_dur", _time.time() - t0)
 
+    def _sparse_step(self, sparse, dense):
+        """The sparse gradients' updates (reference `optimizer.py:161-203`):
+        each is merged (duplicate ids summed), clipped together with the
+        dense gradients (a global norm counts the sparse rows), and applied
+        by `_apply_sparse`. Returns the dense gradients, clipped when a
+        clip is set."""
+        from ..core.selected_rows import SelectedRows
+        merged = [SelectedRows.of(p.grad).merge() for p in sparse]
+        grads = [p.grad for p in dense]
+        if self._grad_clip is not None:
+            allg = _clip_fn(self._grad_clip,
+                            grads + [m.values for m in merged],
+                            [getattr(p, "need_clip", True)
+                             for p in dense + sparse])
+            grads = allg[:len(grads)]
+            merged = [SelectedRows(m.rows, v, m.height)
+                      for m, v in zip(merged, allg[len(grads):])]
+        t = float(self._step_count + 1)
+        lr = self.get_lr()
+        for p, sr in zip(sparse, merged):
+            plr = getattr(p, "optimize_attr", {}).get("learning_rate", 1.0)
+            self._apply_sparse(p, sr, self._accumulators[id(p)],
+                               lr=lr if plr == 1.0 else lr * plr, t=t,
+                               wd=self._param_wd(p))
+        return grads
+
     def _fence_device(self):
         for p in self._parameter_list or ():
             return p.device
@@ -193,12 +247,28 @@ class Optimizer:
         if not params:
             self._step_count += 1
             return None
-        values, grads = [p.data for p in params], [p.grad for p in params]
+        sparse = [p for p in params if p.grad.is_sparse]
+        grad_clip = "default"
+        if sparse:
+            if inv_scale is not None:
+                raise RuntimeError(
+                    "the fused scaler update does not take sparse "
+                    "gradients: unscale_() then step() (GradScaler falls "
+                    "back by itself)")
+            params = [p for p in params if not p.grad.is_sparse]
+            grads = self._sparse_step(sparse, params)
+            grad_clip = None        # clipped with the sparse rows
+            if not params:
+                self._step_count += 1
+                return None
+        else:
+            grads = [p.grad for p in params]
+        values = [p.data for p in params]
         slots = [self._accumulators[id(p)] for p in params]
         if inv_scale is None:
             self.functional_update(values, grads, slots, self.get_lr(),
                                    float(self._step_count + 1),
-                                   params_meta=params)
+                                   params_meta=params, grad_clip=grad_clip)
             self._step_count += 1
             return None
         device = values[0].device
@@ -313,7 +383,8 @@ def unscale_grads_(grads, inv_scale):
     amp/grad_scaler.py:37-44). One multi-tensor pass per device and dtype."""
     found = torch.zeros((), dtype=torch.float32, device=inv_scale.device)
     groups: Dict[tuple, List[torch.Tensor]] = {}
-    for g in grads:
+    # a sparse gradient is unscaled through its values (an alias)
+    for g in (g._values() if g.is_sparse else g for g in grads):
         groups.setdefault((g.device, g.dtype), []).append(g)
     for (device, _), gs in groups.items():
         f = found if device == found.device else \
@@ -372,6 +443,11 @@ class SGD(Optimizer):
             grads = torch._foreach_add(grads, values, alpha=wd)
         # `alpha` takes a number only: the step is a product, then a sum
         torch._foreach_add_(values, torch._foreach_mul(grads, -lr))
+
+    def _apply_sparse(self, p, sr, slots, *, lr, t, wd):
+        # the true sparse rule (sgd_op.h SelectedRows path): touch only
+        # the gradient's rows; wd applies to touched rows only
+        self._apply_rows(p, sr, slots, lr=lr, t=t, wd=wd)
 
 
 class Momentum(Optimizer):

@@ -30,6 +30,7 @@ from __future__ import annotations
 import atexit
 import datetime
 import os
+import sys
 
 import torch
 import torch.distributed as dist
@@ -149,13 +150,77 @@ def init_parallel_env(strategy=None):
             backend, init_method=f"tcp://{eps.split(',')[0]}", rank=rank,
             world_size=nproc, timeout=TIMEOUT, **kwargs)
         atexit.register(_release)
+        if not hasattr(sys.exit, "_paddle_exit"):
+            sys.exit = _recording_exit(sys.exit)
     _STATE.update(initialized=True, device=device)
     return ParallelEnv()
 
 
+# how long a rank leaving the world waits for its peers at each of the
+# two exit rendezvous (a peer that died is not waited for past it)
+_EXIT_WAIT_S = 20.0
+
+# the code this process last asked `sys.exit` for (None: it did not)
+_EXIT = {"code": None}
+
+
+def _recording_exit(exit_):
+    def exit(code=None):
+        _EXIT["code"] = code
+        exit_(code)
+    exit._paddle_exit = True
+    return exit
+
+
+def _failing() -> bool:
+    """Whether this process is leaving on an uncaught exception or a
+    non-zero `sys.exit` (a `raise SystemExit(n)` of the script's own is
+    not seen: it waits at the rendezvous as a clean exit does)."""
+    return getattr(sys, "last_exc", None) is not None or \
+        getattr(sys, "last_value", None) is not None or \
+        _EXIT["code"] not in (None, 0)
+
+
+def _store_wait_count(store, key: str, n: int, deadline: float) -> None:
+    import time
+    while int(store.add(key, 0)) < n and time.monotonic() < deadline:
+        time.sleep(0.005)
+
+
 def _release():
+    """Leave the world in order (at exit). Rank 0 hosts the rendezvous
+    store that every rank's groups (the world's and each `new_group`'s)
+    were made through; a peer still tearing its groups down when that
+    store's server goes away aborts in C++ (exit 250), and a rank that
+    tears its groups down while a peer is still working in them can
+    abort that peer ("terminate called without an active exception").
+    So: every rank arrives before any tears down, and rank 0 keeps the
+    store up until every peer has said that its teardown is done. Each
+    wait is bounded by `_EXIT_WAIT_S`. A failing process (`_failing`)
+    waits for nobody: its peers may be blocked on it in a collective, and
+    its failure must show at once."""
+    import time
     if _world_up():
+        world, rank = dist.get_world_size(), dist.get_rank()
+        store = None
+        if world > 1 and not _failing():
+            try:
+                store = dist.distributed_c10d._get_default_store()
+                store.add("paddle_exit/arrived", 1)
+                _store_wait_count(store, "paddle_exit/arrived", world,
+                                  time.monotonic() + _EXIT_WAIT_S)
+            except Exception:       # a peer or the store is gone
+                store = None
         dist.destroy_process_group()
+        if store is not None:
+            try:
+                if rank != 0:
+                    store.add("paddle_exit/done", 1)
+                else:
+                    _store_wait_count(store, "paddle_exit/done", world - 1,
+                                      time.monotonic() + _EXIT_WAIT_S)
+            except Exception:
+                pass
     _STATE.update(initialized=False, device=None)
 
 

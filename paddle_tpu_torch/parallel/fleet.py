@@ -12,9 +12,10 @@ world (`init_parallel_env`) and its `HybridCommunicateGroup`;
 the strategy's meta-optimizer toggles as the reference wraps it
 (:91-140): `gradient_merge`, then `localsgd`, then `dgc`, which takes over
 the inner optimizer's momentum on a shallow copy. `utils.recompute` is
-`meta_optimizers.recompute`. The parameter-server surface raises until
-its slice is ported (ROADMAP.md Queue 1, "the host-side distributed
-state").
+`meta_optimizers.recompute`. The parameter-server surface
+(`init_server`, `init_worker`, `run_server`, `stop_worker`,
+`barrier_worker`) drives `distributed.ps.PsContext`, as the reference's
+does (:135-170).
 """
 from __future__ import annotations
 
@@ -26,8 +27,6 @@ from .strategy import DistributedStrategy
 from .topology import HybridCommunicateGroup, get_hybrid_communicate_group
 
 _FLEET = {"init": False, "strategy": None, "hcg": None}
-
-_PS = '(ROADMAP.md Queue 1, "the host-side distributed state")'
 
 
 class PaddleCloudRoleMaker:
@@ -56,9 +55,6 @@ class UserDefinedRoleMaker(PaddleCloudRoleMaker):
 
 
 def init(role_maker=None, is_collective=True, strategy=None, log_dir=None):
-    if not is_collective:
-        raise NotImplementedError("fleet.init(is_collective=False): the "
-                                  f"parameter-server mode is not ported {_PS}")
     strategy = strategy or DistributedStrategy()
     init_parallel_env()
     hcg = HybridCommunicateGroup(strategy)
@@ -145,18 +141,35 @@ def distributed_optimizer(optimizer, strategy=None):
     return opt
 
 
-def _ps(name):
-    def fn(*a, **kw):
-        raise NotImplementedError(f"fleet.{name}: the parameter-server "
-                                  f"surface is not ported yet {_PS}")
-    fn.__name__ = name
-    return fn
+# PS-mode surface (reference `parallel/fleet.py:135-170`, Paddle's
+# fleet_base.py init_server / init_worker / run_server / stop_worker) over
+# the PS tier (`distributed/ps/`).
+_PS_CTX = [None]
 
 
-init_server = _ps("init_server")
-init_worker = _ps("init_worker")
-run_server = _ps("run_server")
-stop_worker = _ps("stop_worker")
+def _ps_context():
+    if _PS_CTX[0] is None:
+        from ..distributed.ps import PsContext
+        _PS_CTX[0] = PsContext()
+    return _PS_CTX[0]
+
+
+def init_server(host="127.0.0.1", port=0, **kw):
+    return _ps_context().init_server(host, port)
+
+
+def init_worker(endpoints=None, **kw):
+    return _ps_context().init_worker(endpoints=endpoints)
+
+
+def run_server(block=True):
+    return _ps_context().run_server(block=block)
+
+
+def stop_worker():
+    ctx = _PS_CTX[0]
+    if ctx is not None:
+        ctx.stop_worker()
 
 
 def barrier_worker():

@@ -27,8 +27,21 @@ runs the gang under `elastic.launch_elastic` (reference :86-96): a rank
 exiting non-zero stops the gang, which is relaunched as a unit (with
 `PADDLE_ELASTIC_RESTART_COUNT` counting the launches) up to
 `--max_restarts` times; the launcher exits 0 when a launch succeeded,
-else 1. `--timeout` bounds each launch there. The `ps` run mode is not
-ported (ROADMAP.md Queue 1, "the host-side distributed state").
+else 1. `--timeout` bounds each launch there.
+
+    python -m paddle_tpu_torch.parallel.launch --run_mode ps \
+        --server_num 1 --worker_num 2 script.py [args]
+
+runs the parameter-server gang (reference :45-77, Paddle's launch_ps):
+`--server_num` servers (or the `--servers` host:port list; by default
+free ports on 127.0.0.1) with `TRAINING_ROLE=PSERVER`, `PADDLE_PORT` and
+`POD_IP`, and `--worker_num` trainers with `TRAINING_ROLE=TRAINER` and
+`PADDLE_TRAINER_ID`; all get `PADDLE_PSERVERS_IP_PORT_LIST` and
+`PADDLE_TRAINERS_NUM`. The launcher watches the trainers as a gang (a
+failure or `--timeout` stops them all) and stops the servers when they
+are done; its exit code is the trainers'. Giving `--server_num`,
+`--servers` or `--worker_num` selects this mode, as the reference's
+`which_distributed_mode` does.
 """
 from __future__ import annotations
 
@@ -139,13 +152,84 @@ def _parse(argv=None):
     p.add_argument("--log_dir", default=None)
     p.add_argument("--timeout", type=float, default=None,
                    help="seconds before every rank is stopped (exit 124)")
-    p.add_argument("--run_mode", default="collective",
-                   help="collective | elastic (ps is not ported)")
+    p.add_argument("--run_mode", default=None,
+                   help="collective (default) | ps | elastic")
+    p.add_argument("--server_num", type=int, default=0,
+                   help="ps: servers on free local ports")
+    p.add_argument("--worker_num", type=int, default=0,
+                   help="ps: trainers (default 1)")
+    p.add_argument("--servers", default="",
+                   help="ps: the servers' host:port list")
     p.add_argument("--max_restarts", type=int, default=3,
                    help="elastic: relaunches of the gang after a failure")
     p.add_argument("training_script")
     p.add_argument("training_script_args", nargs=argparse.REMAINDER)
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.run_mode is None:
+        args.run_mode = "ps" if (args.server_num or args.servers
+                                 or args.worker_num) else "collective"
+    return args
+
+
+def ps_envs(endpoints: Sequence[str], n_workers: int,
+            device: Optional[str] = None):
+    """(the servers' environments, the trainers' environments) of a PS
+    gang over `endpoints`."""
+    common = {"PADDLE_PSERVERS_IP_PORT_LIST": ",".join(endpoints),
+              "PADDLE_TRAINERS_NUM": str(n_workers)}
+    if device:
+        common["PADDLE_DISTRI_DEVICE"] = device
+    if device == "cpu" and "OMP_NUM_THREADS" not in os.environ:
+        common["OMP_NUM_THREADS"] = "1"
+    servers = [dict(common, TRAINING_ROLE="PSERVER",
+                    PADDLE_PORT=ep.rsplit(":", 1)[1],
+                    POD_IP=ep.rsplit(":", 1)[0]) for ep in endpoints]
+    trainers = [dict(common, TRAINING_ROLE="TRAINER",
+                     PADDLE_TRAINER_ID=str(r)) for r in range(n_workers)]
+    return servers, trainers
+
+
+def _launch_ps(args) -> int:
+    if args.servers:
+        endpoints = [e for e in args.servers.split(",") if e]
+    else:
+        endpoints = [f"127.0.0.1:{free_port()}"
+                     for _ in range(max(args.server_num, 1))]
+    server_envs, trainer_envs = ps_envs(endpoints, args.worker_num or 1,
+                                        args.device)
+    servers, trainers, logs = [], [], []
+
+    def start(env, name):
+        out = None
+        if args.log_dir:
+            os.makedirs(args.log_dir, exist_ok=True)
+            out = open(os.path.join(args.log_dir, name), "w")
+            logs.append(out)
+        return subprocess.Popen(
+            [sys.executable, args.training_script]
+            + args.training_script_args,
+            env=dict(os.environ, **env), stdout=out,
+            stderr=subprocess.STDOUT if out else None)
+
+    try:
+        for i, env in enumerate(server_envs):
+            servers.append(start(env, f"serverlog.{i}"))
+        for r, env in enumerate(trainer_envs):
+            trainers.append(start(env, f"trainerlog.{r}"))
+        return watch(trainers, args.timeout)
+    finally:
+        # the trainers are done: stop the servers (reference behaviour)
+        for p in servers:
+            if p.poll() is None:
+                p.terminate()
+        for p in servers + trainers:
+            try:
+                p.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=30)
+        for f in logs:
+            f.close()
 
 
 def launch(argv=None) -> int:
@@ -160,11 +244,11 @@ def launch(argv=None) -> int:
             backend=args.backend, device=args.device, gpus=args.devices,
             log_dir=args.log_dir)
         return 0 if res.success else 1
+    if args.run_mode == "ps":
+        return _launch_ps(args)
     if args.run_mode != "collective":
-        raise NotImplementedError(
-            f"launch --run_mode {args.run_mode}: the parameter-server mode "
-            "is not ported yet (ROADMAP.md Queue 1, \"the host-side "
-            "distributed state\")")
+        raise ValueError(f"launch: unknown --run_mode {args.run_mode!r} "
+                         "(collective | ps | elastic)")
     envs = rank_envs(args.nproc_per_node, args.nnodes, args.node_rank,
                      args.master, args.devices, args.backend, args.device)
     procs, logs = [], []

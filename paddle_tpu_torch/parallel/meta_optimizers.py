@@ -72,6 +72,12 @@ def _trainable(opt):
             if p.requires_grad and p.grad is not None]
 
 
+def _dense(g):
+    """A sparse (SelectedRows) gradient densified, as the reference's
+    merge and DGC steps do (:118-123, :239-263); a dense one as it is."""
+    return g.to_dense() if g.is_sparse else g
+
+
 class _Wrapper:
     """The optimizer API delegated to the inner optimizer."""
 
@@ -105,8 +111,9 @@ class GradientMergeOptimizer(_Wrapper):
     def step(self):
         params = _trainable(self.inner_optimizer)
         for p in params:
+            g = _dense(p.grad)
             cur = self._acc.get(id(p))
-            self._acc[id(p)] = (p, p.grad if cur is None else cur[1] + p.grad)
+            self._acc[id(p)] = (p, g if cur is None else cur[1] + g)
         self._micro += 1
         if self._micro < self.k_steps:
             for p in params:    # a merge-only step: no inner step
@@ -205,7 +212,7 @@ class DGCMomentumOptimizer(_Wrapper):
         params = _trainable(self.inner_optimizer)
         if self._steps <= self.rampup_begin_step:
             for p in params:
-                g = p.grad
+                g = _dense(p.grad)
                 if self._allreduce is not None:
                     g = self._allreduce(g)
                 u = self._u.get(id(p))
@@ -215,7 +222,7 @@ class DGCMomentumOptimizer(_Wrapper):
             self.inner_optimizer.step()
             return
         for p in params:
-            g = p.grad
+            g = _dense(p.grad)
             u, v = self._u.get(id(p)), self._v.get(id(p))
             u = g if u is None else self.momentum * u + g
             v = u if v is None else v + u

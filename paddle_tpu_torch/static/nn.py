@@ -424,13 +424,13 @@ def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
 
 def embedding(input, size, is_sparse=False, is_distributed=False,
               padding_idx=None, param_attr=None, dtype="float32"):
-    """A scoped Embedding. `is_sparse` is accepted and its gradient is
-    the dense one (the reference's SelectedRows gradient densified: the
-    same values); the sparse form waits for `core/selected_rows.py`."""
+    """A scoped Embedding; `is_sparse` gives the weight the sparse row
+    gradient (`core/selected_rows.py`)."""
     from .. import nn
     emb = _scoped_layer("embedding", _attr_name(param_attr),
                         lambda: nn.Embedding(size[0], size[1],
-                                             padding_idx=padding_idx))
+                                             padding_idx=padding_idx,
+                                             sparse=is_sparse))
     return emb(_wrap(input))
 
 

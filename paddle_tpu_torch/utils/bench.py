@@ -1,7 +1,7 @@
 """The port's counterpart of `bench.py`'s two ERNIE training arms, its
 LLM serving arm, its LeNet dispatch arm, its two ResNet-50 deploy arms,
-its two config-4 deploy arms, its allreduce arm and config 3's
-data-parallel ERNIE.
+its two config-4 deploy arms, its allreduce arm, config 3's
+data-parallel ERNIE, its warm-start arm and its PS durability arm.
 
 - `--arm ernie_train` (`bench_ernie_train`, bench.py:188-276): the
   flagship, `ErnieForPretraining(ernie_base(hidden_dropout_prob=0.0))`
@@ -99,6 +99,13 @@ data-parallel ERNIE.
   `bit_identical` (the output digests of the two processes), and the two
   processes' raw records (`records`) and the directory's `entries`, which
   the smoke's warm_start phase checks.
+- `--arm ps_durability` (`bench_ps_durability`, bench.py:1408-1478): the
+  parameter server's durability tax. 300 sequenced sparse pushes of 64
+  rows x 16 through a `PsClient` to one `PsServer`, WAL off then on
+  (`per_push_us_off` / `per_push_us_on`, `overhead_pct`), then
+  `snapshot_ms`, a 50-push WAL suffix and the cold restart's
+  `recover_ms` and `recovered_lsn`. The tables are host numpy, so the
+  arm is the same on the card's machine and with `--device cpu`.
 
 Each arm prints one JSON line under `bench.py`'s keys where they exist.
 The three train arms (`ernie_train`, `ernie10b_layer`, `lenet_dispatch`)
@@ -114,7 +121,7 @@ a CUDA device:
     python -m paddle_tpu_torch.utils.bench \
         --arm ernie_train|ernie10b_layer|llm|lenet_dispatch|
               resnet50_infer|resnet50_infer_int8|yoloe_infer|
-              ocr_rec_infer|allreduce|ernie_dp|warm_start
+              ocr_rec_infer|allreduce|ernie_dp|warm_start|ps_durability
 
 On the card both TF32 switches are off (`torch.backends.cuda.matmul` and
 `torch.backends.cudnn`), as in `chip_smoke.py`: fp32 products and
@@ -1087,13 +1094,74 @@ def warm_start(device="gpu", timeout=900):
     return out
 
 
+def ps_durability():
+    """The ps_durability arm (bench.py:1408-1478): the PS durability tax,
+    sequenced sparse-push latency with the WAL off vs on
+    (`PsServer(wal_dir=...)`), then the recovery path timed: a snapshot,
+    a WAL suffix of 50 pushes, and a cold restart that loads the snapshot
+    and replays the suffix. The tables are host numpy on both sides, so
+    the arm measures the host and the loopback wire, wherever it runs."""
+    import shutil
+    import tempfile
+    from ..distributed.ps import PsClient, PsServer
+
+    n_push, batch, dim = 300, 64, 16
+    ids = np.arange(batch, dtype=np.int64)
+    grads = np.ones((batch, dim), np.float32)
+
+    def one_arm(wal_dir):
+        server = PsServer("127.0.0.1", 0, wal_dir=wal_dir)
+        server.run()
+        client = PsClient([f"127.0.0.1:{server.port}"])
+        try:
+            client.create_sparse_table("emb", dim, optimizer="sgd",
+                                       lr=0.1, seed=7)
+            client.push_sparse("emb", ids, grads)   # warm the table rows
+            t0 = time.perf_counter()
+            for _ in range(n_push):
+                client.push_sparse("emb", ids, grads)
+            return (time.perf_counter() - t0) / n_push * 1e6
+        finally:
+            client.close()
+            server.stop()
+
+    out = {"pushes_per_arm": n_push, "batch": batch, "dim": dim}
+    wal_dir = tempfile.mkdtemp(prefix="bench_ps_wal_")
+    try:
+        out["per_push_us_off"] = one_arm(None)
+        out["per_push_us_on"] = one_arm(wal_dir)
+        out["overhead_pct"] = (out["per_push_us_on"]
+                               - out["per_push_us_off"]) \
+            / out["per_push_us_off"] * 100
+        server = PsServer("127.0.0.1", 0, wal_dir=wal_dir)
+        server.run()
+        client = PsClient([f"127.0.0.1:{server.port}"])
+        try:
+            t0 = time.perf_counter()
+            server.snapshot()
+            out["snapshot_ms"] = (time.perf_counter() - t0) * 1e3
+            for _ in range(50):
+                client.push_sparse("emb", ids, grads)
+        finally:
+            client.close()
+            server.stop()
+        t0 = time.perf_counter()
+        server = PsServer("127.0.0.1", 0, wal_dir=wal_dir)
+        out["recover_ms"] = (time.perf_counter() - t0) * 1e3
+        out["recovered_lsn"] = server.applied_lsn
+        server.stop()
+    finally:
+        shutil.rmtree(wal_dir, ignore_errors=True)
+    return out
+
+
 ARMS = {"ernie_train": ernie_train, "ernie10b_layer": ernie10b_layer,
         "llm": llm, "lenet_dispatch": lenet_dispatch,
         "resnet50_infer": resnet50_infer,
         "resnet50_infer_int8": resnet50_infer_int8,
         "yoloe_infer": yoloe_infer, "ocr_rec_infer": ocr_rec_infer,
         "allreduce": allreduce, "ernie_dp": ernie_dp,
-        "warm_start": warm_start}
+        "warm_start": warm_start, "ps_durability": ps_durability}
 
 
 def main(argv=None):

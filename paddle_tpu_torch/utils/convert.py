@@ -12,6 +12,13 @@ arrays, not a Layer: `load_moe_state(torch_moe, jax_moe)` copies them.
 `load_scope_state(port_scope, jax_scope)` copies the legacy `static.nn`
 builders' scope (`static.nn._LAYER_SCOPE`: Layers and bare parameters by
 key) across.
+
+The parameter server's state needs no conversion: the port's tables,
+WAL and snapshots are the reference's formats byte for byte.
+`load_ps_table(port_table, src)` installs a reference table's state — a
+save file (`SparseTable.save`, `.npz`) or a live table — bit-equal, and a
+reference `PsServer`'s `wal_dir` is recovered by the port's as it is
+(`PsServer(wal_dir=...)`).
 """
 from __future__ import annotations
 
@@ -69,4 +76,17 @@ def load_scope_state(scope: dict, src: dict, keys=None) -> None:
                                         dtype=d.dtype))
 
 
-__all__ = ["load_numpy_state", "load_moe_state", "load_scope_state"]
+def load_ps_table(table, src) -> None:
+    """Install a PS table's state into `table` (a port `SparseTable` /
+    `DenseTable`): `src` is a save file's path (`.npz`) or any table with
+    `snapshot_arrays()` (the reference's included); rows, optimizer
+    slots and accessor stats arrive bit-equal."""
+    if isinstance(src, str):
+        src = np.load(src if src.endswith(".npz") else src + ".npz")
+    else:
+        src = src.snapshot_arrays()
+    table.load_arrays(src)
+
+
+__all__ = ["load_numpy_state", "load_moe_state", "load_scope_state",
+           "load_ps_table"]

@@ -92,8 +92,15 @@ def test_rank_environments_and_modes():
         envs[0]["PADDLE_MASTER"]
     with pytest.raises(ValueError, match="fewer cards"):
         launch.rank_envs(3, gpus="0,1")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        launch.launch(["--run_mode", "ps", "train.py"])
+    # the ps mode is ported: the server options select it, and an unknown
+    # mode raises
+    assert launch._parse(["--server_num", "1", "train.py"]).run_mode == "ps"
+    assert launch._parse(["train.py"]).run_mode == "collective"
+    servers, trainers = launch.ps_envs(["127.0.0.1:1", "127.0.0.1:2"], 2)
+    assert [e["PADDLE_PORT"] for e in servers] == ["1", "2"]
+    assert [e["PADDLE_TRAINER_ID"] for e in trainers] == ["0", "1"]
+    with pytest.raises(ValueError, match="unknown --run_mode"):
+        launch.launch(["--run_mode", "bogus", "train.py"])
 
 
 def test_nccl_for_a_cpu_rank_raises_and_one_process_stays_one(monkeypatch):
@@ -121,7 +128,7 @@ def test_distributed_namespace_holds_26_of_28_names():
     names = api["paddle.distributed"]
     missing = sorted(n for n in names if not hasattr(pt.distributed, n))
     assert len(names) == 28
-    assert missing == ["InMemoryDataset", "QueueDataset"]
+    assert missing == []
     entry = pt.distributed.CountFilterEntry(3)
     assert entry._to_attr() == "count_filter_entry:3"
     assert pt.distributed.ProbabilityEntry(0.5)._to_attr() == \
