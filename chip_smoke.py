@@ -467,6 +467,33 @@ last line is printed):
                one slot file's batches, push throughput to each server, the
                ps_durability arm's WAL-off / WAL-on us per push, recovery
                ms.
+ 29. fleet  - the serving fleet and the telemetry plane: GPT-2 small at
+               full width in bf16 behind a FleetRouter over a TCPStore,
+               two in-process replicas (ReplicaAgent -> PredictorServer ->
+               ServingEngine over the live layer's Predictor, one 1 x 1024
+               bucket, its programs loaded from the warm_start phase's
+               compile cache) and one in a child process on the caller's
+               cuda:0; a TelemetryCollector fed by every replica's
+               exporter, the router subscribed. A reply equal to a direct
+               Predictor call, requests/s through the router against one
+               replica direct; PaddleRec's CTR-DNN (phase 28's width) as a
+               ModelTenant on both in-process replicas, its rows read from
+               an OnlineServingTable that a DeltaSubscriber fills from a
+               PsServer while a trainer pushes (one host-to-device copy a
+               request): staleness under its bound, push -> servable p50 /
+               p99, the exporter's tax on the tenant's p99 (off, on, on,
+               off), a poisoned generation promoted by a canary rollout
+               and rolled back by OnlineRollbackGuard within its interval;
+               `monitor top` and `monitor fleet`; the child SIGKILLed
+               mid-burst, its death relayed by the collector, the sequence
+               ledger's audit (every sequence settled once, none lost);
+               the Autoscaler growing the pool 2 -> 3 under a queue spike
+               (the new replica loading its programs from the cache) and
+               draining it back. The flash forward's host launches of the
+               in-process replicas' warm-ups join row 1's.
+
+The dist phase's two worlds run at once, and so do the fault phase's
+LocalSGD / DGC and MoE worlds, beside its in-process meta checks.
 
 Each fp16 step drives `scaler.step(opt)` after the scaled backward and no
 `scaler.update()`: the reference's step() already updates the scale once
@@ -475,7 +502,7 @@ second time, as a good one. The last two lines are a JSON summary of the
 kernels, one entry per kernel and dtype (bf16 from the bf16 paths, the
 dygraph, seq and obs phases' launches in rows 1-2, the fault phase's in
 rows 1-4, the warm_start phase's two processes' in rows 1, 3 and 4, and
-the deploy and server phases' in row 1, fp16
+the deploy, server and fleet phases' in row 1, fp16
 from paths A and B), and `{"ok": true, "device": {...}}`. Imports nothing
 of JAX.
 
@@ -5142,6 +5169,29 @@ def rows_on_rank(pt, fa, torch, dev, r, shape, causal, where):
             "tol": tol}
 
 
+def join_all(ctxs, t0):
+    """Join spawned worlds started together; each one's seconds from `t0`
+    to its join. A failing world stops every other one before it raises."""
+    walls = []
+    try:
+        for ctx in ctxs:
+            ctx.join()
+            walls.append(time.perf_counter() - t0)
+    except BaseException:
+        stop_worlds(ctxs)
+        raise
+    return walls
+
+
+def stop_worlds(ctxs):
+    """Kill every still-running rank of spawned worlds."""
+    for ctx in ctxs:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+
+
 def dist_phase(pt, torch, card):
     """Slice 15 on the card: the worlds this machine allows, each started
     by the port's spawn; the parent reads every rank's results and
@@ -5158,10 +5208,15 @@ def dist_phase(pt, torch, card):
         worlds = [("nccl_w1", 1, "nccl", "0"), ("gloo_w2", 2, "gloo", "0,0")]
     signatures = {}
     with tempfile.TemporaryDirectory(prefix="dist_") as d:
-        for tag, w, backend, gpus in worlds:
-            t0 = time.perf_counter()
-            spawn(dist_rank, args=(tag, d), nprocs=w, backend=backend,
-                  gpus=gpus, timeout=DIST_TIMEOUT)
+        # the worlds run at once (each its own rendezvous and files), then
+        # are read one by one; a world's time is from the common start to
+        # its own join
+        t0 = time.perf_counter()
+        ctxs = [spawn(dist_rank, args=(tag, d), nprocs=w, backend=backend,
+                      gpus=gpus, timeout=DIST_TIMEOUT, join=False)
+                for tag, w, backend, gpus in worlds]
+        walls = join_all(ctxs, t0)
+        for (tag, w, backend, gpus), wall in zip(worlds, walls):
             ranks = [json.load(open(os.path.join(d, f"{tag}_{r}.json")))
                      for r in range(w)]
             r0 = ranks[0]
@@ -5193,6 +5248,7 @@ def dist_phase(pt, torch, card):
                   f"{r0['dp']['recorded_buckets']}; parameters bit-equal "
                   f"across ranks {all(x['dp']['bit_equal'] for x in ranks)};"
                   f" ms/step {[round(x['dp']['ms_per_step'], 2) for x in ranks]}"
+                  f" (with the other world on the card)"
                   f" ({FLAGSHIP_B * 1e3 / r0['dp']['ms_per_step']:.1f} "
                   f"samples/s); ZeRO max rel vs DP "
                   f"{ {s: round(z['max_rel_vs_dp'], 6) for s, z in r0['zero'].items() if z['max_rel_vs_dp'] is not None} }"
@@ -5216,7 +5272,8 @@ def dist_phase(pt, torch, card):
                   f"{[x['kernels']['launches'] for x in ranks]} max abs err "
                   f"{[[round(e, 4) for e in x['kernels']['max_abs_err']] for x in ranks]}"
                   f" (tol {r0['kernels']['tol']} (1+|ref|)); allreduce 64 MB "
-                  f"bus {bus}; world {time.perf_counter() - t0:.1f} s "
+                  f"bus {bus} (with the other world on the card); world {wall:.1f} s "
+                  f"(the worlds concurrent) "
                   f"[{card}]", flush=True)
     print(f"dist: phase {time.perf_counter() - t_phase:.1f} s [{card}]",
           flush=True)
@@ -6099,11 +6156,25 @@ def fault_phase(pt, fa, torch, np, card):
         guard = guard_checks(pt, fa, torch, np, card, d)
         t_guard = time.perf_counter() - t0
         t0 = time.perf_counter()
-        meta_checks(pt, torch, np, card)
-        # ---- (b) LocalSGD and DGC in a world of two ----
-        spawn(meta_rank, args=(d,), nprocs=2,
-              backend="nccl" if n_cards >= 2 else "gloo",
-              gpus="0,1" if n_cards >= 2 else "0,0", timeout=FAULT_TIMEOUT)
+        # ---- (b) LocalSGD and DGC in a world of two and (c) MoE over a
+        # world of MOE_EP, both started now and run beside the in-process
+        # meta checks (each world its own rendezvous and files) ----
+        worlds = [
+            spawn(meta_rank, args=(d,), nprocs=2,
+                  backend="nccl" if n_cards >= 2 else "gloo",
+                  gpus="0,1" if n_cards >= 2 else "0,0",
+                  timeout=FAULT_TIMEOUT, join=False),
+            spawn(moe_rank, args=(d,), nprocs=MOE_EP,
+                  backend="nccl" if n_cards >= MOE_EP else "gloo",
+                  gpus=",".join(str(i if n_cards >= MOE_EP else 0)
+                                for i in range(MOE_EP)),
+                  timeout=FAULT_TIMEOUT, join=False)]
+        try:
+            meta_checks(pt, torch, np, card)
+        except BaseException:
+            stop_worlds(worlds)
+            raise
+        t_meta, t_moe = join_all(worlds, t0)
         meta = [json.load(open(os.path.join(d, f"meta_{r}.json")))
                 for r in range(2)]
         m0 = meta[0]
@@ -6128,13 +6199,6 @@ def fault_phase(pt, fa, torch, np, card):
                   f"fault: LocalSGD fingerprints {x['localsgd']['equal']}")
             check(all(x["dgc"]["equal"]) and x["dgc"]["counts_ok"] and
                   x["dgc"]["exact"], f"fault: DGC invariants {x['dgc']}")
-        t_meta = time.perf_counter() - t0
-        # ---- (c) MoE, ep over a world of MOE_EP ----
-        t0 = time.perf_counter()
-        spawn(moe_rank, args=(d,), nprocs=MOE_EP,
-              backend="nccl" if n_cards >= MOE_EP else "gloo",
-              gpus=",".join(str(i if n_cards >= MOE_EP else 0)
-                            for i in range(MOE_EP)), timeout=FAULT_TIMEOUT)
         moe = [json.load(open(os.path.join(d, f"moe_{r}.json")))
                for r in range(MOE_EP)]
         for x in moe:
@@ -6143,7 +6207,6 @@ def fault_phase(pt, fa, torch, np, card):
                   f"fault: MoE ep {MOE_EP} vs all-local fp32 {f32}")
             check(b16["y"][1] and b16["aux_equal"],
                   f"fault: MoE ep {MOE_EP} vs all-local bf16 {b16}")
-        t_moe = time.perf_counter() - t0
         print(f"fault [moe]: MoELayer({MOE_D}, {MOE_H}, {MOE_E} experts, "
               f"top {MOE_K}) on {MOE_T} tokens, ep {MOE_EP} "
               f"({'nccl' if n_cards >= MOE_EP else 'gloo'}, "
@@ -6161,6 +6224,7 @@ def fault_phase(pt, fa, torch, np, card):
               f"bf16 ep {MOE_EP} "
               f"{[round(x['bfloat16']['ms']['ep'], 2) for x in moe]}, ep 1 "
               f"{[round(x['bfloat16']['ms']['local'], 2) for x in moe]} "
+              f"(beside the LocalSGD/DGC world and the meta checks) "
               f"[{card}]", flush=True)
         # ---- (d) elastic relaunch and scale-out ----
         t0 = time.perf_counter()
@@ -6682,10 +6746,11 @@ def _doctor_manifest(d, key, **fields):
         json.dump(manifest, f)
 
 
-def warm_start_phase(pt, torch, np, card):
+def warm_start_phase(pt, torch, np, card, cache_dir=None):
     """Slice 19's persistent compile cache on the card (phase 27 of the
-    docstring). Returns the flash kernels' host launches of both
-    processes' main paths."""
+    docstring), over `cache_dir` (an empty directory the caller keeps for
+    the fleet phase's replicas, or one of the arm's own). Returns the flash
+    kernels' host launches of both processes' main paths."""
     import shutil
     import tempfile
     from paddle_tpu_torch import faults
@@ -6695,7 +6760,8 @@ def warm_start_phase(pt, torch, np, card):
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    summary = bench.warm_start(device="gpu", timeout=WARM_TIMEOUT)
+    summary = bench.warm_start(device="gpu", timeout=WARM_TIMEOUT,
+                               cache_dir=cache_dir)
     check("error" not in summary, f"warm_start: {summary.get('error')}")
     runs, rows = summary["records"], summary["entries"]
     cold, warm = runs["cold"], runs["warm"]
@@ -7201,6 +7267,727 @@ def ps_phase(pt, torch, np, card, dev=None):
           f" phase {ps_s:.1f} s [{card}]", flush=True)
 
 
+# the fleet phase: GPT-2 small replicas behind a FleetRouter (bf16, one
+# 1 x 1024 bucket each, replying with the next token's logits), the
+# distinct prompts, the requests of each throughput arm (two rounds of
+# half of them, pooled), the client threads; the SIGKILL burst's requests
+# and the settled count at which the kill lands; the CTR tenant's served
+# batches while the trainer pushes (one push a step at the ps phase's step
+# time, 153 ms in PR 20's chip run), the visibility rounds, the exporter
+# tax's requests per arm (in alternating blocks); the autoscaler's spike
+# clients and its queue capacity; the staleness bound; the rollback
+# guard's interval; the replies' tolerance against a Predictor built apart
+# (bf16 logits, as the static phase's GPT-2)
+FLEET_SEQ, FLEET_PROMPTS, FLEET_REQS, FLEET_THREADS = 1024, 8, 64, 4
+FLEET_BURST, FLEET_KILL_AT = 64, 8
+CTR_SERVES, CTR_VIS, CTR_TAX, CTR_TAX_BLOCK = 300, 100, 300, 50
+CTR_PUSH_S = 0.15
+FLEET_SPIKE, FLEET_QCAP = 8, 1
+CTR_STALE_S, CTR_GUARD_S = 5.0, 0.2
+CTR_TAX_INTERVAL_S = 0.25       # FLAGS_telemetry_interval_s's default
+FLEET_REPLY_TOL = 2e-2
+FLEET_TIMEOUT = 120
+
+
+def fleet_flags(pt, cache_dir):
+    """The fleet's fast membership and telemetry clocks (the reference's
+    chaos tests' settings), the planes the fleet reads, and the compile
+    cache that warm-starts every replica after the first."""
+    pt.set_flags({"FLAGS_monitor": True, "FLAGS_telemetry": True,
+                  "FLAGS_telemetry_interval_s": 0.05,
+                  "FLAGS_fleet_heartbeat_s": 0.1,
+                  "FLAGS_fleet_lease_ttl_s": 0.6,
+                  "FLAGS_fleet_health_interval_s": 0.1,
+                  "FLAGS_fleet_hbm_budget_mb": 4096.0,
+                  "FLAGS_compile_cache_dir": cache_dir})
+
+
+def fleet_gpt(pt, torch, device):
+    """GPT-2 small at full width in bf16, from the seed, on `device`,
+    answering a prompt with its next token's logits (1 x 50304), as a
+    generation front end asks: every position's logits would make each
+    reply 206 MB of host copies and wire."""
+
+    class NextToken(pt.nn.Layer):
+        def __init__(self, lm):
+            super().__init__()
+            self.lm = lm
+
+        def forward(self, input_ids):
+            return self.lm(input_ids)[:, -1]
+
+    pt.set_device(device)
+    pt.seed(SEED)
+    lm = pt.models.GPTForCausalLM(pt.models.gpt2_small(dropout=0.0))
+    lm.eval()
+    return NextToken(lm.bfloat16())
+
+
+def cache_delta(fn):
+    """(fn(), the compile cache's hits, misses and process exports
+    during the call)."""
+    from paddle_tpu_torch.core import compile_cache as cc
+    before = (cc.hits, cc.misses, cc.exports)
+    out = fn()
+    return out, {k: v - b for k, v, b in zip(
+        ("hits", "misses", "exports"), (cc.hits, cc.misses, cc.exports),
+        before)}
+
+
+def fleet_predictor(pt, lm):
+    """The live layer's Predictor (to_static; its one 1 x 1024 bucket
+    exported, or loaded from the compile cache, and captured at start),
+    on the device `lm` was built on."""
+    return pt.inference.Predictor(
+        lm, input_spec=[pt.InputSpec([4, FLEET_SEQ], "int32")])
+
+
+def fleet_agent(pt, lm, store):
+    """One GPT-2 replica: `fleet_predictor` behind a ReplicaAgent, which
+    serves (and probes) where the Predictor lives."""
+    from paddle_tpu_torch.serving import EngineConfig, ReplicaAgent
+    agent = ReplicaAgent(fleet_predictor(pt, lm), store, fleet="smoke",
+                         engine_config=EngineConfig(
+                             max_batch_size=1, batch_sizes=(1,),
+                             batch_timeout_ms=1.0))
+    try:
+        return agent.start()
+    except BaseException:
+        agent.stop(drain=False)
+        raise
+
+
+def fleet_replica(workdir):
+    """A GPT-2 replica in its own process (`chip_smoke.py --fleet-replica
+    DIR`), on the device its caller names in DIR/spec.json, joined to the
+    caller's store; it writes DIR/ready.json and serves until it is
+    killed or DIR/stop appears."""
+    import datetime
+    spec = json.load(open(os.path.join(workdir, "spec.json")))
+    sys.path.insert(0, HERE)
+    import torch
+    import torch.distributed as tdist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import paddle_tpu_torch as pt
+    fleet_flags(pt, spec["cache_dir"])
+    store = tdist.TCPStore("127.0.0.1", spec["port"], is_master=False,
+                           timeout=datetime.timedelta(seconds=60))
+    agent = fleet_agent(pt, fleet_gpt(pt, torch, spec["device"]), store)
+    stats = agent.server.stats()
+    with open(os.path.join(workdir, "ready.json.tmp"), "w") as f:
+        json.dump({"replica_id": agent.replica_id, "pid": os.getpid(),
+                   "warm_start_ms": stats.get("warm_start_ms"),
+                   "compile_cache": stats.get("compile_cache")}, f,
+                  default=str)
+    os.replace(os.path.join(workdir, "ready.json.tmp"),
+               os.path.join(workdir, "ready.json"))
+    while not os.path.exists(os.path.join(workdir, "stop")):
+        time.sleep(0.1)
+    agent.stop(drain=False)
+    return 0
+
+
+def ctr_tenant(pt, torch, np, dirname, tower, fan, device):
+    """The CTR-DNN tenant: each generation's table (`load_serving_tables`)
+    joins `fan`, the tables the DeltaSubscriber fills; a request's 512 x
+    26 ids are looked up on the host and their rows moved to the card in
+    one copy, then the tower and the click probability."""
+    from paddle_tpu_torch.serving import (EngineConfig, ModelTenant,
+                                          load_serving_tables)
+
+    def factory(arrays, meta):
+        table = load_serving_tables(arrays, meta)["emb"]
+        fan.append(table)
+
+        def handler(ids, dense):
+            rows = torch.from_numpy(table.lookup(ids)).to(device)
+            feat = torch.cat([rows.reshape(ids.shape[0], -1),
+                              torch.from_numpy(dense).to(device)], 1)
+            with torch.no_grad():
+                p = torch.softmax(tower(feat), -1)[:, 1]
+            return p.cpu().numpy()
+        return handler
+
+    return ModelTenant("ctr", dirname, factory, engine_config=EngineConfig(
+        max_batch_size=PS_B, batch_sizes=(PS_B,), batch_timeout_ms=1.0,
+        warmup_on_start=False))
+
+
+class _Fan:
+    """The DeltaSubscriber's table: every install goes to each serving
+    generation's table (one per hosting replica and reload)."""
+
+    def __init__(self, first):
+        self.tables = [first]
+
+    def append(self, t):
+        self.tables.append(t)
+
+    def install_delta(self, batch):
+        for t in list(self.tables):
+            t.install_delta(batch)
+
+    def mark_fresh(self):
+        for t in list(self.tables):
+            t.mark_fresh()
+
+
+def ctr_batch(np, rng):
+    ids = (rng.zipf(PS_ZIPF, (PS_B, PS_SLOTS)) - 1
+           + np.arange(PS_SLOTS) * (PS_VOCAB // PS_SLOTS)) % PS_VOCAB
+    return ids.astype(np.int64), \
+        rng.standard_normal((PS_B, PS_DENSE)).astype(np.float32)
+
+
+def _p(xs, q):
+    import numpy as _np
+    return float(_np.quantile(_np.asarray(xs), q)) if xs else float("nan")
+
+
+def fleet_phase(pt, fa, torch, np, card, cache_dir=None):
+    """The serving fleet and the telemetry plane on the card: two
+    in-process GPT-2-small replicas and one in a child process behind a
+    FleetRouter over a TCPStore, each a ReplicaAgent -> PredictorServer ->
+    ServingEngine over the live layer's Predictor (row 1 in each forward),
+    warm-started after the first from the compile cache; a
+    TelemetryCollector fed by every replica's exporter, subscribed by the
+    router; each replica's reply (the child's too) against a Predictor
+    built apart; requests/s through the router against one replica; the
+    CTR-DNN (the ps phase's width) as a
+    ModelTenant on both in-process replicas, its embedding read from an
+    OnlineServingTable that a DeltaSubscriber fills from a PsServer while a
+    trainer pushes: staleness under its bound, push -> servable p50 /
+    p99, a poisoned generation rolled back by OnlineRollbackGuard; the
+    exporter's tax on the tenant's p99; `monitor top` and `monitor fleet`;
+    the child SIGKILLed mid-burst with the sequence ledger's audit; the
+    Autoscaler growing the pool 2 -> 3 under a queue spike (the new replica
+    from the cache) and draining it back. Returns the flash forward's host
+    launches. `cache_dir` is the compile cache the replicas share (the
+    warm_start phase's directory), else a new one: the first replica
+    exports the next-token program into it, every later one loads it."""
+    import contextlib as _ctx
+    import datetime
+    import io
+    import signal
+    import subprocess
+    import tempfile
+    import torch.distributed as tdist
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.distributed.ps import (DeltaSubscriber, PsClient,
+                                                 PsServer)
+    from paddle_tpu_torch.guard import guard_state_version
+    from paddle_tpu_torch.inference.server import PredictorClient
+    from paddle_tpu_torch.obs import telemetry
+    from paddle_tpu_torch.serving import (Autoscaler, FleetRouter,
+                                          OnlineRollbackGuard,
+                                          OnlineServingTable, ReplicaPool,
+                                          ScalePolicy,
+                                          save_serving_generation)
+    t_phase = time.perf_counter()
+    work = tempfile.TemporaryDirectory(prefix="fleet_")
+    cache_dir = cache_dir or os.path.join(work.name, "cache")
+    from paddle_tpu_torch.core import flags as _fl
+    saved = {k: _fl.flag(k) for k in (
+        "monitor", "telemetry", "telemetry_interval_s", "fleet_heartbeat_s",
+        "fleet_lease_ttl_s", "fleet_health_interval_s",
+        "fleet_hbm_budget_mb", "compile_cache_dir")}
+    fleet_flags(pt, cache_dir)
+    monitor.reset()
+    device, dev = "gpu:0", torch.device("cuda", 0)
+    store = tdist.TCPStore("127.0.0.1", 0, is_master=True,
+                           wait_for_workers=False,
+                           timeout=datetime.timedelta(seconds=60))
+    agents, child, router, col, auto = [], None, None, None, None
+    sub = server = client = guard = None
+    stop_clients = threading.Event()
+    try:
+        col = telemetry.TelemetryCollector(store, fleet="smoke").start()
+        lm = fleet_gpt(pt, torch, device)
+        vocab = lm.lm.gpt.embeddings.word_embeddings.weight.shape[0]
+        n_layers = len(lm.lm.gpt.layers)
+        torch.cuda.synchronize()
+        fa.flash_attention_fwd.launches = 0     # the main path from here
+
+        # ---- replica 0 (from the given cache, or exporting into a new
+        # one), the child, replica 1 (from the cache) ----
+        t0 = time.perf_counter()
+        agent, cold_cc = cache_delta(
+            lambda: fleet_agent(pt, copy.deepcopy(lm), store))
+        agents.append(agent)
+        cold_s = time.perf_counter() - t0
+        cold_launches = fa.flash_attention_fwd.launches
+        with open(os.path.join(work.name, "spec.json"), "w") as f:
+            json.dump({"port": store.port, "cache_dir": cache_dir,
+                       "device": str(dev)}, f)
+        t_child = time.perf_counter()
+        child = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--fleet-replica",
+             work.name], cwd=HERE,
+            stdout=open(os.path.join(work.name, "child.log"), "w"),
+            stderr=subprocess.STDOUT)
+        t0 = time.perf_counter()
+        agent, warm_cc = cache_delta(
+            lambda: fleet_agent(pt, copy.deepcopy(lm), store))
+        agents.append(agent)
+        warm_s = time.perf_counter() - t0
+        check(cold_launches >= 2 * n_layers and
+              fa.flash_attention_fwd.launches >= 4 * n_layers,
+              f"fleet: {cold_launches} / {fa.flash_attention_fwd.launches} "
+              f"flash host launches at the replicas' warm-ups (want at "
+              f"least {2 * n_layers} each: the eager run and the capture)")
+        print(f"fleet: flash_fwd host launches at the warm-ups: cold "
+              f"{cold_launches}, cold + warm "
+              f"{fa.flash_attention_fwd.launches} [{card}]", flush=True)
+        check(warm_cc["hits"] >= 1 and warm_cc["exports"] == 0,
+              f"fleet: replica 1 did not load from the cache {warm_cc}")
+        router = FleetRouter(store, fleet="smoke").start()
+        router.attach_telemetry(col)
+        check(sorted(router.replicas) == [0, 1],
+              f"fleet: router sees {sorted(router.replicas)}")
+
+        # ---- each replica's reply against a Predictor built apart from
+        # the replicas (its warm-up's launches are not the main path's) ----
+        rng = np.random.default_rng(SEED)
+        reqs = [rng.integers(0, vocab, (1, FLEET_SEQ)).astype(np.int32)
+                for _ in range(FLEET_PROMPTS)]
+        n_before = fa.flash_attention_fwd.launches
+        want = fleet_predictor(pt, copy.deepcopy(lm)).run_batch(
+            [reqs[0]])[0]
+        ref_launches = fa.flash_attention_fwd.launches - n_before
+        reply_errs = {}
+
+        def reply_err(who, st, out):
+            check(st == 0 and out[0].shape == (1, vocab) and
+                  np.isfinite(out[0]).all(),
+                  f"fleet: {who}'s reply: status {st}")
+            reply_errs[who] = float(np.abs(out[0] - want).max())
+            check(reply_errs[who] <= FLEET_REPLY_TOL,
+                  f"fleet: {who}'s reply differs from the Predictor built "
+                  f"apart by {reply_errs[who]} (tol {FLEET_REPLY_TOL})")
+
+        def ask(who, host, port):
+            c = PredictorClient(host, port, timeout=FLEET_TIMEOUT)
+            try:
+                reply_err(who, *c.run([reqs[0]]))
+            finally:
+                c.close()
+        for a in agents:
+            ask(f"replica {a.replica_id}", a.host, a.port)
+        reply_err("the router", *router.run([reqs[0]], deadline_ms=60000))
+
+        def burst(fn, n, threads=FLEET_THREADS):
+            errors, lat = [], []
+
+            def one(k):
+                try:
+                    for j in range(k, n, threads):
+                        t = time.perf_counter()
+                        st, _ = fn(reqs[j % len(reqs)])
+                        if st != 0:
+                            errors.append(st)
+                        lat.append(time.perf_counter() - t)
+                except Exception as e:  # noqa: BLE001 — read after join
+                    errors.append(f"{type(e).__name__}: {e}")
+            ts = [threading.Thread(target=one, args=(k,), daemon=True)
+                  for k in range(threads)]
+            t = time.perf_counter()
+            [x.start() for x in ts]
+            [x.join(FLEET_TIMEOUT) for x in ts]
+            wall = time.perf_counter() - t
+            check(not errors and not any(x.is_alive() for x in ts),
+                  f"fleet: burst errors {errors[:3]}")
+            return wall, lat
+
+        one_clients = [PredictorClient(agents[0].host, agents[0].port,
+                                       timeout=FLEET_TIMEOUT)
+                       for _ in range(FLEET_THREADS)]
+        lock = threading.Lock()
+
+        def via_one(ids):
+            with lock:
+                c = one_clients.pop()
+            try:
+                return c.run([ids])
+            finally:
+                with lock:
+                    one_clients.append(c)
+
+        # two rounds of each arm (one, router, router, one), pooled
+        arms = {"one": via_one,
+                "router": lambda ids: router.run([ids], deadline_ms=60000)}
+        walls, lats = {"one": 0.0, "router": 0.0}, {"one": [], "router": []}
+        for arm in ("one", "router", "router", "one"):
+            wall, lat = burst(arms[arm], FLEET_REQS // 2)
+            walls[arm] += wall
+            lats[arm] += lat
+        for c in one_clients:
+            c.close()
+        rps = {arm: FLEET_REQS / walls[arm] for arm in walls}
+        print(f"fleet: GPT-2 small bf16 1 x {FLEET_SEQ} -> the next token's "
+              f"logits (1 x {vocab} f32): through the router over 2 "
+              f"replicas {rps['router']:.2f} requests/s (p50 "
+              f"{_p(lats['router'], 0.5) * 1e3:.2f} ms, p90 "
+              f"{_p(lats['router'], 0.9) * 1e3:.2f} ms) against one replica "
+              f"direct {rps['one']:.2f} (p50 {_p(lats['one'], 0.5) * 1e3:.2f}"
+              f" ms, p90 {_p(lats['one'], 0.9) * 1e3:.2f} ms); "
+              f"{FLEET_REQS} requests per arm from {FLEET_THREADS} clients "
+              f"in two rounds (one, router, router, one); replies against a "
+              f"Predictor built apart, max abs err {reply_errs} (tol "
+              f"{FLEET_REPLY_TOL}); warm-ups (load or export + eager run + "
+              f"capture) replica 0 {cold_s:.2f} s (cache {cold_cc}), "
+              f"replica 1 {warm_s:.2f} s (hits {warm_cc.get('hits')}) "
+              f"[{card}]", flush=True)
+
+        # ---- the CTR tenant on the online table ----
+        server = PsServer("127.0.0.1", 0)
+        server.run()
+        client = PsClient([f"127.0.0.1:{server.port}"])
+        client.create_sparse_table("emb", PS_DIM, optimizer="sgd", lr=0.1,
+                                   seed=SEED + 20)
+        crng = np.random.default_rng(SEED + 1)
+        batches = [ctr_batch(np, crng) for _ in range(4)]
+        for ids, _ in batches:          # the trainer's first pulls
+            client.pull_sparse("emb", ids.reshape(-1))
+        live = OnlineServingTable("emb", PS_DIM,
+                                  max_staleness_s=CTR_STALE_S)
+        fan = _Fan(live)
+        sub = DeltaSubscriber({"emb": fan},
+                              endpoint=f"127.0.0.1:{server.port}",
+                              subscriber_id="smoke", interval_ms=20.0,
+                              pull_timeout_s=10.0).start()
+        deadline = time.monotonic() + 30
+        while len(live) < 1000 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        gen_dir = os.path.join(work.name, "ctr")
+        save_serving_generation(gen_dir, {"emb": live})
+        tower = ps_tower(pt, torch, dev)
+        for a in agents:
+            a.host_model(ctr_tenant(pt, torch, np, gen_dir, tower, fan, dev))
+        router.refresh()
+        grads = np.full((PS_B * PS_SLOTS, PS_DIM), 0.01, np.float32)
+        stale, preds, errs, pushes = [], [], [], [0]
+        served = threading.Event()
+
+        def trainer():
+            # a push a step until the last served request has come back
+            try:
+                while not served.is_set():
+                    client.push_sparse(
+                        "emb", batches[pushes[0] % 4][0].reshape(-1), grads)
+                    pushes[0] += 1
+                    served.wait(CTR_PUSH_S)
+            except Exception as e:  # noqa: BLE001
+                errs.append(f"{type(e).__name__}: {e}")
+        tt = threading.Thread(target=trainer, daemon=True)
+        tt.start()
+        ctr_lat = []
+        for i in range(CTR_SERVES):
+            ids, dense = batches[i % 4]
+            t = time.perf_counter()
+            st, out = router.run([ids, dense], deadline_ms=30000,
+                                 model="ctr")
+            ctr_lat.append(time.perf_counter() - t)
+            check(st == 0, f"fleet: ctr request {i} status {st}: {out}")
+            preds.append(out[0])
+            stale.append(max(t.staleness_s() for t in fan.tables))
+        served.set()
+        tt.join(FLEET_TIMEOUT)
+        check(not errs and not tt.is_alive(), f"fleet: trainer {errs}")
+        p = np.concatenate(preds)
+        check(p.shape == (CTR_SERVES * PS_B,) and np.isfinite(p).all() and
+              ((p >= 0) & (p <= 1)).all(), "fleet: ctr predictions")
+        check(max(stale) < CTR_STALE_S,
+              f"fleet: the online table was {max(stale):.3f} s stale")
+        vis = []
+        probe_ids = batches[0][0][:1, :1].reshape(-1)
+        one_grad = np.full((1, PS_DIM), 0.01, np.float32)
+        for _ in range(CTR_VIS):
+            cur = fan.tables[-1]
+            before = cur.lookup(probe_ids)[0, 0]
+            t = time.perf_counter()
+            client.push_sparse("emb", probe_ids, one_grad)
+            while cur.lookup(probe_ids)[0, 0] == before and \
+                    time.perf_counter() - t < 10:
+                time.sleep(0.0005)
+            vis.append(time.perf_counter() - t)
+        check(max(vis) < 10, "fleet: a push never became servable")
+
+        # ---- the exporter's tax on the tenant's p99: the arms in
+        # alternating blocks, each arm's latencies pooled ----
+        def ctr_lats(n):
+            lat = []
+            for i in range(n):
+                ids, dense = batches[i % 4]
+                t = time.perf_counter()
+                st, _ = router.run([ids, dense], deadline_ms=30000,
+                                   model="ctr")
+                lat.append(time.perf_counter() - t)
+                check(st == 0, "fleet: ctr request in the tax arms")
+            return lat
+
+        def exporters(on, interval_s=None):
+            # off: every replica's exporter stopped (its 'bye' tells the
+            # collector); on: a fresh one each, as ReplicaAgent.start makes
+            for a in agents:
+                if a._exporter is not None:
+                    a._exporter.stop()
+                a._exporter = telemetry.TelemetryExporter(
+                    store, source=f"replica-{a.replica_id}", role="replica",
+                    fleet="smoke", meta={"replica_id": a.replica_id},
+                    interval_s=interval_s).start() if on else None
+
+        tax = {"off": [], "on": []}
+        for b in range(2 * CTR_TAX // CTR_TAX_BLOCK):   # the default interval
+            arm = ("off", "on")[b % 2]
+            exporters(arm == "on", CTR_TAX_INTERVAL_S)
+            tax[arm] += ctr_lats(CTR_TAX_BLOCK)
+        exporters(True)
+        p99_off, p99_on = _p(tax["off"], 0.99), _p(tax["on"], 0.99)
+
+        # ---- a poisoned generation, rolled back within one interval ----
+        bad = OnlineServingTable("emb", PS_DIM)
+        arrays = fan.tables[-1].export_arrays()
+        keys, rows = arrays["emb::keys"], arrays["emb::rows"].copy()
+        rows[:] = np.nan
+        bad.load_arrays(keys, rows, fan.tables[-1].applied_version)
+        v_good = guard_state_version(gen_dir)
+        res = router.rollout("ctr", gen_dir, *_gen_arrays(bad),
+                             probes=[list(batches[0])] * 2)
+        check(res.promoted, f"fleet: the poisoned rollout {res}")
+        t_poison = time.perf_counter()
+        probe = batches[1]
+
+        def probe_fn():
+            st, out = router.run(list(probe), deadline_ms=30000,
+                                 model="ctr")
+            if st != 0:
+                raise RuntimeError(f"status {st}")
+            return out[0]
+        guard = OnlineRollbackGuard(probe_fn,
+                                    lambda: router.rollback_model("ctr"),
+                                    interval_s=CTR_GUARD_S).start()
+        deadline = time.monotonic() + 30
+        while guard.rollbacks < 1 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        rollback_s = time.perf_counter() - t_poison
+        guard.stop()
+        check(guard.rollbacks == 1 and
+              rollback_s < CTR_GUARD_S + 5.0,
+              f"fleet: rollback after {rollback_s:.3f} s ({guard.rollbacks})")
+        after = probe_fn()
+        check(np.isfinite(after).all() and
+              guard_state_version(gen_dir) == v_good and
+              all(a.tenants["ctr"].version == v_good for a in agents),
+              "fleet: the rolled-back generation does not serve")
+        entry = [e for e in guard.ledger if e["action"] == "rollback"][0]
+        print(f"fleet: CTR-DNN tenant ({PS_SLOTS} slots over a "
+              f"{PS_VOCAB:,} x {PS_DIM} table, batch {PS_B}) on the online "
+              f"table while a trainer pushed ({pushes[0]} pushes of "
+              f"{PS_B * PS_SLOTS} rows, one every {CTR_PUSH_S} s): staleness "
+              f"max {max(stale):.4f} s "
+              f"(bound {CTR_STALE_S}), push -> servable p50 "
+              f"{_p(vis, 0.5) * 1e3:.2f} ms, p99 {_p(vis, 0.99) * 1e3:.2f} ms "
+              f"({CTR_VIS} rounds), served p50 "
+              f"{_p(ctr_lat, 0.5) * 1e3:.2f} ms, p99 "
+              f"{_p(ctr_lat, 0.99) * 1e3:.2f} ms ({CTR_SERVES} requests); "
+              f"the poisoned generation "
+              f"v{res.version} rolled back to v{v_good} in "
+              f"{rollback_s * 1e3:.1f} ms (guard interval "
+              f"{CTR_GUARD_S * 1e3:.0f} ms, {entry['reason']}); exporter "
+              f"tax on the tenant's p99: off {p99_off * 1e3:.3f} ms (p50 "
+              f"{_p(tax['off'], 0.5) * 1e3:.3f}), on {p99_on * 1e3:.3f} ms "
+              f"(p50 {_p(tax['on'], 0.5) * 1e3:.3f}) "
+              f"({(p99_on / p99_off - 1) * 100:+.1f}%, {CTR_TAX} requests per "
+              f"arm in alternating blocks of {CTR_TAX_BLOCK}, exporters "
+              f"pushing every {CTR_TAX_INTERVAL_S} s) [{card}]", flush=True)
+
+        # ---- monitor top and monitor fleet ----
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline and len(
+                [r for r in col.fleet_table() if r["alive"]]) < 2:
+            time.sleep(0.05)
+        top = io.StringIO()
+        with _ctx.redirect_stdout(top):
+            rc = monitor._main(["top", f"{col.host}:{col.port}"])
+        dump = router.dump(os.path.join(work.name, "fleet_dump.json"))
+        fl = io.StringIO()
+        with _ctx.redirect_stdout(fl):
+            rc2 = monitor._main(["fleet", dump])
+        check(rc == 0 and "replica-0" in top.getvalue() and
+              "replica-1" in top.getvalue() and rc2 == 0 and
+              f"{len(router.replicas)} replica(s)" in fl.getvalue(),
+              f"fleet: monitor top / fleet\n{top.getvalue()}\n"
+              f"{fl.getvalue()}")
+        print(top.getvalue() + fl.getvalue(), flush=True)
+
+        # ---- the child replica SIGKILLed mid-burst ----
+        deadline = time.monotonic() + FLEET_TIMEOUT
+        ready = os.path.join(work.name, "ready.json")
+        while not os.path.exists(ready) and child.poll() is None and \
+                time.monotonic() < deadline:
+            time.sleep(0.05)
+        check(os.path.exists(ready), "fleet: the child replica never came "
+              "up:\n" + open(os.path.join(work.name, "child.log")).read()
+              [-3000:])
+        info = json.load(open(ready))
+        child_s = time.perf_counter() - t_child
+        cid = int(info["replica_id"])
+        router.refresh()
+        check(cid in [h.replica_id for h in router.healthy_replicas()],
+              "fleet: the child replica is not routed to")
+        h = router.replicas[cid]
+        ask(f"the child replica {cid}", h.host, h.port)
+        audit0 = router.ledger.audit()
+        killed, deaths = {}, []
+        col.subscribe(lambda ev: deaths.append(time.monotonic())
+                      if ev.get("kind") == "death" and
+                      (ev.get("detail") or {}).get("replica_id") == cid
+                      else None)
+
+        def killer():
+            while router.ledger.audit()["settled"] < \
+                    audit0["settled"] + FLEET_KILL_AT:
+                time.sleep(0.002)
+            killed["t"] = time.monotonic()
+            os.kill(child.pid, signal.SIGKILL)
+        kt = threading.Thread(target=killer, daemon=True)
+        kt.start()
+        kill_wall, _ = burst(
+            lambda ids: router.run([ids], deadline_ms=60000), FLEET_BURST)
+        kt.join(10)
+        child.wait(30)
+        audit = router.ledger.audit()
+        check("t" in killed and child.returncode == -signal.SIGKILL and
+              deaths and cid not in [h.replica_id
+                                     for h in router.healthy_replicas()],
+              f"fleet: the SIGKILLed replica {cid} is still routed to "
+              f"(deaths {deaths})")
+        failover_ms = (deaths[0] - killed["t"]) * 1e3
+        check(audit["lost"] == 0 and audit["duplicates"] == 0 and
+              audit["open"] == 0 and audit["issued"] ==
+              audit["settled"] + audit["rejected"] and
+              audit["settled"] - audit0["settled"] == FLEET_BURST,
+              f"fleet: the ledger after the SIGKILL {audit}")
+        print(f"fleet: child replica {cid} (its own process on the caller's "
+              f"{dev}, up in {child_s:.1f} s, warm_start_ms "
+              f"{info['warm_start_ms']}, cache {info['compile_cache']}) "
+              f"(reply max abs err {reply_errs[f'the child replica {cid}']}) "
+              f"SIGKILLed mid-burst of {FLEET_BURST} (after "
+              f"{FLEET_KILL_AT} settled): marked dead "
+              f"{failover_ms:.1f} ms after the kill (the collector's EOF "
+              f"death event); ledger {audit}; every sequence settled once; "
+              f"{FLEET_BURST / kill_wall:.2f} requests/s through the burst "
+              f"[{card}]",
+              flush=True)
+
+        # ---- the autoscaler: 2 -> 3 under a queue spike, back to 2 ----
+        spawned_cc = []
+
+        def spawn():
+            a, delta = cache_delta(
+                lambda: fleet_agent(pt, copy.deepcopy(lm), store))
+            spawned_cc.append(delta)
+            return a
+        pool = ReplicaPool(router, spawn, spawn_timeout_s=FLEET_TIMEOUT)
+        policy = ScalePolicy(burn_high=1e9, burn_low=0.0, queue_high=0.5,
+                             queue_low=0.2, min_replicas=2, max_replicas=3,
+                             cooldown_s=0.5, idle_after_s=1.0,
+                             zero_after_s=3600.0, step=1)
+        auto = Autoscaler(col, pool, policy=policy, interval_s=0.05,
+                          queue_capacity=FLEET_QCAP).start()
+        check(pool.actual() == 2, f"fleet: {pool.actual()} replicas before "
+              "the spike")
+
+        def spiker():
+            while not stop_clients.is_set():
+                try:
+                    router.run([reqs[0]], deadline_ms=60000)
+                except Exception:  # noqa: BLE001 — the spike's own load
+                    pass
+        spikers = [threading.Thread(target=spiker, daemon=True)
+                   for _ in range(FLEET_SPIKE)]
+        t_spike = time.monotonic()
+        [s.start() for s in spikers]
+        deadline = t_spike + FLEET_TIMEOUT
+        # the spike runs on until the new replica answers its probe: the
+        # new replica warms up under the load that called for it
+        while auto.target < 3 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        t_decided = time.monotonic()
+        decided_ms = (t_decided - t_spike) * 1e3
+        while pool.actual() < 3 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        first_new_ms = (time.monotonic() - t_spike) * 1e3
+        spawn_ms = (time.monotonic() - t_decided) * 1e3
+        grew = pool.actual()
+        stop_clients.set()
+        t_calm = time.monotonic()
+        [s.join(FLEET_TIMEOUT) for s in spikers]
+        new_cc = spawned_cc[0] if spawned_cc else {}
+        deadline = time.monotonic() + 30
+        while (pool.actual() > 2 or auto.ledger.snapshot()["counts"].get(
+                "in", 0) < 1) and time.monotonic() < deadline:
+            time.sleep(0.02)
+        drain_ms = (time.monotonic() - t_calm) * 1e3
+        snap = auto.snapshot()
+        check(grew == 3 and pool.actual() == 2 and
+              snap["ledger"]["counts"].get("out", 0) >= 1 and
+              snap["ledger"]["counts"].get("in", 0) >= 1,
+              f"fleet: the pool went 2 -> {grew} -> {pool.actual()}: "
+              f"{snap['ledger']['decisions'][-3:]}")
+        check(new_cc.get("hits", 0) >= 1 and new_cc.get("exports") == 0,
+              f"fleet: the new replica did not start from the cache {new_cc}")
+        launches = fa.flash_attention_fwd.launches - ref_launches
+        check(launches >= 6 * n_layers,
+              f"fleet: {launches} flash host launches over the phase")
+        print(f"fleet: autoscaler 2 -> {grew} -> {pool.actual()} under "
+              f"{FLEET_SPIKE} spike clients: the scale-out decided "
+              f"{decided_ms:.1f} ms into the spike, "
+              f"time_to_first_new_replica_ms {first_new_ms:.1f} (decision -> "
+              f"healthy {spawn_ms:.1f} ms with the spike still on; the new "
+              f"replica warm from the compile cache: {new_cc}), drained "
+              f"back {drain_ms:.1f} ms after the spike ended; decisions "
+              f"{snap['ledger']['counts']}; flash_fwd host launches "
+              f"{launches} (the in-process replicas' warm-ups; the "
+              f"Predictor built apart's {ref_launches} not counted); HBM "
+              f"{agents[0].server.stats().get('hbm')}; phase "
+              f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+        return launches
+    finally:
+        stop_clients.set()
+        if guard is not None:
+            guard.stop()
+        if auto is not None:
+            auto.close(stop_pool=True)
+        if router is not None:
+            router.close()
+        for a in agents:
+            a.stop(drain=False)
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait(30)
+        if sub is not None:
+            sub.stop()
+        if client is not None:
+            client.close()
+        if server is not None:
+            server.stop()
+        if col is not None:
+            col.stop()
+        pt.set_flags(saved)
+        monitor.reset()
+        work.cleanup()
+
+
+def _gen_arrays(table):
+    """(arrays, meta) of a one-table serving generation, as
+    `save_serving_generation` writes them."""
+    arrays = table.export_arrays()
+    return arrays, {"online_tables": {table.name: {
+        "dim": table.dim, "version": int(table.applied_version)}}}
+
+
 def ptxas(path):
     """{kernel symbol: {"registers": N, "spill": [stores, loads]}} from a
     built library's `-Xptxas -v` log."""
@@ -7542,8 +8329,14 @@ def main() -> int:
     static_launches = static_phase(pt, fa, torch, np, card, programs)
     analysis_phase(pt, torch, card, programs, dist_signatures)
     del programs
-    warm = warm_start_phase(pt, torch, np, card)
-    ps_phase(pt, torch, np, card)
+    warm_cache = tempfile.TemporaryDirectory(prefix="warm_cache_")
+    try:
+        warm = warm_start_phase(pt, torch, np, card, warm_cache.name)
+        ps_phase(pt, torch, np, card)
+        fleet_launches = fleet_phase(pt, fa, torch, np, card,
+                                     cache_dir=warm_cache.name)
+    finally:
+        warm_cache.cleanup()
 
     summary = {"flash_fwd": dict(serving_row,
                                  launches=c5["launches"][0]
@@ -7556,7 +8349,7 @@ def main() -> int:
                                  + obs_launches["flash_fwd"]
                                  + fault_launches["flash_fwd"]
                                  + static_launches["flash_fwd"]
-                                 + warm["flash_fwd"])}
+                                 + warm["flash_fwd"] + fleet_launches)}
     for kname in ("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"):
         summary[kname] = dict(train_rows[kname],
                               launches=train_launches[kname]
@@ -7583,7 +8376,8 @@ def main() -> int:
     paths16 = {k: "fp16 titan" for k in fp16_flash}
     paths16.update({k: "fp16 sp" for k in RING_KERNELS})
     entries = [(k, r, "train + serve + titan + dygraph + deploy + seq + "
-                "server + obs + config5 + fault + static + warm_start"
+                "server + obs + config5 + fault + static + warm_start + "
+                "fleet"
                 if k == "flash_fwd"
                 else "train + titan + dygraph + seq + obs + config5 + fault "
                 "+ static" if k == "flash_bwd_fused" else
@@ -7625,4 +8419,6 @@ if __name__ == "__main__":
         sys.exit(kernel_rows(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--elastic-rank"]:    # a rank of the fault phase
         sys.exit(elastic_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--fleet-replica"]:   # a replica of the fleet phase
+        sys.exit(fleet_replica(sys.argv[2]))
     sys.exit(main())

@@ -126,6 +126,10 @@ _UNKEYED = frozenset({
     "slo_shed_burn", "sync_watch", "sync_hold_warn_ms", "sync_order_fatal",
     "net_auth_token", "net_tls_cert", "net_tls_key", "net_tls_ca",
 })
+# the serving fleet's planes (membership, routing, telemetry, the online
+# tables, the autoscaler) steer requests, never a program: a replica
+# started under them loads what a plain process stored
+_UNKEYED_PREFIXES = ("telemetry", "fleet_", "online_", "autoscaler_")
 
 
 def topology_fingerprint(mesh_shape=None) -> str:
@@ -182,7 +186,8 @@ def _canonicalize(text: str) -> str:
 def _relevant_flags() -> str:
     return ";".join(f"{name}={value!r}" for name, value in
                     sorted(_flags._REGISTRY.items())
-                    if name not in _UNKEYED)
+                    if name not in _UNKEYED
+                    and not name.startswith(_UNKEYED_PREFIXES))
 
 
 def cache_key(material: str, mesh_shape=None,

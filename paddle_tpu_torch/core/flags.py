@@ -13,8 +13,10 @@ flags (`fault_inject`, `obs_*`, `mem_*`, `trace*`, `slo_*`, `net_*`,
 `guard.GuardConfig.from_flags`), the persistent compile cache's
 `compile_cache_dir` / `compile_cache_mb` (`core/compile_cache.py`) and
 `lint`, the gate of the trace-time hook of `analysis/`, and the
-parameter server's `ps_*` (`distributed/ps/`), with the
-reference's defaults. Flags may be seeded from environment variables named
+parameter server's `ps_*` (`distributed/ps/`), and the serving fleet's
+`online_*` (`serving/online.py`), `fleet_*` (`serving/fleet.py`),
+`telemetry*` (`obs/telemetry.py`) and `autoscaler_*`
+(`serving/autoscaler.py`), with the reference's defaults. Flags may be seeded from environment variables named
 FLAGS_<name>.
 """
 from __future__ import annotations
@@ -371,3 +373,141 @@ define_flag("guard_desync_interval", 0,
 define_flag("guard_desync_timeout_s", 30.0,
             "cross-rank desync detector: how long to wait for peer "
             "fingerprints before giving up on a round")
+
+# ---- online serving plane (serving/online.py) --------------------------------
+define_flag("online_max_staleness_s", 5.0,
+            "online serving: a table whose last successful delta sync is "
+            "older than this is considered stale; lookups then follow "
+            "FLAGS_online_staleness_degrade")
+define_flag("online_staleness_degrade", "serve_stale",
+            "online serving: behavior past the staleness bound — "
+            "'serve_stale' answers from the stale table (counted + one "
+            "telemetry event per episode), 'reject' raises "
+            "StalenessExceededError to the caller")
+define_flag("online_delta_interval_ms", 50.0,
+            "online serving: DeltaSubscriber poll interval for tailing "
+            "the PS delta-push plane (CMD_DELTA)")
+define_flag("online_delta_max_rows", 0,
+            "online serving: cap on rows per delta pull (cut on version "
+            "boundaries, never inside one); 0 = unbounded")
+
+# ---- fleet serving tier (serving/fleet.py) -----------------------------------
+define_flag("fleet_heartbeat_s", 0.5,
+            "fleet replica: heartbeat interval for the replica's "
+            "ElasticManager lease (FleetRouter detects death at lease "
+            "expiry OR on a dispatch connection error, whichever first)")
+define_flag("fleet_lease_ttl_s", 2.0,
+            "fleet replica: lease TTL; a replica whose lease is this "
+            "stale is dead and its traffic re-routes")
+define_flag("fleet_health_interval_s", 0.5,
+            "fleet router: 'PDHQ' probe interval per replica (feeds the "
+            "load-aware routing score: queue depth, SLO burn, "
+            "warm_start_ms) and the rejoin detector for recovered "
+            "replicas")
+define_flag("fleet_max_replicas", 16,
+            "fleet router: replica-id space scanned in the rendezvous "
+            "store for registrations")
+define_flag("fleet_failover_attempts", 3,
+            "fleet router: distinct replicas tried per request before "
+            "giving up (each retry bounded by the request's ORIGINAL "
+            "deadline; the sequence ledger keeps delivery exactly-once)")
+define_flag("fleet_route_burn_weight", 2.0,
+            "fleet router: weight of a replica's shortest-window SLO "
+            "burn rate in its routing score (score = queue fraction + "
+            "weight * burn; lowest score wins)")
+define_flag("fleet_canary_burn", 1.0,
+            "fleet rollout: canary burn-rate threshold — a pushed model "
+            "version whose canary-replica tenant burn exceeds this rolls "
+            "back instantly via the guard checkpoint .bak generation")
+define_flag("fleet_hbm_budget_mb", 0.0,
+            "fleet replica: HBM budget for hosted model weights "
+            "(mem.model.<name>.bytes admission control: a push that "
+            "would exceed it evicts idle LRU tenants first, then is "
+            "rejected; 0 = unlimited)")
+
+# ---- fleet telemetry plane (obs/telemetry.py) --------------------------------
+define_flag("telemetry", False,
+            "fleet telemetry plane (obs/telemetry.py): processes run a "
+            "TelemetryExporter pushing delta-compressed counters, "
+            "mergeable DDSketch histograms, and immediate events to the "
+            "TelemetryCollector found via TCPStore rendezvous; off = "
+            "zero telemetry threads/sockets")
+define_flag("telemetry_interval_s", 0.25,
+            "telemetry: exporter metric-push period in seconds (events "
+            "push immediately regardless)")
+define_flag("telemetry_buffer", 256,
+            "telemetry: exporter's bounded drop-oldest event buffer — a "
+            "dead collector costs at most this many queued events "
+            "(telemetry.dropped counts the overflow), never serving "
+            "throughput")
+define_flag("telemetry_ring", 256,
+            "telemetry: collector's per-(source, metric) time-series "
+            "ring length and its fleet event-ring length")
+define_flag("telemetry_death_after_s", 1.5,
+            "telemetry: collector declares a silent source dead after "
+            "this many seconds without a push (socket EOF on SIGKILL is "
+            "the fast path; this reaper catches wedged-not-dead)")
+define_flag("telemetry_incident_min_interval_s", 30.0,
+            "telemetry: minimum spacing between correlated-incident "
+            "fan-outs — a crash loop yields one fleet-wide dump set per "
+            "window, not a dump storm")
+
+# ---- SLO-driven autoscaler (serving/autoscaler.py) ---------------------------
+define_flag("autoscaler_interval_s", 0.5,
+            "autoscaler: control-loop tick period — each tick senses the "
+            "collector's fleet signal (worst shortest-window burn + queue "
+            "fraction), asks the policy for a decision, and actuates it")
+define_flag("autoscaler_burn_high", 1.0,
+            "autoscaler policy: scale OUT when the worst replica's "
+            "shortest-window SLO burn exceeds this (1.0 = consuming the "
+            "error budget exactly as provisioned)")
+define_flag("autoscaler_burn_low", 0.25,
+            "autoscaler policy: burn must be at or below this for the "
+            "idle clock to run (scale-in hysteresis band: the gap to "
+            "autoscaler_burn_high is where nothing happens)")
+define_flag("autoscaler_queue_high", 0.8,
+            "autoscaler policy: scale OUT when the fleet queue fraction "
+            "(queued work / aggregate queue capacity) exceeds this")
+define_flag("autoscaler_queue_low", 0.2,
+            "autoscaler policy: queue fraction must be at or below this "
+            "for the idle clock to run (scale-in hysteresis band)")
+define_flag("autoscaler_cooldown_s", 5.0,
+            "autoscaler policy: minimum spacing between scale actions in "
+            "the SAME direction — flapping traffic cannot thrash the "
+            "pool faster than one step per cooldown")
+define_flag("autoscaler_idle_after_s", 10.0,
+            "autoscaler policy: the fleet must stay calm (burn and queue "
+            "below the low thresholds) this long before ONE replica is "
+            "drained; the clock restarts after each scale-in")
+define_flag("autoscaler_zero_after_s", 60.0,
+            "autoscaler policy: with autoscaler_min_replicas=0, a fleet "
+            "calm this long scales TO ZERO (drains every replica); idle "
+            "tenants are evicted at the same threshold under the "
+            "FLAGS_fleet_hbm_budget_mb LRU when autoscaler_tenant_idle_s "
+            "is unset")
+define_flag("autoscaler_min_replicas", 1,
+            "autoscaler policy: floor of the replica pool (0 allows "
+            "scale-to-zero)")
+define_flag("autoscaler_max_replicas", 0,
+            "autoscaler policy: ceiling of the replica pool; 0 = use "
+            "FLAGS_fleet_max_replicas")
+define_flag("autoscaler_step", 1,
+            "autoscaler policy: replicas added per scale-out decision "
+            "(scale-in always drains one at a time)")
+define_flag("autoscaler_spawn_timeout_s", 15.0,
+            "autoscaler pool: a spawned replica must answer its first "
+            "'PDHQ' probe within this window or it is reaped (record + "
+            "lease reclaimed, autoscaler.spawn_failures counted)")
+define_flag("autoscaler_spawn_retries", 3,
+            "autoscaler pool: consecutive spawn failures tolerated "
+            "before scale-out is declared blocked (the collector's "
+            "scale_blocked alert fires); one success resets the budget")
+define_flag("autoscaler_tenant_idle_s", 0.0,
+            "autoscaler: evict a hosted ModelTenant idle this long with "
+            "an empty queue (scale-to-zero for tenants, via the "
+            "replica's HBM-budget LRU eviction path); 0 = fall back to "
+            "autoscaler_zero_after_s, negative = never evict tenants")
+define_flag("autoscaler_ledger_ring", 128,
+            "autoscaler: decision-ledger ring length (every scale action "
+            "with its triggering evidence; dumped into the flight "
+            "recorder and rendered by `monitor top`)")

@@ -32,10 +32,11 @@ Counters (FLAGS_monitor): `guard.steps`, `guard.bad_steps`,
 `guard.desync_checks`, `guard.desync_errors`. Fault sites: `guard.step`
 (inside the supervised step), `guard.snapshot` and `guard.snapshot.write`.
 
+`timeline_report()` merges every rank's step timeline through the
+rendezvous store (`obs/merge.py`) and names the straggler rank per phase.
+
 Not ported with this module: the reference's `hapi.Model.fit(guard=...)`
-hook (the port has no `hapi/` yet) and `timeline_report`, the pod
-timeline merge (it needs `obs/merge.py`; ROADMAP.md Queue 1, "the
-host-side distributed state").
+hook (the port has no `hapi/` yet).
 """
 from __future__ import annotations
 
@@ -127,8 +128,10 @@ class TrainGuard:
             warmup_steps=self.cfg.warmup_steps,
             factor=self.cfg.timeout_factor,
             min_timeout_s=self.cfg.min_timeout_s)
+        self._store = store
         self._rank = int(rank)
         self._world_size = int(world_size)
+        self._tl_round = 0
         self._detector = None
         if store is not None and world_size > 1:
             self._detector = DesyncDetector(
@@ -415,3 +418,28 @@ class TrainGuard:
             _obs.record_event("guard.resume", ckpt_dir=self.ckpt_dir,
                               cursor=list(self.resume_cursor))
         return self.resume_cursor
+
+    # ---- pod timeline (obs cross-rank merge) ----
+    def timeline_report(self, timeout_s: Optional[float] = None):
+        """Merge every rank's step timeline into one pod timeline and name
+        the straggler rank per phase. Multi-rank (a rendezvous store was
+        passed): all ranks MUST call this collectively — records are
+        exchanged through the store like desync fingerprints. Single rank:
+        a local merge of this process's timeline. Returns
+        (merged_dict, report_str); timeline disabled -> (None, explanation).
+        """
+        if not _obs._TL_ENABLED:
+            return None, ("step timeline disabled — set "
+                          "FLAGS_obs_timeline=1 to record phases")
+        records = _obs.timeline().records()
+        if self._store is not None and self._world_size > 1:
+            self._tl_round += 1
+            per_rank = _obs.gather_timelines(
+                self._store, self._rank, self._world_size, records,
+                key=f"obs/tl/{self._tl_round}",
+                timeout_s=timeout_s if timeout_s is not None
+                else self.cfg.desync_timeout_s)
+        else:
+            per_rank = {self._rank: _obs.slim_records(records)}
+        merged = _obs.merge_timelines(per_rank)
+        return merged, _obs.straggler_report(merged)

@@ -138,7 +138,7 @@ class PredictorServer:
                  engine: Optional[ServingEngine] = None,
                  engine_config: Optional[EngineConfig] = None,
                  llm_engine=None, on_drain=None, on_model_ctl=None,
-                 stats_extra=None):
+                 stats_extra=None, health_check=None):
         resolve_device()   # no card and no CPU request: raise here
         self.predictor = predictor
         self.engine = engine or ServingEngine(predictor, engine_config)
@@ -153,10 +153,12 @@ class PredictorServer:
         # hooks, all optional: `on_drain()` runs between the port closing
         # and the engines draining; `on_model_ctl(req: dict) -> dict`
         # answers 'PDMV'; `stats_extra() -> dict` is merged into the
-        # 'PDHQ' payload
+        # 'PDHQ' payload; `health_check()` raising fails the 'PDHQ' probe
+        # (an error status, so the fleet routes around the replica)
         self.on_drain = on_drain
         self.on_model_ctl = on_model_ctl
         self.stats_extra = stats_extra
+        self.health_check = health_check
         self.drain_info: dict = {}  # merged into the 'PDDR' drain report
         self._sock = _net.make_listener(host, port, backlog=64)
         self.host, self.port = self._sock.getsockname()
@@ -239,6 +241,14 @@ class PredictorServer:
             magic, = struct.unpack("<I", _recv_exact(conn, 4,
                                                      read_deadline))
         if magic == _HEALTH_MAGIC:
+            if self.health_check is not None:
+                try:
+                    self.health_check()
+                except Exception as e:
+                    send_status_frame(conn, STATUS_ERROR,
+                                      f"unhealthy: {type(e).__name__}: "
+                                      f"{str(e)[:200]}")
+                    return True
             stats = self.stats()
             payload = json.dumps(stats, default=str).encode()
             conn.sendall(struct.pack("<IB", _RESP_MAGIC, STATUS_OK)

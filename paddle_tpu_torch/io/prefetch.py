@@ -12,21 +12,32 @@ the batches pass through as tensors.
 
 Contract, as the reference's: re-iterable (each `iter()` starts a fresh
 feeder session), `stats()`, and `close()` drops the staged batches, so a
-resume cursor that counts consumed batches loses none. The reference's
-obs, monitor and memory-census hooks are not ported.
+resume cursor that counts consumed batches loses none.
+
+Plane hooks, as the reference's, each one attribute check when off: the
+staged tensors are tagged `prefetch_staging` for the memory census
+(FLAGS_mem_census), the staging time books a `prefetch_h2d` phase into
+the timeline's between-steps bucket (FLAGS_obs_timeline), and the
+monitor gets `io.prefetch.h2d` / `io.prefetch.batches` (FLAGS_monitor).
+On a card the time is the feeder's host time to queue the copies on its
+side stream, as the reference's is that of its asynchronous device put.
 """
 from __future__ import annotations
 
 import queue
 import threading
+import time as _time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .. import monitor as _monitor
+from .. import obs as _obs
 from ..core import flags as _flags
 from ..core.enforce import UnimplementedError
 from ..core.place import resolve_device
+from ..obs import memory as _mem
 from ..utils import syncwatch as _syncwatch
 
 __all__ = ["DevicePrefetcher", "maybe_wrap"]
@@ -97,11 +108,25 @@ class _Session:
         return staged, ready
 
     def _feed(self) -> None:
+        mon = _monitor._ENABLED
         try:
             for batch in self._it:
                 if self._stop.is_set():
                     return
+                _t0 = _time.time()
                 item = self._staged(batch)
+                _t1 = _time.time()
+                if _mem._ENABLED:
+                    _mem.tag("prefetch_staging", item[0],
+                             origin="DevicePrefetcher")
+                if _obs._TL_ENABLED:
+                    # hidden time: ran under the previous step, so it books
+                    # through add_async_phase (between bucket), never inside
+                    # a step window
+                    _obs.add_async_phase("prefetch_h2d", _t1 - _t0, _t0, _t1)
+                if mon:
+                    _monitor.observe("io.prefetch.h2d", _t1 - _t0)
+                    _monitor.count("io.prefetch.batches")
                 while not self._stop.is_set():
                     try:
                         self._q.put(item, timeout=0.1)

@@ -279,7 +279,10 @@ def capture(run, arrs, device, param_bytes, what):
     a side stream (cuDNN, cuBLAS and the kernels initialise lazily there),
     then captured in a CUDA graph over static copies of the inputs. The
     graph reads every other tensor `run` closes over (the weights) in
-    place. The one capture under `TranslatedLayer` and `jit.to_static`."""
+    place. The one capture under `TranslatedLayer` and `jit.to_static`.
+    The capture checks only its own thread's CUDA calls
+    (`capture_error_mode="thread_local"`): replicas of one process keep
+    serving on their engines' threads while a new one captures."""
     static = [a.clone() for a in arrs]
     main = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
@@ -290,7 +293,7 @@ def capture(run, arrs, device, param_bytes, what):
     graph = torch.cuda.CUDAGraph()
     reserved = torch.cuda.memory_reserved(device)
     try:
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             captured = run(static)
     except Exception as e:
         raise RuntimeError(f"{what} in a CUDA graph failed") from e

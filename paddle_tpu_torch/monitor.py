@@ -25,8 +25,9 @@ and `span(name)` ranges. Prometheus names keep the reference's
 `python -m paddle_tpu_torch.monitor show|diff|trace|mem|slo|threads`
 inspects snapshot exports and flight-recorder dumps; `cache` lists,
 verifies and garbage-collects a persistent compile-cache directory
-(`core/compile_cache.py`). The reference's `fleet`, `ps` and `top`
-subcommands wait for their planes.
+(`core/compile_cache.py`); `ps` renders a PS durability directory;
+`fleet` renders a replica table (a `FleetRouter.dump` or live 'PDHQ'
+probes) and `top` the live fleet table of a `TelemetryCollector`.
 """
 from __future__ import annotations
 
@@ -1022,6 +1023,52 @@ def _ps_main(args) -> int:
     return 0
 
 
+def _fleet_main(args) -> int:
+    """`python -m paddle_tpu_torch.monitor fleet [path] [--probe HOST:PORT ...]`
+    — render the replica table from a flight dump's `fleet` section
+    (FleetRouter.dump), or build one live by probing each `--probe`
+    replica's 'PDHQ' endpoint."""
+    import sys as _sys
+    from .serving.fleet import render_fleet
+    if args.probe:
+        from .inference.server import PredictorClient
+        doc = {"fleet": "probe", "replicas": {}}
+        for i, spec in enumerate(args.probe):
+            host, _, port = spec.rpartition(":")
+            row = {"host": host or "127.0.0.1", "port": int(port),
+                   "healthy": False, "draining": False, "score": 0.0,
+                   "served": 0, "failures": 0, "queue_depth": 0,
+                   "warm_start_ms": None, "tenants": []}
+            try:
+                c = PredictorClient(row["host"], row["port"],
+                                    connect_timeout=2.0, max_retries=0)
+                s = c.health(deadline_ms=3000)
+                c.close()
+                rid = s.get("replica_id", i)
+                row.update(healthy=True,
+                           draining=bool(s.get("draining")),
+                           queue_depth=s.get("queue_depth", 0),
+                           warm_start_ms=s.get("warm_start_ms"),
+                           tenants=sorted((s.get("tenants") or {}).keys()))
+            except Exception as e:
+                rid = i
+                row["error"] = f"{type(e).__name__}"
+            doc["replicas"][str(rid)] = row
+        print(render_fleet(doc))
+        return 0
+    if args.path is None:
+        print("error: pass a flight dump path or --probe HOST:PORT",
+              file=_sys.stderr)
+        return 2
+    doc = _load_artifact(args.path)
+    # FleetRouter.dump passes the snapshot via the recorder's `extra`
+    # channel, which lands under "extra" in the artifact
+    fleet_doc = doc.get("fleet") or (doc.get("extra") or {}).get("fleet")
+    print(render_fleet(fleet_doc))
+    return 0
+
+
+
 def _cache_main(args) -> int:
     """`python -m paddle_tpu_torch.monitor cache [dir] [--gc] [--verify]`."""
     from .core import compile_cache as _cc
@@ -1086,6 +1133,25 @@ def _main(argv=None) -> int:
                     "flight-recorder dump, a monitor snapshot's slo.* "
                     "gauges, or — with no path — this live process)")
     p_slo.add_argument("path", nargs="?", default=None)
+    p_fleet = sub.add_parser(
+        "fleet", help="render a fleet replica table: from a flight dump's "
+                      "`fleet` section (FleetRouter.dump), or live via "
+                      "--probe HOST:PORT health probes")
+    p_fleet.add_argument("path", nargs="?", default=None)
+    p_fleet.add_argument("--probe", action="append", default=[],
+                         metavar="HOST:PORT",
+                         help="probe a replica's 'PDHQ' endpoint "
+                              "(repeatable)")
+    p_top = sub.add_parser(
+        "top", help="live fleet table from a TelemetryCollector: per-source "
+                    "qps / queue / p99 / burn / HBM / role, stragglers "
+                    "highlighted (obs/telemetry.py)")
+    p_top.add_argument("addr", help="collector HOST:PORT (the address it "
+                                    "published in the TCPStore)")
+    p_top.add_argument("-n", "--iterations", type=int, default=1,
+                       help="refresh N times (default 1: one-shot)")
+    p_top.add_argument("--interval", type=float, default=1.0,
+                       help="seconds between refreshes")
     p_threads = sub.add_parser(
         "threads", help="render the thread/lock table: registered threads "
                         "with owners, held locks, the observed lock-order "
@@ -1118,6 +1184,17 @@ def _main(argv=None) -> int:
                    "watermark")
     p_ps.add_argument("dir", help="a PsServer wal_dir (FLAGS_ps_wal_dir)")
     args = p.parse_args(argv)
+    if args.cmd == "top":
+        from .obs import telemetry as _telemetry
+        host, _, port = args.addr.rpartition(":")
+        for i in range(max(1, args.iterations)):
+            if i:
+                time.sleep(args.interval)
+            doc = _telemetry.query_collector(host or "127.0.0.1", int(port))
+            print(_telemetry.render_top(doc))
+        return 0
+    if args.cmd == "fleet":
+        return _fleet_main(args)
     if args.cmd == "ps":
         return _ps_main(args)
     if args.cmd == "cache":

@@ -17,10 +17,9 @@ counters and spans:
     `slo` (error-budget burn), `cost` (attributed MFU, roofline gap).
 
 `record_collective` feeds the recorder's collective ring from
-`parallel/collective._record`. Of the reference's fleet telemetry
-(`obs/telemetry.py`) the port has the event hook (`emit`,
-`get_default`); its exporter and collector, and the cross-rank merge
-(`obs/merge.py`), are not ported yet.
+`parallel/collective._record`. The fleet telemetry plane
+(`obs/telemetry.py`: exporter, collector, `monitor top`) and the
+cross-rank timeline merge (`obs/merge.py`) sit beside them.
 
 Hot-path contract: instrumented sites check ONE module attribute
 (`_obs._TL_ENABLED` / `_obs._FR_ENABLED` / `_obs._ENABLED`) and call
@@ -39,7 +38,10 @@ from .memory import (census, executable_memory, maybe_dump_oom,  # noqa: F401
                      top_buffers)
 from .recorder import (DUMP_SCHEMA, FlightRecorder,  # noqa: F401
                        dump_to_chrome_events)
+from .merge import (gather_timelines, merge_timelines,  # noqa: F401
+                    slim_records, straggler_report)
 from .timeline import NULL_CTX, PHASES, StepTimeline, fence  # noqa: F401
+from . import telemetry  # noqa: F401  (push-based fleet telemetry plane)
 
 __all__ = [
     "StepTimeline", "FlightRecorder", "PHASES", "DUMP_SCHEMA",
@@ -47,10 +49,11 @@ __all__ = [
     "phase", "step_record", "add_phase", "add_async_phase", "mark",
     "in_phase", "fence", "record_event", "record_collective",
     "dump", "dump_on_error", "register_dump_trigger", "dump_triggers",
-    "trigger_reason", "executable_cost",
+    "trigger_reason", "gather_timelines", "merge_timelines",
+    "straggler_report", "slim_records", "executable_cost",
     "attributed_mfu", "roofline_gap", "dump_to_chrome_events",
     "memory", "census", "top_buffers", "executable_memory",
-    "maybe_dump_oom", "trace", "slo",
+    "maybe_dump_oom", "trace", "slo", "telemetry",
 ]
 
 # ---- gates + singletons ----------------------------------------------------

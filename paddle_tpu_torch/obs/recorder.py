@@ -112,7 +112,9 @@ class FlightRecorder:
              source: Optional[str] = None) -> Optional[str]:
         """Write the black box as one JSON artifact. Returns the path, or
         None when an automatic (path-less) dump was rate-limited.
-        `incident_id`/`source` stamp a correlated incident (schema /4)."""
+        `incident_id`/`source` stamp a correlated fleet incident (schema
+        /4): the telemetry fan-out passes an explicit per-incident path, so
+        a whole-fleet dump is never suppressed by the per-reason limiter."""
         auto = path is None
         if auto and self._rate_limited(reason):
             return None
@@ -139,6 +141,10 @@ class FlightRecorder:
         if _monitor._ENABLED:
             _monitor.count("obs.dumps")
             _monitor.log_event("obs.dump", reason=reason, path=path)
+        from . import telemetry as _telemetry
+        if _telemetry._DEFAULT is not None:
+            _telemetry.emit("dump", reason=reason, path=path,
+                            incident_id=incident_id, source=source)
         return path
 
     def payload(self, reason: str = "manual",

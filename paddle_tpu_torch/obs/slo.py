@@ -38,6 +38,7 @@ from ..core import flags as _flags
 __all__ = [
     "SloPlane", "enabled", "record_request", "burn_rates", "should_shed",
     "stats", "reset", "render_slo", "doc_from_snapshot",
+    "shortest_window_burn", "burn_from_gauges",
     "OUTCOME_OK", "OUTCOME_SLOW", "OUTCOME_REJECTED", "OUTCOME_DEADLINE",
     "OUTCOME_ERROR",
 ]
@@ -261,6 +262,41 @@ def stats() -> Optional[Dict[str, Any]]:
 def reset() -> None:
     if _PLANE is not None:
         _PLANE.reset()
+
+
+def shortest_window_burn(stats_doc: Optional[Dict[str, Any]]) -> float:
+    """Burn rate of the SHORTEST window in a `stats()`-shaped doc (keys
+    are `str(window_seconds)`). The fastest-reacting window is the fleet
+    tier's routing/canary signal — it spikes on a fresh error burst long
+    before the long windows move. 0.0 on a missing/empty/garbled doc: a
+    replica that reports no SLO section routes on queue alone."""
+    if not isinstance(stats_doc, dict):
+        return 0.0
+    windows = stats_doc.get("burn") or {}
+    try:
+        return float(windows[min(windows, key=lambda w: int(w))])
+    except (ValueError, TypeError, KeyError):
+        return 0.0
+
+
+def burn_from_gauges(gauges: Optional[Dict[str, Any]]) -> float:
+    """Shortest-window burn straight off `slo.burn.<w>s` monitor gauges
+    (the shape a TelemetryCollector source record carries). The fleet
+    signal must be the per-source WORST of these — summing burn gauges
+    across sources (what merge_snapshots does to gauges) inflates the
+    rate by the source count. 0.0 on a missing/garbled doc."""
+    if not isinstance(gauges, dict):
+        return 0.0
+    burns: Dict[int, float] = {}
+    for name, val in gauges.items():
+        if name.startswith("slo.burn.") and name.endswith("s"):
+            try:
+                burns[int(name[len("slo.burn."):-1])] = float(val)
+            except (ValueError, TypeError):
+                continue
+    if not burns:
+        return 0.0
+    return burns[min(burns)]
 
 
 # ---- rendering (monitor CLI `slo` subcommand) -------------------------------

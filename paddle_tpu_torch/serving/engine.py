@@ -214,6 +214,10 @@ class ServingEngine:
         # predictor's program (its eager first run + CUDA-graph capture)
         self._ledger = _exe.ExecutableLedger("serving_bucket")
         self._warm_start_ms: Optional[float] = None
+        # per-tenant SLO isolation (the fleet tier): a ModelTenant that owns
+        # this engine installs its OWN SloPlane here; outcomes then account
+        # against that tenant's error budget as well as the global plane's
+        self.slo_plane: Optional[_slo.SloPlane] = None
         self._counts: Dict[str, int] = {
             "requests": 0, "completed": 0, "failed": 0, "rejected": 0,
             "expired": 0, "batches": 0, "rows": 0, "padded_rows": 0,
@@ -339,7 +343,7 @@ class ServingEngine:
             if _monitor._ENABLED:
                 _monitor.count("serving.rejected")
                 _monitor.count("serving.shed")
-            _slo.record_request(None, _slo.OUTCOME_REJECTED)
+            self._slo_record(None, _slo.OUTCOME_REJECTED)
             raise ServerOverloadedError(
                 "shedding: SLO error-budget burn rate over "
                 "FLAGS_slo_shed_burn; back off and retry")
@@ -349,8 +353,8 @@ class ServingEngine:
             self._bump("rejected")
             if _monitor._ENABLED:
                 _monitor.count("serving.rejected")
-            if _slo._ENABLED:
-                _slo.record_request(None, _slo.OUTCOME_REJECTED)
+            if _slo._ENABLED or self.slo_plane is not None:
+                self._slo_record(None, _slo.OUTCOME_REJECTED)
             raise NoBucketError(
                 f"no declared bucket accepts {sig} and bucket learning "
                 "is disabled (FLAGS_serving_learn_buckets)")
@@ -371,8 +375,8 @@ class ServingEngine:
                     self._counts["rejected"] += 1
                     if _monitor._ENABLED:
                         _monitor.count("serving.rejected")
-                    if _slo._ENABLED:
-                        _slo.record_request(None, _slo.OUTCOME_REJECTED)
+                    if _slo._ENABLED or self.slo_plane is not None:
+                        self._slo_record(None, _slo.OUTCOME_REJECTED)
                     err = ServerOverloadedError(
                         f"queue at capacity ({self.config.queue_depth} "
                         "pending); back off and retry")
@@ -455,9 +459,9 @@ class ServingEngine:
         req.future._set_exception(DeadlineExceededError(
             "deadline expired before dispatch"))
         req.qw_span.end(status=_trace.STATUS_DEADLINE)
-        if _slo._ENABLED:
-            _slo.record_request(time.monotonic() - req.enqueue_t,
-                                _slo.OUTCOME_DEADLINE)
+        if _slo._ENABLED or self.slo_plane is not None:
+            self._slo_record(time.monotonic() - req.enqueue_t,
+                             _slo.OUTCOME_DEADLINE)
         if _monitor._ENABLED:
             _monitor.count("serving.deadline_expired")
 
@@ -595,9 +599,9 @@ class ServingEngine:
             for sp in disp_spans:
                 sp.end(status=_trace.STATUS_ERROR, error=msg)
         batch_span.end(status=_trace.STATUS_ERROR, error=msg)
-        if _slo._ENABLED:
+        if _slo._ENABLED or self.slo_plane is not None:
             for _ in live:
-                _slo.record_request(None, _slo.OUTCOME_ERROR)
+                self._slo_record(None, _slo.OUTCOME_ERROR)
         for req in live:
             req.future._set_exception(err)
 
@@ -605,6 +609,19 @@ class ServingEngine:
     def _bump(self, name: str, delta: int = 1) -> None:
         with self._cv:
             self._counts[name] += delta
+
+    def _slo_record(self, latency_s, outcome=_slo.OUTCOME_OK) -> bool:
+        """Account one finished request against the global SLO plane AND
+        the tenant-owned plane. Callers gate on `_slo._ENABLED or
+        self.slo_plane is not None`, so the disabled path stays two
+        attribute checks."""
+        bad = False
+        if _slo._ENABLED:
+            bad = _slo.record_request(latency_s, outcome)
+        p = self.slo_plane
+        if p is not None:
+            bad = p.record(latency_s, outcome) or bad
+        return bad
 
     def _set_queue_gauge(self) -> None:
         if _monitor._ENABLED:
@@ -617,9 +634,9 @@ class ServingEngine:
             self._counts["rows"] += rows
             self._counts["padded_rows"] += bs - rows
             self._counts["padding_waste_elems"] += waste
-        if _slo._ENABLED:
+        if _slo._ENABLED or self.slo_plane is not None:
             for req in live:
-                bad = _slo.record_request(t_done - req.enqueue_t)
+                bad = self._slo_record(t_done - req.enqueue_t)
                 if bad and _trace._ENABLED and req.trace_ctx is not None:
                     # over the latency objective: an instant marker span
                     # keeps this trace in the protected ring
@@ -674,5 +691,7 @@ class ServingEngine:
             "warm_start_ms": self._warm_start_ms,
             "compile_cache": _cc.stats(),
             # error-budget burn (None = no SLO configured)
-            "slo": _slo.stats(),
+            # a tenant-owned engine reports its OWN plane
+            "slo": (self.slo_plane.stats() if self.slo_plane is not None
+                    else _slo.stats()),
         }

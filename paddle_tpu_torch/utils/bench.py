@@ -1,7 +1,8 @@
 """The port's counterpart of `bench.py`'s two ERNIE training arms, its
 LLM serving arm, its LeNet dispatch arm, its two ResNet-50 deploy arms,
 its two config-4 deploy arms, its allreduce arm, config 3's
-data-parallel ERNIE, its warm-start arm and its PS durability arm.
+data-parallel ERNIE, its warm-start arm, its PS durability arm and its
+three fleet arms (telemetry, autoscale, online).
 
 - `--arm ernie_train` (`bench_ernie_train`, bench.py:188-276): the
   flagship, `ErnieForPretraining(ernie_base(hidden_dropout_prob=0.0))`
@@ -106,6 +107,13 @@ data-parallel ERNIE, its warm-start arm and its PS durability arm.
   `snapshot_ms`, a 50-push WAL suffix and the cold restart's
   `recover_ms` and `recovered_lsn`. The tables are host numpy, so the
   arm is the same on the card's machine and with `--device cpu`.
+- `--arm telemetry` (`bench_telemetry`, bench.py:914): the telemetry
+  plane's tax on a train loop and a serving burst, exporter off vs on.
+- `--arm autoscale` (`bench_autoscale`, bench.py:1092): the autoscaler's
+  scale-out drill (`time_to_first_new_replica_ms`,
+  `recovery_window_ms`) and its decision loop's tax on serving p99.
+- `--arm online` (`bench_online`, bench.py:1480): the delta tail's tax
+  on sparse pushes and push -> servable visibility p50 / p95 / p99.
 
 Each arm prints one JSON line under `bench.py`'s keys where they exist.
 The three train arms (`ernie_train`, `ernie10b_layer`, `lenet_dispatch`)
@@ -121,7 +129,8 @@ a CUDA device:
     python -m paddle_tpu_torch.utils.bench \
         --arm ernie_train|ernie10b_layer|llm|lenet_dispatch|
               resnet50_infer|resnet50_infer_int8|yoloe_infer|
-              ocr_rec_infer|allreduce|ernie_dp|warm_start|ps_durability
+              ocr_rec_infer|allreduce|ernie_dp|warm_start|ps_durability|
+              telemetry|autoscale|online
 
 On the card both TF32 switches are off (`torch.backends.cuda.matmul` and
 `torch.backends.cudnn`), as in `chip_smoke.py`: fp32 products and
@@ -1048,16 +1057,19 @@ def ernie_dp(big=True, nproc=None, backend=None, gpus=None, seed=0):
     return r
 
 
-def warm_start(device="gpu", timeout=900):
+def warm_start(device="gpu", timeout=900, cache_dir=None):
     """The warm_start arm: a cold and then a warm process of
-    `utils/warm_start.py` over one fresh cache directory. Returns the
-    summary, the raw records (`records`: cold, warm) and the directory's
-    entries (`entries`)."""
+    `utils/warm_start.py` over one fresh cache directory (`cache_dir`, an
+    empty directory the caller keeps, or one made and removed here).
+    Returns the summary, the raw records (`records`: cold, warm) and the
+    directory's entries (`entries`)."""
     import shutil
     import tempfile
     from ..core import compile_cache as cc
     from . import warm_start as ws
-    cache_dir = tempfile.mkdtemp(prefix="bench_warmstart_")
+    keep = cache_dir is not None
+    if not keep:
+        cache_dir = tempfile.mkdtemp(prefix="bench_warmstart_")
     records = {}
     try:
         for arm in ("cold", "warm"):
@@ -1067,7 +1079,8 @@ def warm_start(device="gpu", timeout=900):
                 return {"error": f"{arm}: {e}"}
         entries = cc.entries(cache_dir)
     finally:
-        shutil.rmtree(cache_dir, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(cache_dir, ignore_errors=True)
     out = {}
     for arm, r in records.items():
         stats = r["compile_cache"]
@@ -1155,13 +1168,332 @@ def ps_durability():
     return out
 
 
+def _tcp_store():
+    """A master TCPStore on a free port of this host (the fleet and
+    telemetry planes' rendezvous)."""
+    import datetime
+    import torch.distributed as tdist
+    return tdist.TCPStore("127.0.0.1", 0, is_master=True,
+                          wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=30))
+
+
+def telemetry(big=True, seed=0):
+    """The telemetry arm (`bench_telemetry`, bench.py:914-1029): the fleet
+    telemetry plane's tax, the same train-step loop and serving burst with
+    the exporter off and on (on: a live `TelemetryCollector` and a
+    `TelemetryExporter` pushing every FLAGS_telemetry_interval_s, an event
+    every 25 requests). On the card the flagship's ERNIE-base TrainStep at
+    32 x 128, 30 steps; on the CPU a small ERNIE at 8 x 64, 6 steps.
+    Reports `train_sps_off` / `_on`, `serving_p99_us_off` / `_on` and their
+    taxes in percent."""
+    import paddle_tpu_torch as pt
+    from .. import monitor
+    from ..core import flags as _flags
+    from ..obs import telemetry as _telemetry
+    from ..serving import engine as _eng
+
+    batch, seq = (32, 128) if big else (8, 64)
+    n_steps = 30 if big else 6
+    n_req = 400 if big else 200
+    pt.seed(seed)
+    step = flagship_step(pt, None if big else dict(
+        vocab_size=1024, hidden_size=128, num_hidden_layers=2,
+        num_attention_heads=4, intermediate_size=512,
+        hidden_dropout_prob=0.0))
+    device = next(step.model.parameters()).device
+    vocab = step.model.ernie.embeddings.word_embeddings.weight.shape[0]
+    rng = np.random.RandomState(seed)
+    ids = torch.from_numpy(rng.randint(0, vocab, (batch, seq)).astype(
+        np.int32)).to(device)
+    nsp = torch.from_numpy(rng.randint(0, 2, (batch,)).astype(
+        np.int32)).to(device)
+    step(ids, ids, nsp)              # build outside both arms
+    _sync(device)
+
+    def one_arm(on):
+        _flags.set_flags({"monitor": True, "telemetry": on})
+        col = exp = None
+        if on:
+            store = _tcp_store()
+            col = _telemetry.TelemetryCollector(store, fleet="bench").start()
+            exp = _telemetry.TelemetryExporter(
+                store, source="bench-0", role="replica",
+                fleet="bench").start()
+        try:
+            sps = 0.0
+            for _ in range(3):                # best of three
+                t0 = time.perf_counter()
+                for _ in range(n_steps):
+                    step(ids, ids, nsp)
+                _sync(device)
+                sps = max(sps, batch * n_steps / (time.perf_counter() - t0))
+            eng = _eng.ServingEngine(lambda arrays: arrays).start()
+            x = np.random.rand(1, 16).astype("float32")
+            p99s = []
+            try:
+                for _ in range(20):
+                    eng.submit([x]).result(timeout=10)
+                for _ in range(3):            # median p99 of three bursts
+                    lat = []
+                    for i in range(n_req):
+                        t1 = time.perf_counter()
+                        eng.submit([x]).result(timeout=10)
+                        lat.append(time.perf_counter() - t1)
+                        if on and i % 25 == 0:
+                            exp.event("rollout", seq=i)
+                    p99s.append(float(np.quantile(lat, 0.99)))
+            finally:
+                eng.stop()
+            pushes = exp.pushes if on else 0
+        finally:
+            if exp is not None:
+                exp.stop()
+            if col is not None:
+                col.stop()
+            _flags.set_flags({"monitor": False, "telemetry": False})
+            monitor.reset()
+        return sps, float(np.median(p99s)) * 1e6, pushes
+
+    sps_off, p99_off, _ = one_arm(False)
+    sps_on, p99_on, pushes = one_arm(True)
+    return {
+        "train_steps_per_arm": n_steps, "requests_per_arm": n_req,
+        "pushes_on_arm": pushes,
+        "train_sps_off": sps_off, "train_sps_on": sps_on,
+        "train_tax_pct": (sps_off - sps_on) / sps_off * 100
+        if sps_off else None,
+        "serving_p99_us_off": p99_off, "serving_p99_us_on": p99_on,
+        "serving_p99_tax_pct": (p99_on - p99_off) / p99_off * 100
+        if p99_off else None,
+    }
+
+
+def autoscale(big=True):
+    """The autoscale arm (`bench_autoscale`, bench.py:1092-1257): the
+    autoscaler drill, then the decision loop's tax. Drill: one in-process
+    replica (a 3 ms handler), eight clients saturate its queue, the
+    sense -> decide -> act loop grows the pool; `time_to_first_new_replica_ms`
+    is spike start to the new replica healthy, `recovery_window_ms` spike
+    end to the sensed signal back under every scale-out threshold. Tax:
+    the same serving burst through a pinned pool (min == max) with the
+    tick loop off and on, `decision_loop_tax_pct` on serving p99. The
+    replicas are host handlers, as in bench.py: the arm measures the
+    control plane, wherever it runs."""
+    import threading
+    from .. import monitor
+    from ..core import flags as _flags
+    from ..obs import telemetry as _telemetry
+    from ..serving import (Autoscaler, EngineConfig, FleetRouter,
+                           ReplicaAgent, ReplicaPool, ScalePolicy)
+    from . import syncwatch as _syncwatch
+
+    saved = {k: _flags.flag(k) for k in
+             ("monitor", "telemetry", "telemetry_interval_s",
+              "serving_queue_depth", "fleet_heartbeat_s",
+              "fleet_lease_ttl_s", "fleet_health_interval_s")}
+    _flags.set_flags({"monitor": True, "telemetry": True,
+                      "telemetry_interval_s": 0.05,
+                      "serving_queue_depth": 4,
+                      "fleet_heartbeat_s": 0.1, "fleet_lease_ttl_s": 0.4,
+                      "fleet_health_interval_s": 0.1})
+    x = np.full((1, 8), 1.0, np.float32)
+
+    def spawn_fn(store, model_s):
+        def handler(a):
+            time.sleep(model_s)
+            return a * 2.0
+
+        def spawn():
+            agent = ReplicaAgent(
+                handler, store, fleet="bench-as",
+                engine_config=EngineConfig(max_batch_size=8,
+                                           batch_timeout_ms=1.0,
+                                           warmup_on_start=False))
+            try:
+                return agent.start()
+            except BaseException:
+                agent.stop(drain=False)
+                raise
+        return spawn
+
+    def plane(model_s):
+        store = _tcp_store()
+        col = _telemetry.TelemetryCollector(store, fleet="bench-as").start()
+        router = FleetRouter(store, fleet="bench-as").start()
+        pool = ReplicaPool(router, spawn_fn(store, model_s),
+                           spawn_timeout_s=60.0)
+        return col, router, pool
+
+    out = {}
+    try:
+        col, router, pool = plane(0.003)
+        policy = ScalePolicy(burn_high=1e9, burn_low=0.0,
+                             queue_high=0.5, queue_low=0.2,
+                             min_replicas=1, max_replicas=3,
+                             cooldown_s=0.5, idle_after_s=30.0,
+                             zero_after_s=3600.0, step=1)
+        auto = Autoscaler(col, pool, policy=policy, interval_s=0.1,
+                          queue_capacity=4)
+        stop = threading.Event()
+
+        def client():
+            while not stop.is_set():
+                try:
+                    router.run([x], deadline_ms=8000)
+                except Exception:
+                    pass
+
+        try:
+            auto.start()
+            deadline = time.monotonic() + 60
+            while pool.actual() < 1 and time.monotonic() < deadline:
+                time.sleep(0.02)
+            threads = [_syncwatch.Thread(target=client, daemon=True)
+                       for _ in range(8)]
+            spike_at = time.monotonic()
+            [t.start() for t in threads]
+            while pool.actual() < 2 and time.monotonic() < deadline:
+                time.sleep(0.005)
+            t_first = time.monotonic() - spike_at
+            stop.set()
+            [t.join(timeout=30) for t in threads]
+            calm_at = time.monotonic()
+            recovery = None
+            deadline = time.monotonic() + 30
+            while time.monotonic() < deadline:
+                sig = auto._sense()
+                if sig["queue_frac"] < policy.queue_low \
+                        and sig["pending"] == 0:
+                    recovery = time.monotonic() - calm_at
+                    break
+                time.sleep(0.02)
+            out["grew_to"] = pool.actual()
+            out["time_to_first_new_replica_ms"] = t_first * 1e3
+            out["recovery_window_ms"] = (recovery * 1e3
+                                         if recovery is not None else None)
+            out["decisions"] = auto.ledger.snapshot()["counts"]
+        finally:
+            stop.set()
+            auto.close(stop_pool=True)
+            router.close()
+            col.stop()
+
+        n_req = 400 if big else 200
+
+        def one_arm(loop_on):
+            col, router, pool = plane(0.0)
+            auto = None
+            try:
+                pool.scale_out(1)
+                if loop_on:
+                    auto = Autoscaler(
+                        col, pool,
+                        policy=ScalePolicy(min_replicas=1, max_replicas=1,
+                                           cooldown_s=0.5),
+                        interval_s=0.05, queue_capacity=4)
+                    auto.start()
+                for _ in range(20):
+                    router.run([x], deadline_ms=8000)
+                p99s = []
+                for _ in range(3):
+                    lat = []
+                    for _ in range(n_req):
+                        t1 = time.perf_counter()
+                        router.run([x], deadline_ms=8000)
+                        lat.append(time.perf_counter() - t1)
+                    p99s.append(float(np.quantile(lat, 0.99)))
+                ticks = auto.ticks if auto is not None else 0
+                return float(np.median(p99s)) * 1e6, ticks
+            finally:
+                if auto is not None:
+                    auto.close(stop_pool=False)
+                pool.stop_all()
+                router.close()
+                col.stop()
+
+        p99_off, _ = one_arm(False)
+        p99_on, ticks = one_arm(True)
+        out["requests_per_arm"] = n_req
+        out["ticks_on_arm"] = ticks
+        out["serving_p99_us_off"] = p99_off
+        out["serving_p99_us_on"] = p99_on
+        out["decision_loop_tax_pct"] = (
+            (p99_on - p99_off) / p99_off * 100 if p99_off else None)
+    finally:
+        _flags.set_flags(saved)
+        monitor.reset()
+    return out
+
+
+def online():
+    """The online arm (`bench_online`, bench.py:1480-1556): (a) the delta
+    tail's tax, 300 sequenced sparse pushes of 64 rows x 16 with no
+    subscriber and with a `DeltaSubscriber` tailing the table, and (b)
+    push -> servable visibility, the time from `push_sparse` returning
+    until an `OnlineServingTable` lookup shows the new value, p50 / p95 /
+    p99 over 60 rounds. Host numpy on both sides, as the reference."""
+    from ..distributed.ps import DeltaSubscriber, PsClient, PsServer
+    from ..serving.online import OnlineServingTable
+
+    dim, batch, n_push, n_vis = 16, 64, 300, 60
+    ids = np.arange(batch, dtype=np.int64)
+    grads = np.ones((batch, dim), np.float32)
+    server = PsServer("127.0.0.1", 0)
+    server.run()
+    client = PsClient([f"127.0.0.1:{server.port}"])
+    out = {"pushes_per_arm": n_push, "batch": batch, "dim": dim}
+    sub = None
+    try:
+        client.create_sparse_table("emb", dim, optimizer="sgd", lr=0.1,
+                                   seed=7)
+        client.push_sparse("emb", ids, grads)
+        t0 = time.perf_counter()
+        for _ in range(n_push):
+            client.push_sparse("emb", ids, grads)
+        out["per_push_us_solo"] = (time.perf_counter() - t0) / n_push * 1e6
+        tbl = OnlineServingTable("emb", dim)
+        sub = DeltaSubscriber({"emb": tbl},
+                              endpoint=f"127.0.0.1:{server.port}",
+                              subscriber_id="bench",
+                              pull_timeout_s=5.0).start()
+        t0 = time.perf_counter()
+        for _ in range(n_push):
+            client.push_sparse("emb", ids, grads)
+        out["per_push_us_tailed"] = (time.perf_counter() - t0) / n_push * 1e6
+        out["tail_overhead_pct"] = (
+            (out["per_push_us_tailed"] - out["per_push_us_solo"])
+            / out["per_push_us_solo"] * 100)
+        vis_ms = []
+        probe = ids[:1]
+        for _ in range(n_vis):
+            before = tbl.lookup(probe)[0, 0]
+            t0 = time.perf_counter()
+            client.push_sparse("emb", ids, grads)
+            while tbl.lookup(probe)[0, 0] == before:
+                time.sleep(0.0005)
+            vis_ms.append((time.perf_counter() - t0) * 1e3)
+        lat = np.asarray(vis_ms)
+        out["visibility_ms"] = {q: float(np.quantile(lat, v)) for q, v in
+                                (("p50", 0.5), ("p95", 0.95),
+                                 ("p99", 0.99))}
+        out["staleness_s_at_probe"] = tbl.staleness_s()
+    finally:
+        if sub is not None:
+            sub.stop()
+        client.close()
+        server.stop()
+    return out
+
+
 ARMS = {"ernie_train": ernie_train, "ernie10b_layer": ernie10b_layer,
         "llm": llm, "lenet_dispatch": lenet_dispatch,
         "resnet50_infer": resnet50_infer,
         "resnet50_infer_int8": resnet50_infer_int8,
         "yoloe_infer": yoloe_infer, "ocr_rec_infer": ocr_rec_infer,
         "allreduce": allreduce, "ernie_dp": ernie_dp,
-        "warm_start": warm_start, "ps_durability": ps_durability}
+        "warm_start": warm_start, "ps_durability": ps_durability,
+        "telemetry": telemetry, "autoscale": autoscale, "online": online}
 
 
 def main(argv=None):
@@ -1201,7 +1533,8 @@ def main(argv=None):
         elif arm == "warm_start":
             r = ARMS[arm](device=args.device)
         elif arm in ("llm", "lenet_dispatch", "resnet50_infer",
-                     "resnet50_infer_int8", "yoloe_infer", "ocr_rec_infer"):
+                     "resnet50_infer_int8", "yoloe_infer", "ocr_rec_infer",
+                     "telemetry", "autoscale"):
             r = ARMS[arm](big=args.device == "gpu")
         else:
             r = ARMS[arm]()

@@ -5,8 +5,8 @@ framing helpers (exact-read, CRC frames, the inference status frame,
 trace frames) plus the connection-owning substrate — `RpcChannel` on the
 client side, `RpcServer` / `make_listener` / `secure_server` on the
 server side. The port's serving plane ('PD??' verbs,
-`inference/server.py`) runs over it; the reference's PS, bus and
-telemetry planes wait for the distributed slice.
+`inference/server.py`), its PS plane and its telemetry plane
+(`obs/telemetry.py`) run over it.
 
 The substrate owns the transport concerns: connect/reconnect, resolver
 re-resolution, bounded retry with exponential backoff + full jitter,
@@ -88,8 +88,7 @@ STREAM_REQ_MAGIC = 0x50445351  # 'PDSQ'
 #   non-incremental caller can ignore 'PDST' frames it already read),
 #   or STATUS_ERROR/OVERLOADED/DEADLINE + message.
 STREAM_MAGIC = 0x50445354  # 'PDST'
-# Telemetry frames (the reference's obs/telemetry.py; the port's waits for
-# the distributed slice). Unlike the serving frames above these carry a
+# Telemetry frames (obs/telemetry.py). Unlike the serving frames above these carry a
 # CRC: a half-written frame must be detected and dropped, never
 # half-parsed.
 #

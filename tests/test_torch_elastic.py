@@ -167,10 +167,20 @@ def test_scale_out_costs_no_restart_as_in_the_reference(tmp_path):
 def test_the_launcher_runs_an_elastic_gang(tmp_path):
     """`launch --run_mode elastic`: rank 1 fails the first launch, the
     gang is relaunched with the launcher's rendezvous (a fresh endpoint
-    per launch) and succeeds; each rank's log collects both launches."""
+    per launch) and succeeds; each rank's log collects both launches.
+    Rank 1 fails only once rank 0 has printed (it waits, with a bound,
+    for the file rank 0 writes after its print): a rank 0 slow to start
+    would otherwise be stopped with the gang before it prints."""
+    printed = tmp_path / "rank0_printed"
     script = _script(tmp_path, GANG.format(
         "print('launch', launch, os.environ['PADDLE_TRAINER_ENDPOINTS'], "
         "os.environ['PADDLE_DISTRI_DEVICE'], flush=True)\n    "
+        f"printed = {str(printed)!r} + str(launch)\n    "
+        "if rank == 0: open(printed, 'w').close()\n    "
+        "import time\n    "
+        "end = time.monotonic() + 30\n    "
+        "while rank == 1 and not os.path.exists(printed) "
+        "and time.monotonic() < end: time.sleep(0.02)\n    "
         "if rank == 1 and launch == 0: sys.exit(5)"))
     logs = tmp_path / "logs"
     rc = launch.launch(["--run_mode", "elastic", "--nproc_per_node", "2",

@@ -321,6 +321,11 @@ def test_clients_and_servers_interoperate_both_ways(gpt_pair):
         jsrv.stop()
 
 
+def _ids_with_span(traces, name):
+    return {d["trace_id"] for d in traces
+            if any(s["name"] == name for s in d["spans"])}
+
+
 def test_trace_frame_rides_between_the_packages(gpt_pair):
     srv, jsrv = _servers(gpt_pair)
     trace.reset()
@@ -335,20 +340,28 @@ def test_trace_frame_rides_between_the_packages(gpt_pair):
             finally:
                 c.close()
                 jc.close()
-            mine, ref = trace.traces(), jtrace.traces()
+            # each server ends `serving.reply` and its root
+            # `serving.request` after the reply's sendall, and a span
+            # enters the ring when it ends: wait, with a bound, until both
+            # rings hold the served trace before reading them
+            deadline = time.monotonic() + WAIT
+            while True:
+                mine, ref = trace.traces(), jtrace.traces()
+                served = _ids_with_span(mine, "serving.request")
+                jserved = _ids_with_span(ref, "serving.request")
+                names = {s["name"] for d in mine for s in d["spans"]
+                         if d["trace_id"] in served}
+                if (served and jserved and "serving.reply" in names) \
+                        or time.monotonic() > deadline:
+                    break
+                time.sleep(0.01)
     finally:
         srv.stop()
         jsrv.stop()
     # each side holds the client span of its own request and the server
     # spans of the other package's, under ONE trace id per request
-    roots = {d["trace_id"] for d in mine
-             if any(s["name"] == "client.send" for s in d["spans"])}
-    jroots = {d["trace_id"] for d in ref
-              if any(s["name"] == "client.send" for s in d["spans"])}
-    served = {d["trace_id"] for d in mine
-              if any(s["name"] == "serving.request" for s in d["spans"])}
-    jserved = {d["trace_id"] for d in ref
-               if any(s["name"] == "serving.request" for s in d["spans"])}
+    roots = _ids_with_span(mine, "client.send")
+    jroots = _ids_with_span(ref, "client.send")
     assert roots == jserved and jroots == served and len(roots) == 1
     names = {s["name"] for d in mine for s in d["spans"]
              if d["trace_id"] in served}
